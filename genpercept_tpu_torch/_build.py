@@ -1,7 +1,9 @@
 """Build and load the package's CUDA kernels (csrc/*.cu) at first CUDA use.
 
-The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ``ctypes``. The library goes into
+Each source is compiled by its own ``nvcc`` for ``sm_90a``, all at once, so
+the build takes about as long as its largest source however many are added,
+and the objects are linked into one shared library with a plain C interface,
+loaded with ``ctypes``. The library goes into
 ``csrc/build/`` under a name that carries a hash of the sources, headers
 and flags, so an edited source is rebuilt and an unchanged one is loaded as
 it is. Nothing here runs at import: the CPU never needs ``nvcc``.
@@ -23,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -53,25 +55,33 @@ def library_path() -> Path:
     return BUILD_DIR / f"libgenpercept_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the output of a failure."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for cmd in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def _compile(out: Path) -> None:
     global build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: concurrent processes never see
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    # compile into a private directory, then rename the library: concurrent
+    # processes never see a half-written one
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(_sources(), objs)])
+        lib = Path(tmp) / out.name
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib), *map(str, objs)]])
+        os.replace(lib, out)
     build_seconds = time.perf_counter() - t0
 
 
@@ -81,6 +91,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.flash_attn_fwd.restype = i
     lib.fused_geglu_ff_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
     lib.fused_geglu_ff_fwd.restype = i
+    lib.flash_attn_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, i, p]
+    lib.flash_attn_bwd_dq.restype = i
+    lib.flash_attn_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, f, i, p]
+    lib.flash_attn_bwd_dkv.restype = i
 
 
 def load() -> ctypes.CDLL:

@@ -1,7 +1,12 @@
 from genpercept_tpu_torch.diffusion.schedulers import (
     GENPERCEPT_SCHEDULER,
     SchedulerConfig,
+    SchedulerState,
+    add_noise,
+    get_velocity,
     leading_timesteps,
+    make_scheduler,
 )
 
-__all__ = ["GENPERCEPT_SCHEDULER", "SchedulerConfig", "leading_timesteps"]
+__all__ = ["GENPERCEPT_SCHEDULER", "SchedulerConfig", "SchedulerState", "add_noise",
+           "get_velocity", "leading_timesteps", "make_scheduler"]

@@ -10,11 +10,13 @@ plain function of the same name as in the JAX package (``resnet_block``,
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from genpercept_tpu_torch.ops import conv2d, group_norm, layer_norm
 from genpercept_tpu_torch.ops.attention import (
@@ -40,6 +42,15 @@ def dense(m: nn.Linear, x: torch.Tensor) -> torch.Tensor:
 
 def conv(m: nn.Conv2d, x: torch.Tensor, stride: int = 1, padding=1) -> torch.Tensor:
     return conv2d(x, m.weight, m.bias, stride=stride, padding=padding)
+
+
+def checkpointed(fn, *args, **kwargs):
+    """fn(*args, **kwargs) with its activations recomputed in the backward
+    instead of saved (``torch.utils.checkpoint``, non-reentrant); the
+    counterpart of ``jax.checkpoint``. No random numbers are drawn inside."""
+    return torch.utils.checkpoint.checkpoint(
+        functools.partial(fn, **kwargs), *args, use_reentrant=False,
+        preserve_rng_state=False)
 
 
 @torch.no_grad()
@@ -79,15 +90,16 @@ class ResnetBlock(nn.Module):
 
 
 def resnet_block(p: ResnetBlock, x: torch.Tensor, temb: torch.Tensor | None = None,
-                 eps: float = 1e-5) -> torch.Tensor:
+                 eps: float = 1e-5, native_norm: bool = False) -> torch.Tensor:
     """diffusers ResnetBlock2D: GN -> SiLU -> conv -> (+temb) -> GN -> SiLU
-    -> conv -> +shortcut."""
-    h = F.silu(group_norm(x, p.norm1.weight, p.norm1.bias, 32, eps))
+    -> conv -> +shortcut. native_norm: GroupNorm apply in x's dtype (the
+    training decode path under remat)."""
+    h = F.silu(group_norm(x, p.norm1.weight, p.norm1.bias, 32, eps, native_norm))
     h = conv(p.conv1, h)
     if temb is not None and hasattr(p, "time_emb_proj"):
         t = dense(p.time_emb_proj, F.silu(temb))
         h = h + t[:, :, None, None].to(h.dtype)
-    h = F.silu(group_norm(h, p.norm2.weight, p.norm2.bias, 32, eps))
+    h = F.silu(group_norm(h, p.norm2.weight, p.norm2.bias, 32, eps, native_norm))
     h = conv(p.conv2, h)
     if hasattr(p, "conv_shortcut"):
         x = conv1x1(x, p.conv_shortcut.weight, p.conv_shortcut.bias)

@@ -1,7 +1,7 @@
 """SD2.1 UNet2DConditionModel as an nn.Module (NCHW), exact path only.
 
 Counterpart of ``genpercept_tpu/models/unet.py::unet_apply`` without
-``return_features`` (the DPT head's taps) or the int8 and remat hooks.
+``return_features`` (the DPT head's taps) or the int8 hooks.
 Geometry (SD2.1): 4-channel latent, block_out_channels (320, 640, 1280,
 1280), 2 resnets per block, cross-attention on 1024-d CLIP states, heads
 (5, 10, 20, 20) of dim 64, linear projections in the transformers.
@@ -10,7 +10,8 @@ Geometry (SD2.1): 4-channel latent, block_out_channels (320, 640, 1280,
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import functools
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -22,6 +23,7 @@ from genpercept_tpu_torch.models.layers import (
     ResnetBlock,
     SpatialTransformer,
     Upsample,
+    checkpointed,
     conv,
     dense,
     downsample2d,
@@ -115,14 +117,37 @@ class UNet2DConditionModel(nn.Module):
         self.conv_out = nn.Conv2d(chans[0], cfg.out_channels, 3)
 
 
+def _unit(rb, attn, h: torch.Tensor, skip: Optional[torch.Tensor],
+          temb: torch.Tensor, ctx: torch.Tensor, heads: int, eps: float) -> torch.Tensor:
+    """One (resnet [+ transformer]) unit, the skip concatenated first on the
+    up path: what ``remat="block"`` checkpoints."""
+    if skip is not None:
+        h = torch.cat([h, skip], dim=1)
+    h = resnet_block(rb, h, temb, eps)
+    if attn is not None:
+        h = spatial_transformer(attn, h, ctx, heads)
+    return h
+
+
 def unet_apply(unet: UNet2DConditionModel, sample: torch.Tensor,
-               timesteps: torch.Tensor, encoder_hidden_states: torch.Tensor
-               ) -> torch.Tensor:
+               timesteps: torch.Tensor, encoder_hidden_states: torch.Tensor,
+               remat: Optional[str] = None) -> torch.Tensor:
     """sample: (N, 4, h, w); timesteps: (N,) or scalar; text states
-    (N, 77, ctx). Returns the v-prediction (N, 4, h, w)."""
+    (N, 77, ctx). Returns the v-prediction (N, 4, h, w).
+
+    remat (training): "unet" recomputes the whole UNet forward in the
+    backward (one checkpoint, the JAX training step's ``jax.checkpoint``
+    around it); "block" checkpoints each (resnet [+ transformer]) unit, so
+    the backward holds one unit's internals at a time."""
+    if remat == "unet":
+        return checkpointed(unet_apply, unet, sample, timesteps, encoder_hidden_states)
+    if remat not in (None, "block"):
+        raise ValueError(f"remat={remat!r}")
+    unit = functools.partial(checkpointed, _unit) if remat == "block" else _unit
     cfg = unet.cfg
     chans = cfg.block_out_channels
     ctx = encoder_hidden_states
+    eps = cfg.norm_eps
     if timesteps.ndim == 0:
         timesteps = timesteps.expand(sample.shape[0])
     temb = timestep_embedding(timesteps, chans[0])
@@ -132,33 +157,31 @@ def unet_apply(unet: UNet2DConditionModel, sample: torch.Tensor,
     h = conv(unet.conv_in, sample)
     residuals = [h]
     for i, blk in enumerate(unet.down_blocks):
+        attns = getattr(blk, "attentions", None)
         for j, rb in enumerate(blk.resnets):
-            h = resnet_block(rb, h, temb, cfg.norm_eps)
-            if hasattr(blk, "attentions"):
-                h = spatial_transformer(blk.attentions[j], h, ctx,
-                                        cfg.attention_heads[i])
+            h = unit(rb, None if attns is None else attns[j], h, None, temb, ctx,
+                     cfg.attention_heads[i], eps)
             residuals.append(h)
         if hasattr(blk, "downsamplers"):
             h = downsample2d(blk.downsamplers[0], h)
             residuals.append(h)
 
     mid = unet.mid_block
-    h = resnet_block(mid.resnets[0], h, temb, cfg.norm_eps)
-    h = spatial_transformer(mid.attentions[0], h, ctx, cfg.attention_heads[-1])
-    h = resnet_block(mid.resnets[1], h, temb, cfg.norm_eps)
+    h = unit(mid.resnets[0], mid.attentions[0], h, None, temb, ctx,
+             cfg.attention_heads[-1], eps)
+    h = unit(mid.resnets[1], None, h, None, temb, ctx, 0, eps)
 
     rev_heads = tuple(reversed(cfg.attention_heads))
     for i, blk in enumerate(unet.up_blocks):
+        attns = getattr(blk, "attentions", None)
         for j, rb in enumerate(blk.resnets):
-            h = torch.cat([h, residuals.pop()], dim=1)
-            h = resnet_block(rb, h, temb, cfg.norm_eps)
-            if hasattr(blk, "attentions"):
-                h = spatial_transformer(blk.attentions[j], h, ctx, rev_heads[i])
+            h = unit(rb, None if attns is None else attns[j], h, residuals.pop(), temb,
+                     ctx, rev_heads[i], eps)
         if hasattr(blk, "upsamplers"):
             # match the next skip's spatial size (diffusers upsample_size)
             target = tuple(residuals[-1].shape[2:]) if residuals else None
             h = upsample2d(blk.upsamplers[0], h, target)
 
     out = F.silu(group_norm(h, unet.conv_norm_out.weight, unet.conv_norm_out.bias,
-                            32, cfg.norm_eps))
+                            32, eps))
     return conv(unet.conv_out, out)

@@ -21,6 +21,7 @@ from genpercept_tpu_torch.models.layers import (
     ResnetBlock,
     Upsample,
     VAEAttention,
+    checkpointed,
     conv,
     downsample2d,
     resnet_block,
@@ -115,8 +116,9 @@ class AutoencoderKL(nn.Module):
         self.post_quant_conv = nn.Conv2d(cfg.latent_channels, cfg.latent_channels, 1)
 
 
-def _gn_silu_conv(h, norm: Norm, conv_m: nn.Conv2d, groups: int):
-    h = F.silu(group_norm(h, norm.weight, norm.bias, groups, 1e-6))
+def _gn_silu_conv(h, norm: Norm, conv_m: nn.Conv2d, groups: int,
+                  native_norm: bool = False):
+    h = F.silu(group_norm(h, norm.weight, norm.bias, groups, 1e-6, native_norm))
     return conv(conv_m, h)
 
 
@@ -143,19 +145,32 @@ def vae_encode(vae: AutoencoderKL, x: torch.Tensor) -> torch.Tensor:
     return moments[:, : vae.cfg.latent_channels] * vae.cfg.scaling_factor
 
 
-def vae_decode(vae: AutoencoderKL, z: torch.Tensor) -> torch.Tensor:
-    """z: (N, 4, h, w) scaled latent -> (N, 3, 8h, 8w)."""
+def vae_decode(vae: AutoencoderKL, z: torch.Tensor, remat: bool = False) -> torch.Tensor:
+    """z: (N, 4, h, w) scaled latent -> (N, 3, 8h, 8w).
+
+    remat=True (training, gradients flowing through the frozen decoder):
+    each resnet block, the attention and each upsampler is checkpointed, so
+    only block boundaries are saved for the backward, and the GroupNorm
+    apply runs in the compute dtype, as the JAX package's decode under remat."""
     cfg, dec = vae.cfg, vae.decoder
+
+    def ckpt(fn, *args, **kwargs):
+        return checkpointed(fn, *args, **kwargs) if remat else fn(*args, **kwargs)
+
+    def rb(p, h):
+        return ckpt(resnet_block, p, h, None, eps=1e-6, native_norm=remat)
+
     z = z / cfg.scaling_factor
     z = conv1x1(z, vae.post_quant_conv.weight, vae.post_quant_conv.bias)
     h = conv(dec.conv_in, z)
     mid = dec.mid_block
-    h = resnet_block(mid.resnets[0], h, None, eps=1e-6)
-    h = vae_attention(mid.attentions[0], h)
-    h = resnet_block(mid.resnets[1], h, None, eps=1e-6)
+    h = rb(mid.resnets[0], h)
+    h = ckpt(vae_attention, mid.attentions[0], h)
+    h = rb(mid.resnets[1], h)
     for blk in dec.up_blocks:
-        for rb in blk.resnets:
-            h = resnet_block(rb, h, None, eps=1e-6)
+        for p in blk.resnets:
+            h = rb(p, h)
         if hasattr(blk, "upsamplers"):
-            h = upsample2d(blk.upsamplers[0], h)
-    return _gn_silu_conv(h, dec.conv_norm_out, dec.conv_out, cfg.norm_num_groups)
+            h = ckpt(upsample2d, blk.upsamplers[0], h)
+    return _gn_silu_conv(h, dec.conv_norm_out, dec.conv_out, cfg.norm_num_groups,
+                         native_norm=remat)

@@ -3,7 +3,10 @@
 A wrapper runs its plain PyTorch version for a tensor on the CPU and its CUDA
 kernel for a tensor on the card. ``reference_kernels()`` makes the wrappers
 run the plain versions on the card too; it exists for comparing a whole run
-against the plain path, and nothing on the main path enters it.
+against the plain path, and nothing on the main path enters it. The switch
+is process-wide, not per thread: the autograd engine runs a CUDA backward
+pass, and the forwards that checkpoints recompute in it, on threads of its
+own, which a thread-local switch would not reach.
 """
 
 from __future__ import annotations
@@ -13,22 +16,26 @@ import threading
 
 import torch
 
-_state = threading.local()
+_lock = threading.Lock()
+_depth = 0  # open reference_kernels() blocks
 
 
 def reference_active() -> bool:
-    return getattr(_state, "reference", False)
+    return _depth > 0
 
 
 @contextlib.contextmanager
 def reference_kernels():
-    """Run every kernel wrapper's plain version inside this block."""
-    prev = reference_active()
-    _state.reference = True
+    """Run every kernel wrapper's plain version inside this block, in every
+    thread of the process."""
+    global _depth
+    with _lock:
+        _depth += 1
     try:
         yield
     finally:
-        _state.reference = prev
+        with _lock:
+            _depth -= 1
 
 
 def use_kernel(x: torch.Tensor) -> bool:

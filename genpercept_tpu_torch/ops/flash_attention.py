@@ -1,10 +1,20 @@
-"""Flash attention forward (non-causal): the Hopper kernel and its plain version.
+"""Flash attention (non-causal), forward and backward: the Hopper kernels and
+their plain versions.
 
-Counterpart of ``genpercept_tpu/ops/flash_attention.py``. The kernel
-(``csrc/flash_attn_fwd.cu``) replaces the TPU kernel ``_flash_kernel``: the
-(Sq x Sk) logits never reach device memory. ``_flash_bhsd`` returns the
-output and ``lse2``, the base-2 logsumexp of the scaled logits
-(``m*c + log2 l`` with ``c = scale*log2 e``), as the TPU kernel does.
+Counterpart of ``genpercept_tpu/ops/flash_attention.py``. Three kernels
+replace the TPU's three, and in none do the (Sq x Sk) matrices reach device
+memory:
+
+- K1 ``csrc/flash_attn_fwd.cu`` (TPU ``_flash_kernel``), via ``_flash_bhsd``:
+  the output and ``lse2``, the base-2 logsumexp of the scaled logits
+  (``m*c + log2 l`` with ``c = scale*log2 e``), as the TPU kernel returns;
+- K3 ``flash_attn_bwd_dq`` and K4 ``flash_attn_bwd_dkv`` in
+  ``csrc/flash_attn_bwd.cu`` (TPU ``_flash_bwd_dq_kernel`` and
+  ``_flash_bwd_dkv_kernel``), via ``_flash_bwd_bhsd``: dq, and dk with dv,
+  from the saved ``lse2`` and ``dsum = rowsum(dO*O)``.
+
+``flash_attention`` is differentiable: an autograd Function whose forward is
+K1 and whose backward is K3 and K4, as the JAX package's ``custom_vjp``.
 
 ``supported`` and the block table behind it are the TPU package's, kept so
 that the attention routing (``ops/attention.py``) takes the same decisions,
@@ -85,9 +95,26 @@ def _flash_bhsd_ref(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
     return out, m * c + torch.log2(l)
 
 
+def _check_kernel_args(name: str, qh: torch.Tensor, kh: torch.Tensor,
+                       *rest: torch.Tensor) -> int:
+    """Raise on what the kernels do not take; return the dtype code. ``rest``
+    holds tensors shaped as v (first) and then as q."""
+    bh, sq, d = qh.shape
+    sk = kh.shape[1]
+    code = _dispatch.dtype_code(qh, name)
+    if d not in _KERNEL_D:
+        raise ValueError(f"{name}: no kernel for head dim {d}")
+    shapes = [kh.shape, rest[0].shape] + [x.shape for x in rest[1:]]
+    if shapes != [(bh, sk, d)] * 2 + [(bh, sq, d)] * (len(rest) - 1):
+        raise ValueError(f"{name}: shapes {qh.shape} {shapes}")
+    if any(x.dtype != qh.dtype or x.device != qh.device for x in (kh, *rest)):
+        raise ValueError(f"{name}: inputs differ in dtype or device")
+    return code
+
+
 def _flash_bhsd(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
                 scale: float, kv_valid: int | None = None):
-    """qh: (BH, Sq, D); kh/vh: (BH, Sk, D) -> (out, lse2).
+    """K1. qh: (BH, Sq, D); kh/vh: (BH, Sk, D) -> (out, lse2).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if kv_valid is not None:
@@ -96,14 +123,7 @@ def _flash_bhsd(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
         return _flash_bhsd_ref(qh, kh, vh, scale)
     bh, sq, d = qh.shape
     sk = kh.shape[1]
-    code = _dispatch.dtype_code(qh, "flash_attention")
-    if d not in _KERNEL_D:
-        raise ValueError(f"flash_attention: no kernel for head dim {d}")
-    if kh.shape != (bh, sk, d) or vh.shape != (bh, sk, d):
-        raise ValueError(f"flash_attention: shapes {qh.shape} {kh.shape} {vh.shape}")
-    if not (kh.dtype == vh.dtype == qh.dtype
-            and kh.device == vh.device == qh.device):
-        raise ValueError("flash_attention: q, k, v differ in dtype or device")
+    code = _check_kernel_args("flash_attention", qh, kh, vh)
     qh, kh, vh = qh.contiguous(), kh.contiguous(), vh.contiguous()
     out = torch.empty_like(qh)
     lse = torch.empty((bh, sq, 1), dtype=torch.float32, device=qh.device)
@@ -120,15 +140,99 @@ def _flash_bhsd(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
 _flash_bhsd.launches = 0
 
 
+def _flash_bwd_bhsd_ref(qh, kh, vh, do, lse, dsum, scale: float):
+    """Plain version of K3 and K4: the same math in one pass over full
+    matrices, with the kernels' rounding points. P and dP in f32; dS rounded
+    to k's dtype for dq and to q's dtype for dk; P rounded to dO's dtype for
+    dv; f32 accumulates, outputs in the input dtypes. Returns (dq, dk, dv)."""
+    c = scale * _LOG2E
+    qf, kf, vf, dof = qh.float(), kh.float(), vh.float(), do.float()
+    p = torch.exp2(torch.matmul(qf, kf.transpose(1, 2)) * c - lse)
+    ds = p * (torch.matmul(dof, vf.transpose(1, 2)) - dsum) * scale
+    dv = torch.matmul(p.to(do.dtype).float().transpose(1, 2), dof).to(vh.dtype)
+    del p
+    dq = torch.matmul(ds.to(kh.dtype).float(), kf).to(qh.dtype)
+    dk = torch.matmul(ds.to(qh.dtype).float().transpose(1, 2), qf).to(kh.dtype)
+    return dq, dk, dv
+
+
+def _flash_bwd_dq(qh, kh, vh, do, lse, dsum, scale: float) -> torch.Tensor:
+    """K3 on CUDA tensors: dq (BH, Sq, D)."""
+    bh, sq, d = qh.shape
+    code = _check_kernel_args("flash_attn_bwd_dq", qh, kh, vh, do)
+    dq = torch.empty_like(qh)
+    err = _build.load().flash_attn_bwd_dq(
+        qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        dsum.data_ptr(), dq.data_ptr(), bh, sq, kh.shape[1], d,
+        ctypes.c_float(scale), code, _dispatch.stream_handle(qh))
+    _build.check(err, "flash_attn_bwd_dq")
+    _flash_bwd_dq.launches += 1
+    return dq
+
+
+def _flash_bwd_dkv(qh, kh, vh, do, lse, dsum, scale: float):
+    """K4 on CUDA tensors: (dk, dv), each (BH, Sk, D)."""
+    bh, sq, d = qh.shape
+    code = _check_kernel_args("flash_attn_bwd_dkv", qh, kh, vh, do)
+    dk, dv = torch.empty_like(kh), torch.empty_like(vh)
+    err = _build.load().flash_attn_bwd_dkv(
+        qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        dsum.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, sq, kh.shape[1], d,
+        ctypes.c_float(scale), code, _dispatch.stream_handle(qh))
+    _build.check(err, "flash_attn_bwd_dkv")
+    _flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+_flash_bwd_dq.launches = 0
+_flash_bwd_dkv.launches = 0
+
+
+def _flash_bwd_bhsd(qh, kh, vh, oh, do, lse, scale: float):
+    """Backward of ``_flash_bhsd`` from its saved output and lse2: dsum in
+    f32 plain torch (as JAX computes it outside its Pallas calls), then K3
+    and K4 on CUDA tensors or the plain version on CPU ones. -> (dq, dk, dv)."""
+    dsum = (do.float() * oh.float()).sum(dim=-1, keepdim=True)
+    if not _dispatch.use_kernel(qh):
+        return _flash_bwd_bhsd_ref(qh, kh, vh, do, lse, dsum, scale)
+    qh, kh, vh, do = qh.contiguous(), kh.contiguous(), vh.contiguous(), do.contiguous()
+    lse = lse.contiguous()
+    dq = _flash_bwd_dq(qh, kh, vh, do, lse, dsum, scale)
+    dk, dv = _flash_bwd_dkv(qh, kh, vh, do, lse, dsum, scale)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """(B, S, H, D) flash attention: K1 forward, K3 and K4 backward. Saves
+    q, k, v in the (BH, S, D) layout, the output and lse2."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        b, sq, h, d = q.shape
+        sk = k.shape[1]
+        qh, kh, vh = (_to_bhsd(x, b, s, h, d) for x, s in ((q, sq), (k, sk), (v, sk)))
+        out, lse = _flash_bhsd(qh, kh, vh, scale)
+        ctx.save_for_backward(qh, kh, vh, out, lse)
+        ctx.scale, ctx.dims = scale, (b, sq, sk, h, d)
+        return _from_bhsd(out, b, sq, h, d)
+
+    @staticmethod
+    def backward(ctx, g):
+        qh, kh, vh, out, lse = ctx.saved_tensors
+        b, sq, sk, h, d = ctx.dims
+        dq, dk, dv = _flash_bwd_bhsd(qh, kh, vh, out, _to_bhsd(g, b, sq, h, d), lse,
+                                     ctx.scale)
+        return (_from_bhsd(dq, b, sq, h, d), _from_bhsd(dk, b, sk, h, d),
+                _from_bhsd(dv, b, sk, h, d), None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float | None = None) -> torch.Tensor:
-    """q: (B, Sq, H, D), k/v: (B, Sk, H, D) -> (B, Sq, H, D). Forward only."""
+    """q: (B, Sq, H, D), k/v: (B, Sk, H, D) -> (B, Sq, H, D). Differentiable."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if not supported(sq, sk, d):
         raise ValueError(f"flash_attention unsupported shape {(sq, sk, d)}")
-    out, _ = _flash_bhsd(_to_bhsd(q, b, sq, h, d), _to_bhsd(k, b, sk, h, d),
-                         _to_bhsd(v, b, sk, h, d), scale)
-    return _from_bhsd(out, b, sq, h, d)
+    return FlashAttention.apply(q, k, v, scale)

@@ -10,11 +10,18 @@ rounded again, then the down-projection accumulated in f32.
 
 Weights are in PyTorch's Linear layouts: w1 (2*inner, C) holding the hidden
 rows then the gate rows, w2 (C, inner).
+
+``fused_geglu_ff`` is differentiable, as the JAX package's ``custom_vjp``:
+the forward is the kernel and saves only the inputs; the backward recomputes
+the plain composition (``_geglu_ff_composition``, the rounding points of
+JAX's ``_xla_geglu_ff``) and takes its vector-Jacobian product. The TPU has
+no backward kernel here, so none is ported.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from genpercept_tpu_torch import _build
 from genpercept_tpu_torch.ops import _dispatch
@@ -71,9 +78,9 @@ def _fused_geglu_ff_ref(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor | No
     return (torch.matmul(a, w2.to(dt).float().t()) + b2f).to(dt)
 
 
-def fused_geglu_ff(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor | None,
-                   w2: torch.Tensor, b2: torch.Tensor | None) -> torch.Tensor:
-    """x: (B, S, C) -> (B, S, C). Forward only.
+def _fused_geglu_ff_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor | None,
+                        w2: torch.Tensor, b2: torch.Tensor | None) -> torch.Tensor:
+    """K2. x: (B, S, C) -> (B, S, C).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if not _dispatch.use_kernel(x):
@@ -98,8 +105,53 @@ def fused_geglu_ff(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor | None,
         b2f.data_ptr(), y.data_ptr(), bsz * s, c, inner, code,
         _dispatch.stream_handle(x))
     _build.check(err, "fused_geglu_ff_fwd")
-    fused_geglu_ff.launches += 1
+    _fused_geglu_ff_fwd.launches += 1
     return y.reshape(bsz, s, c)
 
 
-fused_geglu_ff.launches = 0
+_fused_geglu_ff_fwd.launches = 0
+
+
+def _geglu_ff_composition(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor | None,
+                          w2: torch.Tensor, b2: torch.Tensor | None) -> torch.Tensor:
+    """The unfused feed-forward in x's dtype (JAX ``_xla_geglu_ff``): hidden
+    and gate projections, exact-erf GELU and product, down-projection."""
+    dt = x.dtype
+    inner = w1.shape[0] // 2
+
+    def proj(w, b):
+        out = torch.matmul(x, w.to(dt).t())
+        return out if b is None else out + b.to(dt)
+
+    h = proj(w1[:inner], None if b1 is None else b1[:inner])
+    g = proj(w1[inner:], None if b1 is None else b1[inner:])
+    out = torch.matmul(h * F.gelu(g), w2.to(dt).t())
+    return out if b2 is None else out + b2.to(dt)
+
+
+class FusedGegluFF(torch.autograd.Function):
+    """K2 forward; backward = the VJP of ``_geglu_ff_composition``,
+    recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        return _fused_geglu_ff_fwd(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [None if t is None else t.detach().requires_grad_(need)
+                      for t, need in zip(saved, ctx.needs_input_grad)]
+            out = _geglu_ff_composition(*inputs)
+        wanted = [t for t in inputs if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, g))
+        return tuple(next(grads) if t is not None and t.requires_grad else None
+                     for t in inputs)
+
+
+def fused_geglu_ff(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor | None,
+                   w2: torch.Tensor, b2: torch.Tensor | None) -> torch.Tensor:
+    """x: (B, S, C) -> (B, S, C). Differentiable: K2 forward, plain backward."""
+    return FusedGegluFF.apply(x, w1, b1, w2, b2)

@@ -12,8 +12,13 @@ import torch
 
 
 def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               num_groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
-    """x: (N, C, ...) -> same shape and dtype; scale/bias: (C,)."""
+               num_groups: int = 32, eps: float = 1e-5,
+               native_apply: bool = False) -> torch.Tensor:
+    """x: (N, C, ...) -> same shape and dtype; scale/bias: (C,).
+
+    native_apply: the ``x*a + b`` apply in x's dtype instead of f32 (the
+    statistics stay f32), as the JAX package's training decode path under
+    remat does; a no-op for f32 inputs."""
     n, c = x.shape[:2]
     g = num_groups
     cg = c // g
@@ -30,6 +35,8 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     a = inv_c * scale.float()[None]
     b = bias.float()[None] - mean_c * a
     bshape = (n, c) + (1,) * (x.ndim - 2)
+    if native_apply and x.dtype != torch.float32:
+        return x * a.reshape(bshape).to(x.dtype) + b.reshape(bshape).to(x.dtype)
     return (xf * a.reshape(bshape) + b.reshape(bshape)).to(x.dtype)
 
 

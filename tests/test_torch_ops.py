@@ -10,6 +10,7 @@ JAX package's own test of that kernel.
 import importlib
 import subprocess
 import sys
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -226,6 +227,108 @@ def test_flash_kv_valid_not_ported():
         t_fa._flash_bhsd(x, x, x, 0.125, kv_valid=77)
 
 
+# ------------------------------------------------------------ K3/K4: backward
+
+
+# bf16: dS rounded to k's/q's dtype before its products, P to dO's dtype
+# before P^T dO. Readings of this test's inputs, dq / dk / dv max abs
+# against the Pallas kernels in interpret mode on the CPU: the plain version
+# 4.9e-4 / 4.9e-4 / 9.8e-4 (d=64) and 9.8e-4 each (d=512); a copy that skips
+# the rounding of dS 3.9e-3 in dq and dk; one that skips the rounding of P
+# 2.0e-3 (d=64) and 3.9e-3 (d=512) in dv. The bound 1.5e-3 refuses both.
+@pytest.mark.parametrize("dtype,atol", [(jnp.float32, ATOL), (jnp.bfloat16, 1.5e-3)])
+@pytest.mark.parametrize("bh,s,d", [(2, 256, 64), (1, 256, 512)])
+def test_flash_bwd_plain_matches_pallas_kernels(bh, s, d, dtype, atol):
+    """K3/K4's plain version vs the Pallas backward (interpret mode), from
+    the same saved output and lse2."""
+    rng = np.random.default_rng(12)
+    q, k, v, do = (jnp.asarray(rng.normal(size=(bh, s, d)).astype(np.float32), dtype)
+                   for _ in range(4))
+    scale = d ** -0.5
+    with pltpu.force_tpu_interpret_mode():
+        o, lse = j_fa._flash_bhsd(q, k, v, scale)
+        ref = j_fa._flash_bwd_bhsd(q, k, v, o, do, lse, scale)
+    tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    args = [torch.from_numpy(np.array(x, np.float32)).to(tdt) for x in (q, k, v, o, do)]
+    out = t_fa._flash_bwd_bhsd(*args, torch.from_numpy(np.array(lse)), scale)
+    for name, a, b in zip(("dq", "dk", "dv"), out, ref):
+        assert a.dtype == tdt
+        np.testing.assert_allclose(a.float().numpy(), np.asarray(b, np.float32), atol=atol,
+                                   err_msg=name)
+
+
+def test_wrappers_carry_gradients():
+    """The wrappers' outputs hang on the port's autograd Functions, so a
+    backward through them reaches q, k, v and the feed-forward's inputs."""
+    q = torch.zeros(1, 576, 2, 64, requires_grad=True)
+    assert type(t_fa.flash_attention(q, q, q).grad_fn) is t_fa.FlashAttention._backward_cls
+    x = torch.zeros(1, 512, 320, requires_grad=True)
+    y = t_ff.fused_geglu_ff(x, torch.zeros(2560, 320), None, torch.zeros(320, 1280), None)
+    assert type(y.grad_fn) is t_ff.FusedGegluFF._backward_cls
+
+
+# f32: summation order only. bf16: the inputs' gradients are bf16, so one
+# bf16 ulp at their magnitude (~1, 7.8e-3) plus the rounding points above.
+@pytest.mark.parametrize("dtype,atol", [(jnp.float32, ATOL), (jnp.bfloat16, 1.6e-2)])
+def test_flash_attention_grad_matches_jax(dtype, atol):
+    """torch.autograd through flash_attention (B, S, H, D) against jax.grad
+    through JAX's flash_attention, Pallas in interpret mode."""
+    rng = np.random.default_rng(13)
+    q, k, v, g = (rng.normal(size=(2, 256, 3, 64)).astype(np.float32) for _ in range(4))
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax.grad(lambda q_, k_, v_: jnp.sum(
+            j_fa.flash_attention(q_, k_, v_).astype(jnp.float32) * g), argnums=(0, 1, 2))(
+            *(jnp.asarray(x, dtype) for x in (q, k, v)))
+    tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    tq, tk, tv = (torch.from_numpy(np.array(jnp.asarray(x, dtype), np.float32)).to(tdt)
+                  .requires_grad_() for x in (q, k, v))
+    out = t_fa.flash_attention(tq, tk, tv)
+    grads = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(g).to(tdt))
+    for name, a, b in zip(("q", "k", "v"), grads, ref):
+        np.testing.assert_allclose(a.float().numpy(), np.asarray(b, np.float32), atol=atol,
+                                   err_msg=name)
+
+
+# f32: 1e-4 relative to each gradient's largest entry (the weight gradients
+# sum 512 rows). bf16: both sides compute the unfused composition in bf16
+# (XLA and PyTorch round the erf GELU at other places), 3e-2 relative.
+@pytest.mark.parametrize("dtype,rtol", [(jnp.float32, 1e-4), (jnp.bfloat16, 3e-2)])
+def test_fused_ff_grad_matches_jax(dtype, rtol):
+    """torch.autograd through fused_geglu_ff against jax.grad through the
+    JAX custom VJP (forward: the Pallas kernel, interpret mode), C=320."""
+    c, rows = 320, 512
+    rng = np.random.default_rng(14)
+    x = (rng.normal(size=(1, rows, c)) * 2.0).astype(np.float32)
+    w1 = rng.uniform(-1, 1, size=(c, 8 * c)).astype(np.float32) / np.sqrt(c)
+    b1 = (rng.normal(size=(8 * c,)) * 0.1).astype(np.float32)
+    w2 = rng.uniform(-1, 1, size=(4 * c, c)).astype(np.float32) / np.sqrt(4 * c)
+    b2 = (rng.normal(size=(c,)) * 0.1).astype(np.float32)
+    g = rng.normal(size=(1, rows, c)).astype(np.float32)
+
+    def jloss(x_, w1_, b1_, w2_, b2_):
+        return jnp.sum(j_ff.fused_geglu_ff(x_, w1_, b1_, w2_, b2_).astype(jnp.float32) * g)
+
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax.grad(jloss, argnums=(0, 1, 2, 3, 4))(
+            jnp.asarray(x, dtype), jnp.asarray(w1, dtype), jnp.asarray(b1),
+            jnp.asarray(w2, dtype), jnp.asarray(b2))
+    tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    ins = [torch.from_numpy(np.array(jnp.asarray(x, dtype), np.float32)).to(tdt),
+           torch.from_numpy(np.array(jnp.asarray(w1, dtype), np.float32).T.copy()).to(tdt),
+           torch.from_numpy(b1),
+           torch.from_numpy(np.array(jnp.asarray(w2, dtype), np.float32).T.copy()).to(tdt),
+           torch.from_numpy(b2)]
+    ins = [t.requires_grad_() for t in ins]
+    out = t_ff.fused_geglu_ff(*ins)
+    grads = torch.autograd.grad(out, ins, torch.from_numpy(g).to(tdt))
+    for name, a, b, transpose in zip(("x", "w1", "b1", "w2", "b2"), grads, ref,
+                                     (False, True, False, True, False)):
+        want = np.asarray(b, np.float32)
+        got = a.float().numpy()
+        np.testing.assert_allclose(got.T if transpose else got, want, rtol=0,
+                                   atol=rtol * np.abs(want).max(), err_msg=name)
+
+
 # 768^2 main-path attention shapes (sq, sk, d), plus ones either side of the
 # thresholds and the 480x640 path
 ROUTING_SHAPES = [
@@ -311,21 +414,40 @@ def test_reference_kernels_off_by_default():
     assert not _dispatch.reference_active()
 
 
+def test_reference_kernels_reach_other_threads():
+    """The autograd engine runs CUDA backward passes on threads of its own:
+    the switch holds in every thread while the block is open."""
+    seen = []
+    with T.reference_kernels():
+        worker = threading.Thread(target=lambda: seen.append(_dispatch.reference_active()))
+        worker.start()
+        worker.join(timeout=30)
+    assert not worker.is_alive() and seen == [True]
+    assert not _dispatch.reference_active()
+
+
 def test_cpu_tensors_take_plain_versions():
-    """On the CPU no kernel is launched and no library is loaded."""
-    k1, k2 = t_fa._flash_bhsd.launches, t_ff.fused_geglu_ff.launches
-    x = torch.zeros(1, 512, 320)
-    t_ff.fused_geglu_ff(x, torch.zeros(2560, 320), None, torch.zeros(320, 1280), None)
-    t_fa.flash_attention(torch.zeros(1, 576, 2, 64), torch.zeros(1, 576, 2, 64),
-                         torch.zeros(1, 576, 2, 64))
-    assert (t_fa._flash_bhsd.launches, t_ff.fused_geglu_ff.launches) == (k1, k2)
+    """On the CPU no kernel is launched and no library is loaded, forward
+    or backward."""
+    def counts():
+        return (t_fa._flash_bhsd.launches, t_ff._fused_geglu_ff_fwd.launches,
+                t_fa._flash_bwd_dq.launches, t_fa._flash_bwd_dkv.launches)
+
+    before = counts()
+    x = torch.zeros(1, 512, 320, requires_grad=True)
+    t_ff.fused_geglu_ff(x, torch.zeros(2560, 320), None, torch.zeros(320, 1280),
+                        None).sum().backward()
+    q = torch.zeros(1, 576, 2, 64, requires_grad=True)
+    t_fa.flash_attention(q, q, q).sum().backward()
+    assert counts() == before
     assert not _dispatch.use_kernel(x)
     assert _build._lib is None
 
 
 def test_import_leaves_jax_out():
     code = ("import sys, genpercept_tpu_torch, genpercept_tpu_torch.pipeline, "
-            "genpercept_tpu_torch.io; "
+            "genpercept_tpu_torch.io, genpercept_tpu_torch.train.trainer, "
+            "genpercept_tpu_torch.cli.train, genpercept_tpu_torch.utils.config; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('genpercept_tpu.') or m == 'genpercept_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")
