@@ -31,7 +31,21 @@ Phases, each printed as a JSON line:
       feed-forward); then Trainer.train for 3 optimizer steps of 4
       micro-batches, with the kernels and again from the same start under
       reference_kernels(): loss per step, ms per step, img/s, peak device
-      memory.
+      memory;
+  (h) K5 int8 fused GEGLU FF and (i) K6 int8 flash attention against their
+      plain versions at the 768^2 path's shapes (and K6 at 480x640's), f32
+      and bf16, beside the bf16 K2 / K1 times at the same shapes;
+  (j) W8A8 int8 inference at full width in bf16 (int8_vae, int8_unet,
+      int8_unet_ff, int8_vae_attn; asymmetric refined stats, the default
+      placement): the first .batch of two natural-like 768x768 images
+      calibrates (seconds, launches, the int8 self-check int8_mean_dev <=
+      1e-2); then .batch over four and one 480x640 __call__ with the kernels
+      and under reference_kernels() on the same calibration (launches, depth
+      deviation, int8 img/s beside (e)'s bf16 img/s); a save_calibration ->
+      load_calibration round trip into a fresh pipeline gives identical depth.
+K1 and K3+K4 are also timed against one PyTorch call computing the same
+function (scaled_dot_product_attention and its autograd backward), which the
+port never calls; every kernel's bound is computed from its shapes (PEAK).
 Then one JSON line with a record per kernel, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises, so the exit code is
 not 0. Without a CUDA device it exits 1 before printing anything; without
@@ -59,9 +73,11 @@ from genpercept_tpu_torch.models import (
     AutoencoderKL, CLIPTextModel, UNet2DConditionModel, init_params_)
 from genpercept_tpu_torch.ops import flash_attention as fa
 from genpercept_tpu_torch.ops import fused_ff as ff
+from genpercept_tpu_torch.ops import quant as tq
 from genpercept_tpu_torch.ops import reference_kernels
 from genpercept_tpu_torch.pipeline import (
     GenPerceptModels, GenPerceptPipeline, PipelineConfig)
+from genpercept_tpu_torch.utils.synthetic import natural_like_images
 from genpercept_tpu_torch.train import TrainConfig, build_loss_fn, init_train_state
 from genpercept_tpu_torch.train import losses as train_losses
 from genpercept_tpu_torch.train.trainer import Trainer
@@ -103,7 +119,7 @@ TRAIN_CFG = TrainConfig(
     remat_granularity="unet", scheduler=GENPERCEPT_SCHEDULER)
 TRAIN_HW, MICRO, ACCUM, STEPS = (480, 640), 8, 4, 3  # the recipe on one card
 # launches per micro-step with remat (tests/test_torch_train.py pins them)
-STEP_LAUNCHES = {"K1": 14, "K2": 10, "K3": 6, "K4": 6}
+STEP_LAUNCHES = {"K1": 14, "K2": 10, "K3": 6, "K4": 6, "K5": 0, "K6": 0}
 # kernels vs reference_kernels(), one micro-batch: the loss's relative
 # difference (every check), and the gradients' global relative L2 distance.
 # The gradient bounds are on the smooth mse loss; the recipe's gradients are
@@ -120,6 +136,64 @@ STEP_LAUNCHES = {"K1": 14, "K2": 10, "K3": 6, "K4": 6}
 # 700.00 W): grads 1.36e-2, to_f32 0.945 (0.0200 against 0.0212).
 GRAD_TOL = {torch.float32: {"loss": 1e-5, "grads": 1e-4},
             torch.bfloat16: {"loss": 1e-2, "grads": 2.5e-2, "to_f32": 1.2}}
+
+
+# W8A8 int8: K5 at the level-0 and level-1 feed-forwards of a 768^2 forward
+# at batch 2 ((b, s, c), launches per forward), K6 at the VAE mid blocks
+# ((bh, s, d), launches per forward; 6912 tokens: the 480x640 call's)
+K5_SHAPES = [((2, 9216, 320), 5), ((2, 2304, 640), 5)]
+K6_SHAPES = [((2, 9216, 512), 2), ((1, 6912, 512), 0)]
+INT8_TOL = {"K5": {torch.float32: 1e-4, torch.bfloat16: 6e-2},  # f32: of max|plain|
+            "K6": {torch.float32: 1e-4, torch.bfloat16: 2e-2}}  # of max|plain|
+INT8_CFG = dict(int8_vae=True, int8_unet=True, int8_unet_ff=True, int8_vae_attn=True)
+# launches per 768^2 forward on the int8 path, as the JAX package routes
+# (tests/test_torch_models.py pins them): the VAE mid blocks take K6 from
+# K1, the C=320 and C=640 feed-forwards K5; the calibration pass runs the
+# full-precision routing with every FF through the hooks (no K2)
+INT8_PER_FORWARD = {"K1": 15, "K2": 0, "K5": 10, "K6": 2}
+CALIB_PER_FORWARD = {"K1": 17, "K2": 0, "K5": 0, "K6": 0}
+INT8_CALL_480x640 = {"K1": 5, "K2": 0, "K5": 0, "K6": 2}
+
+# the least time the card could take: NVIDIA H100 SXM data sheet, dense
+# rates (bf16 tensor cores, int8 tensor cores, f32 FFMA outside them) and
+# HBM3 bandwidth
+PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
+
+
+class Bound:
+    """The least time the card could take for some work: the larger of its
+    operations over the peak rate and its bytes (each input read once, each
+    output written once) over HBM. Work adds up: ``a + b``, ``n * a``."""
+
+    def __init__(self, ops_ms: float = 0.0, bytes_ms: float = 0.0):
+        self.ops_ms, self.bytes_ms = ops_ms, bytes_ms
+
+    def __add__(self, other):
+        return Bound(self.ops_ms + other.ops_ms, self.bytes_ms + other.bytes_ms)
+
+    def __rmul__(self, n):
+        return Bound(n * self.ops_ms, n * self.bytes_ms)
+
+    @property
+    def ms(self) -> float:
+        return max(self.ops_ms, self.bytes_ms)
+
+    @property
+    def by(self) -> str:
+        return "operations" if self.ops_ms >= self.bytes_ms else "bytes"
+
+
+def bound(ops: float, rate: str, nbytes: float) -> Bound:
+    return Bound(ops / PEAK[rate] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3)
+
+
+def rate_of(dt) -> str:
+    return "f32" if dt == torch.float32 else "bf16"
+
+
+def elt(dt) -> int:
+    return torch.tensor([], dtype=dt).element_size()
 
 
 def emit(obj) -> None:
@@ -172,9 +246,22 @@ def recipe_generator() -> torch.Generator:
     return torch.Generator(device="cuda").manual_seed(SEED + 1)
 
 
+def sdpa(q, k, v):
+    """The one PyTorch call computing K1's function, for library_ms (the
+    port never calls it): (BH, S, D) as one batch of BH heads."""
+    return torch.nn.functional.scaled_dot_product_attention(q[None], k[None], v[None])[0]
+
+
+def attn_bytes(bh, s, d, dt, n_in, n_out, n_rows=0) -> int:
+    """Bytes of an attention call: n_in + n_out (BH, S, D) tensors of dt
+    and n_rows (BH, S) f32 rows (lse2, dsum)."""
+    return bh * s * (d * elt(dt) * (n_in + n_out) + 4 * n_rows)
+
+
 def phase_k1(gen: torch.Generator) -> dict:
     worst = {dt: 0.0 for dt in DTYPES}
-    per_image = {dt: [0.0, 0.0] for dt in DTYPES}
+    # per 768^2 image and dtype: kernel, plain, bound and library ms
+    per_image = {dt: [0.0, 0.0, Bound(), 0.0] for dt in DTYPES}
     rgen = recipe_generator()
     for dt in DTYPES:
         for (bh, s, d), n in K1_SHAPES + [(x, 0) for x in K1_RECIPE]:
@@ -188,14 +275,17 @@ def phase_k1(gen: torch.Generator) -> dict:
             err_l = (lse - ref_lse).abs().max().item()
             ms = cuda_ms(lambda: fa._flash_bhsd(q, k, v, scale), 10)
             plain_ms = cuda_ms(lambda: fa._flash_bhsd_ref(q, k, v, scale), 3)
+            library_ms = cuda_ms(lambda: sdpa(q, k, v), 10)
+            bd = bound(4.0 * bh * s * s * d, rate_of(dt), attn_bytes(bh, s, d, dt, 3, 1, 1))
             emit({"phase": "K1", "dtype": str(dt), "shape": [bh, s, d],
                   "max_abs_err_out": err_o, "max_abs_err_lse2": err_l,
-                  "ms": ms, "plain_ms": plain_ms})
+                  "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                  "bound_ms": bd.ms, "bound_by": bd.by})
             check(err_o <= TOL["K1"][dt] and err_l <= TOL["K1"][dt],
                   f"K1 {dt} {(bh, s, d)}: errors {err_o}, {err_l}")
             worst[dt] = max(worst[dt], err_o, err_l)
-            per_image[dt][0] += n * ms  # 0 for the recipe's shapes
-            per_image[dt][1] += n * plain_ms
+            for i, t in enumerate((ms, plain_ms, bd, library_ms)):
+                per_image[dt][i] += n * t  # 0 for the recipe's shapes
             del q, k, v, out, lse, ref, ref_lse
     return {"worst": worst, "per_image": per_image}
 
@@ -220,14 +310,17 @@ def phase_k2(gen: torch.Generator) -> dict:
             scale = ref.float().abs().max().item()
             ms = cuda_ms(lambda: ff.fused_geglu_ff(*args), 10)
             plain_ms = cuda_ms(lambda: ff._fused_geglu_ff_ref(*args), 10)
+            rows = b * s
+            bd = bound(6.0 * rows * c * inner, rate_of(dt),
+                       (2 * rows * c + 3 * c * inner) * elt(dt) + 4 * (2 * inner + c))
             emit({"phase": "K2", "dtype": str(dt), "shape": [b, s, c],
                   "max_abs_err": err, "output_max_abs": scale, "ms": ms,
-                  "plain_ms": plain_ms})
-            bound = TOL["K2"][dt] * (scale if dt == torch.float32 else 1.0)
-            check(err <= bound, f"K2 {dt} {(b, s, c)}: error {err} > {bound}")
+                  "plain_ms": plain_ms, "bound_ms": bd.ms, "bound_by": bd.by})
+            bar = TOL["K2"][dt] * (scale if dt == torch.float32 else 1.0)
+            check(err <= bar, f"K2 {dt} {(b, s, c)}: error {err} > {bar}")
             worst[dt] = max(worst[dt], err)
             if n:
-                per_image[dt] = [n * ms, n * plain_ms]
+                per_image[dt] = [n * ms, n * plain_ms, n * bd]
             del x, args, y, ref
     return {"worst": worst, "per_image": per_image}
 
@@ -240,20 +333,21 @@ def build_models(gen: torch.Generator):
     return unet, vae, clip
 
 
+COUNTERS = {"K1": fa._flash_bhsd, "K2": ff._fused_geglu_ff_fwd, "K3": fa._flash_bwd_dq,
+            "K4": fa._flash_bwd_dkv, "K5": ff.fused_geglu_ff_int8, "K6": fa._flash_int8_codes}
+
+
 def launch_counts():
-    return {"K1": fa._flash_bhsd.launches, "K2": ff._fused_geglu_ff_fwd.launches,
-            "K3": fa._flash_bwd_dq.launches, "K4": fa._flash_bwd_dkv.launches}
+    return {k: f.launches for k, f in COUNTERS.items()}
 
 
 def reset_counts() -> None:
-    fa._flash_bhsd.launches = 0
-    ff._fused_geglu_ff_fwd.launches = 0
-    fa._flash_bwd_dq.launches = 0
-    fa._flash_bwd_dkv.launches = 0
+    for f in COUNTERS.values():
+        f.launches = 0
 
 
 def fwd_counts(counts):
-    return {k: counts[k] for k in ("K1", "K2")}
+    return {k: counts[k] for k in ("K1", "K2", "K5", "K6")}
 
 
 def drive(pipe, batch_images, call_image):
@@ -293,7 +387,7 @@ def phase_slice(unet, vae, clip) -> dict:
     # 480x640 -> 576x768 -> 72x96 latent: 6912 tokens at level 0 (flash, 5)
     # and in the VAE (flash, 2); 1728 and 432 at levels 1-2 (plain); 6912
     # rows is no multiple of 512, so the FF stays plain
-    call_expect = {"K1": 7, "K2": 0}
+    call_expect = {"K1": 7, "K2": 0, "K5": 0, "K6": 0}
 
     results = {}
     for dt in DTYPES:
@@ -307,10 +401,10 @@ def phase_slice(unet, vae, clip) -> dict:
         with reference_kernels():
             r_outs, r_call, r_counts, r_call_counts = drive(pipe, batch_images, call_image)
             r_rate = throughput(pipe, batch_images)
-        check(counts == {"K1": K1_PER_FORWARD * forwards, "K2": K2_PER_FORWARD * forwards},
-              f"{dt} .batch launch counts {counts}")
+        check(counts == {"K1": K1_PER_FORWARD * forwards, "K2": K2_PER_FORWARD * forwards,
+                         "K5": 0, "K6": 0}, f"{dt} .batch launch counts {counts}")
         check(call_counts == call_expect, f"{dt} __call__ launch counts {call_counts}")
-        check(r_counts == {"K1": 0, "K2": 0} and r_call_counts == {"K1": 0, "K2": 0},
+        check(not any(r_counts.values()) and not any(r_call_counts.values()),
               f"{dt} kernels launched under reference_kernels()")
         preds = [o.pred_np for o in outs] + [call_out.pred_np]
         refs = [o.pred_np for o in r_outs] + [r_call.pred_np]
@@ -332,7 +426,7 @@ def phase_slice(unet, vae, clip) -> dict:
               "depth_mean": float(np.mean(preds[0])), "depth_std": float(np.std(preds[0]))})
         bar = 1e-4 if dt == torch.float32 else 1e-2
         check(mean_dev <= bar, f"{dt} slice mean deviation {mean_dev} > {bar}")
-        results[dt] = {"counts": counts}
+        results[dt] = {"counts": counts, "img_per_s": rate}
         del models, pipe
         torch.cuda.empty_cache()
     return results
@@ -345,7 +439,8 @@ def phase_k34(gen: torch.Generator) -> dict:
     # of dk, dv (K4); their ms per recipe micro-step, and the plain
     # version's, which computes all three in one pass
     worst = {dt: {"K3": 0.0, "K4": 0.0} for dt in DTYPES}
-    per_step = {dt: {"K3": 0.0, "K4": 0.0, "plain": 0.0} for dt in DTYPES}
+    per_step = {dt: {"K3": 0.0, "K4": 0.0, "plain": 0.0, "K3_bound": Bound(), "K4_bound": Bound(),
+                     "library": 0.0} for dt in DTYPES}
     for dt in DTYPES:
         for (bh, s, d), n in K34_RECIPE + [(x, 0) for x in K34_768]:
             q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=gen).to(dt)
@@ -363,9 +458,20 @@ def phase_k34(gen: torch.Generator) -> dict:
             ms_dq = cuda_ms(lambda: fa._flash_bwd_dq(q, k, v, do, lse, dsum, scale), 5)
             ms_dkv = cuda_ms(lambda: fa._flash_bwd_dkv(q, k, v, do, lse, dsum, scale), 5)
             plain_ms = cuda_ms(lambda: fa._flash_bwd_bhsd_ref(q, k, v, do, lse, dsum, scale), 2)
+            # SDPA's autograd backward (dq, dk, dv from its saved forward)
+            qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+            o_lib = sdpa(qg, kg, vg)
+            library_ms = cuda_ms(lambda: torch.autograd.grad(o_lib, (qg, kg, vg), do,
+                                                             retain_graph=True), 3)
+            del qg, kg, vg, o_lib
+            # K3: S, dP and dS.K; K4: S, dP, P^T.dO and dS^T.Q (2*S*S*D each)
+            b3 = bound(6.0 * bh * s * s * d, rate_of(dt), attn_bytes(bh, s, d, dt, 4, 1, 2))
+            b4 = bound(8.0 * bh * s * s * d, rate_of(dt), attn_bytes(bh, s, d, dt, 4, 2, 2))
             emit({"phase": "K3K4", "dtype": str(dt), "shape": [bh, s, d],
                   "rel_err_dq_dk_dv": rel_err, "max_abs_err_dq_dk_dv": abs_err,
-                  "ms_dq": ms_dq, "ms_dkv": ms_dkv, "plain_ms": plain_ms})
+                  "ms_dq": ms_dq, "ms_dkv": ms_dkv, "plain_ms": plain_ms,
+                  "library_ms": library_ms, "bound_ms_dq": b3.ms, "bound_ms_dkv": b4.ms,
+                  "bound_by": [b3.by, b4.by]})
             check(max(rel_err) <= K34_TOL[dt], f"K3/K4 {dt} {(bh, s, d)}: errors {rel_err}")
             if n:
                 worst[dt]["K3"] = max(worst[dt]["K3"], abs_err[0])
@@ -373,6 +479,9 @@ def phase_k34(gen: torch.Generator) -> dict:
                 per_step[dt]["K3"] += n * ms_dq
                 per_step[dt]["K4"] += n * ms_dkv
                 per_step[dt]["plain"] += n * plain_ms
+                per_step[dt]["K3_bound"] += n * b3
+                per_step[dt]["K4_bound"] += n * b4
+                per_step[dt]["library"] += n * library_ms
             del q, k, v, do, out, lse, dsum
             torch.cuda.empty_cache()
     return {"worst": worst, "per_step": per_step}
@@ -567,6 +676,180 @@ def phase_train(unet, vae, clip) -> dict:
     return {"checks": checks, "run": run}
 
 
+def int8_generator() -> torch.Generator:
+    """The int8 phases' inputs, from a generator of their own, so that the
+    earlier phases and the models draw what they drew before."""
+    return torch.Generator(device="cuda").manual_seed(SEED + 2)
+
+
+def ff_int8_trees(gen, c: int, x: torch.Tensor):
+    """QDense trees of one GEGLU feed-forward (JAX init scheme weights)
+    calibrated on its own activations, as make_calib_dense_fn does."""
+    inner, dt = 4 * c, x.dtype
+    w1 = ((torch.rand(2 * inner, c, device="cuda", generator=gen) * 2 - 1) / c ** 0.5).to(dt)
+    b1 = torch.randn(2 * inner, device="cuda", generator=gen) * 0.1
+    w2 = ((torch.rand(c, inner, device="cuda", generator=gen) * 2 - 1) / inner ** 0.5).to(dt)
+    b2 = torch.randn(c, device="cuda", generator=gen) * 0.1
+    stat = tq.mse_optimal_clip_asym(x)
+    qh = tq.quantize_dense(w1[:inner], b1[:inner], stat)
+    qg = tq.quantize_dense(w1[inner:], b1[inner:], stat)
+    a = tq.qdense_apply(qh, x) * torch.nn.functional.gelu(tq.qdense_apply(qg, x))
+    return qh, qg, tq.quantize_dense(w2, b2, tq.mse_optimal_clip_asym(a))
+
+
+def phase_k5() -> dict:
+    """K5 against its plain version at the 768^2 forward's two FF shapes
+    (batch 2), f32 and bf16; bf16 K2 time at the C=320 shape beside it."""
+    gen = int8_generator()
+    worst = {dt: 0.0 for dt in DTYPES}
+    per_forward = {dt: [0.0, 0.0, Bound()] for dt in DTYPES}  # kernel, plain ms, bound
+    for dt in DTYPES:
+        for (b, s, c), n in K5_SHAPES:
+            x = (torch.randn(b, s, c, device="cuda", generator=gen) + 0.3).to(dt)
+            trees = ff_int8_trees(gen, c, x)
+            rows, inner = b * s, 4 * c
+            y = ff.fused_geglu_ff_int8(x, *trees)
+            ref = ff._fused_geglu_ff_int8_ref(x.reshape(rows, c), *trees).reshape(x.shape)
+            torch.cuda.synchronize()
+            err = (y.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            ms = cuda_ms(lambda: ff.fused_geglu_ff_int8(x, *trees), 10)
+            plain_ms = cuda_ms(lambda: ff._fused_geglu_ff_int8_ref(x.reshape(rows, c), *trees), 5)
+            bd = bound(6.0 * rows * c * inner, "int8",
+                       2 * rows * c * elt(dt) + 3 * c * inner + 4 * (4 * c + 6 * inner))
+            rec = {"phase": "K5", "dtype": str(dt), "shape": [b, s, c], "max_abs_err": err,
+                   "output_max_abs": scale, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bd.ms, "bound_by": bd.by, "library_ms": None}
+            if c == 320:  # K2, the non-int8 kernel, on the same x
+                w1 = ((torch.rand(2 * inner, c, device="cuda", generator=gen) * 2 - 1)
+                      / c ** 0.5).to(dt)
+                w2 = ((torch.rand(c, inner, device="cuda", generator=gen) * 2 - 1)
+                      / inner ** 0.5).to(dt)
+                rec["k2_ms_same_shape"] = cuda_ms(lambda: ff.fused_geglu_ff(x, w1, None, w2,
+                                                                            None), 10)
+                del w1, w2
+            emit(rec)
+            bar = INT8_TOL["K5"][dt] * (scale if dt == torch.float32 else 1.0)
+            check(err <= bar, f"K5 {dt} {(b, s, c)}: error {err} > {bar}")
+            worst[dt] = max(worst[dt], err)
+            for i, t in enumerate((ms, plain_ms, bd)):
+                per_forward[dt][i] += n * t
+            del x, trees, y, ref
+    return {"worst": worst, "per_forward": per_forward}
+
+
+def phase_k6() -> dict:
+    """K6 against its plain version on the same int8 operands at the VAE mid
+    blocks' shapes, f32 and bf16 outputs; K1 at the same shape beside it and
+    the operands' quantization (torch, outside the kernel)."""
+    gen = int8_generator()
+    worst = {dt: 0.0 for dt in DTYPES}
+    per_forward = {dt: [0.0, 0.0, Bound()] for dt in DTYPES}
+    for dt in DTYPES:
+        for (bh, s, d), n in K6_SHAPES:
+            q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen).to(dt)
+                       for _ in range(3))
+            scale, k_blk = d ** -0.5, fa._int8_k_block(s, s, d)
+            ops = fa.int8_operands(q, k, v)
+            out = fa._flash_int8_codes(*ops, scale, k_blk, dt)
+            ref = fa._flash_int8_ref(*ops, scale, k_blk, dt)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            rel = err / ref.float().abs().max().item()
+            ms = cuda_ms(lambda: fa._flash_int8_codes(*ops, scale, k_blk, dt), 5)
+            plain_ms = cuda_ms(lambda: fa._flash_int8_ref(*ops, scale, k_blk, dt), 2)
+            quantize_ms = cuda_ms(lambda: fa.int8_operands(q, k, v), 5)
+            k1_ms = cuda_ms(lambda: fa._flash_bhsd(q, k, v, scale), 5)
+            bd = bound(4.0 * bh * s * s * d, "int8",
+                       bh * s * (3 * d + d * elt(dt) + 8) + 4 * bh * d)
+            emit({"phase": "K6", "dtype": str(dt), "shape": [bh, s, d], "k_block": k_blk,
+                  "max_abs_err": err, "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
+                  "quantize_ms": quantize_ms,
+                  "k1_ms_same_shape": k1_ms, "bound_ms": bd.ms, "bound_by": bd.by,
+                  "library_ms": None})
+            check(rel <= INT8_TOL["K6"][dt], f"K6 {dt} {(bh, s, d)}: error {rel}")
+            worst[dt] = max(worst[dt], err)
+            for i, t in enumerate((ms, plain_ms, bd)):
+                per_forward[dt][i] += n * t
+            del q, k, v, ops, out, ref
+            torch.cuda.empty_cache()
+    return {"worst": worst, "per_forward": per_forward}
+
+
+def phase_int8_slice(unet, vae, clip, fp_img_per_s: dict) -> dict:
+    """W8A8 inference in bf16 through GenPerceptPipeline (section (j))."""
+    dt = torch.bfloat16
+    images = list(natural_like_images(SEED, 4, 768))
+    call_image = natural_like_images(SEED + 1, 1, 768)[0][:480, :640]
+    forwards = len(images) // 2
+
+    def models():
+        return GenPerceptModels(unet=copy.deepcopy(unet).to(dt), vae=copy.deepcopy(vae).to(dt),
+                                clip=copy.deepcopy(clip).to(dt))
+
+    cfg = PipelineConfig(dtype=dt, **INT8_CFG)
+    pipe = GenPerceptPipeline(models(), cfg, device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    pipe.batch(images[:2], batch_size=2)  # calibration + self-check forward
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    calib_counts = fwd_counts(launch_counts())
+    outs, call_out, counts, call_counts = drive(pipe, images, call_image)
+    rate = throughput(pipe, images)
+    with reference_kernels():
+        r_outs, r_call, r_counts, r_call_counts = drive(pipe, images, call_image)
+    preds = [o.pred_np for o in outs] + [call_out.pred_np]
+    refs = [o.pred_np for o in r_outs] + [r_call.pred_np]
+    dev = np.concatenate([np.abs(p - r).ravel() for p, r in zip(preds, refs)])
+    n_layers = {g: len(t) for g, t in pipe.vae_quant.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        pipe.save_calibration(f"{tmp}/calibration.npz")
+        fresh = GenPerceptPipeline(models(), cfg, device="cuda")
+        fresh.load_calibration(f"{tmp}/calibration.npz")
+    round_trip = [o.pred_np for o in fresh.batch(images, batch_size=2)]
+    round_trip_max = max(float(np.abs(a - b).max()) for a, b in zip(round_trip, preds[:4]))
+    expect_calib = {k: CALIB_PER_FORWARD[k] + INT8_PER_FORWARD[k] for k in INT8_PER_FORWARD}
+    rec = {"phase": "int8_slice", "dtype": str(dt), "config": INT8_CFG,
+           "int8_exclude": list(cfg.int8_exclude), "quantized_layers": n_layers,
+           "calibration_batch_s": calib_s, "int8_mean_dev": pipe.int8_mean_dev,
+           "launches_calibration_batch": calib_counts, "launches_batch": counts,
+           "launches_call_480x640": call_counts,
+           "launches_reference": {"batch": r_counts, "call": r_call_counts},
+           "mean_abs_dev_vs_reference": float(dev.mean()), "max_abs_dev_vs_reference":
+           float(dev.max()), "img_per_s": rate, "img_per_s_bf16_no_int8": fp_img_per_s,
+           "round_trip_max_abs_diff": round_trip_max,
+           "depth_mean": float(np.mean(preds[0])), "depth_std": float(np.std(preds[0]))}
+    emit(rec)
+    check(calib_counts == expect_calib, f"int8 calibration batch launches {calib_counts}")
+    check(counts == {k: n * forwards for k, n in INT8_PER_FORWARD.items()},
+          f"int8 .batch launches {counts}")
+    check(call_counts == INT8_CALL_480x640, f"int8 __call__ launches {call_counts}")
+    check(not any(r_counts.values()) and not any(r_call_counts.values()),
+          "kernels launched under reference_kernels()")
+    check(all(p.shape == (768, 768) for p in preds[:4]) and preds[4].shape == (480, 640),
+          "int8 depth shapes")
+    for p in preds + refs:
+        check(bool(np.isfinite(p).all()) and p.min() >= 0.0 and p.max() <= 1.0,
+              "int8 depth not finite or outside [0, 1]")
+    check(pipe.int8_mean_dev is not None and pipe.int8_mean_dev <= 1e-2,
+          f"int8_mean_dev {pipe.int8_mean_dev} > 1e-2")
+    check(rec["mean_abs_dev_vs_reference"] <= 1e-2,
+          f"int8 kernels vs reference_kernels(): {rec['mean_abs_dev_vs_reference']}")
+    check(round_trip_max == 0.0, f"calibration round trip changed depth: {round_trip_max}")
+    del pipe, fresh
+    torch.cuda.empty_cache()
+    return {"counts": counts}
+
+
+def kernel_record(name, source, replaces, launches, max_abs_err, ms, plain_ms, bd: Bound,
+                  library_ms):
+    return {"name": name, "route": "cuda", "source": f"genpercept_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bd.ms, "bound_by": bd.by,
+            "library_ms": library_ms}
+
+
 def main() -> None:
     name = phase_device()
     phase_build()
@@ -578,27 +861,33 @@ def main() -> None:
     k34 = phase_k34(gen)
     tr = phase_train(unet, vae, clip)
     f32, bf16 = torch.float32, torch.bfloat16
+    k5 = phase_k5()
+    k6 = phase_k6()
+    i8 = phase_int8_slice(unet, vae, clip, sl[bf16]["img_per_s"])
+    # per 768^2 image (K1, K2: f32), per recipe micro-step (K3, K4: bf16),
+    # per 768^2 forward of batch 2 (K5, K6: bf16)
+    k1_img, k2_img, k34_step = k1["per_image"][f32], k2["per_image"][f32], k34["per_step"][bf16]
     emit({"kernels": [
-        {"name": "flash_attn_fwd", "route": "cuda",
-         "source": "genpercept_tpu_torch/csrc/flash_attn_fwd.cu",
-         "replaces": "genpercept_tpu/ops/flash_attention.py:39",
-         "launches": sl[f32]["counts"]["K1"], "max_abs_err": k1["worst"][f32],
-         "ms": k1["per_image"][f32][0], "plain_ms": k1["per_image"][f32][1]},
-        {"name": "fused_geglu_ff_fwd", "route": "cuda",
-         "source": "genpercept_tpu_torch/csrc/fused_geglu_ff_fwd.cu",
-         "replaces": "genpercept_tpu/ops/fused_ff.py:57",
-         "launches": sl[f32]["counts"]["K2"], "max_abs_err": k2["worst"][f32],
-         "ms": k2["per_image"][f32][0], "plain_ms": k2["per_image"][f32][1]},
-        {"name": "flash_attn_bwd_dq", "route": "cuda",
-         "source": "genpercept_tpu_torch/csrc/flash_attn_bwd.cu",
-         "replaces": "genpercept_tpu/ops/flash_attention.py:310",
-         "launches": tr["run"]["launches"]["K3"], "max_abs_err": k34["worst"][bf16]["K3"],
-         "ms": k34["per_step"][bf16]["K3"], "plain_ms": k34["per_step"][bf16]["plain"]},
-        {"name": "flash_attn_bwd_dkv", "route": "cuda",
-         "source": "genpercept_tpu_torch/csrc/flash_attn_bwd.cu",
-         "replaces": "genpercept_tpu/ops/flash_attention.py:355",
-         "launches": tr["run"]["launches"]["K4"], "max_abs_err": k34["worst"][bf16]["K4"],
-         "ms": k34["per_step"][bf16]["K4"], "plain_ms": k34["per_step"][bf16]["plain"]},
+        kernel_record("flash_attn_fwd", "flash_attn_fwd.cu",
+                      "genpercept_tpu/ops/flash_attention.py:39", sl[f32]["counts"]["K1"],
+                      k1["worst"][f32], k1_img[0], k1_img[1], k1_img[2], k1_img[3]),
+        kernel_record("fused_geglu_ff_fwd", "fused_geglu_ff_fwd.cu",
+                      "genpercept_tpu/ops/fused_ff.py:57", sl[f32]["counts"]["K2"],
+                      k2["worst"][f32], k2_img[0], k2_img[1], k2_img[2], None),
+        kernel_record("flash_attn_bwd_dq", "flash_attn_bwd.cu",
+                      "genpercept_tpu/ops/flash_attention.py:310", tr["run"]["launches"]["K3"],
+                      k34["worst"][bf16]["K3"], k34_step["K3"], k34_step["plain"],
+                      k34_step["K3_bound"], k34_step["library"]),
+        kernel_record("flash_attn_bwd_dkv", "flash_attn_bwd.cu",
+                      "genpercept_tpu/ops/flash_attention.py:355", tr["run"]["launches"]["K4"],
+                      k34["worst"][bf16]["K4"], k34_step["K4"], k34_step["plain"],
+                      k34_step["K4_bound"], k34_step["library"]),
+        kernel_record("fused_geglu_ff_int8", "fused_geglu_ff_int8.cu",
+                      "genpercept_tpu/ops/fused_ff.py:134", i8["counts"]["K5"],
+                      k5["worst"][bf16], *k5["per_forward"][bf16], None),
+        kernel_record("flash_attn_int8", "flash_attn_int8.cu",
+                      "genpercept_tpu/ops/flash_attention.py:179", i8["counts"]["K6"],
+                      k6["worst"][bf16], *k6["per_forward"][bf16], None),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -95,6 +95,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.flash_attn_bwd_dq.restype = i
     lib.flash_attn_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, f, i, p]
     lib.flash_attn_bwd_dkv.restype = i
+    lib.flash_attn_int8.argtypes = [p] * 7 + [i] * 5 + [f, i, p]
+    lib.flash_attn_int8.restype = i
+    lib.fused_geglu_ff_int8.argtypes = [p] * 15 + [i] * 4 + [p]
+    lib.fused_geglu_ff_int8.restype = i
 
 
 def load() -> ctypes.CDLL:

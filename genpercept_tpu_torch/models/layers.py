@@ -1,6 +1,7 @@
 """Shared SD2.1 building blocks as nn.Modules (NCHW activations).
 
-Counterpart of ``genpercept_tpu/models/layers.py``, exact path only. Each
+Counterpart of ``genpercept_tpu/models/layers.py``, with its int8 hooks
+(``conv_fn``/``dense_fn``/``name``) but not its ``fused`` VAE path. Each
 module's ``state_dict`` keys are the JAX param-tree keys joined with ``.``
 (the diffusers names), with PyTorch layouts: conv weights OIHW, linear
 weights (out, in). The modules hold parameters; each block is applied by a
@@ -24,7 +25,13 @@ from genpercept_tpu_torch.ops.attention import (
     dot_product_attention,
 )
 from genpercept_tpu_torch.ops.conv import conv1x1, nearest_up2_conv3x3
-from genpercept_tpu_torch.ops.fused_ff import fused_geglu_ff, supported as ff_supported
+from genpercept_tpu_torch.ops.flash_attention import flash_attention_int8
+from genpercept_tpu_torch.ops.fused_ff import (
+    fused_geglu_ff,
+    fused_geglu_ff_int8,
+    supported as ff_supported,
+    supported_int8 as ff_supported_int8,
+)
 
 
 class Norm(nn.Module):
@@ -42,6 +49,24 @@ def dense(m: nn.Linear, x: torch.Tensor) -> torch.Tensor:
 
 def conv(m: nn.Conv2d, x: torch.Tensor, stride: int = 1, padding=1) -> torch.Tensor:
     return conv2d(x, m.weight, m.bias, stride=stride, padding=padding)
+
+
+# The int8 hooks (ops/quant.py): conv_fn(name, weight, bias, x, *, kind,
+# stride, padding) and dense_fn(name, weight, bias, x), called with the
+# diffusers dotted names (the JAX package's, so that quantized trees and
+# calibration files match). None runs the layer in full precision.
+
+
+def _hooked_conv(conv_fn, name: str, m: nn.Conv2d, x: torch.Tensor, **geometry):
+    if conv_fn is None:
+        return conv(m, x, **geometry)
+    return conv_fn(name, m.weight, m.bias, x, **geometry)
+
+
+def _hooked_dense(dense_fn, name: str, m: nn.Linear, x: torch.Tensor):
+    if dense_fn is None:
+        return dense(m, x)
+    return dense_fn(name, m.weight, m.bias, x)
 
 
 def checkpointed(fn, *args, **kwargs):
@@ -90,17 +115,19 @@ class ResnetBlock(nn.Module):
 
 
 def resnet_block(p: ResnetBlock, x: torch.Tensor, temb: torch.Tensor | None = None,
-                 eps: float = 1e-5, native_norm: bool = False) -> torch.Tensor:
+                 eps: float = 1e-5, native_norm: bool = False, conv_fn=None,
+                 name: str = "") -> torch.Tensor:
     """diffusers ResnetBlock2D: GN -> SiLU -> conv -> (+temb) -> GN -> SiLU
     -> conv -> +shortcut. native_norm: GroupNorm apply in x's dtype (the
-    training decode path under remat)."""
+    training decode path under remat). conv_fn hooks conv1 and conv2 as
+    ``name``.conv1/.conv2; the shortcut stays full precision."""
     h = F.silu(group_norm(x, p.norm1.weight, p.norm1.bias, 32, eps, native_norm))
-    h = conv(p.conv1, h)
+    h = _hooked_conv(conv_fn, name + ".conv1", p.conv1, h)
     if temb is not None and hasattr(p, "time_emb_proj"):
         t = dense(p.time_emb_proj, F.silu(temb))
         h = h + t[:, :, None, None].to(h.dtype)
     h = F.silu(group_norm(h, p.norm2.weight, p.norm2.bias, 32, eps, native_norm))
-    h = conv(p.conv2, h)
+    h = _hooked_conv(conv_fn, name + ".conv2", p.conv2, h)
     if hasattr(p, "conv_shortcut"):
         x = conv1x1(x, p.conv_shortcut.weight, p.conv_shortcut.bias)
     return x + h
@@ -114,11 +141,11 @@ class Downsample(nn.Module):
         self.conv = nn.Conv2d(c, c, 3)
 
 
-def downsample2d(p: Downsample, x: torch.Tensor,
-                 asymmetric_pad: bool = False) -> torch.Tensor:
+def downsample2d(p: Downsample, x: torch.Tensor, asymmetric_pad: bool = False,
+                 conv_fn=None, name: str = "") -> torch.Tensor:
     """Stride-2 conv; the VAE encoder pads (0,1,0,1), the UNet symmetric 1."""
     pad = ((0, 1), (0, 1)) if asymmetric_pad else 1
-    return conv(p.conv, x, stride=2, padding=pad)
+    return _hooked_conv(conv_fn, name + ".conv", p.conv, x, stride=2, padding=pad)
 
 
 class Upsample(nn.Module):
@@ -127,11 +154,15 @@ class Upsample(nn.Module):
         self.conv = nn.Conv2d(c, cout or c, 3)
 
 
-def upsample2d(p: Upsample, x: torch.Tensor,
-               out_hw: tuple | None = None) -> torch.Tensor:
-    """Nearest upsample (x2 or to an explicit size) then 3x3 conv."""
+def upsample2d(p: Upsample, x: torch.Tensor, out_hw: tuple | None = None,
+               conv_fn=None, name: str = "") -> torch.Tensor:
+    """Nearest upsample (x2 or to an explicit size) then 3x3 conv. conv_fn
+    hooks the x2 form only (as the collapsed 4x4 kernel, kind "up4x4"); the
+    explicit-size form stays full precision, as in the JAX package."""
     h, w = x.shape[2:]
     if out_hw is None or tuple(out_hw) == (2 * h, 2 * w):
+        if conv_fn is not None:
+            return conv_fn(name + ".conv", p.conv.weight, p.conv.bias, x, kind="up4x4")
         return nearest_up2_conv3x3(x, p.conv.weight, p.conv.bias)
     oh, ow = out_hw
     # F.interpolate mode='nearest': src = floor(i * in / out)
@@ -152,16 +183,20 @@ class VAEAttention(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(c, c)])
 
 
-def vae_attention(p: VAEAttention, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """Single-head self-attention over spatial tokens (VAE mid block)."""
+def vae_attention(p: VAEAttention, x: torch.Tensor, eps: float = 1e-6,
+                  int8: bool = False, dense_fn=None, name: str = "") -> torch.Tensor:
+    """Single-head self-attention over spatial tokens (VAE mid block).
+    int8=True runs QK^T and PV through the int8 flash attention (inference
+    only); dense_fn hooks the four projections."""
     n, c, h, w = x.shape
     y = group_norm(x, p.group_norm.weight, p.group_norm.bias, 32, eps)
     y = y.reshape(n, c, h * w).transpose(1, 2)  # (N, HW, C)
-    q = dense(p.to_q, y)[:, :, None, :]
-    k = dense(p.to_k, y)[:, :, None, :]
-    v = dense(p.to_v, y)[:, :, None, :]
-    o = dot_product_attention(q, k, v)[:, :, 0, :]
-    o = dense(p.to_out[0], o)
+    q = _hooked_dense(dense_fn, name + ".to_q", p.to_q, y)[:, :, None, :]
+    k = _hooked_dense(dense_fn, name + ".to_k", p.to_k, y)[:, :, None, :]
+    v = _hooked_dense(dense_fn, name + ".to_v", p.to_v, y)[:, :, None, :]
+    attend = flash_attention_int8 if int8 else dot_product_attention
+    o = attend(q, k, v)[:, :, 0, :]
+    o = _hooked_dense(dense_fn, name + ".to_out.0", p.to_out[0], o)
     return x + o.transpose(1, 2).reshape(n, c, h, w)
 
 
@@ -177,17 +212,20 @@ class CrossAttention(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(c, c)])
 
 
-def cross_attention(p: CrossAttention, x: torch.Tensor,
-                    context: torch.Tensor | None, heads: int) -> torch.Tensor:
-    """x: (B, S, C); context: (B, Sk, Ck) or None for self-attention."""
+def cross_attention(p: CrossAttention, x: torch.Tensor, context: torch.Tensor | None,
+                    heads: int, dense_fn=None, name: str = "") -> torch.Tensor:
+    """x: (B, S, C); context: (B, Sk, Ck) or None for self-attention.
+    dense_fn hooks q and out (and k, v of self-attention; cross-attention's
+    k and v over the text tokens are never hooked)."""
     b, s, c = x.shape
     ctx = x if context is None else context
+    kv_fn = dense_fn if context is None else None
     d = c // heads
-    q = dense(p.to_q, x).reshape(b, s, heads, d)
-    k = dense(p.to_k, ctx).reshape(b, ctx.shape[1], heads, d)
-    v = dense(p.to_v, ctx).reshape(b, ctx.shape[1], heads, d)
+    q = _hooked_dense(dense_fn, name + ".to_q", p.to_q, x).reshape(b, s, heads, d)
+    k = _hooked_dense(kv_fn, name + ".to_k", p.to_k, ctx).reshape(b, ctx.shape[1], heads, d)
+    v = _hooked_dense(kv_fn, name + ".to_v", p.to_v, ctx).reshape(b, ctx.shape[1], heads, d)
     o = dot_product_attention(q, k, v).reshape(b, s, c)
-    return dense(p.to_out[0], o)
+    return _hooked_dense(dense_fn, name + ".to_out.0", p.to_out[0], o)
 
 
 class GEGLUProj(nn.Module):
@@ -203,15 +241,32 @@ class FeedForward(nn.Module):
         self.net = nn.ModuleDict({"0": GEGLUProj(c, inner), "2": nn.Linear(inner, c)})
 
 
-def feed_forward(p: FeedForward, x: torch.Tensor) -> torch.Tensor:
+def feed_forward(p: FeedForward, x: torch.Tensor, dense_fn=None, name: str = "") -> torch.Tensor:
     """GEGLU feed-forward. Where the TPU package takes its fused kernel
     (C == 320, rows a multiple of 512) this takes the fused GEGLU kernel;
-    elsewhere two column-half projections, exact GELU, down-projection."""
+    elsewhere two column-half projections, exact GELU, down-projection.
+
+    With dense_fn: the two halves are hooked as ``name``.net.0.proj:h / :g
+    and the down-projection as .net.2. When the hook's quantized tree holds
+    all three and the tensor is not on the CPU, the feed-forward runs as the
+    fused int8 kernel where ``supported_int8`` holds, as the JAX package does
+    on an accelerator; elsewhere the unfused composition."""
     proj, down = p.net["0"].proj, p.net["2"]
-    if ff_supported(x.shape[0], x.shape[1], x.shape[2]):
-        return fused_geglu_ff(x, proj.weight, proj.bias, down.weight, down.bias)
     inner = proj.weight.shape[0] // 2
     b = proj.bias
+    if dense_fn is not None:
+        qtree = getattr(dense_fn, "qtree", None)
+        if qtree is not None and x.device.type != "cpu":
+            qs = [qtree.get(name + k) for k in (".net.0.proj:h", ".net.0.proj:g", ".net.2")]
+            if all(q is not None for q in qs) and ff_supported_int8(*x.shape):
+                return fused_geglu_ff_int8(x, *qs)
+        hidden = dense_fn(name + ".net.0.proj:h", proj.weight[:inner],
+                          None if b is None else b[:inner], x)
+        gate = dense_fn(name + ".net.0.proj:g", proj.weight[inner:],
+                        None if b is None else b[inner:], x)
+        return _hooked_dense(dense_fn, name + ".net.2", down, hidden * F.gelu(gate))
+    if ff_supported(x.shape[0], x.shape[1], x.shape[2]):
+        return fused_geglu_ff(x, proj.weight, proj.bias, down.weight, down.bias)
     hidden = attention_projection(x, proj.weight[:inner],
                                   None if b is None else b[:inner])
     gate = attention_projection(x, proj.weight[inner:],
@@ -231,14 +286,14 @@ class TransformerBlock(nn.Module):
 
 
 def transformer_block(p: TransformerBlock, x: torch.Tensor, context: torch.Tensor,
-                      heads: int) -> torch.Tensor:
+                      heads: int, dense_fn=None, name: str = "") -> torch.Tensor:
     """BasicTransformerBlock: self-attn, cross-attn, GEGLU FF (pre-LN)."""
     h = layer_norm(x, p.norm1.weight, p.norm1.bias)
-    x = x + cross_attention(p.attn1, h, None, heads)
+    x = x + cross_attention(p.attn1, h, None, heads, dense_fn, name + ".attn1")
     h = layer_norm(x, p.norm2.weight, p.norm2.bias)
-    x = x + cross_attention(p.attn2, h, context, heads)
+    x = x + cross_attention(p.attn2, h, context, heads, dense_fn, name + ".attn2")
     h = layer_norm(x, p.norm3.weight, p.norm3.bias)
-    return x + feed_forward(p.ff, h)
+    return x + feed_forward(p.ff, h, dense_fn, name + ".ff")
 
 
 class SpatialTransformer(nn.Module):
@@ -251,15 +306,16 @@ class SpatialTransformer(nn.Module):
         self.proj_out = nn.Linear(c, c)
 
 
-def spatial_transformer(p: SpatialTransformer, x: torch.Tensor,
-                        context: torch.Tensor, heads: int) -> torch.Tensor:
+def spatial_transformer(p: SpatialTransformer, x: torch.Tensor, context: torch.Tensor,
+                        heads: int, dense_fn=None, name: str = "") -> torch.Tensor:
     """Transformer2DModel with use_linear_projection=True (SD2.1):
     GN(eps 1e-6) -> flatten -> proj_in -> blocks -> proj_out -> +residual."""
     n, c, h, w = x.shape
     y = group_norm(x, p.norm.weight, p.norm.bias, 32, 1e-6)
     y = y.reshape(n, c, h * w).transpose(1, 2)
-    y = dense(p.proj_in, y)
-    for blk in p.transformer_blocks:
-        y = transformer_block(blk, y, context, heads)
-    y = dense(p.proj_out, y)
+    y = _hooked_dense(dense_fn, name + ".proj_in", p.proj_in, y)
+    for i, blk in enumerate(p.transformer_blocks):
+        y = transformer_block(blk, y, context, heads, dense_fn,
+                              f"{name}.transformer_blocks.{i}")
+    y = _hooked_dense(dense_fn, name + ".proj_out", p.proj_out, y)
     return x + y.transpose(1, 2).reshape(n, c, h, w)

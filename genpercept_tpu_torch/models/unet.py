@@ -1,7 +1,7 @@
 """SD2.1 UNet2DConditionModel as an nn.Module (NCHW), exact path only.
 
 Counterpart of ``genpercept_tpu/models/unet.py::unet_apply`` without
-``return_features`` (the DPT head's taps) or the int8 hooks.
+``return_features`` (the DPT head's taps).
 Geometry (SD2.1): 4-channel latent, block_out_channels (320, 640, 1280,
 1280), 2 resnets per block, cross-attention on 1024-d CLIP states, heads
 (5, 10, 20, 20) of dim 64, linear projections in the transformers.
@@ -118,32 +118,45 @@ class UNet2DConditionModel(nn.Module):
 
 
 def _unit(rb, attn, h: torch.Tensor, skip: Optional[torch.Tensor],
-          temb: torch.Tensor, ctx: torch.Tensor, heads: int, eps: float) -> torch.Tensor:
+          temb: torch.Tensor, ctx: torch.Tensor, heads: int, eps: float,
+          conv_fn=None, dense_fn=None, name: str = "") -> torch.Tensor:
     """One (resnet [+ transformer]) unit, the skip concatenated first on the
-    up path: what ``remat="block"`` checkpoints."""
+    up path: what ``remat="block"`` checkpoints. ``name`` is the block's
+    path and the unit's index, e.g. "down_blocks.0.{}.1"."""
     if skip is not None:
         h = torch.cat([h, skip], dim=1)
-    h = resnet_block(rb, h, temb, eps)
+    h = resnet_block(rb, h, temb, eps, conv_fn=conv_fn, name=name.format("resnets"))
     if attn is not None:
-        h = spatial_transformer(attn, h, ctx, heads)
+        h = spatial_transformer(attn, h, ctx, heads, dense_fn, name.format("attentions"))
     return h
 
 
 def unet_apply(unet: UNet2DConditionModel, sample: torch.Tensor,
                timesteps: torch.Tensor, encoder_hidden_states: torch.Tensor,
-               remat: Optional[str] = None) -> torch.Tensor:
+               remat: Optional[str] = None, conv_fn=None, dense_fn=None) -> torch.Tensor:
     """sample: (N, 4, h, w); timesteps: (N,) or scalar; text states
     (N, 77, ctx). Returns the v-prediction (N, 4, h, w).
 
     remat (training): "unet" recomputes the whole UNet forward in the
     backward (one checkpoint, the JAX training step's ``jax.checkpoint``
     around it); "block" checkpoints each (resnet [+ transformer]) unit, so
-    the backward holds one unit's internals at a time."""
+    the backward holds one unit's internals at a time.
+
+    conv_fn / dense_fn (ops/quant.py, inference only) hook every resnet,
+    down- and upsampler conv and every transformer projection and
+    feed-forward matmul; conv_in/conv_out, the time embedding,
+    cross-attention k/v and the attention itself stay full precision."""
+    hooked = conv_fn is not None or dense_fn is not None
+    if remat is not None and hooked:
+        raise ValueError("remat is a training feature; the int8 hooks are inference")
     if remat == "unet":
         return checkpointed(unet_apply, unet, sample, timesteps, encoder_hidden_states)
     if remat not in (None, "block"):
         raise ValueError(f"remat={remat!r}")
-    unit = functools.partial(checkpointed, _unit) if remat == "block" else _unit
+    if remat == "block":
+        unit = functools.partial(checkpointed, _unit)
+    else:
+        unit = functools.partial(_unit, conv_fn=conv_fn, dense_fn=dense_fn)
     cfg = unet.cfg
     chans = cfg.block_out_channels
     ctx = encoder_hidden_states
@@ -160,27 +173,29 @@ def unet_apply(unet: UNet2DConditionModel, sample: torch.Tensor,
         attns = getattr(blk, "attentions", None)
         for j, rb in enumerate(blk.resnets):
             h = unit(rb, None if attns is None else attns[j], h, None, temb, ctx,
-                     cfg.attention_heads[i], eps)
+                     cfg.attention_heads[i], eps, name=f"down_blocks.{i}.{{}}.{j}")
             residuals.append(h)
         if hasattr(blk, "downsamplers"):
-            h = downsample2d(blk.downsamplers[0], h)
+            h = downsample2d(blk.downsamplers[0], h, conv_fn=conv_fn,
+                             name=f"down_blocks.{i}.downsamplers.0")
             residuals.append(h)
 
     mid = unet.mid_block
     h = unit(mid.resnets[0], mid.attentions[0], h, None, temb, ctx,
-             cfg.attention_heads[-1], eps)
-    h = unit(mid.resnets[1], None, h, None, temb, ctx, 0, eps)
+             cfg.attention_heads[-1], eps, name="mid_block.{}.0")
+    h = unit(mid.resnets[1], None, h, None, temb, ctx, 0, eps, name="mid_block.{}.1")
 
     rev_heads = tuple(reversed(cfg.attention_heads))
     for i, blk in enumerate(unet.up_blocks):
         attns = getattr(blk, "attentions", None)
         for j, rb in enumerate(blk.resnets):
             h = unit(rb, None if attns is None else attns[j], h, residuals.pop(), temb,
-                     ctx, rev_heads[i], eps)
+                     ctx, rev_heads[i], eps, name=f"up_blocks.{i}.{{}}.{j}")
         if hasattr(blk, "upsamplers"):
             # match the next skip's spatial size (diffusers upsample_size)
             target = tuple(residuals[-1].shape[2:]) if residuals else None
-            h = upsample2d(blk.upsamplers[0], h, target)
+            h = upsample2d(blk.upsamplers[0], h, target, conv_fn=conv_fn,
+                           name=f"up_blocks.{i}.upsamplers.0")
 
     out = F.silu(group_norm(h, unet.conv_norm_out.weight, unet.conv_norm_out.bias,
                             32, eps))

@@ -1,6 +1,6 @@
 """SD2.1 AutoencoderKL (VAE) as an nn.Module, NCHW.
 
-Counterpart of ``genpercept_tpu/models/vae.py``, exact path only:
+Counterpart of ``genpercept_tpu/models/vae.py`` without its ``fused`` path:
   encode: encoder -> quant_conv -> posterior mean (first 4 ch) * 0.18215
   decode: / 0.18215 -> post_quant_conv -> decoder
 State-dict keys are the diffusers names (encoder.down_blocks.N.resnets.M...).
@@ -122,55 +122,72 @@ def _gn_silu_conv(h, norm: Norm, conv_m: nn.Conv2d, groups: int,
     return conv(conv_m, h)
 
 
-def vae_encoder_apply(vae: AutoencoderKL, x: torch.Tensor) -> torch.Tensor:
-    """x: (N, 3, H, W) in [-1, 1] -> moments (N, 8, H/8, W/8)."""
+def vae_encoder_apply(vae: AutoencoderKL, x: torch.Tensor, conv_fn=None,
+                      attn_int8: bool = False, dense_fn=None) -> torch.Tensor:
+    """x: (N, 3, H, W) in [-1, 1] -> moments (N, 8, H/8, W/8).
+
+    conv_fn (ops/quant.py) hooks every resnet and downsampler conv; conv_in,
+    conv_out and the shortcuts stay full precision. attn_int8 runs the
+    mid-block attention through the int8 flash attention and dense_fn hooks
+    its projections (inference only)."""
     enc, cfg = vae.encoder, vae.cfg
     h = conv(enc.conv_in, x)
-    for blk in enc.down_blocks:
-        for rb in blk.resnets:
-            h = resnet_block(rb, h, None, eps=1e-6)
+    for i, blk in enumerate(enc.down_blocks):
+        for j, rb in enumerate(blk.resnets):
+            h = resnet_block(rb, h, None, eps=1e-6, conv_fn=conv_fn,
+                             name=f"encoder.down_blocks.{i}.resnets.{j}")
         if hasattr(blk, "downsamplers"):
-            h = downsample2d(blk.downsamplers[0], h, asymmetric_pad=True)
+            h = downsample2d(blk.downsamplers[0], h, asymmetric_pad=True, conv_fn=conv_fn,
+                             name=f"encoder.down_blocks.{i}.downsamplers.0")
     mid = enc.mid_block
-    h = resnet_block(mid.resnets[0], h, None, eps=1e-6)
-    h = vae_attention(mid.attentions[0], h)
-    h = resnet_block(mid.resnets[1], h, None, eps=1e-6)
+    h = resnet_block(mid.resnets[0], h, None, eps=1e-6, conv_fn=conv_fn,
+                     name="encoder.mid_block.resnets.0")
+    h = vae_attention(mid.attentions[0], h, int8=attn_int8, dense_fn=dense_fn,
+                      name="encoder.mid_block.attentions.0")
+    h = resnet_block(mid.resnets[1], h, None, eps=1e-6, conv_fn=conv_fn,
+                     name="encoder.mid_block.resnets.1")
     h = _gn_silu_conv(h, enc.conv_norm_out, enc.conv_out, cfg.norm_num_groups)
     return conv1x1(h, vae.quant_conv.weight, vae.quant_conv.bias)
 
 
-def vae_encode(vae: AutoencoderKL, x: torch.Tensor) -> torch.Tensor:
+def vae_encode(vae: AutoencoderKL, x: torch.Tensor, conv_fn=None,
+               attn_int8: bool = False, dense_fn=None) -> torch.Tensor:
     """Deterministic latent: posterior mean, scaled. (N, 3, H, W) -> (N, 4, h, w)."""
-    moments = vae_encoder_apply(vae, x)
+    moments = vae_encoder_apply(vae, x, conv_fn, attn_int8, dense_fn)
     return moments[:, : vae.cfg.latent_channels] * vae.cfg.scaling_factor
 
 
-def vae_decode(vae: AutoencoderKL, z: torch.Tensor, remat: bool = False) -> torch.Tensor:
+def vae_decode(vae: AutoencoderKL, z: torch.Tensor, remat: bool = False, conv_fn=None,
+               attn_int8: bool = False, dense_fn=None) -> torch.Tensor:
     """z: (N, 4, h, w) scaled latent -> (N, 3, 8h, 8w).
 
     remat=True (training, gradients flowing through the frozen decoder):
     each resnet block, the attention and each upsampler is checkpointed, so
     only block boundaries are saved for the backward, and the GroupNorm
-    apply runs in the compute dtype, as the JAX package's decode under remat."""
+    apply runs in the compute dtype, as the JAX package's decode under remat.
+    conv_fn, attn_int8 and dense_fn: the int8 hooks, as in vae_encoder_apply."""
     cfg, dec = vae.cfg, vae.decoder
 
     def ckpt(fn, *args, **kwargs):
         return checkpointed(fn, *args, **kwargs) if remat else fn(*args, **kwargs)
 
-    def rb(p, h):
-        return ckpt(resnet_block, p, h, None, eps=1e-6, native_norm=remat)
+    def rb(p, h, name):
+        return ckpt(resnet_block, p, h, None, eps=1e-6, native_norm=remat,
+                    conv_fn=conv_fn, name=name)
 
     z = z / cfg.scaling_factor
     z = conv1x1(z, vae.post_quant_conv.weight, vae.post_quant_conv.bias)
     h = conv(dec.conv_in, z)
     mid = dec.mid_block
-    h = rb(mid.resnets[0], h)
-    h = ckpt(vae_attention, mid.attentions[0], h)
-    h = rb(mid.resnets[1], h)
-    for blk in dec.up_blocks:
-        for p in blk.resnets:
-            h = rb(p, h)
+    h = rb(mid.resnets[0], h, "decoder.mid_block.resnets.0")
+    h = ckpt(vae_attention, mid.attentions[0], h, int8=attn_int8, dense_fn=dense_fn,
+             name="decoder.mid_block.attentions.0")
+    h = rb(mid.resnets[1], h, "decoder.mid_block.resnets.1")
+    for i, blk in enumerate(dec.up_blocks):
+        for j, p in enumerate(blk.resnets):
+            h = rb(p, h, f"decoder.up_blocks.{i}.resnets.{j}")
         if hasattr(blk, "upsamplers"):
-            h = ckpt(upsample2d, blk.upsamplers[0], h)
+            h = ckpt(upsample2d, blk.upsamplers[0], h, conv_fn=conv_fn,
+                     name=f"decoder.up_blocks.{i}.upsamplers.0")
     return _gn_silu_conv(h, dec.conv_norm_out, dec.conv_out, cfg.norm_num_groups,
                          native_norm=remat)

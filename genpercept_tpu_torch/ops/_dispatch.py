@@ -54,8 +54,10 @@ def stream_handle(x: torch.Tensor) -> int:
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def dtype_code(x: torch.Tensor, name: str) -> int:
+def dtype_code(x: torch.Tensor | torch.dtype, name: str) -> int:
+    """The kernels' code for a tensor's dtype (or a dtype); raise on others."""
+    dtype = x if isinstance(x, torch.dtype) else x.dtype
     try:
-        return _DTYPE_CODES[x.dtype]
+        return _DTYPE_CODES[dtype]
     except KeyError:
-        raise ValueError(f"{name}: no kernel for dtype {x.dtype}") from None
+        raise ValueError(f"{name}: no kernel for dtype {dtype}") from None

@@ -11,7 +11,9 @@ memory:
 - K3 ``flash_attn_bwd_dq`` and K4 ``flash_attn_bwd_dkv`` in
   ``csrc/flash_attn_bwd.cu`` (TPU ``_flash_bwd_dq_kernel`` and
   ``_flash_bwd_dkv_kernel``), via ``_flash_bwd_bhsd``: dq, and dk with dv,
-  from the saved ``lse2`` and ``dsum = rowsum(dO*O)``.
+  from the saved ``lse2`` and ``dsum = rowsum(dO*O)``;
+- K6 ``csrc/flash_attn_int8.cu`` (TPU ``_flash_int8_kernel``), via
+  ``_flash_int8_codes``: the inference-only W8A8 attention (section below).
 
 ``flash_attention`` is differentiable: an autograd Function whose forward is
 K1 and whose backward is K3 and K4, as the JAX package's ``custom_vjp``.
@@ -236,3 +238,122 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not supported(sq, sk, d):
         raise ValueError(f"flash_attention unsupported shape {(sq, sk, d)}")
     return FlashAttention.apply(q, k, v, scale)
+
+
+# ------------------------------------------------- int8 forward (d=512)
+#
+# K6 ``csrc/flash_attn_int8.cu`` replaces the TPU kernel _flash_int8_kernel
+# (reached through _flash_int8_bhsd). q and k arrive as int8 with per-row f32
+# scales, v as int8 with per-column scales, quantized here in torch as the
+# JAX package does in XLA. Per k block of the TPU kernel's partition
+# (``_blocks(sq, sk, d)[1]``): logits s32 * (qs * ks), the base-2 online
+# softmax, pq = round(p * 127) as int8 against the running max at the end of
+# the block, the same pq into PV (int32) and into the row sum; out =
+# acc * vs / l. Because pq is rounded against the max of a whole block, the
+# result depends on the block partition, and kernel and plain version take
+# the TPU's.
+
+
+def _rowq(x: torch.Tensor, dim: int):
+    """Symmetric int8 along ``dim`` (per row: -1; per column of v: 1) ->
+    (codes, f32 scales with ``dim`` kept)."""
+    xf = x.float()
+    s = xf.abs().amax(dim=dim, keepdim=True).clamp_min(1e-8) / 127.0
+    return torch.clamp(torch.round(xf / s), -127.0, 127.0).to(torch.int8), s
+
+
+def _int8_k_block(sq: int, sk: int, d: int) -> int:
+    k_blk = _blocks(sq, sk, d)[1]
+    if k_blk is None:
+        raise ValueError(f"flash_attention_int8: no k block for {(sq, sk, d)}")
+    return k_blk
+
+
+def _flash_int8_ref(q8, k8, v8, qs, ks, vs, scale: float, k_blk: int,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of K6: the TPU kernel's per-block steps on whole
+    (Sq, k_blk) blocks, int32 products on torch._int_mm. q8/k8/v8 (BH, S, D)
+    int8, qs (BH, Sq, 1), ks (BH, Sk, 1), vs (BH, 1, D) f32 -> (BH, Sq, D)."""
+    from genpercept_tpu_torch.ops.quant import int8_matmul
+
+    bh, sq, d = q8.shape
+    c = scale * _LOG2E
+    out = torch.empty((bh, sq, d), dtype=dtype, device=q8.device)
+    for b in range(bh):
+        m = torch.full((sq, 1), -1e30, device=q8.device)
+        acc = torch.zeros((sq, d), device=q8.device)
+        l = torch.zeros((sq, 1), device=q8.device)
+        for k0 in range(0, k8.shape[1], k_blk):
+            s32 = int8_matmul(q8[b], k8[b, k0:k0 + k_blk])
+            s = s32.float() * (qs[b] * ks[b, k0:k0 + k_blk, 0][None, :])
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            pq = torch.round(torch.exp2(s * c - m_new * c) * 127.0).to(torch.int8)
+            alpha = torch.exp2((m - m_new) * c)
+            m = m_new
+            pv = int8_matmul(pq, v8[b, k0:k0 + k_blk].t().contiguous())
+            acc = acc * alpha + pv.float()
+            l = l * alpha + pq.float().sum(dim=-1, keepdim=True)
+        out[b] = (acc * vs[b] / l).to(dtype)
+    return out
+
+
+def int8_operands(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor):
+    """K6's operands, quantized in torch as the JAX package does in XLA:
+    q and k per row, v per column -> (q8, k8, v8, qs, ks, vs)."""
+    q8, qs = _rowq(qh, -1)
+    k8, ks = _rowq(kh, -1)
+    v8, vs = _rowq(vh, 1)
+    return q8, k8, v8, qs, ks, vs
+
+
+def _flash_int8_codes(q8, k8, v8, qs, ks, vs, scale: float, k_blk: int,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """K6 on int8 operands (see _flash_int8_ref) -> (BH, Sq, D) in dtype.
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if not _dispatch.use_kernel(q8):
+        return _flash_int8_ref(q8, k8, v8, qs, ks, vs, scale, k_blk, dtype)
+    bh, sq, d = q8.shape
+    sk = k8.shape[1]
+    code = _dispatch.dtype_code(dtype, "flash_attention_int8")
+    if (d != 512 or k_blk % 64 or k_blk > 1536 or sk % k_blk
+            or k8.shape != (bh, sk, d) or v8.shape != (bh, sk, d)
+            or qs.shape != (bh, sq, 1) or ks.shape != (bh, sk, 1) or vs.shape != (bh, 1, d)
+            or any(t.dtype != torch.int8 for t in (q8, k8, v8))
+            or any(t.dtype != torch.float32 for t in (qs, ks, vs))
+            or any(t.device != q8.device for t in (k8, v8, qs, ks, vs))):
+        raise ValueError(f"flash_attention_int8: no kernel for q {tuple(q8.shape)}, "
+                         f"k {tuple(k8.shape)}, v {tuple(v8.shape)}, k block {k_blk}")
+    q8, k8, qs, ks, vs = (t.contiguous() for t in (q8, k8, qs, ks, vs))
+    vt = v8.transpose(1, 2).contiguous()  # (BH, D, Sk): PV's B operand, k-major
+    out = torch.empty((bh, sq, d), dtype=dtype, device=q8.device)
+    err = _build.load().flash_attn_int8(
+        q8.data_ptr(), k8.data_ptr(), vt.data_ptr(), qs.data_ptr(), ks.data_ptr(),
+        vs.data_ptr(), out.data_ptr(), bh, sq, sk, d, k_blk,
+        ctypes.c_float(scale * _LOG2E), code, _dispatch.stream_handle(q8))
+    _build.check(err, "flash_attn_int8")
+    _flash_int8_codes.launches += 1
+    return out
+
+
+_flash_int8_codes.launches = 0
+
+
+def _flash_int8_bhsd(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+                     scale: float) -> torch.Tensor:
+    """qh: (BH, Sq, D), kh/vh: (BH, Sk, D) float -> (BH, Sq, D) in qh's
+    dtype: the operands quantized, then K6 with the TPU's k-block partition."""
+    k_blk = _int8_k_block(qh.shape[1], kh.shape[1], qh.shape[2])
+    return _flash_int8_codes(*int8_operands(qh, kh, vh), scale, k_blk, qh.dtype)
+
+
+def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: float | None = None) -> torch.Tensor:
+    """Inference-only int8 flash attention, (B, S, H, D) in and out, for the
+    VAE mid block's one head of d=512."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    out = _flash_int8_bhsd(_to_bhsd(q, b, sq, h, d), _to_bhsd(k, b, sk, h, d),
+                           _to_bhsd(v, b, sk, h, d), scale)
+    return _from_bhsd(out, b, sq, h, d)

@@ -11,6 +11,9 @@ rounded again, then the down-projection accumulated in f32.
 Weights are in PyTorch's Linear layouts: w1 (2*inner, C) holding the hidden
 rows then the gate rows, w2 (C, inner).
 
+A second kernel, K5 ``csrc/fused_geglu_ff_int8.cu``, runs the W8A8 feed-forward
+of int8 inference (``fused_geglu_ff_int8``, section below).
+
 ``fused_geglu_ff`` is differentiable, as the JAX package's ``custom_vjp``:
 the forward is the kernel and saves only the inputs; the backward recomputes
 the plain composition (``_geglu_ff_composition``, the rounding points of
@@ -155,3 +158,88 @@ def fused_geglu_ff(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor | None,
                    w2: torch.Tensor, b2: torch.Tensor | None) -> torch.Tensor:
     """x: (B, S, C) -> (B, S, C). Differentiable: K2 forward, plain backward."""
     return FusedGegluFF.apply(x, w1, b1, w2, b2)
+
+
+# ------------------------------------------------------- int8 (W8A8) path
+#
+# K5 ``csrc/fused_geglu_ff_int8.cu`` replaces the TPU kernel _kernel_int8
+# (reached through fused_geglu_ff_int8): per row, quantize x (shifted by
+# zp) with the hidden half's scales, two int8 products against W_h and W_g,
+# int32 -> f32 * o_scale + bias, h and g rounded to x's dtype, the GEGLU
+# product with XLA's erf rounded to x's dtype, a quantized with the
+# down-projection's zp and scales, an int8 product against W2, the
+# epilogue. Every f32 step is one rounded operation, in both versions.
+
+
+def supported_int8(b: int, s: int, c: int) -> bool:
+    """The TPU package's routing predicate for the int8 kernel: C=320 with
+    rows a multiple of 512, C=640 with rows a multiple of 256."""
+    if c == 320:
+        return (b * s) % 512 == 0
+    if c == 640:
+        return (b * s) % 256 == 0
+    return False
+
+
+def _fused_geglu_ff_int8_ref(x2: torch.Tensor, qh, qg, q2) -> torch.Tensor:
+    """Plain version of K5 on (rows, C); int32 products on torch._int_mm."""
+    from genpercept_tpu_torch.ops.quant import int8_matmul, quantize_activation
+
+    dt = x2.dtype
+
+    def epilogue(acc, q):
+        y = acc.float() * q.o_scale
+        return y if q.bias is None else y + q.bias
+
+    xq = quantize_activation(x2, qh.inv_a, qh.zp)
+    h = epilogue(int8_matmul(xq, qh.w_int8), qh).to(dt).float()
+    g = epilogue(int8_matmul(xq, qg.w_int8), qg).to(dt).float()
+    a = (h * (0.5 * g * (1.0 + _erf_f32(g * 2.0 ** -0.5)))).to(dt).float()
+    aq = quantize_activation(a, q2.inv_a, q2.zp)
+    return epilogue(int8_matmul(aq, q2.w_int8), q2).to(dt)
+
+
+def _vec(v: torch.Tensor | None, n: int, device) -> torch.Tensor:
+    if v is None:
+        return torch.zeros(n, dtype=torch.float32, device=device)
+    return v.float().contiguous()
+
+
+def fused_geglu_ff_int8(x: torch.Tensor, qh, qg, q2) -> torch.Tensor:
+    """K5. x: (B, S, C); qh/qg: QDense of the GEGLU hidden/gate halves
+    (w_int8 (inner, C)), q2: QDense of the down-projection (w_int8
+    (C, inner)) -> (B, S, C) in x's dtype. Inference only. qg shares qh's
+    input scales (both were calibrated on the same x), as in the TPU kernel.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    bsz, s, c = x.shape
+    rows = bsz * s
+    x2 = x.reshape(rows, c)
+    if not _dispatch.use_kernel(x):
+        return _fused_geglu_ff_int8_ref(x2, qh, qg, q2).reshape(bsz, s, c)
+    code = _dispatch.dtype_code(x, "fused_geglu_ff_int8")
+    inner = qh.w_int8.shape[0]
+    if (c not in (320, 640) or inner % 64 or qh.w_int8.shape != (inner, c)
+            or qg.w_int8.shape != (inner, c) or q2.w_int8.shape != (c, inner)
+            or any(q.w_int8.dtype != torch.int8 or q.w_int8.device != x.device
+                   for q in (qh, qg, q2))):
+        raise ValueError(f"fused_geglu_ff_int8: no kernel for x {tuple(x.shape)}, "
+                         f"w_h {tuple(qh.w_int8.shape)}, w2 {tuple(q2.w_int8.shape)}")
+    dev = x.device
+    x2 = x2.contiguous()
+    ws = [q.w_int8.contiguous() for q in (qh, qg, q2)]
+    vecs = [_vec(qh.inv_a, c, dev), _vec(qh.zp, c, dev),
+            _vec(qh.o_scale, inner, dev), _vec(qh.bias, inner, dev),
+            _vec(qg.o_scale, inner, dev), _vec(qg.bias, inner, dev),
+            _vec(q2.inv_a, inner, dev), _vec(q2.zp, inner, dev),
+            _vec(q2.o_scale, c, dev), _vec(q2.bias, c, dev)]
+    y = torch.empty_like(x2)
+    err = _build.load().fused_geglu_ff_int8(
+        x2.data_ptr(), *(w.data_ptr() for w in ws), *(v.data_ptr() for v in vecs),
+        y.data_ptr(), rows, c, inner, code, _dispatch.stream_handle(x))
+    _build.check(err, "fused_geglu_ff_int8")
+    fused_geglu_ff_int8.launches += 1
+    return y.reshape(bsz, s, c)
+
+
+fused_geglu_ff_int8.launches = 0

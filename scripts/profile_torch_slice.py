@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Where the device time of the PyTorch port's one-step slice goes, on one GPU.
 
-    python3 scripts/profile_torch_slice.py [--out FILE.json]
+    python3 scripts/profile_torch_slice.py [--int8] [--out FILE.json]
 
 Builds the configuration of chip_smoke.py (SD2.1 at full width, seeded
 random weights), warms a GenPerceptPipeline up with one .batch of two
 768x768 images, then traces one more such .batch with torch.profiler, in
-f32 (TF32 off) and in bf16. From the device events of the trace (kernels,
+f32 (TF32 off) and in bf16; with --int8, W8A8 inference in bf16 instead
+(chip_smoke.INT8_CFG: the warm-up .batch calibrates, the traced one runs
+int8). From the device events of the trace (kernels,
 copies, memsets; profiler overhead and annotations left out) it prints one
 JSON line per dtype:
 
@@ -37,17 +39,20 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from chip_smoke import SEED, build_models, phase_device  # noqa: E402
+from chip_smoke import INT8_CFG, SEED, build_models, phase_device  # noqa: E402
 from genpercept_tpu_torch.pipeline import (  # noqa: E402
     GenPerceptModels, GenPerceptPipeline, PipelineConfig)
 
 FAMILIES = [  # (family, pattern on the kernel name); first match wins
+    ("K5 fused_geglu_ff_int8", r"ff_int8_kernel"),
+    ("K6 flash_attn_int8", r"flash_int8_kernel"),
     ("K1 flash_attn_fwd", r"flash_attn_fwd"),
     ("K2 fused_geglu_ff", r"fused_geglu_ff"),
     ("convolution (cuDNN, incl. layout transposes)",
      r"conv|fprop|nchwToNhwc|nhwcToNchw|cudnn"),
     ("GEMM (cuBLAS)", r"gemm|cutlass|cublas"),
-    ("copies and dtype casts", r"copy|Memcpy|Memset"),
+    ("copies, concatenations (incl. int8 im2col) and dtype casts",
+     r"copy|Copy|Memcpy|Memset|CatArray"),
     ("reductions (GN/LN statistics)", r"reduce|welford|norm"),
     ("elementwise", r"elementwise"),
 ]
@@ -111,6 +116,7 @@ def summarize(prof, wall_ms: float) -> dict:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="JSON file for the full kernel tables")
+    parser.add_argument("--int8", action="store_true", help="profile W8A8 inference (bf16)")
     args = parser.parse_args()
     phase_device()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -118,19 +124,21 @@ def main() -> None:
     images = [(rng.uniform(size=(768, 768, 3)) * 255).astype(np.uint8) for _ in range(2)]
     unet, vae, clip = build_models(gen)
     records = []
-    for dt in (torch.float32, torch.bfloat16):
+    runs = [(torch.bfloat16, INT8_CFG)] if args.int8 else [(torch.float32, {}),
+                                                           (torch.bfloat16, {})]
+    for dt, int8 in runs:
         models = GenPerceptModels(
             unet=copy.deepcopy(unet).to(dt), vae=copy.deepcopy(vae).to(dt),
             clip=copy.deepcopy(clip).to(dt))
-        pipe = GenPerceptPipeline(models, PipelineConfig(dtype=dt), device="cuda")
-        pipe.batch(images, batch_size=2)  # warm-up: kernel build, cuDNN plans
+        pipe = GenPerceptPipeline(models, PipelineConfig(dtype=dt, **int8), device="cuda")
+        pipe.batch(images, batch_size=2)  # warm-up: kernel build, cuDNN plans, calibration
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             pipe.batch(images, batch_size=2)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1000.0
-        rec = {"dtype": str(dt), "images": len(images), "batch_size": 2,
+        rec = {"dtype": str(dt), "int8": bool(int8), "images": len(images), "batch_size": 2,
                **summarize(prof, wall_ms)}
         records.append(rec)
         print(json.dumps({k: v for k, v in rec.items() if k != "all"}), flush=True)

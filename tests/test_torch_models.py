@@ -284,3 +284,100 @@ def test_kernel_launches_per_forward_match_jax_routing(image_hw, k1, k2, monkeyp
 
     assert (seen["jk1"], seen["jk2"]) == (k1, k2)
     assert (seen["tk1"], seen["tk2"]) == (k1, k2)
+
+
+class _AllFF(dict):
+    """A quantized tree that holds every feed-forward matmul (routing only)."""
+
+    def get(self, key, default=None):
+        return object() if ".ff.net." in key else default
+
+
+@pytest.mark.parametrize("mode", ["calibrate", "quant"])
+@pytest.mark.parametrize("image_hw,quant_counts", [
+    ((768, 768), {"k1": 15, "k2": 0, "k5": 10, "k6": 2}),
+    ((576, 768), {"k1": 5, "k2": 0, "k5": 0, "k6": 2}),
+])
+def test_int8_kernel_launches_per_forward_match_jax_routing(image_hw, quant_counts, mode,
+                                                             monkeypatch):
+    """W8A8 inference at full SD2.1 width (int8_vae, int8_unet,
+    int8_unet_ff, int8_vae_attn): one forward sends as many calls to each
+    kernel in the port as JAX to its Pallas kernel on an accelerator (JAX
+    traced abstractly with its backend reported as "tpu", the port on the
+    meta device, kernels stubbed by counters). The calibration pass hooks
+    every layer with full-precision calibration functions and keeps the
+    attention full precision: K1 as without int8 (17 / 7), no K2 (the FFs
+    go through the hooks), no K5 or K6. The quantized pass: the VAE mid
+    blocks take K6 from K1, and the level-0 and level-1 FFs (C=320 with
+    rows % 512 == 0, C=640 with rows % 256 == 0) take K5."""
+    import genpercept_tpu.ops.flash_attention as jfa
+    import genpercept_tpu.ops.fused_ff as jff
+    from genpercept_tpu.ops.attention import attention_projection as j_proj
+    from genpercept_tpu.ops.conv import conv2d as j_conv, nearest_up2_conv3x3 as j_up
+    from genpercept_tpu_torch.ops import flash_attention as tfa
+    from genpercept_tpu_torch.ops import quant as tq
+    from genpercept_tpu_torch.ops.attention import attention_projection as t_proj
+
+    seen = {f"{p}{k}": 0 for p in "jt" for k in ("k1", "k2", "k5", "k6")}
+
+    def bump(name, result):
+        seen[name] += 1
+        return result
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jfa, "flash_attention",
+                        lambda q, k, v, scale=None: bump("jk1", jnp.zeros_like(q)))
+    monkeypatch.setattr(jfa, "flash_attention_int8",
+                        lambda q, k, v, scale=None: bump("jk6", jnp.zeros_like(q)))
+    monkeypatch.setattr(jff, "fused_geglu_ff", lambda x, *a: bump("jk2", jnp.zeros_like(x)))
+    monkeypatch.setattr(jff, "fused_geglu_ff_int8",
+                        lambda x, *a, **k: bump("jk5", jnp.zeros_like(x)))
+    monkeypatch.setattr(tfa, "_flash_bhsd", lambda qh, kh, vh, scale: bump(
+        "tk1", (torch.empty_like(qh), torch.empty(qh.shape[:2] + (1,), device=qh.device))))
+    monkeypatch.setattr(TL, "fused_geglu_ff", lambda x, *a: bump("tk2", torch.empty_like(x)))
+    monkeypatch.setattr(TL, "fused_geglu_ff_int8",
+                        lambda x, *a: bump("tk5", torch.empty_like(x)))
+    monkeypatch.setattr(TL, "flash_attention_int8",
+                        lambda q, k, v: bump("tk6", torch.empty_like(q)))
+
+    def j_conv_fn(name, p, x, *, kind="3x3", stride=1, padding=1):
+        if kind == "up4x4":
+            return j_up(x, p["weight"], p.get("bias"))
+        return j_conv(x, p["weight"], p.get("bias"), stride=stride, padding=padding)
+
+    def j_dense_fn(name, p, x):
+        return j_proj(x, p["weight"], p.get("bias"))
+
+    def t_conv_fn(name, w, b, x, *, kind="3x3", stride=1, padding=1):
+        return tq._fp_conv(w, b, x, kind, stride, padding)
+
+    def t_dense_fn(name, w, b, x):
+        return t_proj(x, w, b)
+
+    quant = mode == "quant"
+    if quant:
+        j_dense_fn.qtree = t_dense_fn.qtree = _AllFF()
+    hooks_j = dict(conv_fn=j_conv_fn, dense_fn=j_dense_fn)
+    hooks_t = dict(conv_fn=t_conv_fn, dense_fn=t_dense_fn)
+
+    h, w = image_hw
+    lat = (1, h // 8, w // 8, 4)
+    vae_p = jax.eval_shape(j_vae.init_vae, jax.random.key(0))
+    jax.eval_shape(lambda p, x: j_vae.vae_encode(p, x, attn_int8=quant, **hooks_j), vae_p,
+                   jax.ShapeDtypeStruct((1, h, w, 3), jnp.float32))
+    jax.eval_shape(lambda p, z, c: j_unet.unet_apply(p, z, jnp.asarray(1), c, **hooks_j),
+                   jax.eval_shape(j_unet.init_unet, jax.random.key(0)),
+                   jax.ShapeDtypeStruct(lat, jnp.float32),
+                   jax.ShapeDtypeStruct((1, 77, 1024), jnp.float32))
+    jax.eval_shape(lambda p, z: j_vae.vae_decode(p, z, attn_int8=quant, **hooks_j), vae_p,
+                   jax.ShapeDtypeStruct(lat, jnp.float32))
+
+    with torch.device("meta"), torch.no_grad():
+        vae, unet = t_vae.AutoencoderKL(), t_unet.UNet2DConditionModel()
+        z = t_vae.vae_encode(vae, torch.empty(1, 3, h, w), attn_int8=quant, **hooks_t)
+        v = t_unet.unet_apply(unet, z, torch.tensor(1), torch.empty(1, 77, 1024), **hooks_t)
+        t_vae.vae_decode(vae, -v, attn_int8=quant, **hooks_t)
+
+    want = quant_counts if quant else {"k1": quant_counts["k1"] + 2, "k2": 0, "k5": 0, "k6": 0}
+    assert {k: seen["j" + k] for k in want} == want
+    assert {k: seen["t" + k] for k in want} == want

@@ -55,7 +55,8 @@ def pipes():
     vae.load_state_dict(state_dict_from_jax(vae_p), strict=True)
     tmodels = GenPerceptModels(unet=unet, vae=vae, text_embed=torch.from_numpy(embed))
     jpipe = JPipeline(jmodels, JConfig(mode="depth", processing_res=64))
-    tpipe = GenPerceptPipeline(tmodels, PipelineConfig(mode="depth", processing_res=64))
+    tpipe = GenPerceptPipeline(tmodels, PipelineConfig(mode="depth", processing_res=64),
+                               device="cpu")
     return jpipe, tpipe
 
 
@@ -114,12 +115,39 @@ def test_batch_needs_batch_size(pipes):
 
 @pytest.mark.parametrize("field,value", [
     ("arch", "marigold"), ("ensemble_size", 3), ("fused_vae", True),
-    ("int8_vae", True), ("int8_unet_ff", True), ("fix_timesteps", 10),
+    ("int8_gptq", True), ("fix_timesteps", 10),
     ("mode", "disparity_dpt_head"),
 ])
 def test_unported_config_raises(field, value):
     with pytest.raises(NotImplementedError):
         PipelineConfig(**{field: value})
+
+
+@pytest.mark.parametrize("fields", [
+    dict(int8_vae=True), dict(int8_vae=True, int8_unet=True, int8_unet_ff=True,
+                              int8_vae_attn=True),
+    dict(int8_vae=True, int8_unet=True, int8_unet_dense=True, int8_weight_clip=True,
+         int8_exclude=(), int8_refine=False, int8_asymmetric=False, int8_selfcheck=False,
+         int8_margin=1.2),
+])
+def test_int8_config_accepted(fields):
+    assert PipelineConfig(**fields).int8_vae
+
+
+def test_int8_unet_needs_int8_vae():
+    with pytest.raises(AssertionError):
+        PipelineConfig(int8_unet=True)
+
+
+def test_pipeline_defaults_to_the_card(pipes, monkeypatch):
+    """Without a card and without device="cpu" the pipeline raises: it never
+    falls back to the CPU unasked."""
+    import inspect
+
+    assert inspect.signature(GenPerceptPipeline).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device"):
+        GenPerceptPipeline(pipes[1].models, pipes[1].cfg)
 
 
 def test_config_fields_mirror_jax():
