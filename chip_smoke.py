@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's one-step depth inference and its training step
-once on one NVIDIA GPU.
+"""Drive the PyTorch port's one-step depth inference, its training step, its
+W8A8 int8 inference and its fused-VAE inference once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -42,7 +42,22 @@ Phases, each printed as a JSON line:
       1e-2); then .batch over four and one 480x640 __call__ with the kernels
       and under reference_kernels() on the same calibration (launches, depth
       deviation, int8 img/s beside (e)'s bf16 img/s); a save_calibration ->
-      load_calibration round trip into a fresh pipeline gives identical depth.
+      load_calibration round trip into a fresh pipeline gives identical depth;
+  (k) K8 fused GroupNorm -> SiLU -> conv3x3 (+ residual) against its plain
+      version at every resblock convolution shape of a 768^2 forward (batch
+      2), f32 and bf16: error relative to max|plain| (border pixels too),
+      ms of the kernel, of its plain version, of the GroupNorm statistics the
+      wrapper computes around it and of the unfused composition (GN, SiLU,
+      cuDNN conv, + residual: the yardstick; no single PyTorch call computes
+      K8);
+  (l) K7 W8A8 conv3x3 against its plain version (quant.qconv_apply) at
+      scripts/profile_quant_conv_torch.py's shapes, batch 2, f32 and bf16
+      (error 0.0); then K7's path, that script's profile() at batch 2 in
+      bf16: K7, qconv_apply and cuDNN bf16 conv ms, launches;
+  (m) the fused-VAE slice, PipelineConfig(fused_vae=True), as (e): launches
+      (K8 48 per forward), depth deviation kernels-vs-plain and against
+      (e)'s unfused output on the same weights, img/s beside (e)'s.
+Every phase's launch counts include K7 and K8 (0 outside their paths).
 K1 and K3+K4 are also timed against one PyTorch call computing the same
 function (scaled_dot_product_attention and its autograd backward), which the
 port never calls; every kernel's bound is computed from its shapes (PEAK).
@@ -56,24 +71,30 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import importlib.util
 import json
 import math
 import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from genpercept_tpu_torch import _build
 from genpercept_tpu_torch.data.sampler import DataLoader, MixedBatchSampler
 from genpercept_tpu_torch.diffusion import GENPERCEPT_SCHEDULER
 from genpercept_tpu_torch.models import (
     AutoencoderKL, CLIPTextModel, UNet2DConditionModel, init_params_)
+from genpercept_tpu_torch.ops import conv2d, group_norm
 from genpercept_tpu_torch.ops import flash_attention as fa
+from genpercept_tpu_torch.ops import fused_conv as fc
 from genpercept_tpu_torch.ops import fused_ff as ff
 from genpercept_tpu_torch.ops import quant as tq
+from genpercept_tpu_torch.ops import quant_conv as qc
 from genpercept_tpu_torch.ops import reference_kernels
 from genpercept_tpu_torch.pipeline import (
     GenPerceptModels, GenPerceptPipeline, PipelineConfig)
@@ -119,7 +140,7 @@ TRAIN_CFG = TrainConfig(
     remat_granularity="unet", scheduler=GENPERCEPT_SCHEDULER)
 TRAIN_HW, MICRO, ACCUM, STEPS = (480, 640), 8, 4, 3  # the recipe on one card
 # launches per micro-step with remat (tests/test_torch_train.py pins them)
-STEP_LAUNCHES = {"K1": 14, "K2": 10, "K3": 6, "K4": 6, "K5": 0, "K6": 0}
+STEP_LAUNCHES = {"K1": 14, "K2": 10, "K3": 6, "K4": 6, "K5": 0, "K6": 0, "K7": 0, "K8": 0}
 # kernels vs reference_kernels(), one micro-batch: the loss's relative
 # difference (every check), and the gradients' global relative L2 distance.
 # The gradient bounds are on the smooth mse loss; the recipe's gradients are
@@ -150,9 +171,27 @@ INT8_CFG = dict(int8_vae=True, int8_unet=True, int8_unet_ff=True, int8_vae_attn=
 # (tests/test_torch_models.py pins them): the VAE mid blocks take K6 from
 # K1, the C=320 and C=640 feed-forwards K5; the calibration pass runs the
 # full-precision routing with every FF through the hooks (no K2)
-INT8_PER_FORWARD = {"K1": 15, "K2": 0, "K5": 10, "K6": 2}
-CALIB_PER_FORWARD = {"K1": 17, "K2": 0, "K5": 0, "K6": 0}
-INT8_CALL_480x640 = {"K1": 5, "K2": 0, "K5": 0, "K6": 2}
+INT8_PER_FORWARD = {"K1": 15, "K2": 0, "K5": 10, "K6": 2, "K7": 0, "K8": 0}
+CALIB_PER_FORWARD = {"K1": 17, "K2": 0, "K5": 0, "K6": 0, "K7": 0, "K8": 0}
+INT8_CALL_480x640 = {"K1": 5, "K2": 0, "K5": 0, "K6": 2, "K7": 0, "K8": 0}
+
+# K8 (fused GN -> SiLU -> conv3x3) at the resblock convolutions of a 768^2
+# forward, batch 2: ((H = W, C, Co, residual), launches per forward); 20 in
+# the encoder, 28 in the decoder (tests/test_torch_fused_conv.py pins 48)
+K8_SHAPES = [((768, 128, 128, False), 4), ((768, 128, 128, True), 5),
+             ((768, 256, 128, False), 1), ((384, 128, 256, False), 1),
+             ((384, 256, 256, True), 5), ((384, 256, 256, False), 3),
+             ((384, 512, 256, False), 1), ((192, 256, 512, False), 1),
+             ((192, 512, 512, True), 5), ((192, 512, 512, False), 4),
+             ((96, 512, 512, False), 9), ((96, 512, 512, True), 9)]
+K8_PER_FORWARD = sum(n for _, n in K8_SHAPES)  # 48
+K8_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # of max|plain|
+# the fused-VAE slice: launches per 768^2 forward; the 480x640 call (576x768
+# processing) passes the predicate at every level
+FUSED_PER_FORWARD = {"K1": K1_PER_FORWARD, "K2": K2_PER_FORWARD, "K5": 0, "K6": 0, "K7": 0,
+                     "K8": K8_PER_FORWARD}
+FUSED_CALL_480x640 = {"K1": 7, "K2": 0, "K5": 0, "K6": 0, "K7": 0, "K8": K8_PER_FORWARD}
+K7_BATCH, K7_REPS = 2, 5  # K7's path: profile_quant_conv_torch.profile at batch 2
 
 # the least time the card could take: NVIDIA H100 SXM data sheet, dense
 # rates (bf16 tensor cores, int8 tensor cores, f32 FFMA outside them) and
@@ -334,7 +373,8 @@ def build_models(gen: torch.Generator):
 
 
 COUNTERS = {"K1": fa._flash_bhsd, "K2": ff._fused_geglu_ff_fwd, "K3": fa._flash_bwd_dq,
-            "K4": fa._flash_bwd_dkv, "K5": ff.fused_geglu_ff_int8, "K6": fa._flash_int8_codes}
+            "K4": fa._flash_bwd_dkv, "K5": ff.fused_geglu_ff_int8, "K6": fa._flash_int8_codes,
+            "K7": qc.quantized_conv3x3, "K8": fc.fused_gn_silu_conv3x3}
 
 
 def launch_counts():
@@ -347,7 +387,7 @@ def reset_counts() -> None:
 
 
 def fwd_counts(counts):
-    return {k: counts[k] for k in ("K1", "K2", "K5", "K6")}
+    return {k: counts[k] for k in ("K1", "K2", "K5", "K6", "K7", "K8")}
 
 
 def drive(pipe, batch_images, call_image):
@@ -378,16 +418,21 @@ def throughput(pipe, images) -> dict:
             "passes": len(rates)}
 
 
-def phase_slice(unet, vae, clip) -> dict:
+def slice_images():
+    """Four 768x768 uniform-noise images and one 480x640, from SEED."""
     rng = np.random.default_rng(SEED)
     batch_images = [(rng.uniform(size=(768, 768, 3)) * 255).astype(np.uint8)
                     for _ in range(4)]
-    call_image = (rng.uniform(size=(480, 640, 3)) * 255).astype(np.uint8)
+    return batch_images, (rng.uniform(size=(480, 640, 3)) * 255).astype(np.uint8)
+
+
+def phase_slice(unet, vae, clip) -> dict:
+    batch_images, call_image = slice_images()
     forwards = len(batch_images) // 2
     # 480x640 -> 576x768 -> 72x96 latent: 6912 tokens at level 0 (flash, 5)
     # and in the VAE (flash, 2); 1728 and 432 at levels 1-2 (plain); 6912
     # rows is no multiple of 512, so the FF stays plain
-    call_expect = {"K1": 7, "K2": 0, "K5": 0, "K6": 0}
+    call_expect = {"K1": 7, "K2": 0, "K5": 0, "K6": 0, "K7": 0, "K8": 0}
 
     results = {}
     for dt in DTYPES:
@@ -402,7 +447,7 @@ def phase_slice(unet, vae, clip) -> dict:
             r_outs, r_call, r_counts, r_call_counts = drive(pipe, batch_images, call_image)
             r_rate = throughput(pipe, batch_images)
         check(counts == {"K1": K1_PER_FORWARD * forwards, "K2": K2_PER_FORWARD * forwards,
-                         "K5": 0, "K6": 0}, f"{dt} .batch launch counts {counts}")
+                         "K5": 0, "K6": 0, "K7": 0, "K8": 0}, f"{dt} .batch launch counts {counts}")
         check(call_counts == call_expect, f"{dt} __call__ launch counts {call_counts}")
         check(not any(r_counts.values()) and not any(r_call_counts.values()),
               f"{dt} kernels launched under reference_kernels()")
@@ -426,7 +471,7 @@ def phase_slice(unet, vae, clip) -> dict:
               "depth_mean": float(np.mean(preds[0])), "depth_std": float(np.std(preds[0]))})
         bar = 1e-4 if dt == torch.float32 else 1e-2
         check(mean_dev <= bar, f"{dt} slice mean deviation {mean_dev} > {bar}")
-        results[dt] = {"counts": counts, "img_per_s": rate}
+        results[dt] = {"counts": counts, "img_per_s": rate, "preds": preds}
         del models, pipe
         torch.cuda.empty_cache()
     return results
@@ -842,6 +887,175 @@ def phase_int8_slice(unet, vae, clip, fp_img_per_s: dict) -> dict:
     return {"counts": counts}
 
 
+def border(t: torch.Tensor) -> torch.Tensor:
+    """The outermost rows and columns of an NCHW tensor."""
+    return torch.cat([t[..., 0, :], t[..., -1, :], t[..., :, 0], t[..., :, -1]], dim=-1)
+
+
+def unfused_conv(x, gs, gb, w, b, r):
+    """One K8 call's function as the port's unfused resblock runs it: GroupNorm,
+    SiLU, cuDNN conv and + residual, each in x's dtype (the yardstick)."""
+    y = conv2d(F.silu(group_norm(x, gs, gb, 32, 1e-6)), w, b)
+    return y if r is None else y + r
+
+
+def phase_k8() -> dict:
+    """K8 against its plain version on the same inputs and folded statistics
+    at every resblock convolution shape of a 768^2 forward (batch 2)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    worst = {dt: 0.0 for dt in DTYPES}
+    # per 768^2 forward and dtype: kernel, plain, bound, statistics, unfused ms
+    per_forward = {dt: [0.0, 0.0, Bound(), 0.0, 0.0] for dt in DTYPES}
+    for dt in DTYPES:
+        for (hw, c, co, res), n in K8_SHAPES:
+            def randn(*shape):
+                return torch.randn(*shape, device="cuda", generator=gen)
+
+            x = (randn(2, c, hw, hw) * 2 + 0.5).to(dt)
+            gs, gb = 1.0 + 0.1 * randn(c), 0.1 * randn(c)
+            w = ((torch.rand(co, c, 3, 3, device="cuda", generator=gen) * 2 - 1)
+                 / (9 * c) ** 0.5).to(dt)
+            b = 0.1 * randn(co)
+            r = randn(2, co, hw, hw).to(dt) if res else None
+            a, bb = fc.gn_affine(x, gs, gb)
+            out = fc.fused_conv_apply(x, a, bb, w, b, r)
+            ref = fc._fused_gn_silu_conv3x3_ref(x, a, bb, w, b, r)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            err_border = (border(out).float() - border(ref).float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            del out, ref
+            ms = cuda_ms(lambda: fc.fused_conv_apply(x, a, bb, w, b, r), 5)
+            plain_ms = cuda_ms(lambda: fc._fused_gn_silu_conv3x3_ref(x, a, bb, w, b, r), 3)
+            stats_ms = cuda_ms(lambda: fc.gn_affine(x, gs, gb), 5)
+            unfused_ms = cuda_ms(lambda: unfused_conv(x, gs, gb, w, b, r), 5)
+            # x, residual and output once, the weight, a, b and the bias
+            nbytes = ((c + co * (2 if res else 1)) * 2 * hw * hw + 9 * c * co) * elt(dt) \
+                + 4 * (4 * c + co)
+            bd = bound(2.0 * 9 * 2 * hw * hw * c * co, rate_of(dt), nbytes)
+            emit({"phase": "K8", "dtype": str(dt), "shape": [2, c, hw, hw], "co": co,
+                  "residual": res, "launches_per_forward": n, "max_abs_err": err,
+                  "max_abs_err_border": err_border, "output_max_abs": scale,
+                  "rel_err": err / scale, "ms": ms,
+                  "plain_ms": plain_ms, "stats_ms": stats_ms, "unfused_ms": unfused_ms,
+                  "bound_ms": bd.ms, "bound_by": bd.by, "library_ms": None})
+            bar = K8_TOL[dt] * scale
+            check(err <= bar and err_border <= bar, f"K8 {dt} {(hw, c, co, res)}: error {err}")
+            worst[dt] = max(worst[dt], err)
+            for i, t in enumerate((ms, plain_ms, bd, stats_ms, unfused_ms)):
+                per_forward[dt][i] += n * t
+            del x, r, a, bb
+            torch.cuda.empty_cache()
+        k, p, bd, st, un = per_forward[dt]
+        emit({"phase": "K8_per_forward", "dtype": str(dt), "launches": K8_PER_FORWARD,
+              "ms": k, "plain_ms": p, "stats_ms": st, "unfused_ms": un, "bound_ms": bd.ms,
+              "bound_by": bd.by})
+    return {"worst": worst, "per_forward": per_forward}
+
+
+def load_script(name: str):
+    """A module of scripts/ by file name (the directory is no package)."""
+    path = Path(__file__).resolve().parent / "scripts" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_k7() -> dict:
+    """K7 against its plain version at the profiling script's shapes (batch
+    2), f32 and bf16; then K7's path, the script's profile() at batch 2."""
+    pq = load_script("profile_quant_conv_torch")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    worst = {dt: 0.0 for dt in DTYPES}
+    for dt in DTYPES:
+        for h, w, c, co in pq.SHAPES:
+            x = torch.randn(K7_BATCH, c, h, w, device="cuda", generator=gen).to(dt)
+            wf = torch.randn(co, c, 3, 3, device="cuda", generator=gen) * 0.05
+            b = torch.randn(co, device="cuda", generator=gen) * 0.1
+            q = tq.quantize_conv(wf, b, tq.absmax_per_channel(x.movedim(1, -1)), margin=1.0)
+            out = qc.quantized_conv3x3(x, q.w_int8, q.inv_a, q.o_scale, q.bias)
+            ref = qc._quantized_conv3x3_ref(x, q.w_int8, q.inv_a, q.o_scale, q.bias)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            emit({"phase": "K7", "dtype": str(dt), "shape": [K7_BATCH, c, h, w], "co": co,
+                  "max_abs_err": err, "bit_identical": bool(torch.equal(out, ref))})
+            check(err == 0.0, f"K7 {dt} {(h, w, c, co)}: error {err}")
+            worst[dt] = max(worst[dt], err)
+            del x, wf, q, out, ref
+            torch.cuda.empty_cache()
+    reset_counts()
+    records = pq.profile(batch=K7_BATCH, reps=K7_REPS, seed=SEED)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    total = {"ms": 0.0, "plain_ms": 0.0, "cudnn_bf16_ms": 0.0, "bound": Bound()}
+    for rec in records:
+        nb, h, w, c, co = rec["shape"]
+        bd = bound(2.0 * 9 * nb * h * w * c * co, "int8",
+                   nb * h * w * (c + co) * 2 + 9 * c * co + 4 * (c + 2 * co))
+        emit({"phase": "K7_path", **rec, "bound_ms": bd.ms, "bound_by": bd.by,
+              "library_ms": None})
+        total["ms"] += rec["k7_ms"]
+        total["plain_ms"] += rec["qconv_apply_ms"]
+        total["cudnn_bf16_ms"] += rec["cudnn_bf16_ms"]
+        total["bound"] += bd
+    expect = {k: 0 for k in COUNTERS}
+    expect["K7"] = len(records) * (1 + K7_REPS)
+    emit({"phase": "K7_path_launches", "launches": counts,
+          **{k: v for k, v in total.items() if k != "bound"}, "bound_ms": total["bound"].ms})
+    check(counts == expect, f"K7 path launches {counts} != {expect}")
+    return {"worst": worst, "counts": counts, **total}
+
+
+def phase_fused_slice(unet, vae, clip, unfused: dict) -> dict:
+    """PipelineConfig(fused_vae=True) at full width, as phase_slice, beside
+    phase_slice's unfused output on the same weights and images."""
+    batch_images, call_image = slice_images()
+    forwards = len(batch_images) // 2
+    results = {}
+    for dt in DTYPES:
+        models = GenPerceptModels(
+            unet=copy.deepcopy(unet).to(dt), vae=copy.deepcopy(vae).to(dt),
+            clip=copy.deepcopy(clip).to(dt))
+        pipe = GenPerceptPipeline(models, PipelineConfig(dtype=dt, fused_vae=True), device="cuda")
+        pipe.batch(batch_images[:2], batch_size=2)  # warm-up
+        outs, call_out, counts, call_counts = drive(pipe, batch_images, call_image)
+        rate = throughput(pipe, batch_images)
+        with reference_kernels():
+            r_outs, r_call, r_counts, r_call_counts = drive(pipe, batch_images, call_image)
+        preds = [o.pred_np for o in outs] + [call_out.pred_np]
+        refs = [o.pred_np for o in r_outs] + [r_call.pred_np]
+        check(all(p.shape == (768, 768) for p in preds[:4])
+              and preds[4].shape == (480, 640), "fused depth shapes")
+        for p in preds + refs:
+            check(bool(np.isfinite(p).all()) and p.min() >= 0.0 and p.max() <= 1.0,
+                  f"{dt} fused depth not finite or outside [0, 1]")
+        dev = np.concatenate([np.abs(p - r).ravel() for p, r in zip(preds, refs)])
+        dev_unf = np.concatenate([np.abs(p - u).ravel()
+                                  for p, u in zip(preds, unfused[dt]["preds"])])
+        rec = {"phase": "fused_slice", "dtype": str(dt), "batch_size": 2,
+               "images": len(batch_images), "launches_batch": counts,
+               "launches_call_480x640": call_counts,
+               "launches_reference": {"batch": r_counts, "call": r_call_counts},
+               "mean_abs_dev": float(dev.mean()), "max_abs_dev": float(dev.max()),
+               "mean_abs_dev_vs_unfused": float(dev_unf.mean()),
+               "max_abs_dev_vs_unfused": float(dev_unf.max()),
+               "img_per_s": rate, "img_per_s_unfused": unfused[dt]["img_per_s"],
+               "depth_mean": float(np.mean(preds[0])), "depth_std": float(np.std(preds[0]))}
+        emit(rec)
+        check(counts == {k: n * forwards for k, n in FUSED_PER_FORWARD.items()},
+              f"{dt} fused .batch launch counts {counts}")
+        check(call_counts == FUSED_CALL_480x640, f"{dt} fused __call__ launch counts {call_counts}")
+        check(not any(r_counts.values()) and not any(r_call_counts.values()),
+              f"{dt} kernels launched under reference_kernels()")
+        bar = 1e-4 if dt == torch.float32 else 1e-2
+        check(rec["mean_abs_dev"] <= bar, f"{dt} fused slice mean deviation {dev.mean()} > {bar}")
+        results[dt] = {"counts": counts, "img_per_s": rate}
+        del models, pipe
+        torch.cuda.empty_cache()
+    return results
+
+
 def kernel_record(name, source, replaces, launches, max_abs_err, ms, plain_ms, bd: Bound,
                   library_ms):
     return {"name": name, "route": "cuda", "source": f"genpercept_tpu_torch/csrc/{source}",
@@ -864,8 +1078,12 @@ def main() -> None:
     k5 = phase_k5()
     k6 = phase_k6()
     i8 = phase_int8_slice(unet, vae, clip, sl[bf16]["img_per_s"])
+    k8 = phase_k8()
+    k7 = phase_k7()
+    fv = phase_fused_slice(unet, vae, clip, sl)
     # per 768^2 image (K1, K2: f32), per recipe micro-step (K3, K4: bf16),
-    # per 768^2 forward of batch 2 (K5, K6: bf16)
+    # per 768^2 forward of batch 2 (K5, K6, K8: bf16), per pass of K7's path
+    # over its five shapes at batch 2 (bf16)
     k1_img, k2_img, k34_step = k1["per_image"][f32], k2["per_image"][f32], k34["per_step"][bf16]
     emit({"kernels": [
         kernel_record("flash_attn_fwd", "flash_attn_fwd.cu",
@@ -888,6 +1106,12 @@ def main() -> None:
         kernel_record("flash_attn_int8", "flash_attn_int8.cu",
                       "genpercept_tpu/ops/flash_attention.py:179", i8["counts"]["K6"],
                       k6["worst"][bf16], *k6["per_forward"][bf16], None),
+        kernel_record("quantized_conv3x3", "quantized_conv3x3.cu",
+                      "genpercept_tpu/ops/quant_conv.py:41", k7["counts"]["K7"],
+                      k7["worst"][bf16], k7["ms"], k7["plain_ms"], k7["bound"], None),
+        kernel_record("fused_gn_silu_conv3x3", "fused_gn_silu_conv3x3.cu",
+                      "genpercept_tpu/ops/fused_conv.py:43", fv[bf16]["counts"]["K8"],
+                      k8["worst"][bf16], *k8["per_forward"][bf16][:3], None),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

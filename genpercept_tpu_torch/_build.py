@@ -99,6 +99,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.flash_attn_int8.restype = i
     lib.fused_geglu_ff_int8.argtypes = [p] * 15 + [i] * 4 + [p]
     lib.fused_geglu_ff_int8.restype = i
+    lib.fused_gn_silu_conv3x3.argtypes = [p] * 7 + [i] * 6 + [p]
+    lib.fused_gn_silu_conv3x3.restype = i
+    lib.quantized_conv3x3.argtypes = [p] * 6 + [i] * 6 + [p]
+    lib.quantized_conv3x3.restype = i
 
 
 def load() -> ctypes.CDLL:

@@ -1,7 +1,8 @@
 """Shared SD2.1 building blocks as nn.Modules (NCHW activations).
 
 Counterpart of ``genpercept_tpu/models/layers.py``, with its int8 hooks
-(``conv_fn``/``dense_fn``/``name``) but not its ``fused`` VAE path. Each
+(``conv_fn``/``dense_fn``/``name``) and its ``fused`` resblock path (the
+fused GroupNorm -> SiLU -> conv3x3 kernel, ``ops/fused_conv.py``). Each
 module's ``state_dict`` keys are the JAX param-tree keys joined with ``.``
 (the diffusers names), with PyTorch layouts: conv weights OIHW, linear
 weights (out, in). The modules hold parameters; each block is applied by a
@@ -20,6 +21,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from genpercept_tpu_torch.ops import conv2d, group_norm, layer_norm
+from genpercept_tpu_torch.ops import fused_conv as FC
 from genpercept_tpu_torch.ops.attention import (
     attention_projection,
     dot_product_attention,
@@ -116,11 +118,24 @@ class ResnetBlock(nn.Module):
 
 def resnet_block(p: ResnetBlock, x: torch.Tensor, temb: torch.Tensor | None = None,
                  eps: float = 1e-5, native_norm: bool = False, conv_fn=None,
-                 name: str = "") -> torch.Tensor:
+                 name: str = "", fused: bool = False) -> torch.Tensor:
     """diffusers ResnetBlock2D: GN -> SiLU -> conv -> (+temb) -> GN -> SiLU
     -> conv -> +shortcut. native_norm: GroupNorm apply in x's dtype (the
     training decode path under remat). conv_fn hooks conv1 and conv2 as
-    ``name``.conv1/.conv2; the shortcut stays full precision."""
+    ``name``.conv1/.conv2; the shortcut stays full precision.
+
+    fused=True (inference only): without temb and conv_fn, where the fused
+    kernel's predicate holds, both GN -> SiLU -> conv sequences run as the
+    fused kernel, the second with the skip as its residual."""
+    if fused and temb is None and conv_fn is None \
+            and FC.supported(x.shape, p.conv1.weight.shape[0]):
+        h = FC.fused_gn_silu_conv3x3(x, p.norm1.weight, p.norm1.bias, p.conv1.weight,
+                                     p.conv1.bias, eps=eps)
+        skip = x
+        if hasattr(p, "conv_shortcut"):
+            skip = conv1x1(x, p.conv_shortcut.weight, p.conv_shortcut.bias)
+        return FC.fused_gn_silu_conv3x3(h, p.norm2.weight, p.norm2.bias, p.conv2.weight,
+                                        p.conv2.bias, residual=skip, eps=eps)
     h = F.silu(group_norm(x, p.norm1.weight, p.norm1.bias, 32, eps, native_norm))
     h = _hooked_conv(conv_fn, name + ".conv1", p.conv1, h)
     if temb is not None and hasattr(p, "time_emb_proj"):

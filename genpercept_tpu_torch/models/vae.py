@@ -1,6 +1,8 @@
 """SD2.1 AutoencoderKL (VAE) as an nn.Module, NCHW.
 
-Counterpart of ``genpercept_tpu/models/vae.py`` without its ``fused`` path:
+Counterpart of ``genpercept_tpu/models/vae.py``, with its ``fused`` path
+(every resblock through the fused GroupNorm -> SiLU -> conv3x3 kernel where
+its predicate holds, inference only):
   encode: encoder -> quant_conv -> posterior mean (first 4 ch) * 0.18215
   decode: / 0.18215 -> post_quant_conv -> decoder
 State-dict keys are the diffusers names (encoder.down_blocks.N.resnets.M...).
@@ -28,6 +30,7 @@ from genpercept_tpu_torch.models.layers import (
     upsample2d,
     vae_attention,
 )
+from genpercept_tpu_torch.ops import fused_conv as FC
 from genpercept_tpu_torch.ops import group_norm
 from genpercept_tpu_torch.ops.conv import conv1x1
 
@@ -117,17 +120,25 @@ class AutoencoderKL(nn.Module):
 
 
 def _gn_silu_conv(h, norm: Norm, conv_m: nn.Conv2d, groups: int,
-                  native_norm: bool = False):
+                  native_norm: bool = False, fused: bool = False):
+    """Final GN -> SiLU -> conv3x3; the fused kernel where fused and its
+    predicate hold (never at SD2.1's widths: Co is 8 or 3)."""
+    if fused and groups == 32 and FC.supported(h.shape, conv_m.weight.shape[0]):
+        return FC.fused_gn_silu_conv3x3(h, norm.weight, norm.bias, conv_m.weight,
+                                        conv_m.bias)
     h = F.silu(group_norm(h, norm.weight, norm.bias, groups, 1e-6, native_norm))
     return conv(conv_m, h)
 
 
 def vae_encoder_apply(vae: AutoencoderKL, x: torch.Tensor, conv_fn=None,
-                      attn_int8: bool = False, dense_fn=None) -> torch.Tensor:
+                      attn_int8: bool = False, dense_fn=None,
+                      fused: bool = False) -> torch.Tensor:
     """x: (N, 3, H, W) in [-1, 1] -> moments (N, 8, H/8, W/8).
 
-    conv_fn (ops/quant.py) hooks every resnet and downsampler conv; conv_in,
-    conv_out and the shortcuts stay full precision. attn_int8 runs the
+    fused=True runs the resblocks through the fused GN -> SiLU -> conv3x3
+    kernel (inference only; see ops/fused_conv.py). conv_fn (ops/quant.py)
+    hooks every resnet and downsampler conv; conv_in, conv_out and the
+    shortcuts stay full precision. attn_int8 runs the
     mid-block attention through the int8 flash attention and dense_fn hooks
     its projections (inference only)."""
     enc, cfg = vae.encoder, vae.cfg
@@ -135,37 +146,38 @@ def vae_encoder_apply(vae: AutoencoderKL, x: torch.Tensor, conv_fn=None,
     for i, blk in enumerate(enc.down_blocks):
         for j, rb in enumerate(blk.resnets):
             h = resnet_block(rb, h, None, eps=1e-6, conv_fn=conv_fn,
-                             name=f"encoder.down_blocks.{i}.resnets.{j}")
+                             name=f"encoder.down_blocks.{i}.resnets.{j}", fused=fused)
         if hasattr(blk, "downsamplers"):
             h = downsample2d(blk.downsamplers[0], h, asymmetric_pad=True, conv_fn=conv_fn,
                              name=f"encoder.down_blocks.{i}.downsamplers.0")
     mid = enc.mid_block
     h = resnet_block(mid.resnets[0], h, None, eps=1e-6, conv_fn=conv_fn,
-                     name="encoder.mid_block.resnets.0")
+                     name="encoder.mid_block.resnets.0", fused=fused)
     h = vae_attention(mid.attentions[0], h, int8=attn_int8, dense_fn=dense_fn,
                       name="encoder.mid_block.attentions.0")
     h = resnet_block(mid.resnets[1], h, None, eps=1e-6, conv_fn=conv_fn,
-                     name="encoder.mid_block.resnets.1")
-    h = _gn_silu_conv(h, enc.conv_norm_out, enc.conv_out, cfg.norm_num_groups)
+                     name="encoder.mid_block.resnets.1", fused=fused)
+    h = _gn_silu_conv(h, enc.conv_norm_out, enc.conv_out, cfg.norm_num_groups, fused=fused)
     return conv1x1(h, vae.quant_conv.weight, vae.quant_conv.bias)
 
 
 def vae_encode(vae: AutoencoderKL, x: torch.Tensor, conv_fn=None,
-               attn_int8: bool = False, dense_fn=None) -> torch.Tensor:
+               attn_int8: bool = False, dense_fn=None, fused: bool = False) -> torch.Tensor:
     """Deterministic latent: posterior mean, scaled. (N, 3, H, W) -> (N, 4, h, w)."""
-    moments = vae_encoder_apply(vae, x, conv_fn, attn_int8, dense_fn)
+    moments = vae_encoder_apply(vae, x, conv_fn, attn_int8, dense_fn, fused)
     return moments[:, : vae.cfg.latent_channels] * vae.cfg.scaling_factor
 
 
 def vae_decode(vae: AutoencoderKL, z: torch.Tensor, remat: bool = False, conv_fn=None,
-               attn_int8: bool = False, dense_fn=None) -> torch.Tensor:
+               attn_int8: bool = False, dense_fn=None, fused: bool = False) -> torch.Tensor:
     """z: (N, 4, h, w) scaled latent -> (N, 3, 8h, 8w).
 
     remat=True (training, gradients flowing through the frozen decoder):
     each resnet block, the attention and each upsampler is checkpointed, so
     only block boundaries are saved for the backward, and the GroupNorm
     apply runs in the compute dtype, as the JAX package's decode under remat.
-    conv_fn, attn_int8 and dense_fn: the int8 hooks, as in vae_encoder_apply."""
+    conv_fn, attn_int8 and dense_fn: the int8 hooks, and fused the fused
+    resblocks, as in vae_encoder_apply."""
     cfg, dec = vae.cfg, vae.decoder
 
     def ckpt(fn, *args, **kwargs):
@@ -173,7 +185,7 @@ def vae_decode(vae: AutoencoderKL, z: torch.Tensor, remat: bool = False, conv_fn
 
     def rb(p, h, name):
         return ckpt(resnet_block, p, h, None, eps=1e-6, native_norm=remat,
-                    conv_fn=conv_fn, name=name)
+                    conv_fn=conv_fn, name=name, fused=fused)
 
     z = z / cfg.scaling_factor
     z = conv1x1(z, vae.post_quant_conv.weight, vae.post_quant_conv.bias)
@@ -190,4 +202,4 @@ def vae_decode(vae: AutoencoderKL, z: torch.Tensor, remat: bool = False, conv_fn
             h = ckpt(upsample2d, blk.upsamplers[0], h, conv_fn=conv_fn,
                      name=f"decoder.up_blocks.{i}.upsamplers.0")
     return _gn_silu_conv(h, dec.conv_norm_out, dec.conv_out, cfg.norm_num_groups,
-                         native_norm=remat)
+                         native_norm=remat, fused=fused)

@@ -8,7 +8,8 @@ arch without a DPT head:
     pred   = vae.decode(z_pred) -> channel mean -> clip [-1,1] -> (x+1)/2
 ``GenPerceptPipeline`` adds the resize to the processing resolution, the
 resize back and the Spectral colorizing, and W8A8 int8 inference: the first
-batch calibrates, every later one runs int8 (``ops/quant.py``). Its public
+batch calibrates, every later one runs int8 (``ops/quant.py``), and the
+fused VAE resblocks (``fused_vae``, ``ops/fused_conv.py``). Its public
 API keeps the JAX package's layouts: images (H, W, 3) in, depth (H, W) out.
 It runs on the card unless the caller asks for the CPU.
 """
@@ -46,8 +47,7 @@ from genpercept_tpu_torch.pipeline.tasks import TASKS, TaskSpec
 # Fields of the JAX package's PipelineConfig that this port does not
 # implement yet: each accepts only its default.
 _UNPORTED = (
-    "arch", "denoising_steps", "ensemble_size", "fix_timesteps", "fused_vae",
-    "int8_gptq",
+    "arch", "denoising_steps", "ensemble_size", "fix_timesteps", "int8_gptq",
 )
 
 
@@ -208,7 +208,7 @@ def build_single_infer(models: GenPerceptModels, cfg: PipelineConfig,
         hk = _int8_hooks(cfg, quant_mode, vae_quant)
         x = rgb.to(dtype).permute(0, 3, 1, 2) * 2.0 - 1.0
         rgb_latent = vae_encode(
-            models.vae, x, conv_fn=hk["enc"], dense_fn=hk["enc_dense"],
+            models.vae, x, conv_fn=hk["enc"], dense_fn=hk["enc_dense"], fused=cfg.fused_vae,
             attn_int8=hk["vattn"] and attn_kept("encoder.mid_block.attentions.0"))
         embed = models.get_text_embed().to(dtype)
         text = embed.expand((rgb.shape[0],) + tuple(embed.shape[-2:]))
@@ -216,7 +216,7 @@ def build_single_infer(models: GenPerceptModels, cfg: PipelineConfig,
         v = unet_apply(models.unet, rgb_latent, t, text, conv_fn=hk["u_conv"],
                        dense_fn=hk["u_dense"])
         decoded = vae_decode(  # beta == 1: pred_x0 == -v
-            models.vae, -v, conv_fn=hk["dec"], dense_fn=hk["dec_dense"],
+            models.vae, -v, conv_fn=hk["dec"], dense_fn=hk["dec_dense"], fused=cfg.fused_vae,
             attn_int8=hk["vattn"] and attn_kept("decoder.mid_block.attentions.0"))
         if task.channel_mean:
             decoded = decoded.mean(dim=1)

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Where the device time of the PyTorch port's one-step slice goes, on one GPU.
 
-    python3 scripts/profile_torch_slice.py [--int8] [--out FILE.json]
+    python3 scripts/profile_torch_slice.py [--int8 | --fused] [--out FILE.json]
 
 Builds the configuration of chip_smoke.py (SD2.1 at full width, seeded
 random weights), warms a GenPerceptPipeline up with one .batch of two
 768x768 images, then traces one more such .batch with torch.profiler, in
 f32 (TF32 off) and in bf16; with --int8, W8A8 inference in bf16 instead
 (chip_smoke.INT8_CFG: the warm-up .batch calibrates, the traced one runs
-int8). From the device events of the trace (kernels,
+int8); with --fused, the fused-VAE path (PipelineConfig(fused_vae=True)) in
+f32 and bf16. From the device events of the trace (kernels,
 copies, memsets; profiler overhead and annotations left out) it prints one
 JSON line per dtype:
 
@@ -44,6 +45,8 @@ from genpercept_tpu_torch.pipeline import (  # noqa: E402
     GenPerceptModels, GenPerceptPipeline, PipelineConfig)
 
 FAMILIES = [  # (family, pattern on the kernel name); first match wins
+    ("K8 fused_gn_silu_conv3x3", r"gn_silu_conv"),
+    ("K7 quantized_conv3x3", r"qconv3x3_kernel"),
     ("K5 fused_geglu_ff_int8", r"ff_int8_kernel"),
     ("K6 flash_attn_int8", r"flash_int8_kernel"),
     ("K1 flash_attn_fwd", r"flash_attn_fwd"),
@@ -117,6 +120,8 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="JSON file for the full kernel tables")
     parser.add_argument("--int8", action="store_true", help="profile W8A8 inference (bf16)")
+    parser.add_argument("--fused", action="store_true",
+                        help="profile the fused-VAE path (f32 and bf16)")
     args = parser.parse_args()
     phase_device()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -124,13 +129,14 @@ def main() -> None:
     images = [(rng.uniform(size=(768, 768, 3)) * 255).astype(np.uint8) for _ in range(2)]
     unet, vae, clip = build_models(gen)
     records = []
-    runs = [(torch.bfloat16, INT8_CFG)] if args.int8 else [(torch.float32, {}),
-                                                           (torch.bfloat16, {})]
-    for dt, int8 in runs:
+    extra = {"fused_vae": True} if args.fused else {}
+    runs = [(torch.bfloat16, INT8_CFG)] if args.int8 else [(torch.float32, extra),
+                                                           (torch.bfloat16, extra)]
+    for dt, cfg in runs:
         models = GenPerceptModels(
             unet=copy.deepcopy(unet).to(dt), vae=copy.deepcopy(vae).to(dt),
             clip=copy.deepcopy(clip).to(dt))
-        pipe = GenPerceptPipeline(models, PipelineConfig(dtype=dt, **int8), device="cuda")
+        pipe = GenPerceptPipeline(models, PipelineConfig(dtype=dt, **cfg), device="cuda")
         pipe.batch(images, batch_size=2)  # warm-up: kernel build, cuDNN plans, calibration
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -138,7 +144,8 @@ def main() -> None:
             pipe.batch(images, batch_size=2)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1000.0
-        rec = {"dtype": str(dt), "int8": bool(int8), "images": len(images), "batch_size": 2,
+        rec = {"dtype": str(dt), "int8": args.int8, "fused_vae": args.fused,
+               "images": len(images), "batch_size": 2,
                **summarize(prof, wall_ms)}
         records.append(rec)
         print(json.dumps({k: v for k, v in rec.items() if k != "all"}), flush=True)

@@ -16,6 +16,11 @@ The int8 kernels: K5 1e-4 of max|plain| in f32 and 6e-2 absolute in bf16,
 K6 1e-4 (f32) and 2e-2 (bf16) of max|plain| (both take every f32 step as one
 rounded operation, as their plain versions; bf16 rounds the output). The
 int8 convolution's int32 sums are exact: card and CPU agree bit for bit.
+K8, the fused GroupNorm -> SiLU -> conv3x3: 1e-4 (f32) and 2e-2 (bf16) of
+max|plain|, over the whole output and over its border pixels alone (the
+kernel and its plain version sum 9*C products in another order; in bf16 an
+activated input that rounds the other way moves a sum by one bf16 ulp of
+that input). K7, the W8A8 conv3x3: bit-identical to its plain version.
 """
 
 import numpy as np
@@ -23,8 +28,10 @@ import pytest
 import torch
 
 from genpercept_tpu_torch.ops import flash_attention as fa
+from genpercept_tpu_torch.ops import fused_conv as fc
 from genpercept_tpu_torch.ops import fused_ff as ff
 from genpercept_tpu_torch.ops import quant as tq
+from genpercept_tpu_torch.ops import quant_conv as qc
 from genpercept_tpu_torch.ops import reference_kernels
 
 pytestmark = pytest.mark.cuda
@@ -297,3 +304,78 @@ def test_int8_pipeline_launches_on_card(gen):
         ref = pipe(img).pred_np
     assert np.isfinite(out).all()
     assert float(np.mean(np.abs(out - ref))) <= 1e-2
+
+
+def _border(t):
+    """The outermost rows and columns of an NCHW tensor, flattened."""
+    return torch.cat([t[..., 0, :], t[..., -1, :], t[..., :, 0], t[..., :, -1]], dim=-1)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("n,c,h,w,co,res", [
+    (2, 128, 16, 24, 128, False), (1, 128, 20, 40, 256, True),  # ragged tiles
+    (1, 256, 72, 96, 128, True), (2, 512, 16, 16, 512, False),
+    (2, 128, 96, 96, 128, True),
+])
+def test_fused_conv_kernel_matches_plain(gen, n, c, h, w, co, res, dtype, tol):
+    x = (torch.randn(n, c, h, w, device="cuda", generator=gen) * 2 + 0.5).to(dtype)
+    gs, gb = (torch.randn(c, device="cuda", generator=gen) for _ in range(2))
+    cw = (torch.randn(co, c, 3, 3, device="cuda", generator=gen) * (9 * c) ** -0.5).to(dtype)
+    cb = torch.randn(co, device="cuda", generator=gen) * 0.1
+    r = torch.randn(n, co, h, w, device="cuda", generator=gen).to(dtype) if res else None
+    before = fc.fused_gn_silu_conv3x3.launches
+    out = fc.fused_gn_silu_conv3x3(x, gs, gb, cw, cb, residual=r)
+    with reference_kernels():
+        ref = fc.fused_gn_silu_conv3x3(x, gs, gb, cw, cb, residual=r)
+    torch.cuda.synchronize()
+    assert fc.fused_gn_silu_conv3x3.launches == before + 1
+    assert out.dtype == dtype and out.shape == (n, co, h, w)
+    scale = ref.float().abs().max().item()
+    assert (out.float() - ref.float()).abs().max().item() <= tol * scale
+    assert (_border(out.float()) - _border(ref.float())).abs().max().item() <= tol * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c,h,w,co", [
+    (2, 128, 24, 16, 128), (1, 320, 24, 40, 320), (1, 256, 20, 24, 128),
+    (2, 512, 96, 96, 512),
+])
+def test_quantized_conv_kernel_matches_plain(gen, n, c, h, w, co, dtype):
+    x = torch.randn(n, c, h, w, device="cuda", generator=gen).to(dtype)
+    wf = torch.randn(co, c, 3, 3, device="cuda", generator=gen) * 0.05
+    b = torch.randn(co, device="cuda", generator=gen) * 0.1
+    q = tq.quantize_conv(wf, b, tq.absmax_per_channel(x.movedim(1, -1)), margin=1.0)
+    before = qc.quantized_conv3x3.launches
+    out = qc.quantized_conv3x3(x, q.w_int8, q.inv_a, q.o_scale, q.bias)
+    ref = qc._quantized_conv3x3_ref(x, q.w_int8, q.inv_a, q.o_scale, q.bias)
+    torch.cuda.synchronize()
+    assert qc.quantized_conv3x3.launches == before + 1
+    assert out.dtype == dtype and out.shape == (n, co, h, w)
+    assert torch.equal(out, ref)
+
+
+def test_fused_resnet_block_on_card_matches_cpu(gen):
+    """resnet_block(fused=True) at 128 -> 256 (the 1x1 shortcut as the second
+    launch's residual): two launches, and the CPU's plain versions' output."""
+    from genpercept_tpu_torch.models import layers as TL
+
+    m = TL.init_params_(TL.ResnetBlock(128, 256, None), torch.Generator().manual_seed(3))
+    x = torch.randn(2, 128, 32, 24, generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        ref = TL.resnet_block(m, x, None, eps=1e-6, fused=True)
+        m.cuda()
+        before = fc.fused_gn_silu_conv3x3.launches
+        out = TL.resnet_block(m, x.cuda(), None, eps=1e-6, fused=True)
+        torch.cuda.synchronize()
+    assert fc.fused_gn_silu_conv3x3.launches == before + 2
+    assert (out.cpu() - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+def test_fused_conv_refuses_gradients_on_card(gen):
+    x = torch.randn(1, 128, 16, 16, device="cuda", generator=gen, requires_grad=True)
+    w = torch.zeros(128, 128, 3, 3, device="cuda")
+    one, zero = torch.ones(128, device="cuda"), torch.zeros(128, device="cuda")
+    with pytest.raises(RuntimeError, match="inference only"):
+        fc.fused_gn_silu_conv3x3(x, one, zero, w, zero)
+    with pytest.raises(RuntimeError, match="inference only"):
+        qc.quantized_conv3x3(x, w.to(torch.int8), one, one, zero)

@@ -114,13 +114,63 @@ def test_batch_needs_batch_size(pipes):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("arch", "marigold"), ("ensemble_size", 3), ("fused_vae", True),
+    ("arch", "marigold"), ("ensemble_size", 3),
     ("int8_gptq", True), ("fix_timesteps", 10),
     ("mode", "disparity_dpt_head"),
 ])
 def test_unported_config_raises(field, value):
     with pytest.raises(NotImplementedError):
         PipelineConfig(**{field: value})
+
+
+@pytest.mark.parametrize("fields", [dict(fused_vae=True),
+                                    dict(fused_vae=True, int8_vae=True, int8_unet=True)])
+def test_fused_vae_config_accepted(fields):
+    assert PipelineConfig(**fields).fused_vae
+
+
+# The fused-VAE slice: a VAE whose widths the fused kernel takes (128
+# channels; levels of 64, 32 and 16 rows pass its predicate, the 8-row level
+# does not), at one shape, (1, 64, 64, 3).
+FUSED_VAE = dict(block_out_channels=(128, 128, 128, 128))
+# resblocks at the 64-, 32- and 16-row levels: encoder 2 + 2 + 2, decoder
+# 3 + 3 + 3; two fused convolutions each (none at 8 rows nor in conv_out)
+FUSED_CALLS = 2 * (6 + 9)
+
+
+def test_fused_vae_slice_matches_jax(monkeypatch):
+    from jax.experimental.pallas import tpu as pltpu
+
+    from genpercept_tpu_torch.ops import fused_conv as tfc
+
+    ucfg, vcfg = JUNetConfig(**TINY_UNET), JVAEConfig(**FUSED_VAE)
+    unet_p = numpy_params(init_unet, ucfg, seed=0)
+    vae_p = numpy_params(init_vae, vcfg, seed=6)
+    embed = np.random.default_rng(2).normal(size=(1, 77, 48)).astype(np.float32)
+    jpipe = JPipeline(JModels(unet=unet_p, vae=vae_p, unet_cfg=ucfg, vae_cfg=vcfg,
+                              text_embed=jnp.asarray(embed)),
+                      JConfig(mode="depth", processing_res=64, fused_vae=True))
+    unet = UNet2DConditionModel(UNetConfig(**TINY_UNET))
+    unet.load_state_dict(state_dict_from_jax(unet_p), strict=True)
+    vae = AutoencoderKL(VAEConfig(**FUSED_VAE))
+    vae.load_state_dict(state_dict_from_jax(vae_p), strict=True)
+    models = GenPerceptModels(unet=unet, vae=vae, text_embed=torch.from_numpy(embed))
+    cfg = PipelineConfig(mode="depth", processing_res=64, fused_vae=True)
+
+    rgb = np.random.default_rng(7).uniform(size=(1, 64, 64, 3)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jpipe._infer(jpipe._params, jnp.asarray(rgb), None))
+    plain, calls = tfc._fused_gn_silu_conv3x3_ref, []
+    monkeypatch.setattr(tfc, "_fused_gn_silu_conv3x3_ref",
+                        lambda *a: calls.append(a[0].shape) or plain(*a))
+    ours = build_single_infer(models, cfg)(torch.from_numpy(rgb))
+    assert len(calls) == FUSED_CALLS
+    assert {s[2] for s in calls} == {64, 32, 16}
+    assert_depth_close(ours.numpy(), ref)
+    unfused = build_single_infer(models, PipelineConfig(mode="depth", processing_res=64))
+    calls.clear()
+    unfused(torch.from_numpy(rgb))
+    assert not calls
 
 
 @pytest.mark.parametrize("fields", [
