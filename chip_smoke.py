@@ -56,8 +56,24 @@ Phases, each printed as a JSON line:
       bf16: K7, qconv_apply and cuDNN bf16 conv ms, launches;
   (m) the fused-VAE slice, PipelineConfig(fused_vae=True), as (e): launches
       (K8 48 per forward), depth deviation kernels-vs-plain and against
-      (e)'s unfused output on the same weights, img/s beside (e)'s.
-Every phase's launch counts include K7 and K8 (0 outside their paths).
+      (e)'s unfused output on the same weights, img/s beside (e)'s;
+  (n) K2's bf16 body at C=640 and 1280 against its plain version at the
+      profiling script's shapes, beside the unfused composition;
+  (o) K6 at d=64 (the UNet's heads) against its plain version, f32 and
+      bf16 (error 0.0), beside K1's bf16 time at the same shape;
+  (p) S1-S4, the attention profiling scripts' kernels, against their plain
+      versions at batch 2, bf16: S1 (K1's function at every CTA tile of
+      D64_TILES / D512_TILES) at the four UNet/VAE shapes, S3 (d=512, both
+      row-sum folds), S2 (the bf16 softmax chain, plain version over the
+      tile's key blocks) and S4 (no running max) at (10, 9216, 64); errors,
+      kernel, plain and SDPA ms (SDPA computes S1's and S3's function, and
+      S2's and S4's up to their rounding and clamp), K1 beside them;
+  (q) the two profiling scripts' paths: scripts/profile_unet_torch.py and
+      scripts/profile_attn_boundary_torch.py, profile() once per part that
+      reaches a kernel (batch 2, fusedff 8), exact launch counts per part
+      and no refused configuration.
+Every phase's launch counts include K7, K8 and S1-S4 (0 outside their
+paths).
 K1 and K3+K4 are also timed against one PyTorch call computing the same
 function (scaled_dot_product_attention and its autograd backward), which the
 port never calls; every kernel's bound is computed from its shapes (PEAK).
@@ -140,7 +156,9 @@ TRAIN_CFG = TrainConfig(
     remat_granularity="unet", scheduler=GENPERCEPT_SCHEDULER)
 TRAIN_HW, MICRO, ACCUM, STEPS = (480, 640), 8, 4, 3  # the recipe on one card
 # launches per micro-step with remat (tests/test_torch_train.py pins them)
-STEP_LAUNCHES = {"K1": 14, "K2": 10, "K3": 6, "K4": 6, "K5": 0, "K6": 0, "K7": 0, "K8": 0}
+NO_S = {"S1": 0, "S2": 0, "S3": 0, "S4": 0}  # the profiling scripts' kernels
+STEP_LAUNCHES = {"K1": 14, "K2": 10, "K3": 6, "K4": 6, "K5": 0, "K6": 0, "K7": 0, "K8": 0,
+                 **NO_S}
 # kernels vs reference_kernels(), one micro-batch: the loss's relative
 # difference (every check), and the gradients' global relative L2 distance.
 # The gradient bounds are on the smooth mse loss; the recipe's gradients are
@@ -171,9 +189,9 @@ INT8_CFG = dict(int8_vae=True, int8_unet=True, int8_unet_ff=True, int8_vae_attn=
 # (tests/test_torch_models.py pins them): the VAE mid blocks take K6 from
 # K1, the C=320 and C=640 feed-forwards K5; the calibration pass runs the
 # full-precision routing with every FF through the hooks (no K2)
-INT8_PER_FORWARD = {"K1": 15, "K2": 0, "K5": 10, "K6": 2, "K7": 0, "K8": 0}
-CALIB_PER_FORWARD = {"K1": 17, "K2": 0, "K5": 0, "K6": 0, "K7": 0, "K8": 0}
-INT8_CALL_480x640 = {"K1": 5, "K2": 0, "K5": 0, "K6": 2, "K7": 0, "K8": 0}
+INT8_PER_FORWARD = {"K1": 15, "K2": 0, "K5": 10, "K6": 2, "K7": 0, "K8": 0, **NO_S}
+CALIB_PER_FORWARD = {"K1": 17, "K2": 0, "K5": 0, "K6": 0, "K7": 0, "K8": 0, **NO_S}
+INT8_CALL_480x640 = {"K1": 5, "K2": 0, "K5": 0, "K6": 2, "K7": 0, "K8": 0, **NO_S}
 
 # K8 (fused GN -> SiLU -> conv3x3) at the resblock convolutions of a 768^2
 # forward, batch 2: ((H = W, C, Co, residual), launches per forward); 20 in
@@ -189,9 +207,23 @@ K8_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # of max|plain|
 # the fused-VAE slice: launches per 768^2 forward; the 480x640 call (576x768
 # processing) passes the predicate at every level
 FUSED_PER_FORWARD = {"K1": K1_PER_FORWARD, "K2": K2_PER_FORWARD, "K5": 0, "K6": 0, "K7": 0,
-                     "K8": K8_PER_FORWARD}
-FUSED_CALL_480x640 = {"K1": 7, "K2": 0, "K5": 0, "K6": 0, "K7": 0, "K8": K8_PER_FORWARD}
+                     "K8": K8_PER_FORWARD, **NO_S}
+FUSED_CALL_480x640 = {"K1": 7, "K2": 0, "K5": 0, "K6": 0, "K7": 0, "K8": K8_PER_FORWARD,
+                      **NO_S}
 K7_BATCH, K7_REPS = 2, 5  # K7's path: profile_quant_conv_torch.profile at batch 2
+
+# the attention profiling scripts' kernels (S1-S4), K6 at d=64 and K2 at the
+# wide widths, at the scripts' shapes at batch 2 ((bh, s, d); (b, s, c))
+S1_SHAPES = [(10, 9216, 64), (20, 2304, 64), (40, 576, 64), (2, 9216, 512)]
+S3_SHAPE = (2, 9216, 512)
+S24_SHAPE = (10, 9216, 64)
+# S1, S3: 2e-2 absolute, as K1 in bf16; S4: 2e-2 of max|plain|; S2: 2^-6 of
+# max|v| (tests/test_torch_cuda.py states why)
+S_TOL = {"S1": 2e-2, "S3": 2e-2, "S4": 2e-2, "S2": 2.0 ** -6}
+K6_D64 = [((10, 9216, 64), 1536), ((20, 2304, 64), 2304)]  # the TPU's k blocks
+K2_WIDE = [(2, 2304, 640), (8, 576, 1280)]  # 8 x 576: rows a multiple of 512
+K2_WIDE_TOL = 6e-2  # absolute, as K2 in bf16
+SCRIPT_REPS = 2
 
 # the least time the card could take: NVIDIA H100 SXM data sheet, dense
 # rates (bf16 tensor cores, int8 tensor cores, f32 FFMA outside them) and
@@ -374,7 +406,9 @@ def build_models(gen: torch.Generator):
 
 COUNTERS = {"K1": fa._flash_bhsd, "K2": ff._fused_geglu_ff_fwd, "K3": fa._flash_bwd_dq,
             "K4": fa._flash_bwd_dkv, "K5": ff.fused_geglu_ff_int8, "K6": fa._flash_int8_codes,
-            "K7": qc.quantized_conv3x3, "K8": fc.fused_gn_silu_conv3x3}
+            "K7": qc.quantized_conv3x3, "K8": fc.fused_gn_silu_conv3x3,
+            "S1": fa.flash_with_blocks, "S2": fa.flash_bf16_softmax,
+            "S3": fa.flash_d512_blocks, "S4": fa.flash_nomax}
 
 
 def launch_counts():
@@ -387,7 +421,8 @@ def reset_counts() -> None:
 
 
 def fwd_counts(counts):
-    return {k: counts[k] for k in ("K1", "K2", "K5", "K6", "K7", "K8")}
+    """The counts of the kernels a forward can launch (all but K3, K4)."""
+    return {k: n for k, n in counts.items() if k not in ("K3", "K4")}
 
 
 def drive(pipe, batch_images, call_image):
@@ -432,7 +467,7 @@ def phase_slice(unet, vae, clip) -> dict:
     # 480x640 -> 576x768 -> 72x96 latent: 6912 tokens at level 0 (flash, 5)
     # and in the VAE (flash, 2); 1728 and 432 at levels 1-2 (plain); 6912
     # rows is no multiple of 512, so the FF stays plain
-    call_expect = {"K1": 7, "K2": 0, "K5": 0, "K6": 0, "K7": 0, "K8": 0}
+    call_expect = {"K1": 7, "K2": 0, "K5": 0, "K6": 0, "K7": 0, "K8": 0, **NO_S}
 
     results = {}
     for dt in DTYPES:
@@ -447,7 +482,8 @@ def phase_slice(unet, vae, clip) -> dict:
             r_outs, r_call, r_counts, r_call_counts = drive(pipe, batch_images, call_image)
             r_rate = throughput(pipe, batch_images)
         check(counts == {"K1": K1_PER_FORWARD * forwards, "K2": K2_PER_FORWARD * forwards,
-                         "K5": 0, "K6": 0, "K7": 0, "K8": 0}, f"{dt} .batch launch counts {counts}")
+                         "K5": 0, "K6": 0, "K7": 0, "K8": 0, **NO_S},
+              f"{dt} .batch launch counts {counts}")
         check(call_counts == call_expect, f"{dt} __call__ launch counts {call_counts}")
         check(not any(r_counts.values()) and not any(r_call_counts.values()),
               f"{dt} kernels launched under reference_kernels()")
@@ -1056,7 +1092,188 @@ def phase_fused_slice(unet, vae, clip, unfused: dict) -> dict:
     return results
 
 
-def kernel_record(name, source, replaces, launches, max_abs_err, ms, plain_ms, bd: Bound,
+def phase_k2_wide() -> None:
+    """K2's bf16 body at C=640 and 1280 against its plain version, beside
+    the unfused composition (no single PyTorch call computes K2)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    dt = torch.bfloat16
+    for b, s, c in K2_WIDE:
+        inner, rows = 4 * c, b * s
+        x = torch.randn(b, s, c, device="cuda", generator=gen).to(dt)
+        w1 = ((torch.rand(2 * inner, c, device="cuda", generator=gen) * 2 - 1) / c ** 0.5).to(dt)
+        b1 = torch.randn(2 * inner, device="cuda", generator=gen) * 0.1
+        w2 = ((torch.rand(c, inner, device="cuda", generator=gen) * 2 - 1) / inner ** 0.5).to(dt)
+        b2 = torch.randn(c, device="cuda", generator=gen) * 0.1
+        args = (x, w1, b1, w2, b2)
+        y = ff.fused_geglu_ff(*args)
+        ref = ff._fused_geglu_ff_ref(*args)
+        torch.cuda.synchronize()
+        err = (y.float() - ref.float()).abs().max().item()
+        ms = cuda_ms(lambda: ff.fused_geglu_ff(*args), 10)
+        plain_ms = cuda_ms(lambda: ff._fused_geglu_ff_ref(*args), 5)
+        composition_ms = cuda_ms(lambda: ff._geglu_ff_composition(*args), 10)
+        bd = bound(6.0 * rows * c * inner, "bf16",
+                   (2 * rows * c + 3 * c * inner) * elt(dt) + 4 * (2 * inner + c))
+        emit({"phase": "K2_wide", "dtype": str(dt), "shape": [b, s, c], "max_abs_err": err,
+              "output_max_abs": ref.float().abs().max().item(), "ms": ms, "plain_ms": plain_ms,
+              "composition_ms": composition_ms, "bound_ms": bd.ms, "bound_by": bd.by,
+              "library_ms": None})
+        check(err <= K2_WIDE_TOL, f"K2 {(b, s, c)}: error {err} > {K2_WIDE_TOL}")
+        del x, w1, w2, args, y, ref
+
+
+def phase_k6_d64() -> None:
+    """K6 at the UNet's head dim against its plain version on the same int8
+    operands, f32 and bf16 outputs: bit-identical, as at d=512."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    for dt in DTYPES:
+        for (bh, s, d), k_blk in K6_D64:
+            q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen).to(dt)
+                       for _ in range(3))
+            scale = d ** -0.5
+            check(fa._int8_k_block(s, s, d) == k_blk, f"K6 d=64 k block at {s}")
+            ops = fa.int8_operands(q, k, v)
+            out = fa._flash_int8_codes(*ops, scale, k_blk, dt)
+            ref = fa._flash_int8_ref(*ops, scale, k_blk, dt)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            ms = cuda_ms(lambda: fa._flash_int8_codes(*ops, scale, k_blk, dt), 5)
+            plain_ms = cuda_ms(lambda: fa._flash_int8_ref(*ops, scale, k_blk, dt), 2)
+            qb = q.to(torch.bfloat16)
+            k1_ms = cuda_ms(lambda: fa._flash_bhsd(qb, qb, qb, scale), 5)
+            bd = bound(4.0 * bh * s * s * d, "int8",
+                       bh * s * (3 * d + d * elt(dt) + 8) + 4 * bh * d)
+            emit({"phase": "K6_d64", "dtype": str(dt), "shape": [bh, s, d], "k_block": k_blk,
+                  "max_abs_err": err, "bit_identical": bool(torch.equal(out, ref)), "ms": ms,
+                  "plain_ms": plain_ms, "k1_bf16_ms_same_shape": k1_ms, "bound_ms": bd.ms,
+                  "bound_by": bd.by, "library_ms": None})
+            check(err == 0.0, f"K6 d=64 {dt} {(bh, s, d)}: error {err}")
+            del q, k, v, ops, out, ref, qb
+            torch.cuda.empty_cache()
+
+
+def phase_s14() -> dict:
+    """S1-S4 against their plain versions at the scripts' shapes, batch 2,
+    bf16; per kernel the sums over its configurations of the kernel, plain
+    and SDPA ms and of the bounds."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    dt = torch.bfloat16
+    total = {n: {"worst": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound": Bound()}
+             for n in ("S1", "S2", "S3", "S4")}
+
+    def run(name, shape, tile, fn, ref, plain_ms, library_ms, bd, bar, extra=None):
+        out = fn()
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        ms = cuda_ms(fn, 5)
+        emit({"phase": name, "dtype": str(dt), "shape": list(shape), "tile": list(tile),
+              **(extra or {}), "max_abs_err": err,
+              "rel_err": err / ref.float().abs().max().item(), "bar": bar, "ms": ms,
+              "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bd.ms,
+              "bound_by": bd.by})
+        check(err <= bar, f"{name} {shape} {tile} {extra}: error {err} > {bar}")
+        t = total[name]
+        t["worst"] = max(t["worst"], err)
+        t["ms"] += ms
+        t["plain_ms"] += plain_ms
+        t["library_ms"] += library_ms
+        t["bound"] += bd
+
+    for bh, s, d in S1_SHAPES:
+        q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen).to(dt) for _ in range(3))
+        scale = d ** -0.5
+        ref = fa._flash_bhsd_ref(q, k, v, scale)[0]
+        plain_ms = cuda_ms(lambda: fa._flash_bhsd_ref(q, k, v, scale), 2)
+        library_ms = cuda_ms(lambda: sdpa(q, k, v), 5)
+        k1_ms = cuda_ms(lambda: fa._flash_bhsd(q, k, v, scale), 5)
+        emit({"phase": "S_K1_baseline", "shape": [bh, s, d], "k1_tile": list(fa.K1_TILES[d]),
+              "k1_ms": k1_ms, "plain_ms": plain_ms, "library_ms": library_ms})
+        bd = bound(4.0 * bh * s * s * d, "bf16", attn_bytes(bh, s, d, dt, 3, 1, 1))
+        for bq, bk in (fa.D64_TILES if d == 64 else fa.D512_TILES):
+            run("S1", (bh, s, d), (bq, bk),
+                lambda: fa.flash_with_blocks(q, k, v, scale, bq, bk), ref, plain_ms,
+                library_ms, bd, S_TOL["S1"])
+        if (bh, s, d) == S3_SHAPE:
+            for bq, bk in fa.D512_TILES:
+                for fold in (True, False):
+                    run("S3", (bh, s, d), (bq, bk),
+                        lambda: fa.flash_d512_blocks(q, k, v, scale, bq, bk, fold), ref,
+                        plain_ms, library_ms, bd, S_TOL["S3"], {"fold": fold})
+        del q, k, v, ref
+        torch.cuda.empty_cache()
+
+    bh, s, d = S24_SHAPE
+    q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen).to(dt) for _ in range(3))
+    scale = d ** -0.5
+    library_ms = cuda_ms(lambda: sdpa(q, k, v), 5)
+    bd = bound(4.0 * bh * s * s * d, "bf16", attn_bytes(bh, s, d, dt, 3, 1))
+    bar2 = S_TOL["S2"] * v.float().abs().max().item()
+    for bq, bk in fa.D64_TILES:
+        ref = fa._flash_bf16_softmax_ref(q, k, v, scale, bk)
+        plain_ms = cuda_ms(lambda: fa._flash_bf16_softmax_ref(q, k, v, scale, bk), 2)
+        run("S2", (bh, s, d), (bq, bk), lambda: fa.flash_bf16_softmax(q, k, v, scale, bq, bk),
+            ref, plain_ms, library_ms, bd, bar2)
+    ref = fa._flash_nomax_ref(q, k, v, scale)
+    plain_ms = cuda_ms(lambda: fa._flash_nomax_ref(q, k, v, scale), 2)
+    bar4 = S_TOL["S4"] * ref.float().abs().max().item()
+    for bq, bk in fa.D64_TILES:
+        run("S4", (bh, s, d), (bq, bk), lambda: fa.flash_nomax(q, k, v, scale, bq, bk),
+            ref, plain_ms, library_ms, bd, bar4)
+    del q, k, v, ref
+    torch.cuda.empty_cache()
+    return total
+
+
+def script_runs():
+    """(script, part, batch, launches expected of one profile() call): each
+    op is called once to warm up and SCRIPT_REPS times timed."""
+    n = 1 + SCRIPT_REPS
+    t64, t512 = len(fa.D64_TILES), len(fa.D512_TILES)
+    unet, attn = "profile_unet_torch", "profile_attn_boundary_torch"
+    return [
+        (unet, "flash", 2, {"K1": 3 * n}),
+        (unet, "blocks", 2, {"S1": t64 * n}),
+        (unet, "blocks2304", 2, {"S1": t64 * n}),
+        (unet, "blocks576", 2, {"S1": t64 * n}),
+        (unet, "blocks512", 2, {"S1": t512 * n}),
+        (unet, "bf16softmax", 2, {"S2": t64 * n}),
+        # feed_forward ("xla") takes K2 at C=320 only; fused_geglu_ff at all three
+        (unet, "fusedff", 8, {"K2": 4 * n}),
+        (unet, "int8ff", 2, {"K5": 2 * n, "K2": 3 * n}),
+        (unet, "int8flash", 2, {"K6": 2 * n, "K1": 2 * n}),
+        (attn, "flash512", 2, {"K1": n}),
+        (attn, "sweep512", 2, {"S3": 2 * t512 * n}),
+        (attn, "nomax", 2, {"S4": t64 * n}),
+    ]
+
+
+def phase_scripts() -> dict:
+    """The two profiling scripts' paths: profile() once per part that reaches
+    a kernel, with exact launch counts; returns the launches of S1-S4."""
+    mods = {}
+    launched = {k: 0 for k in COUNTERS}
+    for script, part, batch, want in script_runs():
+        mod = mods.setdefault(script, load_script(script))
+        reset_counts()
+        t0 = time.perf_counter()
+        records = mod.profile(part, batch=batch, reps=SCRIPT_REPS, seed=SEED)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        expect = {k: want.get(k, 0) for k in COUNTERS}
+        errors = [r for r in records if "error" in r]
+        emit({"phase": "script_path", "script": f"scripts/{script}.py", "part": part,
+              "batch": batch, "reps": SCRIPT_REPS, "seconds": time.perf_counter() - t0,
+              "launches": counts, "records": records})
+        check(not errors, f"{script} {part}: refused configurations {errors}")
+        check(counts == expect, f"{script} {part}: launches {counts} != {expect}")
+        for k, v in counts.items():
+            launched[k] += v
+        torch.cuda.empty_cache()
+    return launched
+
+
+def kernel_record(
+name, source, replaces, launches, max_abs_err, ms, plain_ms, bd: Bound,
                   library_ms):
     return {"name": name, "route": "cuda", "source": f"genpercept_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
@@ -1081,6 +1298,10 @@ def main() -> None:
     k8 = phase_k8()
     k7 = phase_k7()
     fv = phase_fused_slice(unet, vae, clip, sl)
+    phase_k2_wide()
+    phase_k6_d64()
+    s14 = phase_s14()
+    paths = phase_scripts()
     # per 768^2 image (K1, K2: f32), per recipe micro-step (K3, K4: bf16),
     # per 768^2 forward of batch 2 (K5, K6, K8: bf16), per pass of K7's path
     # over its five shapes at batch 2 (bf16)
@@ -1112,6 +1333,18 @@ def main() -> None:
         kernel_record("fused_gn_silu_conv3x3", "fused_gn_silu_conv3x3.cu",
                       "genpercept_tpu/ops/fused_conv.py:43", fv[bf16]["counts"]["K8"],
                       k8["worst"][bf16], *k8["per_forward"][bf16][:3], None),
+        # S1-S4: launches on the scripts' paths (phase (q)); times summed over
+        # every configuration of phase (p)
+        *(kernel_record(name, source, replaces, paths[s], s14[s]["worst"], s14[s]["ms"],
+                        s14[s]["plain_ms"], s14[s]["bound"], s14[s]["library_ms"])
+          for s, name, source, replaces in (
+              ("S1", "flash_attn_fwd_tiled", "flash_attn_fwd.cu", "scripts/profile_unet.py:71"),
+              ("S2", "flash_bf16_softmax", "flash_attn_variants.cu",
+               "scripts/profile_unet.py:285"),
+              ("S3", "flash_attn_fwd_tiled", "flash_attn_fwd.cu",
+               "scripts/profile_attn_boundary.py:151"),
+              ("S4", "flash_nomax", "flash_attn_variants.cu",
+               "scripts/profile_attn_boundary.py:262"))),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -89,6 +89,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attn_fwd.argtypes = [p, p, p, p, p, i, i, i, i, f, i, p]
     lib.flash_attn_fwd.restype = i
+    lib.flash_attn_fwd_tiled.argtypes = [p, p, p, p, p, i, i, i, i, f, i, i, i, p]
+    lib.flash_attn_fwd_tiled.restype = i
+    for name in ("flash_bf16_softmax", "flash_nomax"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, p, i, i, i, i, f, i, i, p]
+        fn.restype = i
     lib.fused_geglu_ff_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
     lib.fused_geglu_ff_fwd.restype = i
     lib.flash_attn_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, i, p]

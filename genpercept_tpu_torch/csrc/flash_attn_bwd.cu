@@ -297,25 +297,7 @@ cudaError_t launch_f32(const Args& a, int bh, cudaStream_t stream) {
 
 // ---------------------------------------------------------------------------
 // bf16 body: RG row groups of 16 rows, D/64 slices of d, one warp per pair
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// rows [row0, row0+rows) of a (n, D) bf16 matrix into a [rows][D+8] tile,
-// zeros past n
-template <int D, int THREADS>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int row0, int n, int rows) {
-  constexpr int LD = D + 8;
-  for (int idx = threadIdx.x; idx < rows * (D / 8); idx += THREADS) {
-    const int r = idx / (D / 8), c8 = (idx % (D / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n) val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c8);
-    *reinterpret_cast<uint4*>(dst + r * LD + c8) = val;
-  }
-}
+// (pack_bf16 and load_rows are common.cuh's)
 
 constexpr int kPartLD = kBC + 8;  // partial X / Y row stride (floats)
 

@@ -22,6 +22,11 @@
 //     (flash_attn_fwd_mma_kernel).
 //   - bf16, d = 512: mma.sync with d split over warps
 //     (flash_attn_fwd_split_kernel).
+// The bf16 bodies are templates over the CTA tile and over how l is summed
+// (FOLD); flash_attn_fwd runs K1's instantiations, and flash_attn_fwd_tiled
+// the others, for the profiling scripts' S1 (scripts/profile_unet.py
+// flash_with_blocks) and S3 (scripts/profile_attn_boundary.py part
+// "sweep512"): the same function at caller-chosen tiles, out only.
 // wgmma, TMA and load/compute overlap are later work.
 //
 // Design: one CTA per (q tile, batch*head). On the TPU the k blocks were a
@@ -280,66 +285,48 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 // ---------------------------------------------------------------------------
 // bf16 at d = 64: the same function on tensor cores (mma.sync m16n8k16,
-// f32 accumulate). Four warps each own 16 query rows of a 64-row tile; K and
-// V tiles of 64 keys sit in shared memory with rows padded by 16 bytes, so
-// ldmatrix meets no bank conflicts. S, the rounded P and the output
-// accumulator stay in registers: the m16n8 accumulator layout of two
+// f32 accumulate). WARPS warps each own 16 query rows of a BQ = 16*WARPS-row
+// tile; K and V tiles of BK keys sit in shared memory with rows padded by 16
+// bytes, so ldmatrix meets no bank conflicts. S, the rounded P and the
+// output accumulator stay in registers: the m16n8 accumulator layout of two
 // adjacent S tiles is the A-operand layout of PV, so P never touches shared
-// memory. m is kept per row; each thread keeps a partial l over its columns
-// and the four threads of a row sum them at the end.
+// memory. m is kept per row. l, the sum of the rounded p, is either a
+// per-thread partial over the thread's columns that the four threads of a
+// row add at the end (FOLD false), or one more mma n-tile whose B operand is
+// all ones, riding the PV product as the TPU kernel's appended ones-column
+// (FOLD true). K1 runs <4 warps, 64 keys, FOLD false>; the other
+// instantiations are the profiling scripts' tile sweep (S1).
 
-constexpr int kMmaWarps = 4;
-constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kMmaBQ = 16 * kMmaWarps;
-constexpr int kMmaBK = 64;
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// rows [row0, row0+rows) of a (n, D) bf16 matrix into a [rows][D+8] tile,
-// zeros past n
-template <int D>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int row0, int n, int rows) {
-  constexpr int LD = D + 8;
-  for (int idx = threadIdx.x; idx < rows * (D / 8); idx += kMmaThreads) {
-    const int r = idx / (D / 8), c8 = (idx % (D / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n) val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c8);
-    *reinterpret_cast<uint4*>(dst + r * LD + c8) = val;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
+template <int D, int WARPS, int BK, bool FOLD>
+__global__ void __launch_bounds__(32 * WARPS)
 flash_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
                           __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                           int sq, int sk, float scale) {
+  constexpr int THREADS = 32 * WARPS;
+  constexpr int BQ = 16 * WARPS;
   constexpr int LD = D + 8;
   constexpr int KD = D / 16;       // k-steps of Q K^T
-  constexpr int NS = kMmaBK / 8;   // 8-key column tiles of S
+  constexpr int NS = BK / 8;       // 8-key column tiles of S
   constexpr int NO = D / 8;        // 8-wide column tiles of O
   static_assert(NS % 2 == 0 && NO % 2 == 0, "tiles are loaded in pairs");
   extern __shared__ float4 smem4[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem4);
-  __nv_bfloat16* Ks = Qs + kMmaBQ * LD;
-  __nv_bfloat16* Vs = Ks + kMmaBK * LD;
+  __nv_bfloat16* Ks = Qs + BQ * LD;
+  __nv_bfloat16* Vs = Ks + BK * LD;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, qd = lane % 4;  // accumulator row g (and g+8), cols 2qd, 2qd+1
   const int mi = lane / 8, mr = lane % 8; // ldmatrix: matrix index, row in matrix
-  const int q0 = blockIdx.x * kMmaBQ;
+  const int q0 = blockIdx.x * BQ;
   const size_t bh = blockIdx.y;
   const __nv_bfloat16* qb = q + bh * sq * D;
   const __nv_bfloat16* kb = k + bh * sk * D;
   const __nv_bfloat16* vb = v + bh * sk * D;
   const float c = scale * 1.4426950408889634f;
 
-  load_rows<D>(Qs, qb, q0, sq, kMmaBQ);
+  load_rows<D, THREADS>(Qs, qb, q0, sq, BQ);
   __syncthreads();
   uint32_t qf[KD][4];
 #pragma unroll
@@ -350,11 +337,12 @@ flash_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float lf[4] = {0.f, 0.f, 0.f, 0.f};  // FOLD: the ones n-tile (every column is l)
 
-  for (int k0 = 0; k0 < sk; k0 += kMmaBK) {
+  for (int k0 = 0; k0 < sk; k0 += BK) {
     __syncthreads();  // the previous tile's K and V reads are done
-    load_rows<D>(Ks, kb, k0, sk, kMmaBK);
-    load_rows<D>(Vs, vb, k0, sk, kMmaBK);
+    load_rows<D, THREADS>(Ks, kb, k0, sk, BK);
+    load_rows<D, THREADS>(Vs, vb, k0, sk, BK);
     __syncthreads();
 
     float s[NS][4];
@@ -369,7 +357,7 @@ flash_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
         mma_bf16(s[n], qf[kd], b[0], b[1]);
         mma_bf16(s[n + 1], qf[kd], b[2], b[3]);
       }
-    if (k0 + kMmaBK > sk) {
+    if (k0 + BK > sk) {
 #pragma unroll
       for (int n = 0; n < NS; ++n)
 #pragma unroll
@@ -401,13 +389,22 @@ flash_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       float p[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) p[j] = round_bf16(exp2f(s[n][j] * c - mc[j / 2]));
-      rs[0] += p[0] + p[1];
-      rs[1] += p[2] + p[3];
+      if (!FOLD) {
+        rs[0] += p[0] + p[1];
+        rs[1] += p[2] + p[3];
+      }
       pf[n / 2][(n % 2) * 2 + 0] = pack_bf16(p[0], p[1]);
       pf[n / 2][(n % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
     }
+    if (FOLD) {
+      lf[0] *= alpha[0]; lf[1] *= alpha[0];
+      lf[2] *= alpha[1]; lf[3] *= alpha[1];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+      for (int j = 0; j < NS / 2; ++j) mma_bf16(lf, pf[j], kOnesBF16x2, kOnesBF16x2);
+    } else {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+    }
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
       o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
@@ -424,11 +421,17 @@ flash_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       }
   }
 
-  // finish: the row's four threads sum their partial l; o = acc / l
+  // finish: l of the row (the four threads' partials, or the ones n-tile);
+  // o = acc / l
+  if (FOLD) {
+    l[0] = lf[0];
+    l[1] = lf[2];
+  } else {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -443,17 +446,18 @@ flash_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
+template <int D, int WARPS, int BK, bool FOLD>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
                        float* lse, int bh, int sq, int sk, float scale,
                        cudaStream_t stream) {
-  constexpr size_t bytes = (size_t)(kMmaBQ + 2 * kMmaBK) * (D + 8) * sizeof(__nv_bfloat16);
-  auto kern = flash_attn_fwd_mma_kernel<D>;
+  constexpr int BQ = 16 * WARPS;
+  constexpr size_t bytes = (size_t)(BQ + 2 * BK) * (D + 8) * sizeof(__nv_bfloat16);
+  auto kern = flash_attn_fwd_mma_kernel<D, WARPS, BK, FOLD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((sq + kMmaBQ - 1) / kMmaBQ, bh);
-  kern<<<grid, kMmaThreads, bytes, stream>>>(
+  dim3 grid((sq + BQ - 1) / BQ, bh);
+  kern<<<grid, 32 * WARPS, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse,
       sq, sk, scale);
@@ -464,42 +468,42 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
 // ---------------------------------------------------------------------------
 // bf16 at d = 512 (the VAE mid block): tensor cores with d split
 // four ways. A 16-row accumulator over all of d=512 would need 256 f32
-// registers a thread, so each of 8 warps owns one 16-row half of a 32-row q
-// tile and one quarter of d: its Q fragments (32 registers at d=512) and its
-// (16, d/4) output accumulator (64) stay in registers. Per 64-key tile the
-// warps write partial S over their quarter of d to shared memory, and every
-// warp then sums the four quarters in the same order, so the four warps of
-// a row half hold identical S, m, l and rounded P, and run PV on their own
-// quarter of V's columns.
+// registers a thread, so each of 4*BQ/16 warps owns one 16-row part of a
+// BQ-row q tile and one quarter of d: its Q fragments (32 registers at
+// d=512) and its (16, d/4) output accumulator (64) stay in registers. Per
+// BK-key tile the warps write partial S over their quarter of d to shared
+// memory, and every warp then sums the four quarters in the same order, so
+// the four warps of a row part hold identical S, m, l and rounded P, and run
+// PV on their own quarter of V's columns. FOLD as in the d = 64 body. K1
+// runs <32 rows, 64 keys, FOLD false>; the other instantiations are the
+// profiling scripts' sweep (S1 at d = 512, S3).
 
-constexpr int kSplitWarps = 8;
-constexpr int kSplitThreads = 32 * kSplitWarps;
-constexpr int kSplitBQ = 32;
-constexpr int kSplitSLD = kMmaBK + 8;  // partial-S row stride (floats)
-
-template <int D>
-__global__ void __launch_bounds__(kSplitThreads)
+template <int D, int BQ, int BK, bool FOLD>
+__global__ void __launch_bounds__(32 * 4 * (BQ / 16))
 flash_attn_fwd_split_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
                             __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                             int sq, int sk, float scale) {
+  constexpr int PARTS = BQ / 16;   // 16-row parts of the q tile
+  constexpr int THREADS = 32 * 4 * PARTS;
+  constexpr int SLD = BK + 8;      // partial-S row stride (floats)
   constexpr int LD = D + 8;
   constexpr int DQ = D / 4;        // this warp's quarter of d
   constexpr int KD = DQ / 16;      // k-steps of its partial Q K^T
-  constexpr int NS = kMmaBK / 8;
+  constexpr int NS = BK / 8;
   constexpr int NO = DQ / 8;
-  static_assert(NO % 2 == 0, "tiles are loaded in pairs");
+  static_assert(NS % 2 == 0 && NO % 2 == 0, "tiles are loaded in pairs");
   extern __shared__ float4 smem4[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem4);
-  __nv_bfloat16* Vs = Ks + kMmaBK * LD;
-  float* Sp = reinterpret_cast<float*>(Vs + kMmaBK * LD);  // [4][kSplitBQ][kSplitSLD]
+  __nv_bfloat16* Vs = Ks + BK * LD;
+  float* Sp = reinterpret_cast<float*>(Vs + BK * LD);  // [4][BQ][SLD]
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int half = warp % 2, quarter = warp / 2;
+  const int part = warp % PARTS, quarter = warp / PARTS;
   const int g = lane / 4, qd = lane % 4;
   const int mi = lane / 8, mr = lane % 8;
-  const int q0 = blockIdx.x * kSplitBQ;
+  const int q0 = blockIdx.x * BQ;
   const size_t bh = blockIdx.y;
   const __nv_bfloat16* qb = q + bh * sq * D;
   const __nv_bfloat16* kb = k + bh * sk * D;
@@ -508,26 +512,22 @@ flash_attn_fwd_split_kernel(const __nv_bfloat16* __restrict__ q,
   const int d0 = quarter * DQ;
 
   // Q tile staged through the K buffer
-  for (int idx = threadIdx.x; idx < kSplitBQ * (D / 8); idx += kSplitThreads) {
-    const int r = idx / (D / 8), c8 = (idx % (D / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < sq) val = *reinterpret_cast<const uint4*>(qb + (size_t)(q0 + r) * D + c8);
-    *reinterpret_cast<uint4*>(Ks + r * LD + c8) = val;
-  }
+  load_rows<D, THREADS>(Ks, qb, q0, sq, BQ);
   __syncthreads();
   uint32_t qf[KD][4];
 #pragma unroll
   for (int kd = 0; kd < KD; ++kd)
-    ldsm_x4(Ks + (half * 16 + mr + 8 * (mi % 2)) * LD + d0 + kd * 16 + 8 * (mi / 2), qf[kd]);
+    ldsm_x4(Ks + (part * 16 + mr + 8 * (mi % 2)) * LD + d0 + kd * 16 + 8 * (mi / 2), qf[kd]);
 
   float o[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float lf[4] = {0.f, 0.f, 0.f, 0.f};
 
-  for (int k0 = 0; k0 < sk; k0 += kMmaBK) {
+  for (int k0 = 0; k0 < sk; k0 += BK) {
     __syncthreads();  // Q staging, or the previous tile's K, V and S reads, are done
-    for (int idx = threadIdx.x; idx < kMmaBK * (D / 8); idx += kSplitThreads) {
+    for (int idx = threadIdx.x; idx < BK * (D / 8); idx += THREADS) {
       const int r = idx / (D / 8), c8 = (idx % (D / 8)) * 8;
       uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
       if (k0 + r < sk) {
@@ -552,12 +552,12 @@ flash_attn_fwd_split_kernel(const __nv_bfloat16* __restrict__ q,
           mma_bf16(sp[n], qf[kd], b[0], b[1]);
           mma_bf16(sp[n + 1], qf[kd], b[2], b[3]);
         }
-      float* mine = Sp + (quarter * kSplitBQ + half * 16) * kSplitSLD;
+      float* mine = Sp + (quarter * BQ + part * 16) * SLD;
 #pragma unroll
       for (int n = 0; n < NS; ++n) {
-        *reinterpret_cast<float2*>(mine + g * kSplitSLD + n * 8 + 2 * qd) =
+        *reinterpret_cast<float2*>(mine + g * SLD + n * 8 + 2 * qd) =
             make_float2(sp[n][0], sp[n][1]);
-        *reinterpret_cast<float2*>(mine + (g + 8) * kSplitSLD + n * 8 + 2 * qd) =
+        *reinterpret_cast<float2*>(mine + (g + 8) * SLD + n * 8 + 2 * qd) =
             make_float2(sp[n][2], sp[n][3]);
       }
     }
@@ -568,14 +568,14 @@ flash_attn_fwd_split_kernel(const __nv_bfloat16* __restrict__ q,
     for (int n = 0; n < NS; ++n)
 #pragma unroll
       for (int j = 0; j < 4; j += 2) {
-        const int row = half * 16 + g + 8 * (j / 2), col = n * 8 + 2 * qd;
+        const int row = part * 16 + g + 8 * (j / 2), col = n * 8 + 2 * qd;
         float2 acc = make_float2(0.f, 0.f);
 #pragma unroll
         for (int qq = 0; qq < 4; ++qq) {  // fixed order: identical in every warp
-          const float2 part = *reinterpret_cast<const float2*>(
-              Sp + (qq * kSplitBQ + row) * kSplitSLD + col);
-          acc.x += part.x;
-          acc.y += part.y;
+          const float2 part_s = *reinterpret_cast<const float2*>(
+              Sp + (qq * BQ + row) * SLD + col);
+          acc.x += part_s.x;
+          acc.y += part_s.y;
         }
         s[n][j] = (k0 + col < sk) ? acc.x : kNegInf;
         s[n][j + 1] = (k0 + col + 1 < sk) ? acc.y : kNegInf;
@@ -604,13 +604,22 @@ flash_attn_fwd_split_kernel(const __nv_bfloat16* __restrict__ q,
       float p[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) p[j] = round_bf16(exp2f(s[n][j] * c - mc[j / 2]));
-      rs[0] += p[0] + p[1];
-      rs[1] += p[2] + p[3];
+      if (!FOLD) {
+        rs[0] += p[0] + p[1];
+        rs[1] += p[2] + p[3];
+      }
       pf[n / 2][(n % 2) * 2 + 0] = pack_bf16(p[0], p[1]);
       pf[n / 2][(n % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
     }
+    if (FOLD) {
+      lf[0] *= alpha[0]; lf[1] *= alpha[0];
+      lf[2] *= alpha[1]; lf[3] *= alpha[1];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+      for (int j = 0; j < NS / 2; ++j) mma_bf16(lf, pf[j], kOnesBF16x2, kOnesBF16x2);
+    } else {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+    }
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
       o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
@@ -627,14 +636,19 @@ flash_attn_fwd_split_kernel(const __nv_bfloat16* __restrict__ q,
       }
   }
 
+  if (FOLD) {
+    l[0] = lf[0];
+    l[1] = lf[2];
+  } else {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + half * 16 + g + 8 * r;
+    const int row = q0 + part * 16 + g + 8 * r;
     if (row >= sq) continue;
     __nv_bfloat16* orow = out + (bh * sq + row) * D + d0;
 #pragma unroll
@@ -645,19 +659,19 @@ flash_attn_fwd_split_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
+template <int D, int BQ, int BK, bool FOLD>
 cudaError_t launch_split(const void* q, const void* k, const void* v, void* out,
                          float* lse, int bh, int sq, int sk, float scale,
                          cudaStream_t stream) {
-  constexpr size_t bytes = (size_t)2 * kMmaBK * (D + 8) * sizeof(__nv_bfloat16) +
-                           (size_t)4 * kSplitBQ * kSplitSLD * sizeof(float);
-  static_assert((size_t)kSplitBQ * (D + 8) <= (size_t)kMmaBK * (D + 8), "Q staging fits");
-  auto kern = flash_attn_fwd_split_kernel<D>;
+  constexpr size_t bytes = (size_t)2 * BK * (D + 8) * sizeof(__nv_bfloat16) +
+                           (size_t)4 * BQ * (BK + 8) * sizeof(float);
+  static_assert(BQ <= BK, "the Q tile is staged through the K buffer");
+  auto kern = flash_attn_fwd_split_kernel<D, BQ, BK, FOLD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((sq + kSplitBQ - 1) / kSplitBQ, bh);
-  kern<<<grid, kSplitThreads, bytes, stream>>>(
+  dim3 grid((sq + BQ - 1) / BQ, bh);
+  kern<<<grid, 32 * 4 * (BQ / 16), bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse,
       sq, sk, scale);
@@ -685,7 +699,39 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   float* l = static_cast<float*>(lse);
   if (bh <= 0 || sq <= 0 || sk <= 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return (int)dispatch_f32(q, k, v, out, l, bh, sq, sk, d, scale, s);
-  if (dtype == 1 && d == 64) return (int)launch_mma<64>(q, k, v, out, l, bh, sq, sk, scale, s);
-  if (dtype == 1 && d == 512) return (int)launch_split<512>(q, k, v, out, l, bh, sq, sk, scale, s);
+  if (dtype == 1 && d == 64)
+    return (int)launch_mma<64, 4, 64, false>(q, k, v, out, l, bh, sq, sk, scale, s);
+  if (dtype == 1 && d == 512)
+    return (int)launch_split<512, 32, 64, false>(q, k, v, out, l, bh, sq, sk, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The same function, bf16 only, with a caller-chosen CTA tile: bq query rows
+// by bk keys per step, and the row sum folded into PV (fold = 1) or summed
+// apart (0). The instantiated sets (the profiling scripts' sweep; the Python
+// constants D64_TILES and D512_TILES list them): d = 64 with fold = 1 at
+// (64, 32), (64, 64), (64, 128), (128, 64), (128, 128); d = 512 with either
+// fold at (16, 32), (16, 64), (32, 32), (32, 64). Any other set returns
+// cudaErrorInvalidValue. Arguments as flash_attn_fwd's.
+extern "C" int flash_attn_fwd_tiled(const void* q, const void* k, const void* v,
+                                    void* out, void* lse, int bh, int sq, int sk,
+                                    int d, float scale, int bq, int bk, int fold,
+                                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  if (bh <= 0 || sq <= 0 || sk <= 0) return (int)cudaErrorInvalidValue;
+#define GP_D64(BQ, BK)                                                              \
+  if (d == 64 && fold == 1 && bq == BQ && bk == BK)                                 \
+    return (int)launch_mma<64, BQ / 16, BK, true>(q, k, v, out, l, bh, sq, sk, scale, s);
+  GP_D64(64, 32) GP_D64(64, 64) GP_D64(64, 128) GP_D64(128, 64) GP_D64(128, 128)
+#undef GP_D64
+#define GP_D512(BQ, BK)                                                             \
+  if (d == 512 && bq == BQ && bk == BK)                                             \
+    return (int)(fold == 1 ? launch_split<512, BQ, BK, true>(q, k, v, out, l, bh, sq, sk, scale, s) \
+                           : launch_split<512, BQ, BK, false>(q, k, v, out, l, bh, sq, sk, scale, s));
+  if (fold == 0 || fold == 1) {
+    GP_D512(16, 32) GP_D512(16, 64) GP_D512(32, 32) GP_D512(32, 64)
+  }
+#undef GP_D512
   return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,5 @@
-// W8A8 flash attention (non-causal, one head of d = 512) for Hopper (sm_90a),
-// f32 or bf16 out.
+// W8A8 flash attention (non-causal; d = 512, the VAE mid block's one head, or
+// d = 64, the UNet's heads) for Hopper (sm_90a), f32 or bf16 out.
 //
 // Replaces the TPU kernel genpercept_tpu/ops/flash_attention.py::
 // _flash_int8_kernel (reached through _flash_int8_bhsd). Inputs are int8 codes:
@@ -21,18 +21,21 @@
 // head; at the 768^2 path's (2, 9216, 512) that is 348 G operations, 176 us
 // at 1,979 TOPS, against ~50 MB of codes and output (~15-20 us at 3.35
 // TB/s): operations bound. The (S x S) logits never reach device memory.
+// At d = 64 (the profiling script's UNet shapes) the per-logit softmax and
+// quantize work outweighs the two 64-deep products.
 //
 // Design: one CTA (8 warps) per 16 query rows, int8 mma.sync m16n8k32. The
-// Q codes stay in registers (each warp holds all 16 rows over d = 512). Per
-// k block: (A) K streams through shared memory in 64-key tiles, each warp
+// Q codes stay in registers (each warp holds all 16 rows over d). Per k
+// block: (A) K streams through shared memory in 64-key tiles, each warp
 // computing the logits of 8 keys into a (16, k_blk) f32 buffer in shared
-// memory (96 KB at k_blk = 1536); (B) one warp per two rows takes the block's
-// max, quantizes p into an int8 (16, k_blk) buffer and sums the codes;
-// (C) V^T streams in 64-key tiles and each warp accumulates PV for its 64
-// output columns in int32, folded into the f32 accumulator once per block.
-// About 190 KB of shared memory: one CTA per SM. K and V are read once per
-// 16 query rows, with no overlap of loads and products; wgmma, TMA and
-// larger q tiles are later work.
+// memory (96 KB at k_blk = 1536, 148 KB at d = 64's k_blk = 2304); (B) one
+// warp per two rows takes the block's max, quantizes p into an int8
+// (16, k_blk) buffer and sums the codes; (C) V^T streams in 64-key tiles and
+// each warp accumulates PV for its d/8 output columns (64 at d = 512, one
+// 8-column n-tile at d = 64) in int32, folded into the f32 accumulator once
+// per block. About 190 KB of shared memory: one CTA per SM. K and V are read
+// once per 16 query rows, with no overlap of loads and products; wgmma, TMA
+// and larger q tiles are later work.
 
 #include "common.cuh"
 
@@ -44,15 +47,16 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBQ = 16;          // query rows per CTA
 constexpr int kKT = 64;          // keys per K or V tile
-constexpr int kD = 512;
-constexpr int QLD = kD + 16;     // Q codes and K tile rows (bytes)
 constexpr int VLD = kKT + 16;    // V^T tile rows, one per output column (bytes)
-constexpr int kBuf = (kKT * QLD > kD * VLD) ? kKT * QLD : kD * VLD;
+constexpr int kMaxSmem = 232448; // shared memory a block may use on Hopper
 constexpr float kNegInf = -1e30f;
 static_assert(kWarps * 8 == kKT, "one 8-key n-tile per warp in phase A");
-static_assert(kWarps * 64 == kD, "64 output columns per warp in phase C");
 
+template <int D>
 struct Layout {
+  static constexpr int QLD = D + 16;  // Q codes and K tile rows (bytes)
+  static constexpr int BUF = (kKT * QLD > D * VLD) ? kKT * QLD : D * VLD;
+  static_assert(D % (kWarps * 8) == 0, "whole 8-column n-tiles per warp in phase C");
   int s_ld, p_ld;  // logits (floats) and pq (bytes) row strides
   int q, buf, s, p, m, l, alpha, bytes;
   __host__ __device__ explicit Layout(int k_blk) {
@@ -60,7 +64,7 @@ struct Layout {
     p_ld = k_blk + 16;
     q = 0;
     buf = q + kBQ * QLD;
-    s = buf + kBuf;
+    s = buf + BUF;
     p = s + kBQ * s_ld * 4;
     m = p + kBQ * p_ld;
     l = m + kBQ * 4;
@@ -83,13 +87,16 @@ __device__ __forceinline__ void copy_rows(int8_t* dst, int dst_ld, const int8_t*
   }
 }
 
-template <typename T>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_int8_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
                   const int8_t* __restrict__ vt, const float* __restrict__ qs,
                   const float* __restrict__ ks, const float* __restrict__ vs,
                   T* __restrict__ out, int sq, int sk, int k_blk, float c) {
-  const Layout L(k_blk);
+  using LT = Layout<D>;
+  constexpr int QLD = LT::QLD;
+  constexpr int NW = D / kWarps / 8;  // phase C n-tiles per warp
+  const LT L(k_blk);
   extern __shared__ float4 smem4[];
   int8_t* smem = reinterpret_cast<int8_t*>(smem4);
   int8_t* Qs = smem + L.q;
@@ -104,19 +111,19 @@ flash_int8_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
   const int g = lane / 4, t = lane % 4;
   const int q0 = blockIdx.x * kBQ;
   const size_t bh = blockIdx.y;
-  const int8_t* kb = k8 + bh * sk * kD;
-  const int8_t* vb = vt + bh * kD * sk;
+  const int8_t* kb = k8 + bh * sk * D;
+  const int8_t* vb = vt + bh * D * sk;
   const float* ksb = ks + bh * sk;
 
-  copy_rows(Qs, QLD, q8 + (bh * sq + q0) * kD, kD, kBQ, kD, sq - q0);
+  copy_rows(Qs, QLD, q8 + (bh * sq + q0) * D, D, kBQ, D, sq - q0);
   if (threadIdx.x < kBQ) {
     M[threadIdx.x] = kNegInf;
     Lsum[threadIdx.x] = 0.f;
   }
   __syncthreads();
-  uint32_t qf[kD / 32][4];
+  uint32_t qf[D / 32][4];
 #pragma unroll
-  for (int k = 0; k < kD / 32; ++k) load_a_s8(Qs, QLD, 0, 32 * k, lane, qf[k]);
+  for (int k = 0; k < D / 32; ++k) load_a_s8(Qs, QLD, 0, 32 * k, lane, qf[k]);
   float qrow[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -124,19 +131,19 @@ flash_int8_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
     qrow[h] = r < sq ? qs[bh * sq + r] : 0.f;
   }
 
-  float acc[8][4];
+  float acc[NW][4];
 #pragma unroll
-  for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int n = 0; n < NW; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
   for (int kb0 = 0; kb0 < sk; kb0 += k_blk) {
     // (A) logits of the block
     for (int k0 = kb0; k0 < kb0 + k_blk; k0 += kKT) {
       __syncthreads();  // the buffer's previous readers are done
-      copy_rows(Buf, QLD, kb + (size_t)k0 * kD, kD, kKT, kD, kKT);
+      copy_rows(Buf, QLD, kb + (size_t)k0 * D, D, kKT, D, kKT);
       __syncthreads();
       int sc[4] = {0, 0, 0, 0};
 #pragma unroll
-      for (int k = 0; k < kD / 32; ++k) {
+      for (int k = 0; k < D / 32; ++k) {
         uint32_t b0, b1;
         load_b_s8(Buf, QLD, warp * 8, 32 * k, lane, b0, b1);
         mma_s8(sc, qf[k], b0, b1);
@@ -180,28 +187,28 @@ flash_int8_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
     }
 
     // (C) PV of the block, int32
-    int pv[8][4];
+    int pv[NW][4];
 #pragma unroll
-    for (int n = 0; n < 8; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0;
+    for (int n = 0; n < NW; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0;
     for (int k0 = kb0; k0 < kb0 + k_blk; k0 += kKT) {
       __syncthreads();  // pq written (first tile) or the previous V tile read
-      copy_rows(Buf, VLD, vb + k0, sk, kD, kKT, kD);
+      copy_rows(Buf, VLD, vb + k0, sk, D, kKT, D);
       __syncthreads();
 #pragma unroll
       for (int kk = 0; kk < kKT; kk += 32) {
         uint32_t a[4];
         load_a_s8(P, L.p_ld, 0, (k0 - kb0) + kk, lane, a);
 #pragma unroll
-        for (int n = 0; n < 8; ++n) {
+        for (int n = 0; n < NW; ++n) {
           uint32_t b0, b1;
-          load_b_s8(Buf, VLD, warp * 64 + n * 8, kk, lane, b0, b1);
+          load_b_s8(Buf, VLD, (warp * NW + n) * 8, kk, lane, b0, b1);
           mma_s8(pv[n], a, b0, b1);
         }
       }
     }
     const float al[2] = {Alpha[g], Alpha[g + 8]};
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < NW; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         acc[n][e] = __fadd_rn(__fmul_rn(acc[n][e], al[e / 2]), static_cast<float>(pv[n][e]));
@@ -213,21 +220,22 @@ flash_int8_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
     const int row = g + 8 * (e / 2);
     if (q0 + row >= sq) continue;
     const float l = Lsum[row];
-    T* orow = out + (bh * sq + q0 + row) * kD;
+    T* orow = out + (bh * sq + q0 + row) * D;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int col = warp * 64 + n * 8 + 2 * t + (e & 1);
-      store(orow + col, __fdiv_rn(__fmul_rn(acc[n][e], vs[bh * kD + col]), l));
+    for (int n = 0; n < NW; ++n) {
+      const int col = (warp * NW + n) * 8 + 2 * t + (e & 1);
+      store(orow + col, __fdiv_rn(__fmul_rn(acc[n][e], vs[bh * D + col]), l));
     }
   }
 }
 
-template <typename T>
+template <int D, typename T>
 cudaError_t launch(const void* q8, const void* k8, const void* vt, const float* qs,
                    const float* ks, const float* vs, void* out, int bh, int sq, int sk,
                    int k_blk, float c, cudaStream_t stream) {
-  const Layout L(k_blk);
-  auto kern = flash_int8_kernel<T>;
+  const Layout<D> L(k_blk);
+  if (L.bytes > kMaxSmem) return cudaErrorInvalidValue;  // the logits buffer
+  auto kern = flash_int8_kernel<D, T>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
   if (err != cudaSuccess) return err;
@@ -238,25 +246,35 @@ cudaError_t launch(const void* q8, const void* k8, const void* vt, const float* 
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t dispatch_out(const void* q8, const void* k8, const void* vt, const float* qs,
+                         const float* ks, const float* vs, void* out, int bh, int sq, int sk,
+                         int k_blk, float c, int dtype, cudaStream_t stream) {
+  if (dtype == 0) return launch<D, float>(q8, k8, vt, qs, ks, vs, out, bh, sq, sk, k_blk, c, stream);
+  if (dtype == 1)
+    return launch<D, __nv_bfloat16>(q8, k8, vt, qs, ks, vs, out, bh, sq, sk, k_blk, c, stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // q8: (bh, sq, d), k8: (bh, sk, d), vt: (bh, d, sk) int8; qs: (bh, sq), ks:
 // (bh, sk), vs: (bh, d) float32; out: (bh, sq, d) of dtype 0 = float32 or
-// 1 = bfloat16; all contiguous. d must be 512; k_blk divides sk and is a
-// multiple of 64 (at most 1536: the logits buffer); c = scale * log2(e).
+// 1 = bfloat16; all contiguous. d is 64 or 512; k_blk divides sk and is a
+// multiple of 64 whose logits buffer fits shared memory (up to 2304 at
+// d = 64, 1536 at d = 512); c = scale * log2(e).
 extern "C" int flash_attn_int8(const void* q8, const void* k8, const void* vt,
                                const void* qs, const void* ks, const void* vs, void* out,
                                int bh, int sq, int sk, int d, int k_blk, float c, int dtype,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bh <= 0 || sq <= 0 || sk <= 0 || d != kD || k_blk <= 0 || k_blk % kKT != 0 ||
-      k_blk > 1536 || sk % k_blk != 0)
+  if (bh <= 0 || sq <= 0 || sk <= 0 || k_blk <= 0 || k_blk % kKT != 0 || sk % k_blk != 0)
     return (int)cudaErrorInvalidValue;
   const float* fq = static_cast<const float*>(qs);
   const float* fk = static_cast<const float*>(ks);
   const float* fv = static_cast<const float*>(vs);
-  if (dtype == 0) return (int)launch<float>(q8, k8, vt, fq, fk, fv, out, bh, sq, sk, k_blk, c, s);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q8, k8, vt, fq, fk, fv, out, bh, sq, sk, k_blk, c, s);
+  if (d == 64) return (int)dispatch_out<64>(q8, k8, vt, fq, fk, fv, out, bh, sq, sk, k_blk, c, dtype, s);
+  if (d == 512)
+    return (int)dispatch_out<512>(q8, k8, vt, fq, fk, fv, out, bh, sq, sk, k_blk, c, dtype, s);
   return (int)cudaErrorInvalidValue;
 }

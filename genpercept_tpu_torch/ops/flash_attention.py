@@ -13,7 +13,11 @@ memory:
   ``_flash_bwd_dkv_kernel``), via ``_flash_bwd_bhsd``: dq, and dk with dv,
   from the saved ``lse2`` and ``dsum = rowsum(dO*O)``;
 - K6 ``csrc/flash_attn_int8.cu`` (TPU ``_flash_int8_kernel``), via
-  ``_flash_int8_codes``: the inference-only W8A8 attention (section below).
+  ``_flash_int8_codes``: the inference-only W8A8 attention (section below);
+- S1-S4, the profiling scripts' variants of K1 (last section): K1's function
+  with a caller-chosen CTA tile (``flash_with_blocks``, ``flash_d512_blocks``),
+  a bf16 softmax chain (``flash_bf16_softmax``) and no running max
+  (``flash_nomax``).
 
 ``flash_attention`` is differentiable: an autograd Function whose forward is
 K1 and whose backward is K3 and K4, as the JAX package's ``custom_vjp``.
@@ -36,6 +40,7 @@ from genpercept_tpu_torch import _build
 from genpercept_tpu_torch.ops import _dispatch
 
 _LOG2E = 1.4426950408889634
+_LN2 = 0.6931471805599453
 _KERNEL_D = (64, 512)  # head dims with a kernel body
 
 
@@ -240,7 +245,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return FlashAttention.apply(q, k, v, scale)
 
 
-# ------------------------------------------------- int8 forward (d=512)
+# ------------------------------------------- int8 forward (d=512 and 64)
 #
 # K6 ``csrc/flash_attn_int8.cu`` replaces the TPU kernel _flash_int8_kernel
 # (reached through _flash_int8_bhsd). q and k arrive as int8 with per-row f32
@@ -251,7 +256,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # the block, the same pq into PV (int32) and into the row sum; out =
 # acc * vs / l. Because pq is rounded against the max of a whole block, the
 # result depends on the block partition, and kernel and plain version take
-# the TPU's.
+# the TPU's. d=512 is the VAE mid block's head; d=64 is the UNet's, which
+# only scripts/profile_unet_torch.py runs through K6.
+
+_INT8_MAX_K_BLK = {64: 2304, 512: 1536}  # the (16, k_blk) f32 logits fit shared memory
 
 
 def _rowq(x: torch.Tensor, dim: int):
@@ -315,7 +323,7 @@ def _flash_int8_codes(q8, k8, v8, qs, ks, vs, scale: float, k_blk: int,
     bh, sq, d = q8.shape
     sk = k8.shape[1]
     code = _dispatch.dtype_code(dtype, "flash_attention_int8")
-    if (d != 512 or k_blk % 64 or k_blk > 1536 or sk % k_blk
+    if (d not in _INT8_MAX_K_BLK or k_blk % 64 or k_blk > _INT8_MAX_K_BLK[d] or sk % k_blk
             or k8.shape != (bh, sk, d) or v8.shape != (bh, sk, d)
             or qs.shape != (bh, sq, 1) or ks.shape != (bh, sk, 1) or vs.shape != (bh, 1, d)
             or any(t.dtype != torch.int8 for t in (q8, k8, v8))
@@ -348,8 +356,8 @@ def _flash_int8_bhsd(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
 
 def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          scale: float | None = None) -> torch.Tensor:
-    """Inference-only int8 flash attention, (B, S, H, D) in and out, for the
-    VAE mid block's one head of d=512."""
+    """Inference-only int8 flash attention, (B, S, H, D) in and out: the
+    VAE mid block's one head of d=512, or heads of d=64."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     b, sq, h, d = q.shape
@@ -357,3 +365,162 @@ def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = _flash_int8_bhsd(_to_bhsd(q, b, sq, h, d), _to_bhsd(k, b, sk, h, d),
                            _to_bhsd(v, b, sk, h, d), scale)
     return _from_bhsd(out, b, sq, h, d)
+
+
+# ------------------------------- S1-S4: the attention profiling scripts' kernels
+#
+# scripts/profile_unet.py and scripts/profile_attn_boundary.py run four more
+# Pallas kernels, each a variant of K1's, out only, bf16:
+#
+# - S1 (profile_unet.py ``flash_with_blocks``) and S3 (profile_attn_boundary.py
+#   part "sweep512" ``build``): K1's function with caller-chosen blocks and
+#   the row sum folded into PV (an appended ones-column) or summed apart;
+#   S1 folds where d <= 128, S3 takes either. On the card they are K1's bf16
+#   bodies (csrc/flash_attn_fwd.cu ``flash_attn_fwd_tiled``) instantiated at
+#   the CTA tiles below, ``fold`` choosing between a ones n-tile of the PV
+#   mma and per-thread sums. The TPU swept VMEM blocks of 256-9216 query
+#   rows; a CTA holds 16-128, so the port's sweep is over its own tiles, and
+#   each set holds K1's production tile (``K1_TILES``) as the baseline.
+#   Plain version: ``_flash_bhsd_ref``, as K1's: p rounded against the row's
+#   global max where the kernels round it against the running max, a
+#   difference of bf16 rounding that K1's bounds already admit.
+# - S2 (profile_unet.py part "bf16softmax" ``kernel_bf``): the softmax chain
+#   in bf16 (csrc/flash_attn_variants.cu ``flash_bf16_softmax``); p is
+#   rounded against the running max, so the plain version takes the key
+#   partition: the TPU's k block on the CPU, the CUDA key tile on the card.
+# - S4 (profile_attn_boundary.py part "nomax" ``kernel``): no running max,
+#   p = bf16(exp2(min(s*c, 110))) (``flash_nomax``).
+
+D64_TILES = ((64, 32), (64, 64), (64, 128), (128, 64), (128, 128))  # (query rows, keys)
+D512_TILES = ((16, 32), (16, 64), (32, 32), (32, 64))
+K1_TILES = {64: (64, 64), 512: (32, 64)}  # K1's own, one of each set
+
+
+def _check_tiled(name: str, qh, kh, vh, tiles, bq: int, bk: int) -> None:
+    """Raise unless the kernel takes these bf16 tensors at tile (bq, bk)."""
+    if _check_kernel_args(name, qh, kh, vh) != 1:
+        raise ValueError(f"{name}: the kernel is bf16 only, got {qh.dtype}")
+    if (bq, bk) not in tiles:
+        raise ValueError(f"{name}: no kernel at tile {(bq, bk)} for head dim "
+                         f"{qh.shape[2]}; tiles {tiles}")
+
+
+def _launch_tiled(entry: str, qh, kh, vh, scale: float, *tail,
+                  with_lse: bool = False) -> torch.Tensor:
+    """Launch a tiled bf16 entry point of the kernel library -> out; with_lse:
+    the entry also writes lse2 (K1's bodies), into scratch dropped here."""
+    bh, sq, d = qh.shape
+    qh, kh, vh = qh.contiguous(), kh.contiguous(), vh.contiguous()
+    out = torch.empty_like(qh)
+    head = [qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr()]
+    if with_lse:
+        lse = torch.empty((bh, sq), dtype=torch.float32, device=qh.device)
+        head.append(lse.data_ptr())
+    err = getattr(_build.load(), entry)(
+        *head, bh, sq, kh.shape[1], d, ctypes.c_float(scale), *tail,
+        _dispatch.stream_handle(qh))
+    _build.check(err, entry)
+    return out
+
+
+def _flash_tiled(counter, qh, kh, vh, scale: float, bq: int, bk: int,
+                 fold: bool) -> torch.Tensor:
+    d = qh.shape[2]
+    tiles = D64_TILES if d == 64 and fold else D512_TILES if d == 512 else ()
+    _check_tiled(counter.__name__, qh, kh, vh, tiles, bq, bk)
+    out = _launch_tiled("flash_attn_fwd_tiled", qh, kh, vh, scale, bq, bk, int(fold),
+                        with_lse=True)
+    counter.launches += 1
+    return out
+
+
+def flash_with_blocks(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+                      scale: float, bq: int, bk: int) -> torch.Tensor:
+    """S1: K1's function at CTA tile (bq, bk), the row sum folded into PV
+    where d <= 128, as the TPU script's; (BH, S, D) bf16 in, out only.
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if not _dispatch.use_kernel(qh):
+        return _flash_bhsd_ref(qh, kh, vh, scale)[0]
+    return _flash_tiled(flash_with_blocks, qh, kh, vh, scale, bq, bk, qh.shape[2] <= 128)
+
+
+def flash_d512_blocks(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+                      scale: float, bq: int, bk: int, fold: bool) -> torch.Tensor:
+    """S3: K1's function at d=512 and CTA tile (bq, bk), the row sum folded
+    into PV or not; (BH, S, 512) bf16 in, out only."""
+    if not _dispatch.use_kernel(qh):
+        return _flash_bhsd_ref(qh, kh, vh, scale)[0]
+    if qh.shape[2] != 512:
+        raise ValueError(f"flash_d512_blocks: head dim {qh.shape[2]} is not 512")
+    return _flash_tiled(flash_d512_blocks, qh, kh, vh, scale, bq, bk, fold)
+
+
+flash_with_blocks.launches = 0
+flash_d512_blocks.launches = 0
+
+
+def _flash_bf16_softmax_ref(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+                            scale: float, k_blk: int) -> torch.Tensor:
+    """Plain version of S2 over key blocks of k_blk: logits rounded to bf16
+    once, c, the running max and p = exp2((s - m) * c) in bf16, one rounding
+    per operation. JAX's exp2 of a bf16 x is exp(bf16(ln 2) * x) with the
+    product rounded to bf16 (ln 2 rounds to 0.6914), the exponential taken
+    in f32 and rounded; so is it here. alpha = exp2 in f32 of the bf16
+    (m_prev - m_new) * c; PV and the row sum of the bf16 p accumulated in
+    f32."""
+    bf = torch.bfloat16
+    bh, sq, d = qh.shape
+    dev = qh.device
+    c = torch.tensor(scale * _LOG2E, dtype=bf, device=dev)
+    ln2 = torch.tensor(_LN2, dtype=bf, device=dev)
+    qf = qh.float()
+    m = torch.full((bh, sq, 1), -1e30, dtype=bf, device=dev)
+    acc = torch.zeros((bh, sq, d), device=dev)
+    l = torch.zeros((bh, sq, 1), device=dev)
+    for k0 in range(0, kh.shape[1], k_blk):
+        s = torch.matmul(qf, kh[:, k0:k0 + k_blk].float().transpose(1, 2)).to(bf)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(((s - m_new) * c * ln2).float()).to(bf).float()
+        alpha = torch.exp2(((m - m_new) * c).float())
+        m = m_new
+        acc = acc * alpha + torch.matmul(p, vh[:, k0:k0 + k_blk].float())
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+    return (acc / l).to(qh.dtype)
+
+
+def flash_bf16_softmax(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+                       scale: float, bq: int, bk: int) -> torch.Tensor:
+    """S2 at CTA tile (bq, bk) (one of D64_TILES): (BH, S, 64) bf16 -> out.
+    CPU tensors take the plain version with key blocks of bk."""
+    if not _dispatch.use_kernel(qh):
+        return _flash_bf16_softmax_ref(qh, kh, vh, scale, bk)
+    _check_tiled("flash_bf16_softmax", qh, kh, vh, D64_TILES if qh.shape[2] == 64 else (), bq, bk)
+    out = _launch_tiled("flash_bf16_softmax", qh, kh, vh, scale, bq, bk)
+    flash_bf16_softmax.launches += 1
+    return out
+
+
+def _flash_nomax_ref(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+                     scale: float) -> torch.Tensor:
+    """Plain version of S4: p = exp2(min(s*c, 110)) rounded to v's dtype,
+    out = (p.v) / sum(p), f32 logits and sums."""
+    s = torch.matmul(qh.float(), kh.float().transpose(1, 2))
+    p = torch.exp2(torch.clamp(s * (scale * _LOG2E), max=110.0)).to(vh.dtype).float()
+    del s
+    return (torch.matmul(p, vh.float()) / p.sum(dim=-1, keepdim=True)).to(qh.dtype)
+
+
+def flash_nomax(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor, scale: float,
+                bq: int, bk: int) -> torch.Tensor:
+    """S4 at CTA tile (bq, bk) (one of D64_TILES): (BH, S, 64) bf16 -> out.
+    CPU tensors take the plain version."""
+    if not _dispatch.use_kernel(qh):
+        return _flash_nomax_ref(qh, kh, vh, scale)
+    _check_tiled("flash_nomax", qh, kh, vh, D64_TILES if qh.shape[2] == 64 else (), bq, bk)
+    out = _launch_tiled("flash_nomax", qh, kh, vh, scale, bq, bk)
+    flash_nomax.launches += 1
+    return out
+
+
+flash_bf16_softmax.launches = 0
+flash_nomax.launches = 0

@@ -30,7 +30,10 @@ from genpercept_tpu_torch import _build
 from genpercept_tpu_torch.ops import _dispatch
 
 _ROW_BLK = 512  # the TPU kernel's row block; only ``supported`` reads it
-_KERNEL_C = 320
+_KERNEL_C = 320  # the width the routing predicate takes
+# widths with a kernel body, by dtype: the pipeline routes C=320 only; the
+# profiling scripts also run the bf16 kernel at the UNet's C=640 and 1280
+_BODY_C = {torch.float32: (320,), torch.bfloat16: (320, 640, 1280)}
 
 _ERF_ALPHA = (0.00022905065861350646, 0.0034082910107109506,
               0.050955695062380861, 0.18520832239976145, 1.128379143519084)
@@ -83,7 +86,8 @@ def _fused_geglu_ff_ref(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor | No
 
 def _fused_geglu_ff_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor | None,
                         w2: torch.Tensor, b2: torch.Tensor | None) -> torch.Tensor:
-    """K2. x: (B, S, C) -> (B, S, C).
+    """K2. x: (B, S, C) -> (B, S, C); C=320 in f32 or bf16, C=640 or 1280
+    in bf16. Ragged row counts are masked in the kernel.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if not _dispatch.use_kernel(x):
@@ -91,7 +95,7 @@ def _fused_geglu_ff_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor | No
     bsz, s, c = x.shape
     inner = w1.shape[0] // 2
     code = _dispatch.dtype_code(x, "fused_geglu_ff")
-    if c != _KERNEL_C or inner % 64 or w1.shape != (2 * inner, c) \
+    if c not in _BODY_C[x.dtype] or inner % 64 or w1.shape != (2 * inner, c) \
             or w2.shape != (c, inner):
         raise ValueError(
             f"fused_geglu_ff: no kernel for x {tuple(x.shape)}, "

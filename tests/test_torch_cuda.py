@@ -21,6 +21,14 @@ max|plain|, over the whole output and over its border pixels alone (the
 kernel and its plain version sum 9*C products in another order; in bf16 an
 activated input that rounds the other way moves a sum by one bf16 ulp of
 that input). K7, the W8A8 conv3x3: bit-identical to its plain version.
+The profiling scripts' kernels: S1 and S3 (K1's function at other CTA
+tiles) 2e-2 absolute, as K1 in bf16; S2 (the bf16 softmax chain) 2^-6 of
+max|v|: its exp2 is ex2.approx.ftz.bf16x2, up to one bf16 ulp (2^-7
+relative) of p from the plain version's rounded f32 exp2, and a relative
+error e in the weights moves the output by at most e * max|v - out| <=
+2 * e * max|v|; S4 (no running max) 2e-2 of max|plain| (p is rounded once,
+from the same f32 logits up to summation order). K6 at d=64 is held as at
+d=512, K2 at C=640 and 1280 (bf16) as at C=320.
 """
 
 import numpy as np
@@ -157,9 +165,19 @@ def test_kernels_refuse_what_they_do_not_take(gen):
     with pytest.raises(ValueError):
         fa._flash_bwd_dkv(x, x, x, x, x[..., :1].float(), x[..., :1].float(), 0.125)
     z = torch.zeros(1, 512, 640, device="cuda")
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError):  # f32 has a body at C=320 only
         ff.fused_geglu_ff(z, torch.zeros(5120, 640, device="cuda"), None,
                           torch.zeros(640, 2560, device="cuda"), None)
+    zb = z.to(torch.bfloat16)  # bf16 runs at C=640
+    y = ff.fused_geglu_ff(zb, torch.zeros(5120, 640, device="cuda", dtype=torch.bfloat16),
+                          None, torch.zeros(640, 2560, device="cuda", dtype=torch.bfloat16),
+                          None)
+    torch.cuda.synchronize()
+    assert y.shape == zb.shape and not y.float().abs().max().item()
+    w = torch.zeros(1, 512, 96, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # no body at C=96
+        ff.fused_geglu_ff(w, torch.zeros(768, 96, device="cuda", dtype=torch.bfloat16), None,
+                          torch.zeros(96, 384, device="cuda", dtype=torch.bfloat16), None)
 
 
 def test_reference_kernels_launch_nothing(gen):
@@ -230,12 +248,14 @@ def test_fused_ff_int8_kernel_matches_plain(gen, c, rows, asym, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bh,sq,sk", [(1, 100, 1024), (2, 512, 2048), (1, 6912, 6912),
-                                      (2, 9216, 9216)])
-def test_flash_int8_kernel_matches_plain(gen, bh, sq, sk, dtype):
+@pytest.mark.parametrize("bh,sq,sk,d", [(1, 100, 1024, 512), (2, 512, 2048, 512),
+                                        (1, 6912, 6912, 512), (2, 9216, 9216, 512),
+                                        (1, 100, 1536, 64), (2, 512, 2048, 64),
+                                        (1, 2304, 2304, 64), (10, 9216, 9216, 64)])
+def test_flash_int8_kernel_matches_plain(gen, bh, sq, sk, d, dtype):
     """K6 against its plain version on the same int8 operands; (2, 512, 2048)
-    spans two k blocks of 1024, the 768^2 shape six of 1536."""
-    d = 512
+    spans two k blocks of 1024, the 768^2 shape six of 1536; at d=64 2304
+    keys are one block of 2304 and the script's (10, 9216, 64) six of 1536."""
     q = (torch.randn(bh, sq, d, device="cuda", generator=gen) * 0.5).to(dtype)
     k = (torch.randn(bh, sk, d, device="cuda", generator=gen) * 0.5).to(dtype)
     v = torch.randn(bh, sk, d, device="cuda", generator=gen).to(dtype)
@@ -379,3 +399,106 @@ def test_fused_conv_refuses_gradients_on_card(gen):
         fc.fused_gn_silu_conv3x3(x, one, zero, w, zero)
     with pytest.raises(RuntimeError, match="inference only"):
         qc.quantized_conv3x3(x, w.to(torch.int8), one, one, zero)
+
+
+@pytest.mark.parametrize("rows", [512, 96, 1000, 8 * 576])  # last: the script's C=1280 shape
+@pytest.mark.parametrize("c", [640, 1280])
+def test_fused_ff_wide_kernel_matches_plain(gen, c, rows):
+    """K2's bf16 body at the UNet's level-1 and level-2 widths."""
+    dtype, inner = torch.bfloat16, 4 * c
+    x = torch.randn(1, rows, c, device="cuda", generator=gen).to(dtype)
+    w1 = ((torch.rand(2 * inner, c, device="cuda", generator=gen) * 2 - 1) / c ** 0.5).to(dtype)
+    b1 = torch.randn(2 * inner, device="cuda", generator=gen) * 0.1
+    w2 = ((torch.rand(c, inner, device="cuda", generator=gen) * 2 - 1) / inner ** 0.5).to(dtype)
+    b2 = torch.randn(c, device="cuda", generator=gen) * 0.1
+    before = ff._fused_geglu_ff_fwd.launches
+    y = ff.fused_geglu_ff(x, w1, b1, w2, b2)
+    ref = ff._fused_geglu_ff_ref(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert ff._fused_geglu_ff_fwd.launches == before + 1
+    assert y.dtype == dtype and y.shape == x.shape
+    assert (y.float() - ref.float()).abs().max().item() <= 6e-2
+
+
+def _bf16_qkv(gen, bh, sq, sk, d, scale=1.0):
+    q = (torch.randn(bh, sq, d, device="cuda", generator=gen) * scale).to(torch.bfloat16)
+    k, v = (torch.randn(bh, sk, d, device="cuda", generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.parametrize("bh,sq,sk,d", [(2, 1000, 700, 64), (10, 2304, 2304, 64),
+                                        (2, 300, 500, 512), (1, 2304, 2304, 512)])
+def test_flash_tiled_kernels_match_plain(gen, bh, sq, sk, d):
+    """S1 at every tile of its head dim (K1's function, fold = d <= 128) and
+    S3 at every d=512 tile with either fold, against K1's plain version."""
+    q, k, v = _bf16_qkv(gen, bh, sq, sk, d)
+    ref = fa._flash_bhsd_ref(q, k, v, d ** -0.5)[0].float()
+    runs = [(fa.flash_with_blocks, t, ()) for t in (fa.D64_TILES if d == 64 else fa.D512_TILES)]
+    if d == 512:
+        runs += [(fa.flash_d512_blocks, t, (fold,)) for t in fa.D512_TILES
+                 for fold in (True, False)]
+    for fn, (bq, bk), extra in runs:
+        before = fn.launches
+        out = fn(q, k, v, d ** -0.5, bq, bk, *extra)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert out.dtype == torch.bfloat16 and out.shape == q.shape
+        assert (out.float() - ref).abs().max().item() <= 2e-2, (fn.__name__, bq, bk, extra)
+
+
+@pytest.mark.parametrize("bh,sq,sk", [(2, 1000, 700), (10, 2304, 2304)])
+def test_flash_bf16_softmax_kernel_matches_plain(gen, bh, sq, sk):
+    """S2 at every tile against its plain version over key blocks of the
+    tile's keys: 2^-6 of max|v| (the module docstring)."""
+    q, k, v = _bf16_qkv(gen, bh, sq, sk, 64)
+    for bq, bk in fa.D64_TILES:
+        ref = fa._flash_bf16_softmax_ref(q, k, v, 0.125, bk).float()
+        before = fa.flash_bf16_softmax.launches
+        out = fa.flash_bf16_softmax(q, k, v, 0.125, bq, bk)
+        torch.cuda.synchronize()
+        assert fa.flash_bf16_softmax.launches == before + 1
+        assert out.dtype == torch.bfloat16 and out.shape == q.shape
+        err = (out.float() - ref).abs().max().item()
+        assert err <= 2.0 ** -6 * v.float().abs().max().item(), (bq, bk, err)
+
+
+@pytest.mark.parametrize("qscale", [1.0, 32.0])  # 32: logits past the clamp of 110
+def test_flash_nomax_kernel_matches_plain(gen, qscale):
+    q, k, v = _bf16_qkv(gen, 2, 1000, 700, 64, qscale)
+    ref = fa._flash_nomax_ref(q, k, v, 0.125).float()
+    if qscale > 1:
+        assert (torch.matmul(q.float(), k.float().transpose(1, 2)) * 0.125
+                * 1.4426950408889634 > 110).any()
+    for bq, bk in fa.D64_TILES:
+        before = fa.flash_nomax.launches
+        out = fa.flash_nomax(q, k, v, 0.125, bq, bk)
+        torch.cuda.synchronize()
+        assert fa.flash_nomax.launches == before + 1
+        err = (out.float() - ref).abs().max().item()
+        assert torch.isfinite(out).all() and err <= 2e-2 * ref.abs().max().item(), (bq, bk, err)
+
+
+def test_profiling_kernels_refuse_what_they_do_not_take(gen):
+    """f32 inputs (the bodies are bf16 only), tiles outside the sets, head
+    dims without a body, and K6 past its head dims or its logits buffer."""
+    x32 = torch.zeros(1, 128, 64, device="cuda")
+    xb = x32.to(torch.bfloat16)
+    for fn in (fa.flash_with_blocks, fa.flash_bf16_softmax, fa.flash_nomax):
+        with pytest.raises(ValueError):
+            fn(x32, x32, x32, 0.125, 64, 64)
+        with pytest.raises(ValueError):
+            fn(xb, xb, xb, 0.125, 32, 64)
+    y = torch.zeros(1, 128, 512, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fa.flash_d512_blocks(y, y, y, 0.05, 64, 64, True)
+    with pytest.raises(ValueError):
+        fa.flash_d512_blocks(xb, xb, xb, 0.125, 16, 32, True)
+    with pytest.raises(ValueError):
+        fa.flash_bf16_softmax(y, y, y, 0.05, 64, 64)
+    ops = fa.int8_operands(*(torch.zeros(1, 4608, 64, device="cuda") for _ in range(3)))
+    with pytest.raises(ValueError):
+        fa._flash_int8_codes(*ops, 0.125, 4608, torch.float32)
+    ops = fa.int8_operands(*(torch.zeros(1, 256, 128, device="cuda") for _ in range(3)))
+    with pytest.raises(ValueError):
+        fa._flash_int8_codes(*ops, 0.125, 256, torch.float32)

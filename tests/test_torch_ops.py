@@ -398,6 +398,30 @@ def test_fused_ff_plain_matches_pallas_kernel(shape, dtype, atol):
                                np.asarray(ref, np.float32), atol=atol)
 
 
+def test_fused_ff_plain_matches_pallas_kernel_c640():
+    """K2's plain version against _fused_geglu_fwd_impl (Pallas, interpret
+    mode) at C=640, bf16, 512 rows (the TPU kernel's row block: JAX leaves
+    a tail of fewer than 512 rows unwritten). Bar as the bf16 cases above."""
+    rng = np.random.default_rng(12)
+    c = 640
+    x = rng.normal(size=(1, 512, c)).astype(np.float32)
+    w1 = rng.uniform(-1, 1, size=(c, 8 * c)).astype(np.float32) / np.sqrt(c)
+    b1 = (rng.normal(size=(8 * c,)) * 0.1).astype(np.float32)
+    w2 = rng.uniform(-1, 1, size=(4 * c, c)).astype(np.float32) / np.sqrt(4 * c)
+    b2 = (rng.normal(size=(c,)) * 0.1).astype(np.float32)
+    bf = jnp.bfloat16
+    with pltpu.force_tpu_interpret_mode():
+        ref = j_ff._fused_geglu_fwd_impl(jnp.asarray(x, bf), jnp.asarray(w1, bf),
+                                         jnp.asarray(b1), jnp.asarray(w2, bf), jnp.asarray(b2))
+    tb = torch.bfloat16
+    out = t_ff._fused_geglu_ff_fwd(
+        torch.from_numpy(np.asarray(jnp.asarray(x, bf).astype(jnp.float32))).to(tb),
+        torch.from_numpy(w1.T.copy()).to(tb), torch.from_numpy(b1),
+        torch.from_numpy(w2.T.copy()).to(tb), torch.from_numpy(b2))
+    assert out.dtype == tb and out.shape == (1, 512, c)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32), atol=6e-2)
+
+
 @pytest.mark.parametrize("b,s,c", [(1, 9216, 320), (2, 9216, 320), (1, 6912, 320),
                                    (1, 2304, 640), (1, 512, 320), (3, 100, 320)])
 def test_fused_ff_routing_matches_jax(b, s, c):
