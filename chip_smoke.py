@@ -217,9 +217,10 @@ K7_BATCH, K7_REPS = 2, 5  # K7's path: profile_quant_conv_torch.profile at batch
 S1_SHAPES = [(10, 9216, 64), (20, 2304, 64), (40, 576, 64), (2, 9216, 512)]
 S3_SHAPE = (2, 9216, 512)
 S24_SHAPE = (10, 9216, 64)
-# S1, S3: 2e-2 absolute, as K1 in bf16; S4: 2e-2 of max|plain|; S2: 2^-6 of
-# max|v| (tests/test_torch_cuda.py states why)
-S_TOL = {"S1": 2e-2, "S3": 2e-2, "S4": 2e-2, "S2": 2.0 ** -6}
+# of max|plain|: max abs error of S1, S3, S4 2e-2, of S2 2^-7, and S2's mean
+# abs error 1e-4 (tests/test_torch_cuda.py states why)
+S_TOL = {"S1": 2e-2, "S3": 2e-2, "S4": 2e-2, "S2": 2.0 ** -7}
+S2_MEAN_TOL = 1e-4
 K6_D64 = [((10, 9216, 64), 1536), ((20, 2304, 64), 2304)]  # the TPU's k blocks
 K2_WIDE = [(2, 2304, 640), (8, 576, 1280)]  # 8 x 576: rows a multiple of 512
 K2_WIDE_TOL = 6e-2  # absolute, as K2 in bf16
@@ -1161,17 +1162,21 @@ def phase_s14() -> dict:
     total = {n: {"worst": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound": Bound()}
              for n in ("S1", "S2", "S3", "S4")}
 
-    def run(name, shape, tile, fn, ref, plain_ms, library_ms, bd, bar, extra=None):
+    def run(name, shape, tile, fn, ref, plain_ms, library_ms, bd, extra=None):
         out = fn()
         torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
+        diff = (out.float() - ref.float()).abs()
+        err, mean = diff.max().item(), diff.mean().item()
+        top = ref.float().abs().max().item()
+        bar = S_TOL[name] * top
         ms = cuda_ms(fn, 5)
         emit({"phase": name, "dtype": str(dt), "shape": list(shape), "tile": list(tile),
-              **(extra or {}), "max_abs_err": err,
-              "rel_err": err / ref.float().abs().max().item(), "bar": bar, "ms": ms,
-              "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bd.ms,
-              "bound_by": bd.by})
+              **(extra or {}), "max_abs_err": err, "rel_err": err / top,
+              "mean_rel_err": mean / top, "bar": bar, "ms": ms, "plain_ms": plain_ms,
+              "library_ms": library_ms, "bound_ms": bd.ms, "bound_by": bd.by})
         check(err <= bar, f"{name} {shape} {tile} {extra}: error {err} > {bar}")
+        if name == "S2":
+            check(mean <= S2_MEAN_TOL * top, f"S2 {tile}: mean error {mean / top} of max")
         t = total[name]
         t["worst"] = max(t["worst"], err)
         t["ms"] += ms
@@ -1192,13 +1197,13 @@ def phase_s14() -> dict:
         for bq, bk in (fa.D64_TILES if d == 64 else fa.D512_TILES):
             run("S1", (bh, s, d), (bq, bk),
                 lambda: fa.flash_with_blocks(q, k, v, scale, bq, bk), ref, plain_ms,
-                library_ms, bd, S_TOL["S1"])
+                library_ms, bd)
         if (bh, s, d) == S3_SHAPE:
             for bq, bk in fa.D512_TILES:
                 for fold in (True, False):
                     run("S3", (bh, s, d), (bq, bk),
                         lambda: fa.flash_d512_blocks(q, k, v, scale, bq, bk, fold), ref,
-                        plain_ms, library_ms, bd, S_TOL["S3"], {"fold": fold})
+                        plain_ms, library_ms, bd, {"fold": fold})
         del q, k, v, ref
         torch.cuda.empty_cache()
 
@@ -1207,18 +1212,16 @@ def phase_s14() -> dict:
     scale = d ** -0.5
     library_ms = cuda_ms(lambda: sdpa(q, k, v), 5)
     bd = bound(4.0 * bh * s * s * d, "bf16", attn_bytes(bh, s, d, dt, 3, 1))
-    bar2 = S_TOL["S2"] * v.float().abs().max().item()
     for bq, bk in fa.D64_TILES:
         ref = fa._flash_bf16_softmax_ref(q, k, v, scale, bk)
         plain_ms = cuda_ms(lambda: fa._flash_bf16_softmax_ref(q, k, v, scale, bk), 2)
         run("S2", (bh, s, d), (bq, bk), lambda: fa.flash_bf16_softmax(q, k, v, scale, bq, bk),
-            ref, plain_ms, library_ms, bd, bar2)
+            ref, plain_ms, library_ms, bd)
     ref = fa._flash_nomax_ref(q, k, v, scale)
     plain_ms = cuda_ms(lambda: fa._flash_nomax_ref(q, k, v, scale), 2)
-    bar4 = S_TOL["S4"] * ref.float().abs().max().item()
     for bq, bk in fa.D64_TILES:
         run("S4", (bh, s, d), (bq, bk), lambda: fa.flash_nomax(q, k, v, scale, bq, bk),
-            ref, plain_ms, library_ms, bd, bar4)
+            ref, plain_ms, library_ms, bd)
     del q, k, v, ref
     torch.cuda.empty_cache()
     return total
@@ -1272,8 +1275,7 @@ def phase_scripts() -> dict:
     return launched
 
 
-def kernel_record(
-name, source, replaces, launches, max_abs_err, ms, plain_ms, bd: Bound,
+def kernel_record(name, source, replaces, launches, max_abs_err, ms, plain_ms, bd: Bound,
                   library_ms):
     return {"name": name, "route": "cuda", "source": f"genpercept_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
@@ -1339,11 +1341,11 @@ def main() -> None:
                         s14[s]["plain_ms"], s14[s]["bound"], s14[s]["library_ms"])
           for s, name, source, replaces in (
               ("S1", "flash_attn_fwd_tiled", "flash_attn_fwd.cu", "scripts/profile_unet.py:71"),
-              ("S2", "flash_bf16_softmax", "flash_attn_variants.cu",
+              ("S2", "flash_bf16_softmax", "flash_attn_fwd.cu",
                "scripts/profile_unet.py:285"),
               ("S3", "flash_attn_fwd_tiled", "flash_attn_fwd.cu",
                "scripts/profile_attn_boundary.py:151"),
-              ("S4", "flash_nomax", "flash_attn_variants.cu",
+              ("S4", "flash_nomax", "flash_attn_fwd.cu",
                "scripts/profile_attn_boundary.py:262"))),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -27,6 +27,31 @@
 // the others, for the profiling scripts' S1 (scripts/profile_unet.py
 // flash_with_blocks) and S3 (scripts/profile_attn_boundary.py part
 // "sweep512"): the same function at caller-chosen tiles, out only.
+// The d = 64 body is also a template over its softmax step, for the
+// scripts' two other variants, out only, reached through their own entries:
+//   S2 flash_bf16_softmax  scripts/profile_unet.py::kernel_bf (main(), part
+//      "bf16softmax"): the softmax chain in bf16. Per key tile:
+//        s     = bf16(q . k^T)                 f32 accumulate, rounded once
+//        c     = bf16(scale * log2 e)
+//        m_new = max(m, rowmax(s))             bf16 (the max is exact)
+//        e     = bf16(bf16(s - m_new) * c)
+//        p     = bf16(exp(bf16(ln2 * e)))       jnp.exp2 of a bf16 array
+//        alpha = exp2(f32(bf16(bf16(m - m_new) * c)))
+//      jnp.exp2 of a bf16 array is exp(ln2 * x) with ln2 = bf16(ln 2) =
+//      0.6914 and the product rounded to bf16: that is the TPU kernel's p
+//      (about 1.7% from 2^x at x = -10), and so it is here. The subtraction
+//      and the two products run as packed bf16x2 arithmetic (__hsub2,
+//      __hmul2); the exponential runs in f32 (expf) and is rounded once, as
+//      in the plain version, since ex2.approx.ftz.bf16x2 takes 2^x of a bf16
+//      argument and would round the argument once more. p is rounded against
+//      the running max of the key tiles seen so far, so the key partition is
+//      part of the function: the plain version takes it (k_blk = BK).
+//   S4 flash_nomax  scripts/profile_attn_boundary.py::kernel (main(), part
+//      "nomax"): no running max. p = bf16(exp2(min(s * c, 110))) with s and
+//      c in f32; the clamp keeps every p and the sums of 9216 keys below
+//      bf16's and f32's range, so nothing is rescaled.
+// Both carry l as the ones n-tile of PV (FOLD), as the TPU kernels append a
+// ones-column to v.
 // wgmma, TMA and load/compute overlap are later work.
 //
 // Design: one CTA per (q tile, batch*head). On the TPU the k blocks were a
@@ -294,10 +319,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 // per-thread partial over the thread's columns that the four threads of a
 // row add at the end (FOLD false), or one more mma n-tile whose B operand is
 // all ones, riding the PV product as the TPU kernel's appended ones-column
-// (FOLD true). K1 runs <4 warps, 64 keys, FOLD false>; the other
-// instantiations are the profiling scripts' tile sweep (S1).
+// (FOLD true). K1 runs <4 warps, 64 keys, FOLD false, kF32Max>; the other
+// instantiations are the profiling scripts' tile sweep (S1) and S2, S4.
 
-template <int D, int WARPS, int BK, bool FOLD>
+// the softmax step of the d = 64 body (the file header gives each)
+enum Softmax {
+  kF32Max = 0,     // K1, S1: running max of the f32 logits
+  kBf16Chain = 1,  // S2: the softmax chain in bf16
+  kNoMax = 2,      // S4: no max, exp2 clamped at 110, no rescale
+};
+
+// bf16(exp(x)) of two bf16 lanes, the exponential in f32
+__device__ __forceinline__ uint32_t exp_bf16x2(__nv_bfloat162 x) {
+  return pack_bf16(expf(__low2float(x)), expf(__high2float(x)));
+}
+
+template <int D, int WARPS, int BK, bool FOLD, int SOFTMAX = kF32Max>
 __global__ void __launch_bounds__(32 * WARPS)
 flash_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
@@ -311,6 +348,7 @@ flash_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int NS = BK / 8;       // 8-key column tiles of S
   constexpr int NO = D / 8;        // 8-wide column tiles of O
   static_assert(NS % 2 == 0 && NO % 2 == 0, "tiles are loaded in pairs");
+  static_assert(SOFTMAX == kF32Max || FOLD, "S2 and S4 sum l in the ones n-tile");
   extern __shared__ float4 smem4[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem4);
   __nv_bfloat16* Ks = Qs + BQ * LD;
@@ -325,6 +363,9 @@ flash_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* kb = k + bh * sk * D;
   const __nv_bfloat16* vb = v + bh * sk * D;
   const float c = scale * 1.4426950408889634f;
+  const __nv_bfloat16 cb = __float2bfloat16(c);  // S2's bf16 constants
+  const __nv_bfloat162 cb2 = __halves2bfloat162(cb, cb);
+  const __nv_bfloat162 ln2 = __float2bfloat162_rn(0.6931471805599453f);
 
   load_rows<D, THREADS>(Qs, qb, q0, sq, BQ);
   __syncthreads();
@@ -336,7 +377,9 @@ flash_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   float o[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  // S2 keeps m as a bf16 value held in a float
+  const float m0 = SOFTMAX == kBf16Chain ? round_bf16(kNegInf) : kNegInf;
+  float m[2] = {m0, m0}, l[2] = {0.f, 0.f};
   float lf[4] = {0.f, 0.f, 0.f, 0.f};  // FOLD: the ones n-tile (every column is l)
 
   for (int k0 = 0; k0 < sk; k0 += BK) {
@@ -365,45 +408,85 @@ flash_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
           if (k0 + n * 8 + 2 * qd + (j & 1) >= sk) s[n][j] = kNegInf;
     }
 
-    // online softmax on raw logits; rows g (j = 0, 1) and g + 8 (j = 2, 3)
-    float tm[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      tm[0] = fmaxf(tm[0], fmaxf(s[n][0], s[n][1]));
-      tm[1] = fmaxf(tm[1], fmaxf(s[n][2], s[n][3]));
-    }
-    float alpha[2], mc[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      tm[r] = fmaxf(tm[r], __shfl_xor_sync(0xffffffffu, tm[r], 1));
-      tm[r] = fmaxf(tm[r], __shfl_xor_sync(0xffffffffu, tm[r], 2));
-      const float m_new = fmaxf(m[r], tm[r]);
-      alpha[r] = exp2f((m[r] - m_new) * c);
-      m[r] = m_new;
-      mc[r] = m_new * c;
-    }
+    // online softmax; rows g (j = 0, 1) and g + 8 (j = 2, 3). alpha stays 1
+    // without a max (S4)
     uint32_t pf[NS / 2][4];
-    float rs[2] = {0.f, 0.f};
+    float alpha[2] = {1.f, 1.f};
+    if (SOFTMAX == kBf16Chain) {
+      // logits rounded to bf16 once; the row max over the rounded logits
+      __nv_bfloat162 sb[NS][2];  // [n][0]: row g, [n][1]: row g + 8
+      float tm[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      float p[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) p[j] = round_bf16(exp2f(s[n][j] * c - mc[j / 2]));
-      if (!FOLD) {
-        rs[0] += p[0] + p[1];
-        rs[1] += p[2] + p[3];
+      for (int n = 0; n < NS; ++n) {
+        sb[n][0] = __floats2bfloat162_rn(s[n][0], s[n][1]);
+        sb[n][1] = __floats2bfloat162_rn(s[n][2], s[n][3]);
+        tm[0] = fmaxf(tm[0], fmaxf(__low2float(sb[n][0]), __high2float(sb[n][0])));
+        tm[1] = fmaxf(tm[1], fmaxf(__low2float(sb[n][1]), __high2float(sb[n][1])));
       }
-      pf[n / 2][(n % 2) * 2 + 0] = pack_bf16(p[0], p[1]);
-      pf[n / 2][(n % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
+      __nv_bfloat162 mn2[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        tm[r] = fmaxf(tm[r], __shfl_xor_sync(0xffffffffu, tm[r], 1));
+        tm[r] = fmaxf(tm[r], __shfl_xor_sync(0xffffffffu, tm[r], 2));
+        const float m_new = fmaxf(m[r], tm[r]);  // bf16 values: exact
+        const __nv_bfloat16 mp = __float2bfloat16(m[r]), mn = __float2bfloat16(m_new);
+        alpha[r] = exp2f(__bfloat162float(__hmul(__hsub(mp, mn), cb)));
+        m[r] = m_new;
+        mn2[r] = __halves2bfloat162(mn, mn);
+      }
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          pf[n / 2][(n % 2) * 2 + r] =
+              exp_bf16x2(__hmul2(__hmul2(__hsub2(sb[n][r], mn2[r]), cb2), ln2));
+    } else {
+      float mc[2] = {0.f, 0.f};
+      if (SOFTMAX == kF32Max) {  // the max of the raw logits
+        float tm[2] = {kNegInf, kNegInf};
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          tm[0] = fmaxf(tm[0], fmaxf(s[n][0], s[n][1]));
+          tm[1] = fmaxf(tm[1], fmaxf(s[n][2], s[n][3]));
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          tm[r] = fmaxf(tm[r], __shfl_xor_sync(0xffffffffu, tm[r], 1));
+          tm[r] = fmaxf(tm[r], __shfl_xor_sync(0xffffffffu, tm[r], 2));
+          const float m_new = fmaxf(m[r], tm[r]);
+          alpha[r] = exp2f((m[r] - m_new) * c);
+          m[r] = m_new;
+          mc[r] = m_new * c;
+        }
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        float p[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          p[j] = SOFTMAX == kNoMax ? exp2f(fminf(s[n][j] * c, 110.f))
+                                   : exp2f(s[n][j] * c - mc[j / 2]);
+          // l sums the rounded p; with FOLD only pack_bf16 rounds it, once
+          if (!FOLD) p[j] = round_bf16(p[j]);
+        }
+        if (!FOLD) {
+          rs[0] += p[0] + p[1];
+          rs[1] += p[2] + p[3];
+        }
+        pf[n / 2][(n % 2) * 2 + 0] = pack_bf16(p[0], p[1]);
+        pf[n / 2][(n % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
+      }
+      if (!FOLD) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+      }
     }
     if (FOLD) {
       lf[0] *= alpha[0]; lf[1] *= alpha[0];
       lf[2] *= alpha[1]; lf[3] *= alpha[1];
 #pragma unroll
       for (int j = 0; j < NS / 2; ++j) mma_bf16(lf, pf[j], kOnesBF16x2, kOnesBF16x2);
-    } else {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
     }
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
@@ -422,7 +505,7 @@ flash_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   // finish: l of the row (the four threads' partials, or the ones n-tile);
-  // o = acc / l
+  // o = acc / l; lse2 for K1's softmax only (S2 and S4 are out only)
   if (FOLD) {
     l[0] = lf[0];
     l[1] = lf[2];
@@ -442,17 +525,17 @@ flash_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int n = 0; n < NO; ++n)
       *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * qd) =
           __floats2bfloat162_rn(o[n][2 * r] / l[r], o[n][2 * r + 1] / l[r]);
-    if (qd == 0) lse[bh * sq + row] = m[r] * c + log2f(l[r]);
+    if (SOFTMAX == kF32Max && qd == 0) lse[bh * sq + row] = m[r] * c + log2f(l[r]);
   }
 }
 
-template <int D, int WARPS, int BK, bool FOLD>
+template <int D, int WARPS, int BK, bool FOLD, int SOFTMAX = kF32Max>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
                        float* lse, int bh, int sq, int sk, float scale,
                        cudaStream_t stream) {
   constexpr int BQ = 16 * WARPS;
   constexpr size_t bytes = (size_t)(BQ + 2 * BK) * (D + 8) * sizeof(__nv_bfloat16);
-  auto kern = flash_attn_fwd_mma_kernel<D, WARPS, BK, FOLD>;
+  auto kern = flash_attn_fwd_mma_kernel<D, WARPS, BK, FOLD, SOFTMAX>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
@@ -688,6 +771,24 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* out,
   }
 }
 
+// the d = 64 CTA tiles (query rows, keys) of the profiling scripts' sweep
+#define GP_D64_TILES(X) X(64, 32) X(64, 64) X(64, 128) X(128, 64) X(128, 128)
+
+// S2 or S4 at d = 64 and tile (bq, bk), out only
+template <int SOFTMAX>
+cudaError_t dispatch_variant(const void* q, const void* k, const void* v, void* out, int bh,
+                             int sq, int sk, int d, float scale, int bq, int bk,
+                             cudaStream_t stream) {
+  if (bh <= 0 || sq <= 0 || sk <= 0 || d != 64) return cudaErrorInvalidValue;
+#define GP_TILE(BQ, BK)                                                               \
+  if (bq == BQ && bk == BK)                                                           \
+    return launch_mma<64, BQ / 16, BK, true, SOFTMAX>(q, k, v, out, nullptr, bh, sq, sk, \
+                                                       scale, stream);
+  GP_D64_TILES(GP_TILE)
+#undef GP_TILE
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // q: (bh, sq, d), k/v: (bh, sk, d), out: (bh, sq, d), all contiguous and of
@@ -723,7 +824,7 @@ extern "C" int flash_attn_fwd_tiled(const void* q, const void* k, const void* v,
 #define GP_D64(BQ, BK)                                                              \
   if (d == 64 && fold == 1 && bq == BQ && bk == BK)                                 \
     return (int)launch_mma<64, BQ / 16, BK, true>(q, k, v, out, l, bh, sq, sk, scale, s);
-  GP_D64(64, 32) GP_D64(64, 64) GP_D64(64, 128) GP_D64(128, 64) GP_D64(128, 128)
+  GP_D64_TILES(GP_D64)
 #undef GP_D64
 #define GP_D512(BQ, BK)                                                             \
   if (d == 512 && bq == BQ && bk == BK)                                             \
@@ -734,4 +835,20 @@ extern "C" int flash_attn_fwd_tiled(const void* q, const void* k, const void* v,
   }
 #undef GP_D512
   return (int)cudaErrorInvalidValue;
+}
+
+// S2 and S4 (the file header): q: (bh, sq, 64), k/v: (bh, sk, 64), out:
+// (bh, sq, 64), all bf16 and contiguous; no lse. (bq, bk) is one of the
+// d = 64 tiles above (D64_TILES); any other returns cudaErrorInvalidValue.
+extern "C" int flash_bf16_softmax(const void* q, const void* k, const void* v, void* out,
+                                  int bh, int sq, int sk, int d, float scale, int bq, int bk,
+                                  void* stream) {
+  return (int)dispatch_variant<kBf16Chain>(q, k, v, out, bh, sq, sk, d, scale, bq, bk,
+                                           static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_nomax(const void* q, const void* k, const void* v, void* out, int bh,
+                           int sq, int sk, int d, float scale, int bq, int bk, void* stream) {
+  return (int)dispatch_variant<kNoMax>(q, k, v, out, bh, sq, sk, d, scale, bq, bk,
+                                       static_cast<cudaStream_t>(stream));
 }

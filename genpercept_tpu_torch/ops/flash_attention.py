@@ -385,7 +385,7 @@ def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 #   global max where the kernels round it against the running max, a
 #   difference of bf16 rounding that K1's bounds already admit.
 # - S2 (profile_unet.py part "bf16softmax" ``kernel_bf``): the softmax chain
-#   in bf16 (csrc/flash_attn_variants.cu ``flash_bf16_softmax``); p is
+#   in bf16 (csrc/flash_attn_fwd.cu ``flash_bf16_softmax``); p is
 #   rounded against the running max, so the plain version takes the key
 #   partition: the TPU's k block on the CPU, the CUDA key tile on the card.
 # - S4 (profile_attn_boundary.py part "nomax" ``kernel``): no running max,

@@ -21,14 +21,20 @@ max|plain|, over the whole output and over its border pixels alone (the
 kernel and its plain version sum 9*C products in another order; in bf16 an
 activated input that rounds the other way moves a sum by one bf16 ulp of
 that input). K7, the W8A8 conv3x3: bit-identical to its plain version.
-The profiling scripts' kernels: S1 and S3 (K1's function at other CTA
-tiles) 2e-2 absolute, as K1 in bf16; S2 (the bf16 softmax chain) 2^-6 of
-max|v|: its exp2 is ex2.approx.ftz.bf16x2, up to one bf16 ulp (2^-7
-relative) of p from the plain version's rounded f32 exp2, and a relative
-error e in the weights moves the output by at most e * max|v - out| <=
-2 * e * max|v|; S4 (no running max) 2e-2 of max|plain| (p is rounded once,
-from the same f32 logits up to summation order). K6 at d=64 is held as at
-d=512, K2 at C=640 and 1280 (bf16) as at C=320.
+The profiling scripts' kernels: S1, S3 and S4 2e-2 of max|plain|. S1 and
+S3 are K1's function at other CTA tiles: p is rounded against the running
+max, in the plain version against the global max. S4 (no running max)
+rounds p once from the same f32 logits, up to summation order. S2, the bf16
+softmax chain, takes each bf16 step as one rounded operation and its
+exponential as an f32 exp rounded once, on the same key partition as its
+plain version: the two differ only in the order of f32 sums, so an output
+moves by one bf16 ulp at most, 2^-7 of max|plain| (its max bar), and only
+where a sum lies at a rounding midpoint, so the mean abs error stays far
+under 1e-4 of max|plain| (its mean bar). K1's f32 chain, or S2's over
+another key partition, reads a mean of 4e-4 to 9e-4 of max|plain| against
+S2's plain version at 1000-9216 keys on the CPU, past the mean bar
+(tests/test_torch_flash_variants.py holds them apart). K6 at d=64 is held
+as at d=512, K2 at C=640 and 1280 (bf16) as at C=320.
 """
 
 import numpy as np
@@ -444,13 +450,15 @@ def test_flash_tiled_kernels_match_plain(gen, bh, sq, sk, d):
         torch.cuda.synchronize()
         assert fn.launches == before + 1
         assert out.dtype == torch.bfloat16 and out.shape == q.shape
-        assert (out.float() - ref).abs().max().item() <= 2e-2, (fn.__name__, bq, bk, extra)
+        err = (out.float() - ref).abs().max().item()
+        assert err <= 2e-2 * ref.abs().max().item(), (fn.__name__, bq, bk, extra, err)
 
 
 @pytest.mark.parametrize("bh,sq,sk", [(2, 1000, 700), (10, 2304, 2304)])
 def test_flash_bf16_softmax_kernel_matches_plain(gen, bh, sq, sk):
     """S2 at every tile against its plain version over key blocks of the
-    tile's keys: 2^-6 of max|v| (the module docstring)."""
+    tile's keys: max abs error 2^-7 and mean 1e-4 of max|plain| (the module
+    docstring)."""
     q, k, v = _bf16_qkv(gen, bh, sq, sk, 64)
     for bq, bk in fa.D64_TILES:
         ref = fa._flash_bf16_softmax_ref(q, k, v, 0.125, bk).float()
@@ -459,8 +467,9 @@ def test_flash_bf16_softmax_kernel_matches_plain(gen, bh, sq, sk):
         torch.cuda.synchronize()
         assert fa.flash_bf16_softmax.launches == before + 1
         assert out.dtype == torch.bfloat16 and out.shape == q.shape
-        err = (out.float() - ref).abs().max().item()
-        assert err <= 2.0 ** -6 * v.float().abs().max().item(), (bq, bk, err)
+        diff, top = (out.float() - ref).abs(), ref.abs().max().item()
+        assert diff.max().item() <= 2.0 ** -7 * top, (bq, bk, diff.max().item())
+        assert diff.mean().item() <= 1e-4 * top, (bq, bk, diff.mean().item())
 
 
 @pytest.mark.parametrize("qscale", [1.0, 32.0])  # 32: logits past the clamp of 110

@@ -213,6 +213,22 @@ def test_s2_plain_matches_pallas(q_blk, k_blk):
         assert not _within(_errors(mutant, ref), S2_BOUNDS), _errors(mutant, ref)
 
 
+@pytest.mark.parametrize("k_blk", sorted({bk for _, bk in tfa.D64_TILES}))
+def test_s2_card_bar_separates_softmax_chains(k_blk):
+    """The card holds S2's kernel to a mean abs error of 1e-4 of max|plain|
+    beside one bf16 ulp at most (tests/test_torch_cuda.py). At 2304 keys and
+    the card's key tiles, K1's f32 chain and S2's chain over another key
+    partition lie past that bar from S2's plain version (readings 7.2e-4
+    and 4.4e-4 of max|plain|), so a kernel that took either would fail."""
+    g = torch.Generator().manual_seed(25)
+    q, k, v = (torch.randn(1, 2304, 64, generator=g).to(torch.bfloat16) for _ in range(3))
+    s2 = tfa._flash_bf16_softmax_ref(q, k, v, 0.125, k_blk).float()
+    bar = 1e-4 * s2.abs().max().item()
+    for mutant in (tfa._flash_bhsd_ref(q, k, v, 0.125)[0],
+                   tfa._flash_bf16_softmax_ref(q, k, v, 0.125, 2304)):
+        assert (mutant.float() - s2).abs().mean().item() > 3 * bar
+
+
 def test_s2_exp2_is_jax_bf16_lowering():
     """The fact S2's plain version and kernel rest on: JAX's exp2 of a bf16
     array is exp(bf16(ln 2) * x), the product rounded to bf16, and not
