@@ -11,7 +11,9 @@ Phases, each printed as a JSON line:
   (c) K1 flash attention and (d) K2 fused GEGLU feed-forward against their
       plain PyTorch versions on the card, at the inference path's 768^2
       shapes and the training recipe's, in f32 and bf16: max abs error and
-      CUDA-event times;
+      CUDA-event times; K1 also at two ragged shapes (K1_RAGGED), and with
+      the name of the f32 body the library holds (split TF32) and its bound
+      at the split-TF32 rate beside the FFMA rate of the body it replaced;
   (e) the slice at full SD2.1 width (seeded random weights, JAX init scheme):
       a GenPerceptPipeline answers .batch over four 768x768 images
       (batch_size 2) and one __call__ on a 480x640 image, in f32 and bf16,
@@ -131,6 +133,11 @@ K1_PER_FORWARD = sum(n for _, n in K1_SHAPES)  # 17
 # generator of their own, so the 768^2 shapes and the models get the same
 # draws as without them
 K1_RECIPE = [(40, 4800, 64), (8, 4800, 512)]
+# (bh, sq, sk, d) where a key tile is partial and a q tile has rows past Sq:
+# JAX's padded-KV test (2 x 3 heads, 256 queries, 77 keys) and a d=512 length
+# that is no multiple of 32; checked once each, inputs from the recipe's
+# generator after the recipe's shapes
+K1_RAGGED = [(6, 256, 77, 64), (2, 1000, 1000, 512)]
 K2_RECIPE = (8, 4800, 320)
 TOL = {  # kernel vs plain version on the card
     "K1": {torch.float32: 1e-4, torch.bfloat16: 2e-2},  # max abs, out and lse2
@@ -227,9 +234,10 @@ K2_WIDE_TOL = 6e-2  # absolute, as K2 in bf16
 SCRIPT_REPS = 2
 
 # the least time the card could take: NVIDIA H100 SXM data sheet, dense
-# rates (bf16 tensor cores, int8 tensor cores, f32 FFMA outside them) and
-# HBM3 bandwidth
-PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# rates (bf16 tensor cores, int8 tensor cores, f32 FFMA outside them, and
+# TF32 tensor cores at a third of their 495 TFLOP/s for split TF32, whose
+# every product is three tf32 products: K1's f32 body) and HBM3 bandwidth
+PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "tf32x3": 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -330,7 +338,20 @@ def attn_bytes(bh, s, d, dt, n_in, n_out, n_rows=0) -> int:
     return bh * s * (d * elt(dt) * (n_in + n_out) + 4 * n_rows)
 
 
+def k1_errors(q, k, v) -> tuple[float, float]:
+    """K1 against its plain version on the same inputs: max abs error of the
+    output and of lse2."""
+    scale = q.shape[-1] ** -0.5
+    out, lse = fa._flash_bhsd(q, k, v, scale)
+    ref, ref_lse = fa._flash_bhsd_ref(q, k, v, scale)
+    torch.cuda.synchronize()
+    return (out.float() - ref.float()).abs().max().item(), (lse - ref_lse).abs().max().item()
+
+
 def phase_k1(gen: torch.Generator) -> dict:
+    body = _build.load().flash_attn_fwd_f32_body().decode()
+    emit({"phase": "K1_f32_body", "body": body})
+    check(body.startswith("split TF32"), f"K1's f32 body is {body!r}")
     worst = {dt: 0.0 for dt in DTYPES}
     # per 768^2 image and dtype: kernel, plain, bound and library ms
     per_image = {dt: [0.0, 0.0, Bound(), 0.0] for dt in DTYPES}
@@ -340,25 +361,34 @@ def phase_k1(gen: torch.Generator) -> dict:
             q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen if n else rgen).to(dt)
                        for _ in range(3))
             scale = d ** -0.5
-            out, lse = fa._flash_bhsd(q, k, v, scale)
-            ref, ref_lse = fa._flash_bhsd_ref(q, k, v, scale)
-            torch.cuda.synchronize()
-            err_o = (out.float() - ref.float()).abs().max().item()
-            err_l = (lse - ref_lse).abs().max().item()
+            err_o, err_l = k1_errors(q, k, v)
             ms = cuda_ms(lambda: fa._flash_bhsd(q, k, v, scale), 10)
             plain_ms = cuda_ms(lambda: fa._flash_bhsd_ref(q, k, v, scale), 3)
             library_ms = cuda_ms(lambda: sdpa(q, k, v), 10)
-            bd = bound(4.0 * bh * s * s * d, rate_of(dt), attn_bytes(bh, s, d, dt, 3, 1, 1))
+            f32 = dt == torch.float32
+            nbytes = attn_bytes(bh, s, d, dt, 3, 1, 1)
+            bd = bound(4.0 * bh * s * s * d, "tf32x3" if f32 else "bf16", nbytes)
             emit({"phase": "K1", "dtype": str(dt), "shape": [bh, s, d],
                   "max_abs_err_out": err_o, "max_abs_err_lse2": err_l,
                   "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                  "bound_ms": bd.ms, "bound_by": bd.by})
+                  "bound_ms": bd.ms, "bound_by": bd.by,
+                  # f32: the bound at the FFMA rate of the f32 body this one replaced
+                  "bound_ffma_ms": bound(4.0 * bh * s * s * d, "f32", nbytes).ms if f32 else None})
             check(err_o <= TOL["K1"][dt] and err_l <= TOL["K1"][dt],
                   f"K1 {dt} {(bh, s, d)}: errors {err_o}, {err_l}")
             worst[dt] = max(worst[dt], err_o, err_l)
             for i, t in enumerate((ms, plain_ms, bd, library_ms)):
                 per_image[dt][i] += n * t  # 0 for the recipe's shapes
-            del q, k, v, out, lse, ref, ref_lse
+            del q, k, v
+        for bh, sq, sk, d in K1_RAGGED:
+            q = torch.randn(bh, sq, d, device="cuda", generator=rgen).to(dt)
+            k, v = (torch.randn(bh, sk, d, device="cuda", generator=rgen).to(dt) for _ in range(2))
+            err_o, err_l = k1_errors(q, k, v)
+            emit({"phase": "K1_ragged", "dtype": str(dt), "shape": [bh, sq, sk, d],
+                  "max_abs_err_out": err_o, "max_abs_err_lse2": err_l})
+            check(err_o <= TOL["K1"][dt] and err_l <= TOL["K1"][dt],
+                  f"K1 {dt} ragged {(bh, sq, sk, d)}: errors {err_o}, {err_l}")
+            worst[dt] = max(worst[dt], err_o, err_l)
     return {"worst": worst, "per_image": per_image}
 
 

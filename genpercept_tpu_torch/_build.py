@@ -89,6 +89,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attn_fwd.argtypes = [p, p, p, p, p, i, i, i, i, f, i, p]
     lib.flash_attn_fwd.restype = i
+    lib.flash_attn_fwd_f32_body.argtypes = []
+    lib.flash_attn_fwd_f32_body.restype = ctypes.c_char_p
     lib.flash_attn_fwd_tiled.argtypes = [p, p, p, p, p, i, i, i, i, f, i, i, i, p]
     lib.flash_attn_fwd_tiled.restype = i
     for name in ("flash_bf16_softmax", "flash_nomax"):

@@ -12,13 +12,13 @@
 //
 // What bounds it on the card: the (Sq x Sk) logits never touch device memory,
 // so the kernel is bound by arithmetic on the two matrix products (d=64 at
-// 9216 tokens is ~108 GFLOP per image and head group) and, at d=512, by the
-// shared memory that one K or V tile needs. Head dims are those of SD2.1:
-// 64 (the UNet's heads) and 512 (the VAE mid block). Three bodies, one
-// contract:
-//   - f32 (the pipeline default): FFMA from shared memory, below. It keeps
-//     f32 products exact, as the TPU's f32 path does.
-//   - bf16, d = 64: mma.sync tensor cores, f32 accumulate
+// 9216 tokens is ~108 GFLOP per image and head group). Head dims are those of
+// SD2.1: 64 (the UNet's heads) and 512 (the VAE mid block). Three bodies, one
+// contract, all on the tensor cores through mma.sync:
+//   - f32 (the pipeline default): split TF32 (flash_attn_fwd_f32_kernel,
+//     below). Each product is three tf32 mma, so its bound is the two
+//     products at a third of the TF32 rate (495 / 3 = 165 TFLOP/s).
+//   - bf16, d = 64: mma.sync m16n8k16, f32 accumulate
 //     (flash_attn_fwd_mma_kernel).
 //   - bf16, d = 512: mma.sync with d split over warps
 //     (flash_attn_fwd_split_kernel).
@@ -52,19 +52,11 @@
 //      bf16's and f32's range, so nothing is rescaled.
 // Both carry l as the ones n-tile of PV (FOLD), as the TPU kernels append a
 // ones-column to v.
-// wgmma, TMA and load/compute overlap are later work.
+// TMA, wgmma and warp specialisation are later work for every body.
 //
 // Design: one CTA per (q tile, batch*head). On the TPU the k blocks were a
 // sequential "arbitrary" grid axis carrying m, l and the accumulator in VMEM;
 // here nothing carries across CTAs, so the CTA loops over k tiles itself.
-// The FFMA body keeps m, l in shared memory and the output accumulator in
-// registers, and runs three phases per k tile separated by barriers:
-//   1. S = Q K^T into shared memory (d split over KS thread groups at large d);
-//   2. one warp per row: max, exp2, round, row sum, alpha;
-//   3. acc = acc*alpha + P V with V in the buffer that held K^T.
-// At d=512 a 64-row f32 accumulator alone would be 128 KB, so the q tile is
-// 16 rows and the d reduction of S is split four ways; the 16-row Q^T, one
-// 64-row K^T or V tile and the partial S fit in 202 KB of shared memory.
 // Rows past Sq are computed on zeros and not stored; columns past Sk get the
 // -1e30 logit, so ragged lengths need no padding.
 
@@ -74,234 +66,300 @@ namespace {
 
 using namespace gp;
 
-constexpr int kThreads = 256;
-constexpr int kBK = 64;            // keys per tile
 constexpr float kNegInf = -1e30f;  // same sentinel as the TPU kernel
 
-__device__ __forceinline__ float4 load4(const float* src) {
-  return *reinterpret_cast<const float4*>(src);
-}
+// ---------------------------------------------------------------------------
+// f32 on the tensor cores through split TF32 (3xTF32), as PyTorch's
+// memory-efficient attention computes f32 on sm80+ (CUTLASS's
+// OpMultiplyAddFastF32). Every operand x of both products is split into
+// hi = tf32(x), rounded to nearest with ties away from zero (cvt.rna's
+// rounding), and lo = x - hi truncated to tf32 (common.cuh split_tf32), and
+// each tile product is lo.hi + hi.lo + hi.hi, small terms first, into one f32
+// accumulator of mma.sync m16n8k8; lo.lo (~2^-21 relative) is dropped. The
+// products keep the f32 contract (the card holds out and lse2 to 1e-4 of the
+// exact-f32 plain version), and the TF32 flags in torch.backends do not
+// govern this kernel: it always takes three passes. In f32 the rounding of p
+// to v's dtype is the identity.
+//
+// What bounds it: the two products at the split-TF32 rate, three tf32 mma
+// each; beside them the operand splits (an add, two masks and a subtraction
+// per element and warp; cvt.rna.tf32.f32 itself lowers to four instructions
+// on sm_90a, with a finite check, and is slower: PERF.md), the softmax and
+// the fragment reads are FP32-pipe and shared-memory work. What the design
+// does about it:
+//   - S and P stay in registers. S accumulates in the m16n8 C layout, the
+//     online softmax runs on it there, and the four threads of a row reduce
+//     max and sum with __shfl_xor_sync. C gives a thread keys 2t, 2t+1 of
+//     each 8-key group where the tf32 A layout of PV wants k positions t,
+//     t+4: P is not shuffled, the key order inside each group is relabelled
+//     (key 2t -> position t, key 2t+1 -> t+4) and V's B rows are read in the
+//     same order. B fragments of 32-bit types are plain lds, so the
+//     permutation costs nothing.
+//   - K and V tiles of BK keys run through a ring of NBUF shared-memory
+//     buffers in the order K0, V0, K1, V1, ... by cp.async (16 bytes, .cg):
+//     tile i + NBUF - 1 loads while tile i's products run, one commit group
+//     and one barrier per tile. Rows are padded to D + 4 floats, so the
+//     fragment reads of both products (key rows g or 2t, 2t+1; d or value
+//     columns t or g) meet no bank conflict.
+//   - Each pass of mma_3xtf32 runs over several n tiles, so consecutive mma
+//     never wait on each other's accumulator.
+//   - Each warp owns a 16-row part of the BQ = 16 * PARTS-row q tile and a
+//     1/SPLITS slice of d.
+//       d = 64: 4 warps, SPLITS 1, 32 keys a tile, NBUF 4 (two K and V
+//         stages, 34 KB); Q's hi/lo fragments stay in registers (64 a
+//         thread), loaded once per CTA.
+//       d = 512, the VAE mid block, carries over the bf16 split body's
+//         structure: 8 warps, 2 row parts x 4 quarters of d, each with its
+//         (16, 128) accumulator (64 registers). Q's hi/lo for a quarter would
+//         take 128 more, so Q stays in shared memory and is split at each k
+//         step. Partial S over the quarters goes to shared memory and every
+//         warp sums the four in one order, so the four warps of a row part
+//         hold identical S, m, l and P; each runs PV on its quarter of V's
+//         columns. f32 doubles every tile, so 32 keys a tile (64.5 KB), NBUF
+//         2, Q (64.5 KB) and the partial S (20 KB): 213.5 KB of 227.
 
-template <int D, int BQ>
-struct Tiling {
-  static constexpr int TX = kBK / 4;                 // S: 4 key columns each
-  static constexpr int TY = BQ / 4;                  // S: 4 query rows each
-  static constexpr int KS = kThreads / (TX * TY);    // d split of Q K^T
-  static constexpr int DK = D / KS;
-  static constexpr int OTY = BQ / 4;                 // O: 4 rows each
-  static constexpr int OTX = kThreads / OTY;
-  static constexpr int CO4 = D / (4 * OTX);          // O: float4 groups each
-  static constexpr int QT_LD = BQ + 4;               // padded strides (floats)
-  static constexpr int KT_LD = kBK + 4;
-  static constexpr int P_LD = BQ + 4;
-  // shared memory layout, in floats
-  static constexpr int QT_OFF = 0;
-  static constexpr int BUF_OFF = QT_OFF + D * QT_LD;
-  static constexpr int S_OFF = BUF_OFF + D * KT_LD;  // >= kBK*D for V
-  static constexpr int P_OFF = S_OFF + KS * BQ * kBK;
-  static constexpr int M_OFF = P_OFF + kBK * P_LD;
-  static constexpr int L_OFF = M_OFF + BQ;
-  static constexpr int A_OFF = L_OFF + BQ;
-  static constexpr int FLOATS = A_OFF + BQ;
-  static constexpr size_t BYTES = FLOATS * sizeof(float);
-  static_assert(TX * TY * KS == kThreads, "S tiling must use every thread");
-  static_assert(OTY * OTX == kThreads && CO4 * 4 * OTX == D, "O tiling");
-  static_assert(BQ % 8 == 0, "row pass: whole rows per warp");
+template <int D, int PARTS, int SPLITS, int BK, int NBUF>
+struct F32Tile {
+  static constexpr int THREADS = 32 * PARTS * SPLITS;
+  static constexpr int BQ = 16 * PARTS;
+  static constexpr int LD = D + 4;             // tile row stride (floats)
+  static constexpr int SLD = BK + 8;           // partial-S row stride
+  static constexpr bool QREG = SPLITS == 1;    // Q's fragments in registers
+  static constexpr int RING = NBUF * BK * LD;  // shared memory, in floats
+  static constexpr int QS = QREG ? 0 : BQ * LD;
+  static constexpr int SP = SPLITS == 1 ? 0 : SPLITS * BQ * SLD;
+  static constexpr size_t BYTES = (size_t)(RING + QS + SP) * sizeof(float);
 };
 
-template <int D, int BQ>
-__global__ void __launch_bounds__(kThreads)
-flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ out,
-                      float* __restrict__ lse, int sq, int sk, float scale) {
-  using L = Tiling<D, BQ>;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* Qt = smem + L::QT_OFF;   // [D][QT_LD]   Q^T
-  float* buf = smem + L::BUF_OFF; // [D][KT_LD] K^T, then [kBK][D] V
-  float* S = smem + L::S_OFF;     // [KS][BQ][kBK] partial logits
-  float* P = smem + L::P_OFF;     // [kBK][P_LD] rounded p, transposed
-  float* M = smem + L::M_OFF;     // [BQ] running max (raw logits)
-  float* Lsum = smem + L::L_OFF;  // [BQ] running sum of rounded p
-  float* Alpha = smem + L::A_OFF; // [BQ] this tile's rescale
+// rows [row0, row0 + ROWS) of a (n, D) f32 matrix into a [ROWS][D + 4] tile
+// in shared memory by cp.async, zeros past n; THREADS threads share the copy
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void cp_async_rows(float* dst, const float* src, int row0, int n) {
+  constexpr int C4 = D / 4;
+  static_assert(ROWS * C4 % THREADS == 0, "whole rounds of 16-byte copies");
+#pragma unroll
+  for (int i = 0; i < ROWS * C4 / THREADS; ++i) {
+    const int idx = threadIdx.x + i * THREADS;
+    const int r = idx / C4, c4 = (idx % C4) * 4;
+    const bool ok = row0 + r < n;
+    cp_async16(dst + r * (D + 4) + c4, src + (size_t)(ok ? row0 + r : 0) * D + c4, ok);
+  }
+}
 
-  const int t = threadIdx.x;
-  const int q0 = blockIdx.x * BQ;
+template <int D, int PARTS, int SPLITS, int BK, int NBUF>
+__global__ void __launch_bounds__(32 * PARTS * SPLITS)
+flash_attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ out,
+                          float* __restrict__ lse, int sq, int sk, float scale) {
+  using T = F32Tile<D, PARTS, SPLITS, BK, NBUF>;
+  constexpr int LD = T::LD;
+  constexpr int DS = D / SPLITS;   // this warp's slice of d
+  constexpr int KD = DS / 8;       // k steps of its Q K^T
+  constexpr int NS = BK / 8;       // 8-key column tiles of S
+  constexpr int NO = DS / 8;       // 8-wide column tiles of its O
+  constexpr int kPvTiles = 4;      // O column tiles per pass of PV's products
+  static_assert(NBUF >= 2 && NO % kPvTiles == 0 && BK % 8 == 0, "ring and fragments");
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);  // [NBUF][BK][LD]
+  float* Qs = ring + T::RING;                     // [BQ][LD], SPLITS > 1
+  float* Sp = Qs + T::QS;                         // [SPLITS][BQ][SLD], SPLITS > 1
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int part = warp % PARTS, slice = warp / PARTS;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = part * 16 + g;  // this thread's rows r0 and r0 + 8 of the tile
+  const int d0 = slice * DS;
+  const int q0 = blockIdx.x * T::BQ;
   const size_t bh = blockIdx.y;
   const float* qb = q + bh * sq * D;
   const float* kb = k + bh * sk * D;
   const float* vb = v + bh * sk * D;
   const float c = scale * 1.4426950408889634f;
+  const int ntile = 2 * ((sk + BK - 1) / BK);  // K0, V0, K1, V1, ...
 
-  // Q^T tile, zeros past Sq
-  for (int idx = t; idx < BQ * (D / 4); idx += kThreads) {
-    int r = idx / (D / 4), d4 = (idx % (D / 4)) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < sq) x = load4(qb + (size_t)(q0 + r) * D + d4);
-    Qt[(d4 + 0) * L::QT_LD + r] = x.x;
-    Qt[(d4 + 1) * L::QT_LD + r] = x.y;
-    Qt[(d4 + 2) * L::QT_LD + r] = x.z;
-    Qt[(d4 + 3) * L::QT_LD + r] = x.w;
+  // one commit group per tile, empty past the last, so that "tile i has
+  // landed" is always cp.async.wait_group NBUF - 2 at tile i
+  auto load_tile = [&](int tile) {
+    if (tile < ntile)
+      cp_async_rows<D, BK, T::THREADS>(ring + (tile % NBUF) * BK * LD, tile % 2 ? vb : kb,
+                                       (tile / 2) * BK, sk);
+    cp_async_commit();
+  };
+
+  uint32_t qh[T::QREG ? KD : 1][4], ql[T::QREG ? KD : 1][4];
+  if constexpr (T::QREG) {
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = q0 + r0 + 8 * (i % 2);
+        const float x = row < sq ? qb[(size_t)row * D + d0 + kd * 8 + t + 4 * (i / 2)] : 0.f;
+        split_tf32(x, qh[kd][i], ql[kd][i]);
+      }
+  } else {
+    cp_async_rows<D, T::BQ, T::THREADS>(Qs, qb, q0, sq);  // lands with tile 0
   }
-  for (int r = t; r < BQ; r += kThreads) {
-    M[r] = kNegInf;
-    Lsum[r] = 0.f;
-  }
+#pragma unroll
+  for (int tile = 0; tile < NBUF - 1; ++tile) load_tile(tile);
 
-  // thread roles
-  const int ks = t / (L::TX * L::TY);
-  const int sr = t % (L::TX * L::TY);
-  const int ty = sr / L::TX, tx = sr % L::TX;
-  const int oty = t / L::OTX, otx = t % L::OTX;
-  const int warp = t / 32, lane = t % 32;
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // rows r0, r0 + 8
 
-  float acc[4][L::CO4 * 4];
+  for (int k0 = 0, tile = 0; k0 < sk; k0 += BK, tile += 2) {
+    // K tile: S = Q K^T over this warp's slice of d
+    cp_async_wait<NBUF - 2>();
+    __syncthreads();  // the tile is visible; every warp is done with the tile before
+    load_tile(tile + NBUF - 1);
+    const float* Kt = ring + (tile % NBUF) * BK * LD;
+    float s[NS][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-    for (int j = 0; j < L::CO4 * 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < sk; k0 += kBK) {
-    __syncthreads();  // previous tile's V and P reads are done
-    // phase 0: K^T tile, zeros past Sk
-    for (int idx = t; idx < kBK * (D / 4); idx += kThreads) {
-      int r = idx / (D / 4), d4 = (idx % (D / 4)) * 4;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + r < sk) x = load4(kb + (size_t)(k0 + r) * D + d4);
-      buf[(d4 + 0) * L::KT_LD + r] = x.x;
-      buf[(d4 + 1) * L::KT_LD + r] = x.y;
-      buf[(d4 + 2) * L::KT_LD + r] = x.z;
-      buf[(d4 + 3) * L::KT_LD + r] = x.w;
-    }
-    __syncthreads();
-
-    // phase 1: partial S over this thread group's slice of d
-    {
-      float s[4][4];
+    for (int kd = 0; kd < KD; ++kd) {
+      uint32_t ah[4], al[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-      const int d_lo = ks * L::DK;
-#pragma unroll 4
-      for (int d = d_lo; d < d_lo + L::DK; ++d) {
-        float4 a = *reinterpret_cast<const float4*>(Qt + d * L::QT_LD + ty * 4);
-        float4 b = *reinterpret_cast<const float4*>(buf + d * L::KT_LD + tx * 4);
-        float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-      }
-      float* Sk = S + ks * BQ * kBK;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        *reinterpret_cast<float4*>(Sk + (ty * 4 + i) * kBK + tx * 4) =
-            make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
-    }
-    __syncthreads();
-
-    // phase 2: online softmax, one warp per row; V load overlaps nothing yet
-    for (int r = warp; r < BQ; r += kThreads / 32) {
-      float sv[kBK / 32];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kBK / 32; ++j) {
-        int col = lane + 32 * j;
-        float x = 0.f;
-#pragma unroll
-        for (int g = 0; g < L::KS; ++g) x += S[(g * BQ + r) * kBK + col];
-        if (k0 + col >= sk) x = kNegInf;
-        sv[j] = x;
-        mx = fmaxf(mx, x);
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_prev = M[r];
-      const float m_new = fmaxf(m_prev, mx);
-      const float mc = m_new * c;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kBK / 32; ++j) {
-        const float p = exp2f(sv[j] * c - mc);  // rounding to f32: exact
-        P[(lane + 32 * j) * L::P_LD + r] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane == 0) {
-        const float alpha = exp2f((m_prev - m_new) * c);
-        Alpha[r] = alpha;
-        M[r] = m_new;
-        Lsum[r] = Lsum[r] * alpha + sum;
-      }
-    }
-    // V tile into the K^T buffer (K^T reads ended at the barrier above)
-    for (int idx = t; idx < kBK * (D / 4); idx += kThreads) {
-      int r = idx / (D / 4), d4 = (idx % (D / 4)) * 4;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + r < sk) x = load4(vb + (size_t)(k0 + r) * D + d4);
-      *reinterpret_cast<float4*>(buf + r * D + d4) = x;
-    }
-    __syncthreads();
-
-    // phase 3: acc = acc*alpha + P V
-    {
-      float al[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) al[i] = Alpha[oty * 4 + i];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < L::CO4 * 4; ++j) acc[i][j] *= al[i];
-#pragma unroll 4
-      for (int kk = 0; kk < kBK; ++kk) {
-        float4 a = *reinterpret_cast<const float4*>(P + kk * L::P_LD + oty * 4);
-        float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-        for (int g = 0; g < L::CO4; ++g) {
-          float4 b = *reinterpret_cast<const float4*>(buf + kk * D + (g * L::OTX + otx) * 4);
-          float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              acc[i][g * 4 + j] = fmaf(av[i], bv[j], acc[i][g * 4 + j]);
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (T::QREG) {
+          ah[i] = qh[kd][i];
+          al[i] = ql[kd][i];
+        } else {
+          split_tf32(Qs[(r0 + 8 * (i % 2)) * LD + d0 + kd * 8 + t + 4 * (i / 2)], ah[i], al[i]);
         }
       }
+      uint32_t kh[NS][2], kl[NS][2];
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        const float* kp = Kt + (n * 8 + g) * LD + d0 + kd * 8 + t;  // key n*8+g, d t and t+4
+        split_tf32(kp[0], kh[n][0], kl[n][0]);
+        split_tf32(kp[4], kh[n][1], kl[n][1]);
+      }
+      mma_3xtf32<NS>(s, ah, al, kh, kl);
     }
-  }
-  __syncthreads();
+    if constexpr (SPLITS > 1) {  // sum the slices' partial S in one fixed order
+      float* mine = Sp + (slice * T::BQ + part * 16) * T::SLD;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        *reinterpret_cast<float2*>(mine + g * T::SLD + n * 8 + 2 * t) =
+            make_float2(s[n][0], s[n][1]);
+        *reinterpret_cast<float2*>(mine + (g + 8) * T::SLD + n * 8 + 2 * t) =
+            make_float2(s[n][2], s[n][3]);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; j += 2) {
+          float2 acc = make_float2(0.f, 0.f);
+#pragma unroll
+          for (int sl = 0; sl < SPLITS; ++sl) {
+            const float2 ps = *reinterpret_cast<const float2*>(
+                Sp + (sl * T::BQ + r0 + 4 * j) * T::SLD + n * 8 + 2 * t);
+            acc.x += ps.x;
+            acc.y += ps.y;
+          }
+          s[n][j] = acc.x;
+          s[n][j + 1] = acc.y;
+        }
+    }
+    if (k0 + BK > sk) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (k0 + n * 8 + 2 * t + (j & 1) >= sk) s[n][j] = kNegInf;
+    }
 
-  // finish: o = acc / l, lse2 = m*c + log2(l)
+    // online softmax in registers; rows r0 (j = 0, 1) and r0 + 8 (j = 2, 3)
+    float tm[2] = {kNegInf, kNegInf};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = oty * 4 + i;
-    if (q0 + r >= sq) continue;
-    const float l = Lsum[r];
-    float* orow = out + (bh * sq + q0 + r) * D;
+    for (int n = 0; n < NS; ++n) {
+      tm[0] = fmaxf(tm[0], fmaxf(s[n][0], s[n][1]));
+      tm[1] = fmaxf(tm[1], fmaxf(s[n][2], s[n][3]));
+    }
+    float alpha[2], mc[2];
 #pragma unroll
-    for (int g = 0; g < L::CO4; ++g) {
-      const int col = (g * L::OTX + otx) * 4;
+    for (int r = 0; r < 2; ++r) {
+      tm[r] = fmaxf(tm[r], __shfl_xor_sync(0xffffffffu, tm[r], 1));
+      tm[r] = fmaxf(tm[r], __shfl_xor_sync(0xffffffffu, tm[r], 2));
+      const float m_new = fmaxf(m[r], tm[r]);
+      alpha[r] = exp2f((m[r] - m_new) * c);
+      m[r] = m_new;
+      mc[r] = m_new * c;
+    }
+    float rs[2] = {0.f, 0.f};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) orow[col + j] = acc[i][g * 4 + j] / l;
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[n][j] = exp2f(s[n][j] * c - mc[j / 2]);  // p, in s
+      rs[0] += s[n][0] + s[n][1];
+      rs[1] += s[n][2] + s[n][3];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
+    }
+
+    // V tile: O += P V over this warp's slice of V's columns
+    cp_async_wait<NBUF - 2>();
+    __syncthreads();
+    load_tile(tile + NBUF);
+    const float* Vt = ring + ((tile + 1) % NBUF) * BK * LD;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      // key 2t of group j at k position t, key 2t + 1 at t + 4
+      uint32_t ah[4], al[4];
+      split_tf32(s[j][0], ah[0], al[0]);
+      split_tf32(s[j][2], ah[1], al[1]);
+      split_tf32(s[j][1], ah[2], al[2]);
+      split_tf32(s[j][3], ah[3], al[3]);
+      const float* vp = Vt + (j * 8 + 2 * t) * LD + d0 + g;  // keys 2t, 2t+1, column g
+#pragma unroll
+      for (int n0 = 0; n0 < NO; n0 += kPvTiles) {
+        uint32_t vh[kPvTiles][2], vl[kPvTiles][2];
+#pragma unroll
+        for (int n = 0; n < kPvTiles; ++n) {
+          split_tf32(vp[(n0 + n) * 8], vh[n][0], vl[n][0]);
+          split_tf32(vp[LD + (n0 + n) * 8], vh[n][1], vl[n][1]);
+        }
+        mma_3xtf32<kPvTiles>(o + n0, ah, al, vh, vl);
+      }
     }
   }
-  for (int r = t; r < BQ; r += kThreads)
-    if (q0 + r < sq) lse[bh * sq + q0 + r] = M[r] * c + log2f(Lsum[r]);
+
+  // finish: l of the row from its four threads; o = acc / l; lse2
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + 8 * r;
+    if (row >= sq) continue;
+    float* orow = out + (bh * sq + row) * D + d0;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<float2*>(orow + n * 8 + 2 * t) =
+          make_float2(o[n][2 * r] / l[r], o[n][2 * r + 1] / l[r]);
+    if (slice == 0 && t == 0) lse[bh * sq + row] = m[r] * c + log2f(l[r]);
+  }
 }
 
-template <int D, int BQ>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   float* lse, int bh, int sq, int sk, float scale,
-                   cudaStream_t stream) {
-  using L = Tiling<D, BQ>;
-  auto kern = flash_attn_fwd_kernel<D, BQ>;
+template <int D, int PARTS, int SPLITS, int BK, int NBUF>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, float* lse,
+                       int bh, int sq, int sk, float scale, cudaStream_t stream) {
+  using T = F32Tile<D, PARTS, SPLITS, BK, NBUF>;
+  auto kern = flash_attn_fwd_f32_kernel<D, PARTS, SPLITS, BK, NBUF>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::BYTES);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::BYTES);
   if (err != cudaSuccess) return err;
-  dim3 grid((sq + BQ - 1) / BQ, bh);
-  kern<<<grid, kThreads, L::BYTES, stream>>>(
+  dim3 grid((sq + T::BQ - 1) / T::BQ, bh);
+  kern<<<grid, T::THREADS, T::BYTES, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), lse, sq, sk, scale);
   return cudaGetLastError();
@@ -765,8 +823,10 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* out,
                          float* lse, int bh, int sq, int sk, int d, float scale,
                          cudaStream_t stream) {
   switch (d) {
-    case 64:  return launch<64, 64>(q, k, v, out, lse, bh, sq, sk, scale, stream);
-    case 512: return launch<512, 16>(q, k, v, out, lse, bh, sq, sk, scale, stream);
+    // <D, row parts, d slices, keys a tile, ring buffers>: the f32 body's
+    // two instantiations (its note above)
+    case 64:  return launch_f32<64, 4, 1, 32, 4>(q, k, v, out, lse, bh, sq, sk, scale, stream);
+    case 512: return launch_f32<512, 2, 4, 32, 2>(q, k, v, out, lse, bh, sq, sk, scale, stream);
     default:  return cudaErrorInvalidValue;
   }
 }
@@ -790,6 +850,11 @@ cudaError_t dispatch_variant(const void* q, const void* k, const void* v, void* 
 }
 
 }  // namespace
+
+// The f32 body flash_attn_fwd runs, for the record of a run.
+extern "C" const char* flash_attn_fwd_f32_body() {
+  return "split TF32: 3xTF32 mma.sync m16n8k8, cp.async K/V ring";
+}
 
 // q: (bh, sq, d), k/v: (bh, sk, d), out: (bh, sq, d), all contiguous and of
 // one dtype (0 = float32, 1 = bfloat16); lse: (bh, sq) float32.

@@ -7,7 +7,10 @@ memory:
 
 - K1 ``csrc/flash_attn_fwd.cu`` (TPU ``_flash_kernel``), via ``_flash_bhsd``:
   the output and ``lse2``, the base-2 logsumexp of the scaled logits
-  (``m*c + log2 l`` with ``c = scale*log2 e``), as the TPU kernel returns;
+  (``m*c + log2 l`` with ``c = scale*log2 e``), as the TPU kernel returns.
+  f32 inputs take both products on the tensor cores through split TF32
+  (three tf32 products each, about f32 accuracy, whatever the TF32 flags of
+  ``torch.backends`` say); the plain version stays exact f32;
 - K3 ``flash_attn_bwd_dq`` and K4 ``flash_attn_bwd_dkv`` in
   ``csrc/flash_attn_bwd.cu`` (TPU ``_flash_bwd_dq_kernel`` and
   ``_flash_bwd_dkv_kernel``), via ``_flash_bwd_bhsd``: dq, and dk with dv,

@@ -65,6 +65,11 @@ def gen():
     (2, 256, 256, 64), (3, 200, 77, 64), (1, 130, 300, 64),
     (2, 100, 150, 512), (1, 300, 200, 512),
     (40, 4800, 4800, 64), (8, 4800, 4800, 512),  # the training recipe's
+    # ragged: a partial last key tile (its columns take the -1e30 logit) and
+    # q rows past Sq (computed on zeros, not stored): JAX's padded-KV test
+    # (tests/test_ops.py:265, 2 x 3 heads, 77 keys), and d=512 at a length
+    # that is no multiple of 32 keys or of a q tile
+    (6, 256, 77, 64), (2, 1000, 1000, 512),
 ])
 def test_flash_kernel_matches_plain(gen, bh, sq, sk, d, dtype, tol):
     q = torch.randn(bh, sq, d, device="cuda", generator=gen).to(dtype)
