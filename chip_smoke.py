@@ -22,7 +22,10 @@ Phases, each printed as a JSON line:
       .batch passes over a few seconds);
   (f) K3 and K4, the flash-attention backward, against their plain version
       at the training recipe's shapes (480x640, micro-batch 8) and at 768^2
-      micro-batch 2, in f32 and bf16: errors relative to max|plain|, times;
+      micro-batch 2, in f32 and bf16: errors relative to max|plain|, times,
+      the name of the f32 body (split TF32) and its bound at the split-TF32
+      rate beside the FFMA rate of the body it replaced; per recipe
+      micro-step, K3+K4 ms against SDPA's autograd backward;
   (g) training at full width, the main-paper depth recipe (TRAIN_CFG) on
       synthetic 480x640 batches made from SEED: one micro-batch's loss and
       gradients with the kernels and under reference_kernels(), for the mse
@@ -236,7 +239,8 @@ SCRIPT_REPS = 2
 # the least time the card could take: NVIDIA H100 SXM data sheet, dense
 # rates (bf16 tensor cores, int8 tensor cores, f32 FFMA outside them, and
 # TF32 tensor cores at a third of their 495 TFLOP/s for split TF32, whose
-# every product is three tf32 products: K1's f32 body) and HBM3 bandwidth
+# every product is three tf32 products: K1's and K3/K4's f32 bodies) and
+# HBM3 bandwidth
 PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "tf32x3": 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
 
@@ -550,6 +554,9 @@ def phase_k34(gen: torch.Generator) -> dict:
     # per dtype, over the recipe's shapes: worst max abs error of dq (K3) and
     # of dk, dv (K4); their ms per recipe micro-step, and the plain
     # version's, which computes all three in one pass
+    body = _build.load().flash_attn_bwd_f32_body().decode()
+    emit({"phase": "K3K4_f32_body", "body": body})
+    check(body.startswith("split TF32"), f"K3/K4's f32 body is {body!r}")
     worst = {dt: {"K3": 0.0, "K4": 0.0} for dt in DTYPES}
     per_step = {dt: {"K3": 0.0, "K4": 0.0, "plain": 0.0, "K3_bound": Bound(), "K4_bound": Bound(),
                      "library": 0.0} for dt in DTYPES}
@@ -576,14 +583,21 @@ def phase_k34(gen: torch.Generator) -> dict:
             library_ms = cuda_ms(lambda: torch.autograd.grad(o_lib, (qg, kg, vg), do,
                                                              retain_graph=True), 3)
             del qg, kg, vg, o_lib
-            # K3: S, dP and dS.K; K4: S, dP, P^T.dO and dS^T.Q (2*S*S*D each)
-            b3 = bound(6.0 * bh * s * s * d, rate_of(dt), attn_bytes(bh, s, d, dt, 4, 1, 2))
-            b4 = bound(8.0 * bh * s * s * d, rate_of(dt), attn_bytes(bh, s, d, dt, 4, 2, 2))
+            # K3: S, dP and dS.K; K4: S, dP, P^T.dO and dS^T.Q (2*S*S*D each);
+            # f32 at the split-TF32 rate, the FFMA rate of the body it
+            # replaced beside it
+            f32 = dt == torch.float32
+            ops3, ops4 = 6.0 * bh * s * s * d, 8.0 * bh * s * s * d
+            bytes3, bytes4 = attn_bytes(bh, s, d, dt, 4, 1, 2), attn_bytes(bh, s, d, dt, 4, 2, 2)
+            rate = "tf32x3" if f32 else "bf16"
+            b3, b4 = bound(ops3, rate, bytes3), bound(ops4, rate, bytes4)
             emit({"phase": "K3K4", "dtype": str(dt), "shape": [bh, s, d],
                   "rel_err_dq_dk_dv": rel_err, "max_abs_err_dq_dk_dv": abs_err,
                   "ms_dq": ms_dq, "ms_dkv": ms_dkv, "plain_ms": plain_ms,
                   "library_ms": library_ms, "bound_ms_dq": b3.ms, "bound_ms_dkv": b4.ms,
-                  "bound_by": [b3.by, b4.by]})
+                  "bound_by": [b3.by, b4.by],
+                  "bound_ffma_ms_dq": bound(ops3, "f32", bytes3).ms if f32 else None,
+                  "bound_ffma_ms_dkv": bound(ops4, "f32", bytes4).ms if f32 else None})
             check(max(rel_err) <= K34_TOL[dt], f"K3/K4 {dt} {(bh, s, d)}: errors {rel_err}")
             if n:
                 worst[dt]["K3"] = max(worst[dt]["K3"], abs_err[0])
@@ -596,6 +610,10 @@ def phase_k34(gen: torch.Generator) -> dict:
                 per_step[dt]["library"] += n * library_ms
             del q, k, v, do, out, lse, dsum
             torch.cuda.empty_cache()
+        st = per_step[dt]
+        emit({"phase": "K3K4_per_step", "dtype": str(dt), "ms_K3": st["K3"], "ms_K4": st["K4"],
+              "ms_K3_K4": st["K3"] + st["K4"], "library_ms": st["library"],
+              "per_library": (st["K3"] + st["K4"]) / st["library"]})
     return {"worst": worst, "per_step": per_step}
 
 

@@ -99,6 +99,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         fn.restype = i
     lib.fused_geglu_ff_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
     lib.fused_geglu_ff_fwd.restype = i
+    lib.flash_attn_bwd_f32_body.argtypes = []
+    lib.flash_attn_bwd_f32_body.restype = ctypes.c_char_p
     lib.flash_attn_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, i, p]
     lib.flash_attn_bwd_dq.restype = i
     lib.flash_attn_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, f, i, p]

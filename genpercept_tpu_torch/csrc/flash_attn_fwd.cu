@@ -131,21 +131,6 @@ struct F32Tile {
   static constexpr size_t BYTES = (size_t)(RING + QS + SP) * sizeof(float);
 };
 
-// rows [row0, row0 + ROWS) of a (n, D) f32 matrix into a [ROWS][D + 4] tile
-// in shared memory by cp.async, zeros past n; THREADS threads share the copy
-template <int D, int ROWS, int THREADS>
-__device__ __forceinline__ void cp_async_rows(float* dst, const float* src, int row0, int n) {
-  constexpr int C4 = D / 4;
-  static_assert(ROWS * C4 % THREADS == 0, "whole rounds of 16-byte copies");
-#pragma unroll
-  for (int i = 0; i < ROWS * C4 / THREADS; ++i) {
-    const int idx = threadIdx.x + i * THREADS;
-    const int r = idx / C4, c4 = (idx % C4) * 4;
-    const bool ok = row0 + r < n;
-    cp_async16(dst + r * (D + 4) + c4, src + (size_t)(ok ? row0 + r : 0) * D + c4, ok);
-  }
-}
-
 template <int D, int PARTS, int SPLITS, int BK, int NBUF>
 __global__ void __launch_bounds__(32 * PARTS * SPLITS)
 flash_attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,

@@ -14,7 +14,9 @@ memory:
 - K3 ``flash_attn_bwd_dq`` and K4 ``flash_attn_bwd_dkv`` in
   ``csrc/flash_attn_bwd.cu`` (TPU ``_flash_bwd_dq_kernel`` and
   ``_flash_bwd_dkv_kernel``), via ``_flash_bwd_bhsd``: dq, and dk with dv,
-  from the saved ``lse2`` and ``dsum = rowsum(dO*O)``;
+  from the saved ``lse2`` and ``dsum = rowsum(dO*O)``; in f32 all of their
+  products run through split TF32 as K1's, and the plain version stays
+  exact f32;
 - K6 ``csrc/flash_attn_int8.cu`` (TPU ``_flash_int8_kernel``), via
   ``_flash_int8_codes``: the inference-only W8A8 attention (section below);
 - S1-S4, the profiling scripts' variants of K1 (last section): K1's function

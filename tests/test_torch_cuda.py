@@ -127,6 +127,29 @@ def test_flash_bwd_kernels_match_plain(gen, bh, sq, sk, d, dtype, tol):
         assert (a.float() - b.float()).abs().max().item() <= tol * b.float().abs().max().item()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,sq,sk,d", [(3, 200, 77, 64), (1, 300, 200, 512),
+                                        (8, 1200, 1200, 64)])
+def test_flash_bwd_kernels_repeat_bit_for_bit(gen, bh, sq, sk, d, dtype):
+    """No atomics: every output element is summed by one thread in one
+    order, so two calls on the same inputs give the same bits."""
+    args = _bwd_inputs(gen, bh, sq, sk, d, dtype)
+    first = (fa._flash_bwd_dq(*args), *fa._flash_bwd_dkv(*args))
+    second = (fa._flash_bwd_dq(*args), *fa._flash_bwd_dkv(*args))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_f32_bodies_are_split_tf32(gen):
+    """K1's and K3/K4's f32 bodies run on the tensor cores through split
+    TF32 (3xTF32 mma.sync), which the library names."""
+    from genpercept_tpu_torch import _build
+    lib = _build.load()
+    assert lib.flash_attn_fwd_f32_body().decode().startswith("split TF32")
+    assert lib.flash_attn_bwd_f32_body().decode().startswith("split TF32")
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 def test_wrappers_carry_gradients_on_the_card(gen, dtype, tol):
     """Autograd through both wrappers on CUDA tensors (K1-K4) equals the same

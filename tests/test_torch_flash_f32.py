@@ -1,4 +1,5 @@
-"""The numerics of K1's f32 body: split TF32 (3xTF32) products, on the CPU.
+"""The numerics of the f32 bodies of K1 and of K3/K4: split TF32 (3xTF32)
+products, on the CPU.
 
 On the card, K1 in f32 (csrc/flash_attn_fwd.cu, flash_attn_fwd_f32_kernel)
 takes both of its products on the tensor cores through split TF32: each f32
@@ -17,6 +18,12 @@ it to:
 - the card's bar for K1 in f32 (1e-4 max abs, out and lse2, against the
   plain version) at the card's shapes scaled down: three passes stay under
   it, a single TF32 pass does not, so the bar separates the two.
+
+K3 and K4 in f32 (csrc/flash_attn_bwd.cu, flash_attn_bwd_f32_kernel) take
+all of their products (three for K3, four for K4) the same way, over the
+kernel's column tiles; the last section holds their emulation to JAX's
+_flash_bwd_dq_kernel and _flash_bwd_dkv_kernel in Pallas interpret mode
+(ragged keys included) and to the card's bar for K3/K4 (1e-4 of max|plain|).
 
 K1's plain version, ``_flash_bhsd_ref``, stays exact f32: it is the JAX
 package's function, which the TPU computes with f32 products. Its card
@@ -197,3 +204,125 @@ def test_card_bar_separates_split_from_single_tf32(bh, sq, sk, d):
     three, one = err(mm3), err(mm1)
     assert three <= CARD_BAR / 10, three
     assert one > CARD_BAR, one
+
+
+# ------------------------------------------------------------ K3/K4: backward
+
+
+def k34_emulated(q, k, v, do, lse, dsum, scale: float, bc: int, mm=mm3):
+    """K3's and K4's f32 body with products ``mm``, over the kernel's column
+    tiles of bc: K3's columns are keys (X = S, Y = dP of the tile, then dq +=
+    dS K), K4's are queries (X = S^T, Y = dP^T, then dk += dS^T Q and dv +=
+    P^T dO). In f32 the roundings of dS and P to the inputs' dtype are the
+    identity. -> (dq, dk, dv)."""
+    c = scale * _LOG2E
+    sq, sk = q.shape[1], k.shape[1]
+    dq = torch.zeros_like(q)
+    for c0 in range(0, sk, bc):
+        kt, vt = k[:, c0:c0 + bc], v[:, c0:c0 + bc]
+        p = torch.exp2(mm(q, kt.transpose(1, 2)) * c - lse)
+        ds = p * (mm(do, vt.transpose(1, 2)) - dsum) * scale
+        dq = dq + mm(ds, kt)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    lse_t, dsum_t = lse.transpose(1, 2), dsum.transpose(1, 2)
+    for c0 in range(0, sq, bc):
+        qt, dot = q[:, c0:c0 + bc], do[:, c0:c0 + bc]
+        p = torch.exp2(mm(k, qt.transpose(1, 2)) * c - lse_t[:, :, c0:c0 + bc])
+        ds = p * (mm(v, dot.transpose(1, 2)) - dsum_t[:, :, c0:c0 + bc]) * scale
+        dk = dk + mm(ds, qt)
+        dv = dv + mm(p, dot)
+    return dq, dk, dv
+
+
+def _bc(d: int) -> int:
+    return 32 if d == 64 else 8  # the kernel's columns a tile
+
+
+@pytest.mark.parametrize("bh,sq,sk,d", [
+    (2, 256, 256, 64), (1, 256, 256, 512),
+    (2, 256, 77, 64),  # ragged: JAX pads K and V to 128 rows and masks (kv_valid)
+])
+def test_k34_split_tf32_matches_pallas_kernels(bh, sq, sk, d):
+    """K3/K4's f32 body, emulated (3xTF32 products over its column tiles),
+    against JAX's _flash_bwd_dq_kernel and _flash_bwd_dkv_kernel in Pallas
+    interpret mode, from the Pallas forward's out and lse2."""
+    q, k, v = _inputs(34, bh, sq, sk, d)
+    do = np.random.default_rng(35).standard_normal((bh, sq, d), dtype=np.float32)
+    scale = d ** -0.5
+    pad = 128 - sk if sk % 128 else 0
+    kp, vp = (np.pad(x, ((0, 0), (0, pad), (0, 0))) for x in (k, v))
+    kv_valid = sk if pad else None
+    with pltpu.force_tpu_interpret_mode():
+        jq, jk, jv, jdo = map(jnp.asarray, (q, kp, vp, do))
+        o, lse = j_fa._flash_bhsd(jq, jk, jv, scale, kv_valid=kv_valid)
+        ref = j_fa._flash_bwd_bhsd(jq, jk, jv, o, jdo, lse, scale, kv_valid=kv_valid)
+    tq, tk, tv, tdo, to, tl = (torch.from_numpy(np.array(x, np.float32))
+                               for x in (q, k, v, do, o, lse))
+    dsum = (tdo * to).sum(dim=-1, keepdim=True)
+    got = k34_emulated(tq, tk, tv, tdo, tl, dsum, scale, _bc(d))
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b)[:, :a.shape[1]], atol=ATOL,
+                                   err_msg=name)
+
+
+# Readings (max over dq, dk, dv of max abs error / max|plain|; N(0, 1) inputs
+# as chip_smoke.py draws them), in the order of the cases below: 3xTF32
+# 1.43e-6, 1.49e-6, 1.57e-6, 2.19e-6; one TF32 pass 8.64e-4, 7.81e-4,
+# 9.12e-4, 6.33e-4. Three passes stay 45-70x under the card's bar, and one
+# pass lies past it at every shape, by 6.3-9.1x: the bar separates the two.
+@pytest.mark.parametrize("bh,s,d", [
+    (1, 576, 64),    # (40,576,64), one head
+    (1, 2304, 64),   # (20,2304,64), one head
+    (1, 1200, 64),   # the recipe's (40,4800,64), a quarter of the tokens
+    (1, 1152, 512),  # (2,9216,512), an eighth of the tokens
+])
+def test_k34_card_bar_separates_split_from_single_tf32(bh, s, d):
+    """Emulated K3/K4 against the exact-f32 plain version, held to the card's
+    bar (chip_smoke.K34_TOL[f32], 1e-4 of max|plain|): 3xTF32 within a tenth
+    of it, a single TF32 pass past it."""
+    q, k, v = map(torch.from_numpy, _inputs(36, bh, s, s, d))
+    do = torch.from_numpy(np.random.default_rng(37).standard_normal((bh, s, d),
+                                                                    dtype=np.float32))
+    scale = d ** -0.5
+    out, lse = t_fa._flash_bhsd_ref(q, k, v, scale)
+    dsum = (do * out).sum(dim=-1, keepdim=True)
+    ref = t_fa._flash_bwd_bhsd_ref(q, k, v, do, lse, dsum, scale)
+
+    def rel_err(mm):
+        got = k34_emulated(q, k, v, do, lse, dsum, scale, _bc(d), mm)
+        return max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, ref))
+
+    three, one = rel_err(mm3), rel_err(mm1)
+    assert three <= CARD_BAR / 10, three
+    assert one > CARD_BAR, one
+
+
+def _tune_k34():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent.parent / "scripts" / "tune_k34.py"
+    spec = importlib.util.spec_from_file_location("tune_k34", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("dtype,tile,line", [
+    ("f32", "dkv512:1,8,8,2,true,false", "launch_f32<512, 1, 8, 8, 2, true, false, true>"),
+    ("f32", "dq64:4,1,32,3,false,true", "launch_f32<64, 4, 1, 32, 3, false, true, false>"),
+    ("bf16", "dq64:4,2", "launch_mma<64, 4, 2, false>"),
+])
+def test_tune_k34_replaces_one_instantiation(dtype, tile, line):
+    """scripts/tune_k34.py builds a variant from the shipped source with the
+    named kernel's template arguments replaced and nothing else changed."""
+    import argparse
+    mod = _tune_k34()
+    out = mod.variants(argparse.Namespace(dtype=dtype, tile=[tile], baseline=None))
+    shipped = out["shipped"][0].splitlines()
+    (name,) = [n for n in out if n != "shipped"]
+    edited = out[name][0].splitlines()
+    changed = [(a, b) for a, b in zip(shipped, edited) if a != b]
+    assert len(shipped) == len(edited) and len(changed) == 1, changed
+    assert line in changed[0][1] and line not in changed[0][0]
+    with pytest.raises(SystemExit):  # no such instantiation
+        mod.variants(argparse.Namespace(dtype=dtype, tile=["dq128:4,2"], baseline=None))
