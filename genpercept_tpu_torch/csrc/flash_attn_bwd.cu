@@ -57,12 +57,12 @@
 //         over the whole column loop that bias grows with the length;
 //       * A1 and A2 stay in shared memory (their hi and lo for a slice
 //         would take 128 registers beside the accumulators): split at each
-//         k step (APRE false) or split once when staged (APRE true); B is
-//         split at each read (BPRE false) or once when its tile lands (BPRE
-//         true). Both are template choices, taken per kernel by measurement
-//         (scripts/tune_k34.py, PERF.md): d=64 64 rows a CTA (4 warps), 32
-//         columns a tile, 2 buffers, K4 with A pre-split; d=512 16 rows a
-//         CTA (8 warps, one slice each), 16 columns a tile, 2 buffers.
+//         k step (APRE false) or split once when staged (APRE true), a
+//         template choice taken per kernel by measurement; B is split at
+//         each read. Tilings by measurement (scripts/tune_k34.py, PERF.md):
+//         d=64 64 rows a CTA (4 warps), 32 columns a tile, 2 buffers, K4
+//         with A pre-split; d=512 16 rows a CTA (8 warps, one slice each),
+//         16 columns a tile, 2 buffers.
 //   - bf16 (flash_attn_bwd_mma_kernel): mma.sync m16n8k16, f32 accumulate,
 //     as K1. E1 and E2 go from the accumulator layout straight into A
 //     operands, rounded to bf16. At d=64 (4 warps x 16 rows) B1, B2 and K4's
@@ -103,7 +103,7 @@ __device__ __forceinline__ float4 load4(const float* src) {
 // ---------------------------------------------------------------------------
 // f32 body: split TF32 on mma.sync m16n8k8 (the file header gives the design)
 
-template <int D, int PARTS, int SPLITS, int BC, int NBUF, bool APRE, bool BPRE>
+template <int D, int PARTS, int SPLITS, int BC, int NBUF, bool APRE>
 struct F32Tile {
   static constexpr int THREADS = 32 * PARTS * SPLITS;
   static constexpr int BR = 16 * PARTS;  // rows a CTA
@@ -112,11 +112,10 @@ struct F32Tile {
   static constexpr int PLD = BC + 4;     // row stride of the partial X and Y
   static constexpr int A_TILE = BR * LD;
   static constexpr int B_TILE = BC * LD;
-  // A1, A2 (APRE: hi and lo of each); the ring of NBUF (B1, B2) tiles; BPRE:
-  // the lo halves of the current (B1, B2); SPLITS > 1: partial X and Y
+  // A1, A2 (APRE: hi and lo of each); the ring of NBUF (B1, B2) tiles;
+  // SPLITS > 1: partial X and Y
   static constexpr int RING_OFF = (APRE ? 4 : 2) * A_TILE;
-  static constexpr int LO_OFF = RING_OFF + NBUF * 2 * B_TILE;
-  static constexpr int PART_OFF = LO_OFF + (BPRE ? 2 * B_TILE : 0);
+  static constexpr int PART_OFF = RING_OFF + NBUF * 2 * B_TILE;
   static constexpr int FLOATS = PART_OFF + (SPLITS > 1 ? 2 * SPLITS * BR * PLD : 0);
   static constexpr size_t BYTES = (size_t)FLOATS * sizeof(float);
   static_assert(DS == kDC && BC % 8 == 0 && NBUF >= 2, "64-wide slices, 8-column groups, a ring");
@@ -131,9 +130,9 @@ __device__ __forceinline__ uint4 split4(float4 x, uint4& lo) {
   return hi;
 }
 
-template <int D, int PARTS, int SPLITS, int BC, int NBUF, bool APRE, bool BPRE, bool DKV>
+template <int D, int PARTS, int SPLITS, int BC, int NBUF, bool APRE, bool DKV>
 __global__ void __launch_bounds__(32 * PARTS * SPLITS) flash_attn_bwd_f32_kernel(Args args) {
-  using L = F32Tile<D, PARTS, SPLITS, BC, NBUF, APRE, BPRE>;
+  using L = F32Tile<D, PARTS, SPLITS, BC, NBUF, APRE>;
   constexpr int LD = L::LD, THREADS = L::THREADS;
   constexpr int KD = L::DS / 8;  // k steps of X and Y over the warp's slice
   constexpr int NS = BC / 8;     // 8-column groups: n tiles of X and Y, k steps of the outputs
@@ -144,7 +143,6 @@ __global__ void __launch_bounds__(32 * PARTS * SPLITS) flash_attn_bwd_f32_kernel
   float* smem = reinterpret_cast<float*>(smem4);
   const uint32_t* Apre = reinterpret_cast<const uint32_t*>(smem);  // APRE: A1h, A1l, A2h, A2l
   float* ring = smem + L::RING_OFF;
-  float* Blo = smem + L::LO_OFF;
   float* Xp = smem + L::PART_OFF;  // [SPLITS][BR][PLD]
   float* Yp = Xp + SPLITS * L::BR * L::PLD;
 
@@ -255,26 +253,9 @@ __global__ void __launch_bounds__(32 * PARTS * SPLITS) flash_attn_bwd_f32_kernel
     cp_async_wait<NBUF - 2>();
     __syncthreads();  // tile j is visible; every warp is done with tile j - 1
     load_tile(j + NBUF - 1);
-    float* B1t = ring + (j % NBUF) * 2 * L::B_TILE;  // B2's tile follows: rows BC..2BC-1
-    if constexpr (BPRE) {  // split the tile once: hi in place, lo beside it
-      for (int idx = threadIdx.x; idx < 2 * BC * (D / 4); idx += THREADS) {
-        const int off = (idx / (D / 4)) * LD + (idx % (D / 4)) * 4;
-        uint4 lo;
-        const uint4 hi = split4(load4(B1t + off), lo);
-        *reinterpret_cast<uint4*>(B1t + off) = hi;
-        *reinterpret_cast<uint4*>(Blo + off) = lo;
-      }
-      __syncthreads();
-    }
-    // hi and lo of element i of the tile (B2's at i + B_TILE)
-    auto b_hl = [&](int i, uint32_t& hi, uint32_t& lo) {
-      if constexpr (BPRE) {
-        hi = __float_as_uint(B1t[i]);
-        lo = __float_as_uint(Blo[i]);
-      } else {
-        split_tf32(B1t[i], hi, lo);
-      }
-    };
+    // B2's tile follows B1's (element i of B2 at i + B_TILE); both are split
+    // into hi and lo at each read
+    const float* B1t = ring + (j % NBUF) * 2 * L::B_TILE;
 
     // X = A1 B1^T and Y = A2 B2^T over this warp's slice of d: B's rows are
     // the col operands (column n*8 + g, d kd*8 + t and + 4)
@@ -292,8 +273,8 @@ __global__ void __launch_bounds__(32 * PARTS * SPLITS) flash_attn_bwd_f32_kernel
 #pragma unroll
         for (int n = 0; n < NS; ++n) {
           const int i = m * L::B_TILE + (n * 8 + g) * LD + d0 + kd * 8 + t;
-          b_hl(i, bh[n][0], bl[n][0]);
-          b_hl(i + 4, bh[n][1], bl[n][1]);
+          split_tf32(B1t[i], bh[n][0], bl[n][0]);
+          split_tf32(B1t[i + 4], bh[n][1], bl[n][1]);
         }
         mma_3xtf32<NS>(m ? y : x, ah, al, bh, bl);
       }
@@ -371,8 +352,8 @@ __global__ void __launch_bounds__(32 * PARTS * SPLITS) flash_attn_bwd_f32_kernel
           const int i0 = m * L::B_TILE + (jk * 8 + 2 * t) * LD + d0 + n0 * 8 + g;
 #pragma unroll
           for (int n = 0; n < kOutTiles; ++n) {
-            b_hl(i0 + n * 8, bh[n][0], bl[n][0]);
-            b_hl(i0 + LD + n * 8, bh[n][1], bl[n][1]);
+            split_tf32(B1t[i0 + n * 8], bh[n][0], bl[n][0]);
+            split_tf32(B1t[i0 + LD + n * 8], bh[n][1], bl[n][1]);
           }
           mma_3xtf32<kOutTiles>(part, eh, el, bh, bl);
         }
@@ -400,10 +381,10 @@ __global__ void __launch_bounds__(32 * PARTS * SPLITS) flash_attn_bwd_f32_kernel
   }
 }
 
-template <int D, int PARTS, int SPLITS, int BC, int NBUF, bool APRE, bool BPRE, bool DKV>
+template <int D, int PARTS, int SPLITS, int BC, int NBUF, bool APRE, bool DKV>
 cudaError_t launch_f32(const Args& a, int bh, cudaStream_t stream) {
-  using L = F32Tile<D, PARTS, SPLITS, BC, NBUF, APRE, BPRE>;
-  auto kern = flash_attn_bwd_f32_kernel<D, PARTS, SPLITS, BC, NBUF, APRE, BPRE, DKV>;
+  using L = F32Tile<D, PARTS, SPLITS, BC, NBUF, APRE>;
+  auto kern = flash_attn_bwd_f32_kernel<D, PARTS, SPLITS, BC, NBUF, APRE, DKV>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::BYTES);
   if (err != cudaSuccess) return err;
@@ -675,13 +656,13 @@ cudaError_t launch_mma(const Args& a, int bh, cudaStream_t stream) {
 template <bool DKV>
 cudaError_t dispatch(const Args& a, int bh, int d, int dtype, cudaStream_t s) {
   if (bh <= 0 || a.n_rows <= 0 || a.n_cols <= 0) return cudaErrorInvalidValue;
-  // f32: <D, PARTS, SPLITS, BC, NBUF, APRE, BPRE> (the file header), K3 then K4
+  // f32: <D, PARTS, SPLITS, BC, NBUF, APRE> (the file header), K3 then K4
   if (dtype == 0 && d == 64)
-    return DKV ? launch_f32<64, 4, 1, 32, 2, true, false, true>(a, bh, s)
-               : launch_f32<64, 4, 1, 32, 2, false, false, false>(a, bh, s);
+    return DKV ? launch_f32<64, 4, 1, 32, 2, true, true>(a, bh, s)
+               : launch_f32<64, 4, 1, 32, 2, false, false>(a, bh, s);
   if (dtype == 0 && d == 512)
-    return DKV ? launch_f32<512, 1, 8, 16, 2, false, false, true>(a, bh, s)
-               : launch_f32<512, 1, 8, 16, 2, false, false, false>(a, bh, s);
+    return DKV ? launch_f32<512, 1, 8, 16, 2, false, true>(a, bh, s)
+               : launch_f32<512, 1, 8, 16, 2, false, false>(a, bh, s);
   // bf16: <D, RG, NBUF>
   if (dtype == 1 && d == 64)
     return DKV ? launch_mma<64, 4, 2, true>(a, bh, s) : launch_mma<64, 4, 4, false>(a, bh, s);

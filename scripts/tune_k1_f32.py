@@ -30,18 +30,19 @@ import argparse
 import ctypes
 import json
 import re
-import subprocess
 import sys
 import tempfile
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
 
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+from chip_smoke import cuda_ms  # noqa: E402
 from genpercept_tpu_torch import _build  # noqa: E402
 from genpercept_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from kernel_variants import build_variants, card  # noqa: E402
 
 SHAPES = [(5, 9216, 64), (10, 2304, 64), (20, 576, 64), (1, 9216, 512),
           (40, 4800, 64), (8, 4800, 512)]
@@ -59,44 +60,7 @@ SMALL_PASSES = ("  for (int n = 0; n < N; ++n) mma_tf32(c[n], al, bh[n][0], bh[n
                 "  for (int n = 0; n < N; ++n) mma_tf32(c[n], ah, bl[n][0], bl[n][1]);\n"
                 "#pragma unroll\n")
 SHIPPED_TILE = re.compile(r"launch_f32<(\d+), (\d+), (\d+), (\d+), (\d+)>")
-
-
-def cuda_ms(fn, reps: int = 10) -> float:
-    fn()
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
-
-
-def build(name: str, src: str, hdr: str, out: Path) -> tuple[ctypes.CDLL, dict]:
-    """Compile one edited copy into a library; -> (library, {d: ptxas line})."""
-    work = out / name
-    work.mkdir()
-    (work / "common.cuh").write_text(hdr)
-    (work / "flash_attn_fwd.cu").write_text(src)
-    lib = work / "lib.so"
-    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-shared",
-                          "-o", str(lib), str(work / "flash_attn_fwd.cu")],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise SystemExit(f"{name}: nvcc failed\n{res.stderr[-3000:]}")
-    lines = (res.stdout + res.stderr).splitlines()
-    regs = {}
-    for i, line in enumerate(lines):
-        m = re.search(r"Compiling entry function '\S*flash_attn_fwd_f32_kernelILi(\d+)E", line)
-        if m:
-            regs[int(m.group(1))] = " ".join(x.strip() for x in lines[i + 1:i + 4]
-                                             if "spill" in x or "registers" in x)
-    cdll = ctypes.CDLL(str(lib))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    cdll.flash_attn_fwd.argtypes = [p, p, p, p, p, i, i, i, i, f, i, p]
-    cdll.flash_attn_fwd.restype = i
-    return cdll, regs
+REPS = 10
 
 
 def variants(args) -> dict[str, tuple[str, str]]:
@@ -123,13 +87,13 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("tune_k1_f32: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip(), flush=True)
+    print(card(), flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        todo = variants(args)
-        with ThreadPoolExecutor(len(todo)) as ex:
-            libs = dict(zip(todo, ex.map(lambda kv: build(kv[0], *kv[1], Path(tmp)),
-                                         todo.items())))
+        libs = build_variants("flash_attn_fwd.cu", variants(args), Path(tmp))
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        for lib, _ in libs.values():
+            lib.flash_attn_fwd.argtypes = [p, p, p, p, p, i, i, i, i, f, i, p]
+            lib.flash_attn_fwd.restype = i
         gen = torch.Generator(device="cuda").manual_seed(0)
         stream = torch.cuda.current_stream().cuda_stream
         for bh, s, d in SHAPES:
@@ -138,7 +102,7 @@ def main(argv=None) -> None:
             ref, ref_lse = fa._flash_bhsd_ref(q, k, v, scale)
             rec = {"shape": [bh, s, d],
                    "sdpa_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                       q[None], k[None], v[None])[0])}
+                       q[None], k[None], v[None])[0], REPS)}
             for name in list(libs) + list(reversed(libs)):
                 lib, regs = libs[name]
                 out = torch.empty_like(q)
@@ -150,8 +114,10 @@ def main(argv=None) -> None:
                                              ctypes.c_float(scale), 0, stream)
                     _build.check(err, name)
 
-                ms = cuda_ms(call)
-                r = rec.setdefault(name, {"ms": [], "ptxas": regs.get(d)})
+                ms = cuda_ms(call, REPS)
+                mangled = f"flash_attn_fwd_f32_kernelILi{d}E"
+                ptxas = [res for kern, res in regs.items() if mangled in kern]
+                r = rec.setdefault(name, {"ms": [], "ptxas": ptxas})
                 r["ms"].append(ms)
                 r["err"] = [(out - ref).abs().max().item(), (lse - ref_lse).abs().max().item()]
             print(json.dumps(rec), flush=True)

@@ -11,7 +11,9 @@ summation order only); bf16 2e-2 (flash attention: p is rounded to bf16
 against the running max in the kernel, the global max in the plain
 version) and 6e-2 (feed-forward, as the JAX package's bf16 test). The
 backward kernels K3/K4 are held to 1e-4 (f32) and 2e-2 (bf16) relative to
-max|plain| (bf16: dS and P are rounded after sums taken in another order).
+max|plain| (bf16: dS and P are rounded after sums taken in another order),
+and in f32 at 9216 tokens to 2e-5 as well, which catches an error that grows
+with the length.
 The int8 kernels: K5 1e-4 of max|plain| in f32 and 6e-2 absolute in bf16,
 K6 1e-4 (f32) and 2e-2 (bf16) of max|plain| (both take every f32 step as one
 rounded operation, as their plain versions; bf16 rounds the output). The
@@ -139,6 +141,23 @@ def test_flash_bwd_kernels_repeat_bit_for_bit(gen, bh, sq, sk, d, dtype):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bh,s,d", [(10, 9216, 64), (2, 9216, 512)])  # chip_smoke.K34_768's longest
+def test_flash_bwd_f32_error_stays_flat_at_length(gen, bh, s, d):
+    """The f32 body sums each column tile's output products in accumulators
+    of its own: the tensor cores round every sum into an accumulator toward
+    zero, and with one accumulator over the column loop the error grew with
+    the length (1.2e-4 / 1.1e-4 of max|plain| at 9216 tokens, d=64 / 512,
+    against 2.0e-6-6.9e-6 per tile). Held to 2e-5 of max|plain| here, a fifth
+    of the shared bar, which per-tile sums keep and one accumulator does not
+    (tests/test_torch_flash_f32.py models both)."""
+    args = _bwd_inputs(gen, bh, s, s, d, torch.float32)
+    got = (fa._flash_bwd_dq(*args), *fa._flash_bwd_dkv(*args))
+    ref = fa._flash_bwd_bhsd_ref(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert (a - b).abs().max().item() <= 2e-5 * b.abs().max().item()
 
 
 def test_flash_f32_bodies_are_split_tf32(gen):

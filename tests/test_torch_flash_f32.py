@@ -24,6 +24,10 @@ all of their products (three for K3, four for K4) the same way, over the
 kernel's column tiles; the last section holds their emulation to JAX's
 _flash_bwd_dq_kernel and _flash_bwd_dkv_kernel in Pallas interpret mode
 (ragged keys included) and to the card's bar for K3/K4 (1e-4 of max|plain|).
+It also models the tensor cores' accumulator, which rounds every sum toward
+zero: summed in one accumulator over thousands of columns the output
+products drift with the length, in accumulators of their own per column
+tile (the kernel's design) they do not.
 
 K1's plain version, ``_flash_bhsd_ref``, stays exact f32: it is the JAX
 package's function, which the TPU computes with f32 products. Its card
@@ -33,6 +37,8 @@ which moves out and lse2 by ~1e-6 here (the readings below), two orders under
 the bar; a single TF32 pass, ~2^-11 relative, moves them past it.
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -40,6 +46,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from genpercept_tpu.ops import flash_attention as j_fa
+from genpercept_tpu_torch import _build
 from genpercept_tpu_torch.ops import flash_attention as t_fa
 
 torch.set_num_threads(1)
@@ -235,7 +242,12 @@ def k34_emulated(q, k, v, do, lse, dsum, scale: float, bc: int, mm=mm3):
 
 
 def _bc(d: int) -> int:
-    return 32 if d == 64 else 8  # the kernel's columns a tile
+    """The kernel's columns a tile at head dim d: BC of the f32 instantiations
+    in csrc/flash_attn_bwd.cu's dispatch (K3's and K4's agree)."""
+    src = (_build.CSRC / "flash_attn_bwd.cu").read_text()
+    bcs = set(re.findall(rf"launch_f32<{d}, \d+, \d+, (\d+), \d+, \w+, \w+>", src))
+    assert len(bcs) == 1, bcs
+    return int(bcs.pop())
 
 
 @pytest.mark.parametrize("bh,sq,sk,d", [
@@ -267,8 +279,8 @@ def test_k34_split_tf32_matches_pallas_kernels(bh, sq, sk, d):
 
 # Readings (max over dq, dk, dv of max abs error / max|plain|; N(0, 1) inputs
 # as chip_smoke.py draws them), in the order of the cases below: 3xTF32
-# 1.43e-6, 1.49e-6, 1.57e-6, 2.19e-6; one TF32 pass 8.64e-4, 7.81e-4,
-# 9.12e-4, 6.33e-4. Three passes stay 45-70x under the card's bar, and one
+# 1.43e-6, 1.49e-6, 1.57e-6, 2.47e-6; one TF32 pass 8.64e-4, 7.81e-4,
+# 9.12e-4, 6.33e-4. Three passes stay 40-70x under the card's bar, and one
 # pass lies past it at every shape, by 6.3-9.1x: the bar separates the two.
 @pytest.mark.parametrize("bh,s,d", [
     (1, 576, 64),    # (40,576,64), one head
@@ -297,6 +309,66 @@ def test_k34_card_bar_separates_split_from_single_tf32(bh, s, d):
     assert one > CARD_BAR, one
 
 
+def rz_f32(x: torch.Tensor) -> torch.Tensor:
+    """float64 -> f32 rounded toward zero."""
+    t = x.to(torch.float32)
+    return torch.where(t.double().abs() > x.abs(), torch.nextafter(t, torch.zeros_like(t)), t)
+
+
+def output_products(e, b, bc: int, per_tile: bool):
+    """e @ b as K3's output products (dq = dS K) sum it on the tensor cores:
+    for each k step of 8 columns, three mma (lo.hi, hi.lo, hi.hi), each of
+    which adds its 8 products (exact: tf32 times tf32 fits f32) to the
+    accumulator and rounds the sum toward zero, as the tensor cores do.
+    per_tile: each tile of bc columns sums from zero in accumulators of its
+    own, added to the running sums by f32 adds (the kernel); else one
+    accumulator takes the whole column loop."""
+    (eh, el), (bh, bl) = ((x.double() for x in split(y)) for y in (e, b))
+    out = torch.zeros(e.shape[0], b.shape[1])
+    for c0 in range(0, e.shape[1], bc):
+        acc = torch.zeros_like(out) if per_tile else out
+        for k0 in range(c0, min(c0 + bc, e.shape[1]), 8):
+            ks = slice(k0, k0 + 8)
+            for x, y in ((el, bh), (eh, bl), (eh, bh)):
+                acc = rz_f32(acc.double() + x[:, ks] @ y[ks])
+        out = out + acc if per_tile else acc
+    return out
+
+
+LONG_BAR = 2e-5  # tests/test_torch_cuda.py's bar for K3/K4 f32 at 9216 tokens
+
+
+# Readings (max abs error / max|exact|, per-tile / one accumulator), in the
+# order of the cases below: 5.5e-7 / 5.1e-5, 6.0e-7 / 7.9e-5, 8.2e-7 /
+# 9.4e-5; at 576 columns the one accumulator reads 7.7e-6, under the bar.
+# The card read 5.4e-5 at 4800 tokens and 1.2e-4 / 1.1e-4 at 9216 (d=64 /
+# 512) with one accumulator, 2.0e-6-6.9e-6 with the per-tile ones.
+@pytest.mark.parametrize("rows,s,d", [(64, 4800, 64), (64, 9216, 64), (16, 9216, 512)])
+def test_k34_per_tile_accumulators_keep_long_error_flat(rows, s, d):
+    """The truncation of every sum into a tensor-core accumulator biases the
+    sum toward zero by up to an ulp of the accumulator per mma; over one
+    accumulator for the whole column loop that grows with the length, past
+    the card's long-sequence bar, while per-tile accumulators stay under it.
+    dS of ``rows`` queries against ``s`` keys, exact from float64."""
+    rng = np.random.default_rng(38)
+    q, do = (torch.from_numpy(rng.standard_normal((rows, d), dtype=np.float32)).double()
+             for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((s, d), dtype=np.float32)) for _ in range(2))
+    scale = d ** -0.5
+    p = torch.softmax(q @ k.double().T * scale, dim=-1)
+    dp = do @ v.double().T
+    ds = (p * (dp - (p * dp).sum(-1, keepdim=True)) * scale).float()
+    exact = ds.double() @ k.double()
+
+    def rel_err(per_tile):
+        got = output_products(ds, k, _bc(d), per_tile)
+        return ((got.double() - exact).abs().max() / exact.abs().max()).item()
+
+    tile, once = rel_err(True), rel_err(False)
+    assert tile <= LONG_BAR / 10, tile
+    assert once > LONG_BAR, once
+
+
 def _tune_k34():
     import importlib.util
     from pathlib import Path
@@ -307,17 +379,21 @@ def _tune_k34():
     return mod
 
 
+def _tune_args(dtype, tile=(), variant=()):
+    import argparse
+    return argparse.Namespace(dtype=dtype, tile=list(tile), variant=list(variant), baseline=None)
+
+
 @pytest.mark.parametrize("dtype,tile,line", [
-    ("f32", "dkv512:1,8,8,2,true,false", "launch_f32<512, 1, 8, 8, 2, true, false, true>"),
-    ("f32", "dq64:4,1,32,3,false,true", "launch_f32<64, 4, 1, 32, 3, false, true, false>"),
+    ("f32", "dkv512:1,8,8,2,true", "launch_f32<512, 1, 8, 8, 2, true, true>"),
+    ("f32", "dq64:4,1,32,3,true", "launch_f32<64, 4, 1, 32, 3, true, false>"),
     ("bf16", "dq64:4,2", "launch_mma<64, 4, 2, false>"),
 ])
 def test_tune_k34_replaces_one_instantiation(dtype, tile, line):
     """scripts/tune_k34.py builds a variant from the shipped source with the
     named kernel's template arguments replaced and nothing else changed."""
-    import argparse
     mod = _tune_k34()
-    out = mod.variants(argparse.Namespace(dtype=dtype, tile=[tile], baseline=None))
+    out = mod.variants(_tune_args(dtype, [tile]))
     shipped = out["shipped"][0].splitlines()
     (name,) = [n for n in out if n != "shipped"]
     edited = out[name][0].splitlines()
@@ -325,4 +401,19 @@ def test_tune_k34_replaces_one_instantiation(dtype, tile, line):
     assert len(shipped) == len(edited) and len(changed) == 1, changed
     assert line in changed[0][1] and line not in changed[0][0]
     with pytest.raises(SystemExit):  # no such instantiation
-        mod.variants(argparse.Namespace(dtype=dtype, tile=["dq128:4,2"], baseline=None))
+        mod.variants(_tune_args(dtype, ["dq128:4,2"]))
+
+
+def test_tune_k34_one_accumulator_variant():
+    """--variant oneacc sums each column tile's output products into dq (dk,
+    dv) directly, the design whose error grew with the length: the tile's
+    own accumulators and the add into the running sums are its only edits."""
+    mod = _tune_k34()
+    out = mod.variants(_tune_args("f32", variant=["oneacc"]))
+    shipped, edited = out["shipped"][0], out["oneacc"][0]
+    assert "float part[kOutTiles][4];" in shipped and "+= part[n][e]" in shipped
+    assert "float part[kOutTiles][4];" not in edited and "+= part[n][e]" not in edited
+    assert edited.count("float(*part)[4] = (m ? acc2 : acc1) + n0;") == 1
+    assert len(shipped.splitlines()) - len(edited.splitlines()) == 7
+    with pytest.raises(SystemExit):  # f32 only
+        mod.variants(_tune_args("bf16", variant=["oneacc"]))

@@ -251,7 +251,8 @@ def test_k8_calls_per_forward_match_jax_routing(image_hw, fused_calls, mode, mon
 @pytest.mark.parametrize("target", ["chip_smoke.py", "scripts/profile_fused_conv_torch.py",
                                     "scripts/profile_quant_conv_torch.py",
                                     "scripts/tune_k1_f32.py", "scripts/tune_k34.py",
-                                    "scripts/kernel_resources.py"])
+                                    "scripts/kernel_resources.py",
+                                    "scripts/kernel_variants.py"])
 def test_card_scripts_leave_jax_out(target):
     """chip_smoke.py and the profiling and tuning scripts (with the kernel
     modules they import) load without JAX or the JAX package."""
