@@ -1239,7 +1239,9 @@ def phase_s14() -> dict:
         plain_ms = cuda_ms(lambda: fa._flash_bhsd_ref(q, k, v, scale), 2)
         library_ms = cuda_ms(lambda: sdpa(q, k, v), 5)
         k1_ms = cuda_ms(lambda: fa._flash_bhsd(q, k, v, scale), 5)
-        emit({"phase": "S_K1_baseline", "shape": [bh, s, d], "k1_tile": list(fa.K1_TILES[d]),
+        # K1_TILES: K1's mma.sync tile (at d=64 the one it ran before its wgmma body)
+        emit({"phase": "S_K1_baseline", "shape": [bh, s, d],
+              "mma_sync_tile": list(fa.K1_TILES[d]),
               "k1_ms": k1_ms, "plain_ms": plain_ms, "library_ms": library_ms})
         bd = bound(4.0 * bh * s * s * d, "bf16", attn_bytes(bh, s, d, dt, 3, 1, 1))
         for bq, bk in (fa.D64_TILES if d == 64 else fa.D512_TILES):

@@ -14,21 +14,23 @@
 // so the kernel is bound by arithmetic on the two matrix products (d=64 at
 // 9216 tokens is ~108 GFLOP per image and head group). Head dims are those of
 // SD2.1: 64 (the UNet's heads) and 512 (the VAE mid block). Three bodies, one
-// contract, all on the tensor cores through mma.sync:
-//   - f32 (the pipeline default): split TF32 (flash_attn_fwd_f32_kernel,
-//     below). Each product is three tf32 mma, so its bound is the two
-//     products at a third of the TF32 rate (495 / 3 = 165 TFLOP/s).
-//   - bf16, d = 64: mma.sync m16n8k16, f32 accumulate
-//     (flash_attn_fwd_mma_kernel).
+// contract, all on the tensor cores:
+//   - f32 (the pipeline default): split TF32 on mma.sync
+//     (flash_attn_fwd_f32_kernel, below). Each product is three tf32 mma, so
+//     its bound is the two products at a third of the TF32 rate (495 / 3 =
+//     165 TFLOP/s).
+//   - bf16, d = 64: wgmma for both products, K/V tiles through a TMA ring
+//     fed by a producer warpgroup (flash_attn_fwd_wgmma_kernel).
 //   - bf16, d = 512: mma.sync with d split over warps
 //     (flash_attn_fwd_split_kernel).
-// The bf16 bodies are templates over the CTA tile and over how l is summed
-// (FOLD); flash_attn_fwd runs K1's instantiations, and flash_attn_fwd_tiled
-// the others, for the profiling scripts' S1 (scripts/profile_unet.py
-// flash_with_blocks) and S3 (scripts/profile_attn_boundary.py part
-// "sweep512"): the same function at caller-chosen tiles, out only.
-// The d = 64 body is also a template over its softmax step, for the
-// scripts' two other variants, out only, reached through their own entries:
+// The profiling scripts run K1's function on the mma.sync bodies at
+// caller-chosen CTA tiles, out only, through flash_attn_fwd_tiled: S1
+// (scripts/profile_unet.py flash_with_blocks) on the d = 64 mma.sync body
+// (flash_attn_fwd_mma_kernel, K1's d = 64 body before the wgmma one), S3
+// (scripts/profile_attn_boundary.py part "sweep512") on the d = 512 body,
+// which is also a template over how l is summed (FOLD).
+// The d = 64 mma.sync body is also a template over its softmax step, for
+// the scripts' two other variants, out only, reached through their own entries:
 //   S2 flash_bf16_softmax  scripts/profile_unet.py::kernel_bf (main(), part
 //      "bf16softmax"): the softmax chain in bf16. Per key tile:
 //        s     = bf16(q . k^T)                 f32 accumulate, rounded once
@@ -50,9 +52,10 @@
 //      "nomax"): no running max. p = bf16(exp2(min(s * c, 110))) with s and
 //      c in f32; the clamp keeps every p and the sums of 9216 keys below
 //      bf16's and f32's range, so nothing is rescaled.
-// Both carry l as the ones n-tile of PV (FOLD), as the TPU kernels append a
-// ones-column to v.
-// TMA, wgmma and warp specialisation are later work for every body.
+// The d = 64 mma.sync body carries l as the ones n-tile of PV (S1, S2 and S4
+// alike), as the TPU kernels append a ones-column to v.
+// The f32 and the d = 512 bodies stage their tiles by cp.async or by every
+// thread; TMA and wgmma there are later work.
 //
 // Design: one CTA per (q tile, batch*head). On the TPU the k blocks were a
 // sequential "arbitrary" grid axis carrying m, l and the accumulator in VMEM;
@@ -352,18 +355,275 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, f
 
 
 // ---------------------------------------------------------------------------
-// bf16 at d = 64: the same function on tensor cores (mma.sync m16n8k16,
-// f32 accumulate). WARPS warps each own 16 query rows of a BQ = 16*WARPS-row
-// tile; K and V tiles of BK keys sit in shared memory with rows padded by 16
-// bytes, so ldmatrix meets no bank conflicts. S, the rounded P and the
-// output accumulator stay in registers: the m16n8 accumulator layout of two
-// adjacent S tiles is the A-operand layout of PV, so P never touches shared
-// memory. m is kept per row. l, the sum of the rounded p, is either a
-// per-thread partial over the thread's columns that the four threads of a
-// row add at the end (FOLD false), or one more mma n-tile whose B operand is
-// all ones, riding the PV product as the TPU kernel's appended ones-column
-// (FOLD true). K1 runs <4 warps, 64 keys, FOLD false, kF32Max>; the other
-// instantiations are the profiling scripts' tile sweep (S1) and S2, S4.
+// bf16 at d = 64: K1's body, on wgmma. What bounds it: the two products at
+// the bf16 tensor rate (4 * 64 = 256 flop a logit), and beside them the
+// softmax's exponentials, one a logit on the 16-a-clock MUFU of an SM, about
+// as long as the products at d = 64. The design:
+//   - Each consumer warpgroup owns 64 q rows of a BQ = 64 * NWG-row tile.
+//     S = Q K^T is wgmma m64nBKk16, four k steps over d: A is Q from shared
+//     memory (loaded once), B the K tile as stored, rows [key][d] with d
+//     contiguous (K-major). O += P V is m64n64k16, BK / 16 k steps: A is P
+//     from registers and B the V tile [key][d], MN-major, read through the
+//     transpose bit. Each 64-element row is one 128-byte swizzle row, and K,
+//     V and Q tiles all sit in the 128-byte swizzle that sw128_desc names.
+//   - S accumulates in registers in the m16n8 C layout per warp, the online
+//     softmax runs on it there (the four threads of a row reduce max and sum
+//     with __shfl_xor_sync; l is a per-thread sum of the rounded p, summed
+//     over the four at the end), and P, packed to bf16 pairs, is at once the
+//     register A operand of PV: it never touches shared memory.
+//   - K and V tiles run through a ring of NBUF stages. TMA: a producer
+//     warpgroup, whose one thread issues 3-D tensor-map copies (rows past Sk
+//     and past Sq arrive as zeros) onto a "full" mbarrier a tile and stage,
+//     waits on the stage's "empty" mbarrier, which every consumer thread
+//     arrives on once its PV product has retired; setmaxnreg gives the
+//     producer's registers to the consumers. Without TMA (the first step of
+//     the design, kept for measurement): every consumer thread copies tile
+//     i + NBUF - 1 by cp.async while tile i is used, one barrier a tile.
+//   - Within a warpgroup each tile is Q K^T, wait, softmax, P V, wait: the
+//     tensor cores overlap one warpgroup's softmax with another's products
+//     (two warpgroups, or two CTAs, a SM).
+// Keys past Sk take the -1e30 logit (their zero rows would give 0); rows past
+// Sq are computed on zeros and not stored.
+
+template <int NWG, int BK, int NBUF, bool TMA>
+struct WgTile {
+  static constexpr int BQ = 64 * NWG;
+  static constexpr int CONSUMERS = 128 * NWG;
+  static constexpr int THREADS = CONSUMERS + (TMA ? 128 : 0);  // + the producer warpgroup
+  static constexpr int QB = 64 * 128;                          // bytes of a warpgroup's Q
+  static constexpr int TILE = BK * 128;                        // bytes of a K or V tile
+  static constexpr int NBAR = 1 + 3 * NBUF;                    // Q, full K, full V, empty
+  static constexpr size_t BYTES = 1024 + (size_t)NWG * QB + 2 * NBUF * TILE + 8 * NBAR;
+  // A kernel that runs setmaxnreg starts with the registers its launch bounds
+  // give each thread: 64K / (THREADS * MINB), a multiple of 8. The producer
+  // keeps 40, and the consumers share the rest.
+  static constexpr int MINB = NWG == 1 ? 2 : 1;
+  static constexpr int REGS = (65536 / (THREADS * MINB) > 255 ? 255 : 65536 / (THREADS * MINB)) / 8 * 8;
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int CONSUMER_REGS = REGS + (REGS - PRODUCER_REGS) / NWG / 8 * 8;
+  static_assert(BK % 16 == 0 && BK <= 256 && NBUF >= 2, "tile and ring");
+  static_assert(!TMA || CONSUMER_REGS <= 256, "setmaxnreg takes 24..256");
+};
+
+template <int NWG, int BK, int NBUF, bool TMA>
+__global__ void __launch_bounds__(WgTile<NWG, BK, NBUF, TMA>::THREADS,
+                                  WgTile<NWG, BK, NBUF, TMA>::MINB)
+flash_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                            int sq, int sk, float scale) {
+  using T = WgTile<NWG, BK, NBUF, TMA>;
+  constexpr int NS = BK / 8;  // 8-key column tiles of S
+  constexpr int NO = 8;       // 8-wide column tiles of O
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);  // [NWG][64][128 B]
+  uint8_t* Ks = Qs + NWG * T::QB;       // [NBUF][BK][128 B]
+  uint8_t* Vs = Ks + NBUF * T::TILE;    // [NBUF][BK][128 B]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + NBUF * T::TILE);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + NBUF;
+  uint64_t* empty = v_full + NBUF;
+
+  const int q0 = blockIdx.x * T::BQ;
+  const int bh = blockIdx.y;
+  const int ntile = (sk + BK - 1) / BK;
+  const __nv_bfloat16* kb = k + (size_t)bh * sk * 64;
+  const __nv_bfloat16* vb = v + (size_t)bh * sk * 64;
+
+  // cp.async staging: one commit group a tile, empty past the last, so that
+  // "tile i has landed" is always cp.async.wait_group NBUF - 2 at tile i
+  auto load_tile = [&](int tile) {
+    if (tile < ntile) {
+      const int s = tile % NBUF;
+      cp_async_rows_sw128<BK, T::CONSUMERS>(Ks + s * T::TILE, kb, tile * BK, sk, threadIdx.x);
+      cp_async_rows_sw128<BK, T::CONSUMERS>(Vs + s * T::TILE, vb, tile * BK, sk, threadIdx.x);
+    }
+    cp_async_commit();
+  };
+
+  if constexpr (TMA) {
+    if (threadIdx.x == 0) {
+      mbar_init(q_full, 1);
+      for (int s = 0; s < NBUF; ++s) {
+        mbar_init(k_full + s, 1);
+        mbar_init(v_full + s, 1);
+        mbar_init(empty + s, T::CONSUMERS);
+      }
+      fence_mbarrier_init();
+    }
+    __syncthreads();
+    if (threadIdx.x >= T::CONSUMERS) {  // the producer warpgroup
+      setmaxnreg_dec<T::PRODUCER_REGS>();
+      if (threadIdx.x == T::CONSUMERS) {
+        mbar_expect_tx(q_full, NWG * T::QB);
+        for (int w = 0; w < NWG; ++w) tma_load_3d(Qs + w * T::QB, &tq, q_full, 0, q0 + 64 * w, bh);
+        for (int i = 0; i < ntile; ++i) {
+          const int s = i % NBUF;
+          if (i >= NBUF) mbar_wait(empty + s, (i / NBUF - 1) & 1);  // tile i - NBUF released
+          mbar_expect_tx(k_full + s, T::TILE);
+          tma_load_3d(Ks + s * T::TILE, &tk, k_full + s, 0, i * BK, bh);
+          mbar_expect_tx(v_full + s, T::TILE);
+          tma_load_3d(Vs + s * T::TILE, &tv, v_full + s, 0, i * BK, bh);
+        }
+      }
+      return;
+    }
+    setmaxnreg_inc<T::CONSUMER_REGS>();
+  } else {
+    const __nv_bfloat16* qb = q + (size_t)bh * sq * 64;
+    cp_async_rows_sw128<T::BQ, T::CONSUMERS>(Qs, qb, q0, sq, threadIdx.x);  // lands with tile 0
+#pragma unroll
+    for (int tile = 0; tile < NBUF - 1; ++tile) load_tile(tile);
+  }
+
+  const int wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;  // rows g and g + 8 of the warp's 16, columns 2t, 2t + 1
+  const uint8_t* Qw = Qs + wg * T::QB;
+  const float c = scale * 1.4426950408889634f;
+
+  float o[NO][4], s[NS][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+#pragma unroll
+  for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  uint32_t pf[BK / 16][4];
+  if constexpr (TMA) mbar_wait(q_full, 0);
+
+  for (int i = 0; i < ntile; ++i) {
+    const int st = i % NBUF, k0 = i * BK;
+    const uint32_t parity = (i / NBUF) & 1;
+    if constexpr (TMA) {
+      mbar_wait(k_full + st, parity);
+    } else {
+      cp_async_wait<NBUF - 2>();
+      fence_proxy_async();
+      __syncthreads();  // tile i visible to wgmma; every warpgroup is done with tile i - 1
+      load_tile(i + NBUF - 1);
+    }
+    const uint8_t* Kt = Ks + st * T::TILE;
+    const uint8_t* Vt = Vs + st * T::TILE;
+
+    // S = Q K^T
+    wgmma_fence();
+    reg_fence(s);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(s, sw128_desc(Qw + 32 * kk), sw128_desc(Kt + 32 * kk), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(s);
+    if (k0 + BK > sk) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (k0 + n * 8 + 2 * t + (j & 1) >= sk) s[n][j] = kNegInf;
+    }
+
+    // online softmax; rows g (j = 0, 1) and g + 8 (j = 2, 3)
+    float tm[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      tm[0] = fmaxf(tm[0], fmaxf(s[n][0], s[n][1]));
+      tm[1] = fmaxf(tm[1], fmaxf(s[n][2], s[n][3]));
+    }
+    float alpha[2], mc[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      tm[r] = fmaxf(tm[r], __shfl_xor_sync(0xffffffffu, tm[r], 1));
+      tm[r] = fmaxf(tm[r], __shfl_xor_sync(0xffffffffu, tm[r], 2));
+      const float m_new = fmaxf(m[r], tm[r]);
+      alpha[r] = exp2f((m[r] - m_new) * c);
+      m[r] = m_new;
+      mc[r] = m_new * c;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      float p[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) p[j] = round_bf16(exp2f(s[n][j] * c - mc[j / 2]));
+      rs[0] += p[0] + p[1];
+      rs[1] += p[2] + p[3];
+      pf[n / 2][(n % 2) * 2 + 0] = pack_bf16(p[0], p[1]);
+      pf[n / 2][(n % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
+    }
+
+    // O += P V
+    if constexpr (TMA) mbar_wait(v_full + st, parity);
+    wgmma_fence();
+    reg_fence(o);
+    reg_fence(pf);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs(o, pf[kk], sw128_desc(Vt + 2048 * kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(o);
+    reg_fence(pf);
+    if constexpr (TMA) mbar_arrive(empty + st);
+  }
+
+  // finish: l of the row from its four threads; o = acc / l; lse2
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + wg * 64 + warp * 16 + g + 8 * r;
+    if (row >= sq) continue;
+    __nv_bfloat16* orow = out + ((size_t)bh * sq + row) * 64;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t) =
+          __floats2bfloat162_rn(o[n][2 * r] / l[r], o[n][2 * r + 1] / l[r]);
+    if (t == 0) lse[(size_t)bh * sq + row] = m[r] * c + log2f(l[r]);
+  }
+}
+
+template <int NWG, int BK, int NBUF, bool TMA>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse,
+                         int bh, int sq, int sk, float scale, cudaStream_t stream) {
+  using T = WgTile<NWG, BK, NBUF, TMA>;
+  CUtensorMap tq{}, tk{}, tv{};
+  if (TMA && !(tma_map_bhsd64(&tq, q, sq, bh, 64) && tma_map_bhsd64(&tk, k, sk, bh, BK) &&
+               tma_map_bhsd64(&tv, v, sk, bh, BK)))
+    return cudaErrorInvalidValue;
+  auto kern = flash_attn_fwd_wgmma_kernel<NWG, BK, NBUF, TMA>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::BYTES);
+  if (err != cudaSuccess) return err;
+  dim3 grid((sq + T::BQ - 1) / T::BQ, bh);
+  kern<<<grid, T::THREADS, T::BYTES, stream>>>(
+      tq, tk, tv, static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, sq, sk, scale);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bf16 at d = 64 on mma.sync m16n8k16, f32 accumulate: K1's d = 64 body until
+// the wgmma one (above), now the profiling scripts' (S1's tile sweep, S2,
+// S4). WARPS warps each own 16 query rows of a BQ = 16*WARPS-row tile; K and
+// V tiles of BK keys are loaded by every thread, synchronously, into shared
+// memory with rows padded by 16 bytes, so ldmatrix meets no bank conflicts.
+// S, the rounded P and the output accumulator stay in registers: the m16n8
+// accumulator layout of two adjacent S tiles is the A-operand layout of PV,
+// so P never touches shared memory. m is kept per row. l, the sum of the
+// rounded p, is one more mma n-tile whose B operand is all ones, riding the
+// PV product as the TPU kernel's appended ones-column. K1 ran <4 warps, 64
+// keys> with l summed apart, per thread, instead.
 
 // the softmax step of the d = 64 body (the file header gives each)
 enum Softmax {
@@ -377,7 +637,7 @@ __device__ __forceinline__ uint32_t exp_bf16x2(__nv_bfloat162 x) {
   return pack_bf16(expf(__low2float(x)), expf(__high2float(x)));
 }
 
-template <int D, int WARPS, int BK, bool FOLD, int SOFTMAX = kF32Max>
+template <int D, int WARPS, int BK, int SOFTMAX>
 __global__ void __launch_bounds__(32 * WARPS)
 flash_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
@@ -391,7 +651,6 @@ flash_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int NS = BK / 8;       // 8-key column tiles of S
   constexpr int NO = D / 8;        // 8-wide column tiles of O
   static_assert(NS % 2 == 0 && NO % 2 == 0, "tiles are loaded in pairs");
-  static_assert(SOFTMAX == kF32Max || FOLD, "S2 and S4 sum l in the ones n-tile");
   extern __shared__ float4 smem4[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem4);
   __nv_bfloat16* Ks = Qs + BQ * LD;
@@ -422,8 +681,8 @@ flash_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   // S2 keeps m as a bf16 value held in a float
   const float m0 = SOFTMAX == kBf16Chain ? round_bf16(kNegInf) : kNegInf;
-  float m[2] = {m0, m0}, l[2] = {0.f, 0.f};
-  float lf[4] = {0.f, 0.f, 0.f, 0.f};  // FOLD: the ones n-tile (every column is l)
+  float m[2] = {m0, m0};
+  float lf[4] = {0.f, 0.f, 0.f, 0.f};  // the ones n-tile: every column is l
 
   for (int k0 = 0; k0 < sk; k0 += BK) {
     __syncthreads();  // the previous tile's K and V reads are done
@@ -502,35 +761,21 @@ flash_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
           mc[r] = m_new * c;
         }
       }
-      float rs[2] = {0.f, 0.f};
 #pragma unroll
       for (int n = 0; n < NS; ++n) {
         float p[4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < 4; ++j)  // rounded once, by pack_bf16
           p[j] = SOFTMAX == kNoMax ? exp2f(fminf(s[n][j] * c, 110.f))
                                    : exp2f(s[n][j] * c - mc[j / 2]);
-          // l sums the rounded p; with FOLD only pack_bf16 rounds it, once
-          if (!FOLD) p[j] = round_bf16(p[j]);
-        }
-        if (!FOLD) {
-          rs[0] += p[0] + p[1];
-          rs[1] += p[2] + p[3];
-        }
         pf[n / 2][(n % 2) * 2 + 0] = pack_bf16(p[0], p[1]);
         pf[n / 2][(n % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
       }
-      if (!FOLD) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
-      }
     }
-    if (FOLD) {
-      lf[0] *= alpha[0]; lf[1] *= alpha[0];
-      lf[2] *= alpha[1]; lf[3] *= alpha[1];
+    lf[0] *= alpha[0]; lf[1] *= alpha[0];
+    lf[2] *= alpha[1]; lf[3] *= alpha[1];
 #pragma unroll
-      for (int j = 0; j < NS / 2; ++j) mma_bf16(lf, pf[j], kOnesBF16x2, kOnesBF16x2);
-    }
+    for (int j = 0; j < NS / 2; ++j) mma_bf16(lf, pf[j], kOnesBF16x2, kOnesBF16x2);
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
       o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
@@ -547,18 +792,9 @@ flash_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       }
   }
 
-  // finish: l of the row (the four threads' partials, or the ones n-tile);
-  // o = acc / l; lse2 for K1's softmax only (S2 and S4 are out only)
-  if (FOLD) {
-    l[0] = lf[0];
-    l[1] = lf[2];
-  } else {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    }
-  }
+  // finish: l of the row from the ones n-tile; o = acc / l; lse2 for K1's
+  // softmax only (S2 and S4 are out only)
+  const float l[2] = {lf[0], lf[2]};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + warp * 16 + g + 8 * r;
@@ -572,13 +808,13 @@ flash_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D, int WARPS, int BK, bool FOLD, int SOFTMAX = kF32Max>
+template <int D, int WARPS, int BK, int SOFTMAX = kF32Max>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
                        float* lse, int bh, int sq, int sk, float scale,
                        cudaStream_t stream) {
   constexpr int BQ = 16 * WARPS;
   constexpr size_t bytes = (size_t)(BQ + 2 * BK) * (D + 8) * sizeof(__nv_bfloat16);
-  auto kern = flash_attn_fwd_mma_kernel<D, WARPS, BK, FOLD, SOFTMAX>;
+  auto kern = flash_attn_fwd_mma_kernel<D, WARPS, BK, SOFTMAX>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
@@ -600,7 +836,9 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
 // BK-key tile the warps write partial S over their quarter of d to shared
 // memory, and every warp then sums the four quarters in the same order, so
 // the four warps of a row part hold identical S, m, l and rounded P, and run
-// PV on their own quarter of V's columns. FOLD as in the d = 64 body. K1
+// PV on their own quarter of V's columns. l is either a per-thread partial
+// over the thread's columns that the four threads of a row add at the end
+// (FOLD false) or the ones n-tile of the d = 64 mma.sync body (FOLD true). K1
 // runs <32 rows, 64 keys, FOLD false>; the other instantiations are the
 // profiling scripts' sweep (S1 at d = 512, S3).
 
@@ -816,6 +1054,14 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* out,
   }
 }
 
+// K1's bf16 body at d = 64: launch_wgmma<consumer warpgroups of 64 q rows,
+// keys a tile, ring stages, TMA>
+cudaError_t dispatch_bf16_d64(const void* q, const void* k, const void* v, void* out,
+                              float* lse, int bh, int sq, int sk, float scale,
+                              cudaStream_t stream) {
+  return launch_wgmma<2, 128, 2, true>(q, k, v, out, lse, bh, sq, sk, scale, stream);
+}
+
 // the d = 64 CTA tiles (query rows, keys) of the profiling scripts' sweep
 #define GP_D64_TILES(X) X(64, 32) X(64, 64) X(64, 128) X(128, 64) X(128, 128)
 
@@ -827,8 +1073,8 @@ cudaError_t dispatch_variant(const void* q, const void* k, const void* v, void* 
   if (bh <= 0 || sq <= 0 || sk <= 0 || d != 64) return cudaErrorInvalidValue;
 #define GP_TILE(BQ, BK)                                                               \
   if (bq == BQ && bk == BK)                                                           \
-    return launch_mma<64, BQ / 16, BK, true, SOFTMAX>(q, k, v, out, nullptr, bh, sq, sk, \
-                                                       scale, stream);
+    return launch_mma<64, BQ / 16, BK, SOFTMAX>(q, k, v, out, nullptr, bh, sq, sk, scale, \
+                                                 stream);
   GP_D64_TILES(GP_TILE)
 #undef GP_TILE
   return cudaErrorInvalidValue;
@@ -841,6 +1087,11 @@ extern "C" const char* flash_attn_fwd_f32_body() {
   return "split TF32: 3xTF32 mma.sync m16n8k8, cp.async K/V ring";
 }
 
+// The bf16 body it runs at d = 64 (dispatch_bf16_d64).
+extern "C" const char* flash_attn_fwd_bf16_body() {
+  return "wgmma m64nNk16, TMA K/V ring, BQ 128 x BK 128";
+}
+
 // q: (bh, sq, d), k/v: (bh, sk, d), out: (bh, sq, d), all contiguous and of
 // one dtype (0 = float32, 1 = bfloat16); lse: (bh, sq) float32.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
@@ -850,8 +1101,7 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   float* l = static_cast<float*>(lse);
   if (bh <= 0 || sq <= 0 || sk <= 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return (int)dispatch_f32(q, k, v, out, l, bh, sq, sk, d, scale, s);
-  if (dtype == 1 && d == 64)
-    return (int)launch_mma<64, 4, 64, false>(q, k, v, out, l, bh, sq, sk, scale, s);
+  if (dtype == 1 && d == 64) return (int)dispatch_bf16_d64(q, k, v, out, l, bh, sq, sk, scale, s);
   if (dtype == 1 && d == 512)
     return (int)launch_split<512, 32, 64, false>(q, k, v, out, l, bh, sq, sk, scale, s);
   return (int)cudaErrorInvalidValue;
@@ -873,7 +1123,7 @@ extern "C" int flash_attn_fwd_tiled(const void* q, const void* k, const void* v,
   if (bh <= 0 || sq <= 0 || sk <= 0) return (int)cudaErrorInvalidValue;
 #define GP_D64(BQ, BK)                                                              \
   if (d == 64 && fold == 1 && bq == BQ && bk == BK)                                 \
-    return (int)launch_mma<64, BQ / 16, BK, true>(q, k, v, out, l, bh, sq, sk, scale, s);
+    return (int)launch_mma<64, BQ / 16, BK>(q, k, v, out, l, bh, sq, sk, scale, s);
   GP_D64_TILES(GP_D64)
 #undef GP_D64
 #define GP_D512(BQ, BK)                                                             \

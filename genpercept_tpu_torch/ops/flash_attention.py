@@ -10,7 +10,10 @@ memory:
   (``m*c + log2 l`` with ``c = scale*log2 e``), as the TPU kernel returns.
   f32 inputs take both products on the tensor cores through split TF32
   (three tf32 products each, about f32 accuracy, whatever the TF32 flags of
-  ``torch.backends`` say); the plain version stays exact f32;
+  ``torch.backends`` say); the plain version stays exact f32. bf16 at d=64
+  runs both products on ``wgmma`` with K/V tiles brought in by TMA, which
+  needs 16-byte-aligned tensors (every body reads 16 bytes a thread; the
+  wrappers raise on others);
 - K3 ``flash_attn_bwd_dq`` and K4 ``flash_attn_bwd_dkv`` in
   ``csrc/flash_attn_bwd.cu`` (TPU ``_flash_bwd_dq_kernel`` and
   ``_flash_bwd_dkv_kernel``), via ``_flash_bwd_bhsd``: dq, and dk with dv,
@@ -124,6 +127,13 @@ def _check_kernel_args(name: str, qh: torch.Tensor, kh: torch.Tensor,
     return code
 
 
+def _check_aligned(name: str, *xs: torch.Tensor) -> None:
+    """Raise unless every tensor starts on 16 bytes: the kernels read 16
+    bytes a thread, and TMA (K1's bf16 body at d=64) takes no other base."""
+    if any(x.data_ptr() % 16 for x in xs):
+        raise ValueError(f"{name}: the kernels take 16-byte-aligned tensors only")
+
+
 def _flash_bhsd(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
                 scale: float, kv_valid: int | None = None):
     """K1. qh: (BH, Sq, D); kh/vh: (BH, Sk, D) -> (out, lse2).
@@ -137,6 +147,7 @@ def _flash_bhsd(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
     sk = kh.shape[1]
     code = _check_kernel_args("flash_attention", qh, kh, vh)
     qh, kh, vh = qh.contiguous(), kh.contiguous(), vh.contiguous()
+    _check_aligned("flash_attention", qh, kh, vh)
     out = torch.empty_like(qh)
     lse = torch.empty((bh, sq, 1), dtype=torch.float32, device=qh.device)
     lib = _build.load()
@@ -172,6 +183,7 @@ def _flash_bwd_dq(qh, kh, vh, do, lse, dsum, scale: float) -> torch.Tensor:
     """K3 on CUDA tensors: dq (BH, Sq, D)."""
     bh, sq, d = qh.shape
     code = _check_kernel_args("flash_attn_bwd_dq", qh, kh, vh, do)
+    _check_aligned("flash_attn_bwd_dq", qh, kh, vh, do)
     dq = torch.empty_like(qh)
     err = _build.load().flash_attn_bwd_dq(
         qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), do.data_ptr(), lse.data_ptr(),
@@ -186,6 +198,7 @@ def _flash_bwd_dkv(qh, kh, vh, do, lse, dsum, scale: float):
     """K4 on CUDA tensors: (dk, dv), each (BH, Sk, D)."""
     bh, sq, d = qh.shape
     code = _check_kernel_args("flash_attn_bwd_dkv", qh, kh, vh, do)
+    _check_aligned("flash_attn_bwd_dkv", qh, kh, vh, do)
     dk, dv = torch.empty_like(kh), torch.empty_like(vh)
     err = _build.load().flash_attn_bwd_dkv(
         qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), do.data_ptr(), lse.data_ptr(),
@@ -380,12 +393,14 @@ def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # - S1 (profile_unet.py ``flash_with_blocks``) and S3 (profile_attn_boundary.py
 #   part "sweep512" ``build``): K1's function with caller-chosen blocks and
 #   the row sum folded into PV (an appended ones-column) or summed apart;
-#   S1 folds where d <= 128, S3 takes either. On the card they are K1's bf16
-#   bodies (csrc/flash_attn_fwd.cu ``flash_attn_fwd_tiled``) instantiated at
-#   the CTA tiles below, ``fold`` choosing between a ones n-tile of the PV
-#   mma and per-thread sums. The TPU swept VMEM blocks of 256-9216 query
-#   rows; a CTA holds 16-128, so the port's sweep is over its own tiles, and
-#   each set holds K1's production tile (``K1_TILES``) as the baseline.
+#   S1 folds where d <= 128, S3 takes either. On the card they are the
+#   mma.sync bf16 bodies (csrc/flash_attn_fwd.cu ``flash_attn_fwd_tiled``)
+#   instantiated at the CTA tiles below, ``fold`` choosing between a ones
+#   n-tile of the PV mma and per-thread sums. The TPU swept VMEM blocks of
+#   256-9216 query rows; a CTA holds 16-128, so the port's sweep is over its
+#   own tiles, and each set holds the mma.sync tile K1 ran (``K1_TILES``) as
+#   the baseline: K1's own at d=512, and at d=64 the tile of the mma.sync
+#   body K1 ran before its wgmma one.
 #   Plain version: ``_flash_bhsd_ref``, as K1's: p rounded against the row's
 #   global max where the kernels round it against the running max, a
 #   difference of bf16 rounding that K1's bounds already admit.
@@ -398,7 +413,7 @@ def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 D64_TILES = ((64, 32), (64, 64), (64, 128), (128, 64), (128, 128))  # (query rows, keys)
 D512_TILES = ((16, 32), (16, 64), (32, 32), (32, 64))
-K1_TILES = {64: (64, 64), 512: (32, 64)}  # K1's own, one of each set
+K1_TILES = {64: (64, 64), 512: (32, 64)}  # K1's mma.sync tiles (d=64: until its wgmma body)
 
 
 def _check_tiled(name: str, qh, kh, vh, tiles, bq: int, bk: int) -> None:

@@ -14,11 +14,14 @@ kernel):
   spill_stores    bytes of spill stores, and spill_loads, stack_bytes (ptxas)
   static_smem     bytes of static shared memory (ptxas; the dynamic shared
                   memory a launch asks for is not part of the object)
+  advisories      ptxas's lines about the kernel's wgmma (e.g. that it
+                  serialized them, which loses their pipelining), if any
   sass            counts of SASS instructions in the kernel's code (each
-                  instruction once, however often it runs): HMMA by shape and
-                  types (e.g. HMMA.1688.F32.TF32), the others by mnemonic
-                  without modifiers (FFMA, LDS, LDGSTS = cp.async, ...), and
-                  the total
+                  instruction once, however often it runs): HMMA (mma.sync)
+                  and HGMMA (wgmma) by shape and types (e.g.
+                  HMMA.1688.F32.TF32, HGMMA.64x128x16.F32.BF16), the others
+                  by mnemonic without modifiers (FFMA, LDS, LDGSTS = cp.async,
+                  UTMALDG = TMA, SYNCS = mbarrier, ...), and the total
 
 Needs nvcc and cuobjdump (the CUDA toolkit), so it runs on the card's
 machine, not where only the CPU build of PyTorch is installed.
@@ -69,6 +72,11 @@ def ptxas_info(text: str) -> dict[str, dict]:
             name = m.group(1)
             info[name] = {}
             continue
+        if re.search(r"serializ|wgmma\.|Performance Loss", line, re.I):  # its function, or the current
+            m = re.search(r"function '(\S+)'", line)
+            info.setdefault(m.group(1) if m else name, {}).setdefault(
+                "advisories", []).append(line.strip())
+            continue
         if name is None:
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -93,13 +101,13 @@ def sass_counts(text: str) -> dict[str, collections.Counter]:
             name = m.group(1)
             counts[name] = collections.Counter()
             continue
-        m = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        m = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Za-z0-9_.]*)", line)
         if name is None or m is None:
             continue
         op = m.group(1)
         c = counts[name]
         c["total"] += 1
-        c[op if op.startswith("HMMA") else op.split(".")[0]] += 1
+        c[op if op.startswith(("HMMA", "HGMMA")) else op.split(".")[0]] += 1
     return counts
 
 

@@ -1,6 +1,6 @@
 """Edited copies of a kernel source, each built into a library of its own.
 
-The tuning scripts (scripts/tune_k1_f32.py, scripts/tune_k34.py) time a
+The tuning scripts (scripts/tune_k1.py, scripts/tune_k34.py) time a
 kernel's variants beside the shipped one in one process: each variant is a
 csrc source with one edit (a tiling, a split form), written with its own
 common.cuh into a directory of its own and compiled by nvcc with the

@@ -32,7 +32,8 @@ weights (the JAX init scheme). Parts:
 The TPU script swept Pallas blocks of 192-9216 query rows by 512-2304 keys,
 sized for VMEM; a CTA holds 16-128 query rows, so the port sweeps the CUDA
 kernels' own tiles, named by them (blocks_s9216_64x64 is 64 query rows by
-64 keys per step), and each set holds K1's production tile (K1_TILES).
+64 keys per step), and each set holds the mma.sync tile K1 ran (K1_TILES;
+at d=64 the tile of its mma.sync body, before the wgmma one).
 
 Timing: CUDA events around --reps calls after one warm-up (chip_smoke's
 cuda_ms). The JAX script's marginal_time (a loop-carried perturbation inside
