@@ -12,8 +12,12 @@ Phases, each printed as a JSON line:
       plain PyTorch versions on the card, at the inference path's 768^2
       shapes and the training recipe's, in f32 and bf16: max abs error and
       CUDA-event times; K1 also at two ragged shapes (K1_RAGGED), and with
-      the name of the f32 body the library holds (split TF32) and its bound
-      at the split-TF32 rate beside the FFMA rate of the body it replaced;
+      the names of the f32 body the library holds (split TF32) and of the
+      bf16 body at d=64 (wgmma), the f32 bound at the split-TF32 rate beside
+      the FFMA rate of the body it replaced, and at bf16 d=64 parent_ms: the
+      mma.sync body K1 ran before its wgmma one, at its tile (K1_TILES)
+      through S1's entry, which sums l in the PV product where K1 summed it
+      apart;
   (e) the slice at full SD2.1 width (seeded random weights, JAX init scheme):
       a GenPerceptPipeline answers .batch over four 768x768 images
       (batch_size 2) and one __call__ on a 480x640 image, in f32 and bf16,
@@ -353,9 +357,13 @@ def k1_errors(q, k, v) -> tuple[float, float]:
 
 
 def phase_k1(gen: torch.Generator) -> dict:
-    body = _build.load().flash_attn_fwd_f32_body().decode()
+    lib = _build.load()
+    body = lib.flash_attn_fwd_f32_body().decode()
     emit({"phase": "K1_f32_body", "body": body})
     check(body.startswith("split TF32"), f"K1's f32 body is {body!r}")
+    body = lib.flash_attn_fwd_bf16_body().decode()
+    emit({"phase": "K1_bf16_body", "body": body})
+    check(body.startswith("wgmma"), f"K1's bf16 body at d=64 is {body!r}")
     worst = {dt: 0.0 for dt in DTYPES}
     # per 768^2 image and dtype: kernel, plain, bound and library ms
     per_image = {dt: [0.0, 0.0, Bound(), 0.0] for dt in DTYPES}
@@ -370,12 +378,14 @@ def phase_k1(gen: torch.Generator) -> dict:
             plain_ms = cuda_ms(lambda: fa._flash_bhsd_ref(q, k, v, scale), 3)
             library_ms = cuda_ms(lambda: sdpa(q, k, v), 10)
             f32 = dt == torch.float32
+            parent_ms = None if f32 or d != 64 else cuda_ms(
+                lambda: fa.flash_with_blocks(q, k, v, scale, *fa.K1_TILES[64]), 10)
             nbytes = attn_bytes(bh, s, d, dt, 3, 1, 1)
             bd = bound(4.0 * bh * s * s * d, "tf32x3" if f32 else "bf16", nbytes)
             emit({"phase": "K1", "dtype": str(dt), "shape": [bh, s, d],
                   "max_abs_err_out": err_o, "max_abs_err_lse2": err_l,
                   "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                  "bound_ms": bd.ms, "bound_by": bd.by,
+                  "bound_ms": bd.ms, "bound_by": bd.by, "parent_ms": parent_ms,
                   # f32: the bound at the FFMA rate of the f32 body this one replaced
                   "bound_ffma_ms": bound(4.0 * bh * s * s * d, "f32", nbytes).ms if f32 else None})
             check(err_o <= TOL["K1"][dt] and err_l <= TOL["K1"][dt],

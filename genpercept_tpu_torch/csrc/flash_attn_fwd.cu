@@ -357,73 +357,85 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, f
 // ---------------------------------------------------------------------------
 // bf16 at d = 64: K1's body, on wgmma. What bounds it: the two products at
 // the bf16 tensor rate (4 * 64 = 256 flop a logit), and beside them the
-// softmax's exponentials, one a logit on the 16-a-clock MUFU of an SM, about
-// as long as the products at d = 64. The design:
+// softmax's exponentials, one a logit on the 16-a-clock MUFU of an SM: at
+// d = 64 they take about as long as the products, so the design keeps the
+// softmax's instructions few and runs it while the tensor cores work.
 //   - Each consumer warpgroup owns 64 q rows of a BQ = 64 * NWG-row tile.
 //     S = Q K^T is wgmma m64nBKk16, four k steps over d: A is Q from shared
 //     memory (loaded once), B the K tile as stored, rows [key][d] with d
 //     contiguous (K-major). O += P V is m64n64k16, BK / 16 k steps: A is P
 //     from registers and B the V tile [key][d], MN-major, read through the
-//     transpose bit. Each 64-element row is one 128-byte swizzle row, and K,
-//     V and Q tiles all sit in the 128-byte swizzle that sw128_desc names.
+//     transpose bit. Each 64-element row is one 128-byte swizzle row; Q, K
+//     and V tiles all sit in the 128-byte swizzle that sw128_desc names.
 //   - S accumulates in registers in the m16n8 C layout per warp, the online
-//     softmax runs on it there (the four threads of a row reduce max and sum
-//     with __shfl_xor_sync; l is a per-thread sum of the rounded p, summed
-//     over the four at the end), and P, packed to bf16 pairs, is at once the
-//     register A operand of PV: it never touches shared memory.
-//   - K and V tiles run through a ring of NBUF stages. TMA: a producer
+//     softmax runs on it there (the four threads of a row reduce the max
+//     with __shfl_xor_sync), and P, packed to bf16 pairs, is at once the
+//     register A operand of PV: it never touches shared memory. l is a
+//     per-thread f32 sum of the packed (rounded) p, unpacked by a shift and
+//     a mask, summed over the row's four threads at the end. exp2 is
+//     ex2.approx.ftz: exp2f's extra steps for subnormal results would double
+//     the softmax's instructions, and flushing p < 2^-126 to zero moves no
+//     sum.
+//   - K and V tiles run through a ring of NBUF stages by TMA: a producer
 //     warpgroup, whose one thread issues 3-D tensor-map copies (rows past Sk
 //     and past Sq arrive as zeros) onto a "full" mbarrier a tile and stage,
 //     waits on the stage's "empty" mbarrier, which every consumer thread
-//     arrives on once its PV product has retired; setmaxnreg gives the
-//     producer's registers to the consumers. Without TMA (the first step of
-//     the design, kept for measurement): every consumer thread copies tile
-//     i + NBUF - 1 by cp.async while tile i is used, one barrier a tile.
-//   - Within a warpgroup each tile is Q K^T, wait, softmax, P V, wait: the
-//     tensor cores overlap one warpgroup's softmax with another's products
-//     (two warpgroups, or two CTAs, a SM).
+//     arrives on once the tile's PV product has retired. setmaxnreg gives
+//     the producer's registers to the consumers.
+//   - Within a warpgroup, tile i + 1's Q K^T and tile i's P V are issued
+//     together; the softmax of tile i + 1 runs once the first retires
+//     (wgmma.wait_group 1), while the second is still on the tensor cores,
+//     into the other of two P register sets. Then the second retires, the
+//     stage is released, and O is rescaled by tile i + 1's alpha.
 // Keys past Sk take the -1e30 logit (their zero rows would give 0); rows past
 // Sq are computed on zeros and not stored.
 
-template <int NWG, int BK, int NBUF, bool TMA>
+template <int NWG, int BK, int NBUF, bool PINGPONG, bool LSUM>
 struct WgTile {
   static constexpr int BQ = 64 * NWG;
   static constexpr int CONSUMERS = 128 * NWG;
-  static constexpr int THREADS = CONSUMERS + (TMA ? 128 : 0);  // + the producer warpgroup
-  static constexpr int QB = 64 * 128;                          // bytes of a warpgroup's Q
-  static constexpr int TILE = BK * 128;                        // bytes of a K or V tile
-  static constexpr int NBAR = 1 + 3 * NBUF;                    // Q, full K, full V, empty
-  static constexpr size_t BYTES = 1024 + (size_t)NWG * QB + 2 * NBUF * TILE + 8 * NBAR;
+  static constexpr int THREADS = CONSUMERS + 128;  // + the producer warpgroup
+  static constexpr int QB = 64 * 128;              // bytes of a warpgroup's Q
+  static constexpr int TILE = BK * 128;            // bytes of a K or V tile
+  static constexpr int NBAR = 1 + 3 * NBUF;        // Q, full K, full V, empty
+  static constexpr int ONES = LSUM ? 2048 : 0;     // bf16 ones: B of the l n-tile
+  static constexpr size_t BYTES = 1024 + (size_t)NWG * QB + 2 * NBUF * TILE + ONES + 8 * NBAR;
   // A kernel that runs setmaxnreg starts with the registers its launch bounds
   // give each thread: 64K / (THREADS * MINB), a multiple of 8. The producer
   // keeps 40, and the consumers share the rest.
   static constexpr int MINB = NWG == 1 ? 2 : 1;
-  static constexpr int REGS = (65536 / (THREADS * MINB) > 255 ? 255 : 65536 / (THREADS * MINB)) / 8 * 8;
+  static constexpr int REGS = 65536 / (THREADS * MINB) / 8 * 8;
   static constexpr int PRODUCER_REGS = 40;
   static constexpr int CONSUMER_REGS = REGS + (REGS - PRODUCER_REGS) / NWG / 8 * 8;
-  static_assert(BK % 16 == 0 && BK <= 256 && NBUF >= 2, "tile and ring");
-  static_assert(!TMA || CONSUMER_REGS <= 256, "setmaxnreg takes 24..256");
+  static_assert((BK == 64 || BK == 128) && NBUF >= 2, "tile and ring");
+  static_assert(REGS <= 248 && CONSUMER_REGS <= 256, "setmaxnreg takes 24..256");
+  static_assert(!PINGPONG || NWG == 2, "ping-pong between two warpgroups");
 };
 
-template <int NWG, int BK, int NBUF, bool TMA>
-__global__ void __launch_bounds__(WgTile<NWG, BK, NBUF, TMA>::THREADS,
-                                  WgTile<NWG, BK, NBUF, TMA>::MINB)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int NWG, int BK, int NBUF, bool PINGPONG, bool LSUM>
+__global__ void __launch_bounds__(WgTile<NWG, BK, NBUF, PINGPONG, LSUM>::THREADS,
+                                  WgTile<NWG, BK, NBUF, PINGPONG, LSUM>::MINB)
 flash_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
                             const __grid_constant__ CUtensorMap tv,
-                            const __nv_bfloat16* __restrict__ q,
-                            const __nv_bfloat16* __restrict__ k,
-                            const __nv_bfloat16* __restrict__ v,
                             __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                             int sq, int sk, float scale) {
-  using T = WgTile<NWG, BK, NBUF, TMA>;
-  constexpr int NS = BK / 8;  // 8-key column tiles of S
-  constexpr int NO = 8;       // 8-wide column tiles of O
+  using T = WgTile<NWG, BK, NBUF, PINGPONG, LSUM>;
+  constexpr int NS = BK / 8;   // 8-key column tiles of S
+  constexpr int NO = 8;        // 8-wide column tiles of O
+  constexpr int KP = BK / 16;  // k steps of P V
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Qs = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);  // [NWG][64][128 B]
   uint8_t* Ks = Qs + NWG * T::QB;       // [NBUF][BK][128 B]
   uint8_t* Vs = Ks + NBUF * T::TILE;    // [NBUF][BK][128 B]
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + NBUF * T::TILE);
+  uint8_t* ones = Vs + NBUF * T::TILE;  // [16][128 B], LSUM
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ones + T::ONES);
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + NBUF;
   uint64_t* empty = v_full + NBUF;
@@ -431,57 +443,40 @@ flash_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int q0 = blockIdx.x * T::BQ;
   const int bh = blockIdx.y;
   const int ntile = (sk + BK - 1) / BK;
-  const __nv_bfloat16* kb = k + (size_t)bh * sk * 64;
-  const __nv_bfloat16* vb = v + (size_t)bh * sk * 64;
 
-  // cp.async staging: one commit group a tile, empty past the last, so that
-  // "tile i has landed" is always cp.async.wait_group NBUF - 2 at tile i
-  auto load_tile = [&](int tile) {
-    if (tile < ntile) {
-      const int s = tile % NBUF;
-      cp_async_rows_sw128<BK, T::CONSUMERS>(Ks + s * T::TILE, kb, tile * BK, sk, threadIdx.x);
-      cp_async_rows_sw128<BK, T::CONSUMERS>(Vs + s * T::TILE, vb, tile * BK, sk, threadIdx.x);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < NBUF; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(empty + s, T::CONSUMERS);
     }
-    cp_async_commit();
-  };
-
-  if constexpr (TMA) {
-    if (threadIdx.x == 0) {
-      mbar_init(q_full, 1);
-      for (int s = 0; s < NBUF; ++s) {
-        mbar_init(k_full + s, 1);
-        mbar_init(v_full + s, 1);
-        mbar_init(empty + s, T::CONSUMERS);
-      }
-      fence_mbarrier_init();
-    }
-    __syncthreads();
-    if (threadIdx.x >= T::CONSUMERS) {  // the producer warpgroup
-      setmaxnreg_dec<T::PRODUCER_REGS>();
-      if (threadIdx.x == T::CONSUMERS) {
-        mbar_expect_tx(q_full, NWG * T::QB);
-        for (int w = 0; w < NWG; ++w) tma_load_3d(Qs + w * T::QB, &tq, q_full, 0, q0 + 64 * w, bh);
-        for (int i = 0; i < ntile; ++i) {
-          const int s = i % NBUF;
-          if (i >= NBUF) mbar_wait(empty + s, (i / NBUF - 1) & 1);  // tile i - NBUF released
-          mbar_expect_tx(k_full + s, T::TILE);
-          tma_load_3d(Ks + s * T::TILE, &tk, k_full + s, 0, i * BK, bh);
-          mbar_expect_tx(v_full + s, T::TILE);
-          tma_load_3d(Vs + s * T::TILE, &tv, v_full + s, 0, i * BK, bh);
-        }
-      }
-      return;
-    }
-    setmaxnreg_inc<T::CONSUMER_REGS>();
-  } else {
-    const __nv_bfloat16* qb = q + (size_t)bh * sq * 64;
-    cp_async_rows_sw128<T::BQ, T::CONSUMERS>(Qs, qb, q0, sq, threadIdx.x);  // lands with tile 0
-#pragma unroll
-    for (int tile = 0; tile < NBUF - 1; ++tile) load_tile(tile);
+    fence_mbarrier_init();
   }
+  for (int idx = threadIdx.x; idx < T::ONES / 4; idx += T::THREADS)
+    reinterpret_cast<uint32_t*>(ones)[idx] = kOnesBF16x2;
+  fence_proxy_async();
+  __syncthreads();
+  if (threadIdx.x >= T::CONSUMERS) {  // the producer warpgroup
+    setmaxnreg_dec<T::PRODUCER_REGS>();
+    if (threadIdx.x == T::CONSUMERS) {
+      mbar_expect_tx(q_full, NWG * T::QB);
+      for (int w = 0; w < NWG; ++w) tma_load_3d(Qs + w * T::QB, &tq, q_full, 0, q0 + 64 * w, bh);
+      for (int i = 0; i < ntile; ++i) {
+        const int s = i % NBUF;
+        if (i >= NBUF) mbar_wait(empty + s, (i / NBUF - 1) & 1);  // tile i - NBUF released
+        mbar_expect_tx(k_full + s, T::TILE);
+        tma_load_3d(Ks + s * T::TILE, &tk, k_full + s, 0, i * BK, bh);
+        mbar_expect_tx(v_full + s, T::TILE);
+        tma_load_3d(Vs + s * T::TILE, &tv, v_full + s, 0, i * BK, bh);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<T::CONSUMER_REGS>();
 
   const int wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;  // rows g and g + 8 of the warp's 16, columns 2t, 2t + 1
+  const int t = lane % 4;  // rows lane / 4 and lane / 4 + 8 of the warp's 16, columns 2t, 2t + 1
   const uint8_t* Qw = Qs + wg * T::QB;
   const float c = scale * 1.4426950408889634f;
 
@@ -490,99 +485,134 @@ flash_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
 #pragma unroll
   for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  uint32_t pf[BK / 16][4];
-  if constexpr (TMA) mbar_wait(q_full, 0);
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+  float lf[1][4] = {{0.f, 0.f, 0.f, 0.f}};  // LSUM: l in every column of the ones n-tile
+  uint32_t pf[2][KP][4];  // P of tile i in pf[i % 2]
+  // PINGPONG: the two warpgroups issue their products in turns (named
+  // barriers 1 and 2), so one's softmax runs while the other's products do
+  auto my_turn = [&]() { if (PINGPONG) named_bar_sync(1 + wg, 256); };
+  auto your_turn = [&]() { if (PINGPONG) named_bar_arrive(2 - wg, 256); };
+  if (PINGPONG && wg == 1) your_turn();  // warpgroup 0 goes first
 
-  for (int i = 0; i < ntile; ++i) {
-    const int st = i % NBUF, k0 = i * BK;
-    const uint32_t parity = (i / NBUF) & 1;
-    if constexpr (TMA) {
-      mbar_wait(k_full + st, parity);
-    } else {
-      cp_async_wait<NBUF - 2>();
-      fence_proxy_async();
-      __syncthreads();  // tile i visible to wgmma; every warpgroup is done with tile i - 1
-      load_tile(i + NBUF - 1);
-    }
-    const uint8_t* Kt = Ks + st * T::TILE;
-    const uint8_t* Vt = Vs + st * T::TILE;
-
-    // S = Q K^T
-    wgmma_fence();
-    reg_fence(s);
+  // S = Q K^T of tile i, issued and committed (its stage's K has landed)
+  auto issue_qk = [&](int i) {
+    mbar_wait(k_full + i % NBUF, (i / NBUF) & 1);
+    const uint8_t* Kt = Ks + (i % NBUF) * T::TILE;
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) wgmma_ss(s, sw128_desc(Qw + 32 * kk), sw128_desc(Kt + 32 * kk), kk);
     wgmma_commit();
-    wgmma_wait<0>();
-    reg_fence(s);
-    if (k0 + BK > sk) {
+  };
+  // the online softmax of tile i's S (retired) into P, the running max and
+  // the per-thread sums of the rounded p; rows lane / 4 (j = 0, 1) and
+  // lane / 4 + 8 (j = 2, 3)
+  auto softmax = [&](int i, uint32_t (&p)[KP][4]) {
+    if ((i + 1) * BK > sk) {
 #pragma unroll
       for (int n = 0; n < NS; ++n)
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          if (k0 + n * 8 + 2 * t + (j & 1) >= sk) s[n][j] = kNegInf;
+          if (i * BK + n * 8 + 2 * t + (j & 1) >= sk) s[n][j] = kNegInf;
     }
-
-    // online softmax; rows g (j = 0, 1) and g + 8 (j = 2, 3)
     float tm[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
       tm[0] = fmaxf(tm[0], fmaxf(s[n][0], s[n][1]));
       tm[1] = fmaxf(tm[1], fmaxf(s[n][2], s[n][3]));
     }
-    float alpha[2], mc[2];
+    float mc[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       tm[r] = fmaxf(tm[r], __shfl_xor_sync(0xffffffffu, tm[r], 1));
       tm[r] = fmaxf(tm[r], __shfl_xor_sync(0xffffffffu, tm[r], 2));
       const float m_new = fmaxf(m[r], tm[r]);
-      alpha[r] = exp2f((m[r] - m_new) * c);
+      alpha[r] = ex2((m[r] - m_new) * c);
       m[r] = m_new;
       mc[r] = m_new * c;
     }
     float rs[2] = {0.f, 0.f};
 #pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      float p[4];
+    for (int n = 0; n < NS; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) p[j] = round_bf16(exp2f(s[n][j] * c - mc[j / 2]));
-      rs[0] += p[0] + p[1];
-      rs[1] += p[2] + p[3];
-      pf[n / 2][(n % 2) * 2 + 0] = pack_bf16(p[0], p[1]);
-      pf[n / 2][(n % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
+      for (int r = 0; r < 2; ++r) {
+        const uint32_t pk = pack_bf16(ex2(fmaf(s[n][2 * r], c, -mc[r])),
+                                      ex2(fmaf(s[n][2 * r + 1], c, -mc[r])));
+        p[n / 2][(n % 2) * 2 + r] = pk;
+        if (!LSUM) rs[r] += __uint_as_float(pk << 16) + __uint_as_float(pk & 0xFFFF0000u);
+      }
+    if (!LSUM) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
     }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
-    }
+  };
 
-    // O += P V
-    if constexpr (TMA) mbar_wait(v_full + st, parity);
-    wgmma_fence();
-    reg_fence(o);
-    reg_fence(pf);
+  mbar_wait(q_full, 0);
+  wgmma_fence();
+  my_turn();
+  issue_qk(0);
+  your_turn();
+  wgmma_wait<0>();
+  reg_fence(s);
+  softmax(0, pf[0]);
+  for (int i0 = 0; i0 < ntile; i0 += 2) {
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs(o, pf[kk], sw128_desc(Vt + 2048 * kk), 1);
-    wgmma_commit();
-    wgmma_wait<0>();
-    reg_fence(o);
-    reg_fence(pf);
-    if constexpr (TMA) mbar_arrive(empty + st);
+    for (int h = 0; h < 2; ++h) {  // tile i's P in pf[h], the next tile's into pf[h ^ 1]
+      const int i = i0 + h;
+      if (i >= ntile) break;
+      const bool next = i + 1 < ntile;
+      reg_fence(s);
+      reg_fence(o);
+      reg_fence(lf);
+      reg_fence(pf[h]);
+      wgmma_fence();  // o, pf[h] and s were written since the last wgmma
+      my_turn();
+      if (next) issue_qk(i + 1);
+      mbar_wait(v_full + i % NBUF, (i / NBUF) & 1);
+      const uint8_t* Vt = Vs + (i % NBUF) * T::TILE;
+#pragma unroll
+      for (int kk = 0; kk < KP; ++kk) {
+        wgmma_rs(o, pf[h][kk], sw128_desc(Vt + 2048 * kk), 1);
+        if (LSUM) wgmma_rs(lf, pf[h][kk], sw128_desc(ones), 1);
+      }
+      wgmma_commit();
+      if (next || wg == 0) your_turn();  // warpgroup 1's last turn is taken by nobody
+      if (next) {
+        wgmma_wait<1>();  // Q K^T of tile i + 1 retired; P V of tile i in flight
+        reg_fence(s);
+        softmax(i + 1, pf[h ^ 1]);
+      }
+      wgmma_wait<0>();
+      reg_fence(o);
+      reg_fence(lf);
+      reg_fence(pf[h]);
+      mbar_arrive(empty + i % NBUF);
+      if (next) {
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
+          o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
+        }
+        if (LSUM) {
+          lf[0][0] *= alpha[0]; lf[0][1] *= alpha[0];
+          lf[0][2] *= alpha[1]; lf[0][3] *= alpha[1];
+        }
+      }
+    }
   }
 
-  // finish: l of the row from its four threads; o = acc / l; lse2
+  // finish: l of the row from its four threads (or the ones n-tile); o =
+  // acc / l; lse2
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    if (LSUM) {
+      l[r] = lf[0][2 * r];
+    } else {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + wg * 64 + warp * 16 + g + 8 * r;
+    const int row = q0 + wg * 64 + warp * 16 + lane / 4 + 8 * r;
     if (row >= sq) continue;
     __nv_bfloat16* orow = out + ((size_t)bh * sq + row) * 64;
 #pragma unroll
@@ -593,22 +623,21 @@ flash_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int NWG, int BK, int NBUF, bool TMA>
+template <int NWG, int BK, int NBUF, bool PINGPONG = false, bool LSUM = false>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse,
                          int bh, int sq, int sk, float scale, cudaStream_t stream) {
-  using T = WgTile<NWG, BK, NBUF, TMA>;
-  CUtensorMap tq{}, tk{}, tv{};
-  if (TMA && !(tma_map_bhsd64(&tq, q, sq, bh, 64) && tma_map_bhsd64(&tk, k, sk, bh, BK) &&
-               tma_map_bhsd64(&tv, v, sk, bh, BK)))
+  using T = WgTile<NWG, BK, NBUF, PINGPONG, LSUM>;
+  CUtensorMap tq, tk, tv;
+  if (!(tma_map_bhsd64(&tq, q, sq, bh, 64) && tma_map_bhsd64(&tk, k, sk, bh, BK) &&
+        tma_map_bhsd64(&tv, v, sk, bh, BK)))
     return cudaErrorInvalidValue;
-  auto kern = flash_attn_fwd_wgmma_kernel<NWG, BK, NBUF, TMA>;
+  auto kern = flash_attn_fwd_wgmma_kernel<NWG, BK, NBUF, PINGPONG, LSUM>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::BYTES);
   if (err != cudaSuccess) return err;
   dim3 grid((sq + T::BQ - 1) / T::BQ, bh);
-  kern<<<grid, T::THREADS, T::BYTES, stream>>>(
-      tq, tk, tv, static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, sq, sk, scale);
+  kern<<<grid, T::THREADS, T::BYTES, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse,
+                                               sq, sk, scale);
   return cudaGetLastError();
 }
 
@@ -1055,11 +1084,11 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* out,
 }
 
 // K1's bf16 body at d = 64: launch_wgmma<consumer warpgroups of 64 q rows,
-// keys a tile, ring stages, TMA>
+// keys a tile, ring stages>
 cudaError_t dispatch_bf16_d64(const void* q, const void* k, const void* v, void* out,
                               float* lse, int bh, int sq, int sk, float scale,
                               cudaStream_t stream) {
-  return launch_wgmma<2, 128, 2, true>(q, k, v, out, lse, bh, sq, sk, scale, stream);
+  return launch_wgmma<2, 128, 3>(q, k, v, out, lse, bh, sq, sk, scale, stream);
 }
 
 // the d = 64 CTA tiles (query rows, keys) of the profiling scripts' sweep

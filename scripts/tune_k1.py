@@ -2,7 +2,7 @@
 """Variants of K1's bodies, timed beside the shipped one, SDPA and the bound.
 
     python3 scripts/tune_k1.py [--dtype f32|bf16] [--split cvt onepass]
-                               [--tile 64:4,1,64,4 ... | --tile 2,128,2,true ...]
+                               [--tile 64:4,1,64,4 ... | --tile 2,128,3 ...]
                                [--baseline NAME=OLD/flash_attn_fwd.cu ...]
                                [--shapes main|short] [--check]
 
@@ -18,11 +18,10 @@ to a copy:
   --tile D:P,S,K,N f32: the instantiation at head dim D with P row parts, S
                    slices of d, K keys a tile and N ring buffers (the
                    template arguments of launch_f32)
-  --tile W,K,N,TMA bf16: the d=64 body (dispatch_bf16_d64) as one
+  --tile W,K,N     bf16: the d=64 body (dispatch_bf16_d64) as one
                    instantiation for every length: W consumer warpgroups of
-                   64 q rows, K keys a tile, N ring stages, TMA true (K/V by
-                   a producer warpgroup's TMA) or false (by every thread's
-                   cp.async); the arguments of launch_wgmma
+                   64 q rows, K keys a tile, N ring stages (the arguments of
+                   launch_wgmma)
   --baseline NAME=FILE  another flash_attn_fwd.cu (an earlier commit's, with
                    its own common.cuh beside it) as the variant NAME
 
@@ -85,16 +84,18 @@ SMALL_PASSES = ("  for (int n = 0; n < N; ++n) mma_tf32(c[n], al, bh[n][0], bh[n
 SHIPPED_TILE = re.compile(r"launch_f32<(\d+), (\d+), (\d+), (\d+), (\d+)>")
 # the body of dispatch_bf16_d64, every launch_wgmma it holds
 BF16_DISPATCH = re.compile(r"(cudaError_t dispatch_bf16_d64\([^)]*\) \{\n).*?(\n\}\n)", re.S)
-KERNEL = {"f32": "flash_attn_fwd_f32_kernel", "bf16": "flash_attn_fwd_wgmma_kernel"}
+# K1's kernels by dtype; at bf16 also the mma.sync body K1 ran before its
+# wgmma one (its d=64, 4-warp, 64-key instantiation with l summed apart)
+KERNEL = {"f32": ("flash_attn_fwd_f32_kernel",),
+          "bf16": ("flash_attn_fwd_wgmma_kernel", "flash_attn_fwd_mma_kernelILi64ELi4ELi64ELb0E")}
 REPS = 10
 
 
 def bf16_tile(src: str, tile: str) -> str:
     """src with dispatch_bf16_d64 launching launch_wgmma<tile> at every length."""
-    m = re.fullmatch(r"(\d+),(\d+),(\d+),(true|false)", tile)
-    if m is None:
-        raise SystemExit(f"--tile {tile}: want W,K,N,TMA, e.g. 2,128,2,true")
-    body = (f"  return launch_wgmma<{', '.join(m.groups())}>(q, k, v, out, lse, bh, sq, sk, "
+    if re.fullmatch(r"\d+,\d+,\d+(,(true|false))*", tile) is None:
+        raise SystemExit(f"--tile {tile}: want W,K,N[,...], e.g. 2,128,3")
+    body = (f"  return launch_wgmma<{tile.replace(',', ', ')}>(q, k, v, out, lse, bh, sq, sk, "
             "scale, stream);")
     edited, n = BF16_DISPATCH.subn(lambda mm: mm.group(1) + body + mm.group(2), src)
     if n != 1:
@@ -151,8 +152,8 @@ def main(argv=None) -> None:
         for lib, _ in libs.values():
             lib.flash_attn_fwd.argtypes = [p, p, p, p, p, i, i, i, i, f, i, p]
             lib.flash_attn_fwd.restype = i
-        print(json.dumps({"ptxas": {n: {k: r for k, r in regs.items() if KERNEL[args.dtype] in k
-                                        or "flash_attn_fwd_mma_kernel" in k}
+        print(json.dumps({"ptxas": {n: {k: r for k, r in regs.items()
+                                        if any(x in k for x in KERNEL[args.dtype])}
                                     for n, (_, regs) in libs.items()}}), flush=True)
         gen = torch.Generator(device="cuda").manual_seed(0)
         stream = torch.cuda.current_stream().cuda_stream

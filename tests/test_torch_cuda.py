@@ -72,6 +72,10 @@ def gen():
     # (tests/test_ops.py:265, 2 x 3 heads, 77 keys), and d=512 at a length
     # that is no multiple of 32 keys or of a q tile
     (6, 256, 77, 64), (2, 1000, 1000, 512),
+    # the bf16 d=64 body's tile edges: fewer q rows than one warpgroup's 64
+    # with keys over several key tiles (the last partial), and both lengths
+    # off the tiles (TMA fills rows past Sq and Sk with zeros)
+    (4, 40, 300, 64), (2, 4800, 1000, 64),
 ])
 def test_flash_kernel_matches_plain(gen, bh, sq, sk, d, dtype, tol):
     q = torch.randn(bh, sq, d, device="cuda", generator=gen).to(dtype)
@@ -160,6 +164,27 @@ def test_flash_bwd_f32_error_stays_flat_at_length(gen, bh, s, d):
         assert (a - b).abs().max().item() <= 2e-5 * b.abs().max().item()
 
 
+def test_flash_bf16_d64_body_is_wgmma(gen):
+    """K1's bf16 body at d=64 runs both products on wgmma, which the library
+    names."""
+    from genpercept_tpu_torch import _build
+    assert _build.load().flash_attn_fwd_bf16_body().decode().startswith("wgmma")
+
+
+@pytest.mark.parametrize("bh,sq,sk", [(40, 4800, 4800), (6, 256, 77)])
+def test_flash_bf16_d64_repeats_bit_for_bit(gen, bh, sq, sk):
+    """No atomics and a fixed order of products and sums: two calls of K1's
+    bf16 d=64 body on the same inputs give the same bits."""
+    q = torch.randn(bh, sq, 64, device="cuda", generator=gen).to(torch.bfloat16)
+    k, v = (torch.randn(bh, sk, 64, device="cuda", generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    first = fa._flash_bhsd(q, k, v, 0.125)
+    second = fa._flash_bhsd(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def test_flash_f32_bodies_are_split_tf32(gen):
     """K1's and K3/K4's f32 bodies run on the tensor cores through split
     TF32 (3xTF32 mma.sync), which the library names."""
@@ -217,6 +242,10 @@ def test_kernels_refuse_what_they_do_not_take(gen):
         fa._flash_bwd_dq(q, q, q, q, q[..., :1], q[..., :1], 0.1)
     with pytest.raises(ValueError):
         fa._flash_bwd_dkv(x, x, x, x, x[..., :1].float(), x[..., :1].float(), 0.125)
+    flat = torch.zeros(64 * 64 + 1, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):  # a base 2 bytes off: TMA takes none
+        fa._flash_bhsd(flat[1:].view(1, 64, 64), flat[:-1].view(1, 64, 64),
+                       flat[:-1].view(1, 64, 64), 0.125)
     z = torch.zeros(1, 512, 640, device="cuda")
     with pytest.raises(ValueError):  # f32 has a body at C=320 only
         ff.fused_geglu_ff(z, torch.zeros(5120, 640, device="cuda"), None,
