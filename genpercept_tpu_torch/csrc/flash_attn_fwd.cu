@@ -63,6 +63,8 @@
 // Rows past Sq are computed on zeros and not stored; columns past Sk get the
 // -1e30 logit, so ragged lengths need no padding.
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -382,15 +384,19 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, f
 //     waits on the stage's "empty" mbarrier, which every consumer thread
 //     arrives on once the tile's PV product has retired. setmaxnreg gives
 //     the producer's registers to the consumers.
-//   - Within a warpgroup, tile i + 1's Q K^T and tile i's P V are issued
-//     together; the softmax of tile i + 1 runs once the first retires
-//     (wgmma.wait_group 1), while the second is still on the tensor cores,
-//     into the other of two P register sets. Then the second retires, the
-//     stage is released, and O is rescaled by tile i + 1's alpha.
+//   - Within a warpgroup, each pipeline stage issues tile i + 1's Q K^T and
+//     tile i's P V together; once the first retires (wgmma.wait_group 1) the
+//     softmax's max and exponentials of tile i + 1 run while the second is
+//     still on the tensor cores. Then the second retires, the stage's K and
+//     V are released, O is rescaled by tile i + 1's alpha, and the new p are
+//     packed into P. A stage is straight-line code from its first wgmma to
+//     its last wait, the waits for its tiles before it and the mask of the
+//     last tile compiled into its own copy: where ptxas cannot follow a
+//     stage it waits after every wgmma (advisory C7514).
 // Keys past Sk take the -1e30 logit (their zero rows would give 0); rows past
 // Sq are computed on zeros and not stored.
 
-template <int NWG, int BK, int NBUF, bool PINGPONG, bool LSUM>
+template <int NWG, int BK, int NBUF>
 struct WgTile {
   static constexpr int BQ = 64 * NWG;
   static constexpr int CONSUMERS = 128 * NWG;
@@ -398,18 +404,18 @@ struct WgTile {
   static constexpr int QB = 64 * 128;              // bytes of a warpgroup's Q
   static constexpr int TILE = BK * 128;            // bytes of a K or V tile
   static constexpr int NBAR = 1 + 3 * NBUF;        // Q, full K, full V, empty
-  static constexpr int ONES = LSUM ? 2048 : 0;     // bf16 ones: B of the l n-tile
-  static constexpr size_t BYTES = 1024 + (size_t)NWG * QB + 2 * NBUF * TILE + ONES + 8 * NBAR;
-  // A kernel that runs setmaxnreg starts with the registers its launch bounds
-  // give each thread: 64K / (THREADS * MINB), a multiple of 8. The producer
-  // keeps 40, and the consumers share the rest.
+  static constexpr size_t BYTES = 1024 + (size_t)NWG * QB + 2 * NBUF * TILE + 8 * NBAR;
+  // CTAs a SM: two at one consumer warpgroup, so that one CTA's softmax runs
+  // beside the other's products. A kernel that runs setmaxnreg starts with
+  // the registers its launch bounds give each thread, 64K / (THREADS * MINB)
+  // rounded down to 8; the producer keeps 40 and the consumers share the rest
+  // (an increase past what the producer frees would wait forever).
   static constexpr int MINB = NWG == 1 ? 2 : 1;
   static constexpr int REGS = 65536 / (THREADS * MINB) / 8 * 8;
   static constexpr int PRODUCER_REGS = 40;
   static constexpr int CONSUMER_REGS = REGS + (REGS - PRODUCER_REGS) / NWG / 8 * 8;
   static_assert((BK == 64 || BK == 128) && NBUF >= 2, "tile and ring");
   static_assert(REGS <= 248 && CONSUMER_REGS <= 256, "setmaxnreg takes 24..256");
-  static_assert(!PINGPONG || NWG == 2, "ping-pong between two warpgroups");
 };
 
 __device__ __forceinline__ float ex2(float x) {
@@ -418,15 +424,14 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-template <int NWG, int BK, int NBUF, bool PINGPONG, bool LSUM>
-__global__ void __launch_bounds__(WgTile<NWG, BK, NBUF, PINGPONG, LSUM>::THREADS,
-                                  WgTile<NWG, BK, NBUF, PINGPONG, LSUM>::MINB)
+template <int NWG, int BK, int NBUF>
+__global__ void __launch_bounds__(WgTile<NWG, BK, NBUF>::THREADS, WgTile<NWG, BK, NBUF>::MINB)
 flash_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
                             const __grid_constant__ CUtensorMap tv,
                             __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                             int sq, int sk, float scale) {
-  using T = WgTile<NWG, BK, NBUF, PINGPONG, LSUM>;
+  using T = WgTile<NWG, BK, NBUF>;
   constexpr int NS = BK / 8;   // 8-key column tiles of S
   constexpr int NO = 8;        // 8-wide column tiles of O
   constexpr int KP = BK / 16;  // k steps of P V
@@ -434,8 +439,7 @@ flash_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   uint8_t* Qs = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);  // [NWG][64][128 B]
   uint8_t* Ks = Qs + NWG * T::QB;       // [NBUF][BK][128 B]
   uint8_t* Vs = Ks + NBUF * T::TILE;    // [NBUF][BK][128 B]
-  uint8_t* ones = Vs + NBUF * T::TILE;  // [16][128 B], LSUM
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(ones + T::ONES);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + NBUF * T::TILE);
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + NBUF;
   uint64_t* empty = v_full + NBUF;
@@ -453,9 +457,6 @@ flash_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
     fence_mbarrier_init();
   }
-  for (int idx = threadIdx.x; idx < T::ONES / 4; idx += T::THREADS)
-    reinterpret_cast<uint32_t*>(ones)[idx] = kOnesBF16x2;
-  fence_proxy_async();
   __syncthreads();
   if (threadIdx.x >= T::CONSUMERS) {  // the producer warpgroup
     setmaxnreg_dec<T::PRODUCER_REGS>();
@@ -486,27 +487,27 @@ flash_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
   for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
-  float lf[1][4] = {{0.f, 0.f, 0.f, 0.f}};  // LSUM: l in every column of the ones n-tile
-  uint32_t pf[2][KP][4];  // P of tile i in pf[i % 2]
-  // PINGPONG: the two warpgroups issue their products in turns (named
-  // barriers 1 and 2), so one's softmax runs while the other's products do
-  auto my_turn = [&]() { if (PINGPONG) named_bar_sync(1 + wg, 256); };
-  auto your_turn = [&]() { if (PINGPONG) named_bar_arrive(2 - wg, 256); };
-  if (PINGPONG && wg == 1) your_turn();  // warpgroup 0 goes first
+  uint32_t pf[KP][4];  // P of the tile whose P V is next
 
-  // S = Q K^T of tile i, issued and committed (its stage's K has landed)
+  // S = Q K^T of tile i into s, and P V of tile i into o, issued
   auto issue_qk = [&](int i) {
-    mbar_wait(k_full + i % NBUF, (i / NBUF) & 1);
     const uint8_t* Kt = Ks + (i % NBUF) * T::TILE;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss(s, sw128_desc(Qw + 32 * kk), sw128_desc(Kt + 32 * kk), kk);
-    wgmma_commit();
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss(s, sw128_desc(Qw + 32 * kk), sw128_desc(Kt + 32 * kk), kk);
   };
-  // the online softmax of tile i's S (retired) into P, the running max and
-  // the per-thread sums of the rounded p; rows lane / 4 (j = 0, 1) and
-  // lane / 4 + 8 (j = 2, 3)
-  auto softmax = [&](int i, uint32_t (&p)[KP][4]) {
-    if ((i + 1) * BK > sk) {
+  auto issue_pv = [&](int i) {
+    const uint8_t* Vt = Vs + (i % NBUF) * T::TILE;
+#pragma unroll
+    for (int kk = 0; kk < KP; ++kk) wgmma_rs(o, pf[kk], sw128_desc(Vt + 2048 * kk), 1);
+  };
+  // The softmax of tile i's S, in two steps. exps: the mask of keys past Sk
+  // (MASK: the last tile), the running max of rows lane / 4 (j = 0, 1) and
+  // lane / 4 + 8 (j = 2, 3), alpha, and p = exp2(s * c - m * c) in place of
+  // s. pack: p rounded to bf16 pairs into P, the A operand of P V, and l
+  // rescaled plus the sum of the rounded p.
+  auto exps = [&](int i, auto mask) {
+    if (decltype(mask)::value) {
 #pragma unroll
       for (int n = 0; n < NS; ++n)
 #pragma unroll
@@ -529,86 +530,82 @@ flash_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       m[r] = m_new;
       mc[r] = m_new * c;
     }
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[n][j] = ex2(fmaf(s[n][j], c, -mc[j / 2]));
+  };
+  auto pack = [&]() {
     float rs[2] = {0.f, 0.f};
 #pragma unroll
     for (int n = 0; n < NS; ++n)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const uint32_t pk = pack_bf16(ex2(fmaf(s[n][2 * r], c, -mc[r])),
-                                      ex2(fmaf(s[n][2 * r + 1], c, -mc[r])));
-        p[n / 2][(n % 2) * 2 + r] = pk;
-        if (!LSUM) rs[r] += __uint_as_float(pk << 16) + __uint_as_float(pk & 0xFFFF0000u);
+        const uint32_t pk = pack_bf16(s[n][2 * r], s[n][2 * r + 1]);
+        pf[n / 2][(n % 2) * 2 + r] = pk;
+        rs[r] += __uint_as_float(pk << 16) + __uint_as_float(pk & 0xFFFF0000u);
       }
-    if (!LSUM) {
 #pragma unroll
-      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+  };
+  // One pipeline stage, straight-line from its first wgmma to its last wait
+  // (ptxas serializes every wgmma when it cannot follow a stage): Q K^T of
+  // tile i + 1 and P V of tile i on the tensor cores, the exps of tile i + 1
+  // while the second is in flight; then O rescaled and P packed.
+  auto stage = [&](int i, auto mask) {
+    mbar_wait(k_full + (i + 1) % NBUF, ((i + 1) / NBUF) & 1);
+    mbar_wait(v_full + i % NBUF, (i / NBUF) & 1);
+    reg_fence(s);
+    reg_fence(o);
+    reg_fence(pf);
+    wgmma_fence();
+    issue_qk(i + 1);
+    wgmma_commit();
+    issue_pv(i);
+    wgmma_commit();
+    wgmma_wait<1>();  // Q K^T retired; P V in flight
+    reg_fence(s);
+    exps(i + 1, mask);
+    wgmma_wait<0>();
+    reg_fence(o);
+    reg_fence(pf);
+    mbar_arrive(empty + i % NBUF);  // tile i's K and V are read
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
     }
+    pack();
   };
 
   mbar_wait(q_full, 0);
+  mbar_wait(k_full, 0);
+  reg_fence(s);
   wgmma_fence();
-  my_turn();
   issue_qk(0);
-  your_turn();
+  wgmma_commit();
   wgmma_wait<0>();
   reg_fence(s);
-  softmax(0, pf[0]);
-  for (int i0 = 0; i0 < ntile; i0 += 2) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {  // tile i's P in pf[h], the next tile's into pf[h ^ 1]
-      const int i = i0 + h;
-      if (i >= ntile) break;
-      const bool next = i + 1 < ntile;
-      reg_fence(s);
-      reg_fence(o);
-      reg_fence(lf);
-      reg_fence(pf[h]);
-      wgmma_fence();  // o, pf[h] and s were written since the last wgmma
-      my_turn();
-      if (next) issue_qk(i + 1);
-      mbar_wait(v_full + i % NBUF, (i / NBUF) & 1);
-      const uint8_t* Vt = Vs + (i % NBUF) * T::TILE;
-#pragma unroll
-      for (int kk = 0; kk < KP; ++kk) {
-        wgmma_rs(o, pf[h][kk], sw128_desc(Vt + 2048 * kk), 1);
-        if (LSUM) wgmma_rs(lf, pf[h][kk], sw128_desc(ones), 1);
-      }
-      wgmma_commit();
-      if (next || wg == 0) your_turn();  // warpgroup 1's last turn is taken by nobody
-      if (next) {
-        wgmma_wait<1>();  // Q K^T of tile i + 1 retired; P V of tile i in flight
-        reg_fence(s);
-        softmax(i + 1, pf[h ^ 1]);
-      }
-      wgmma_wait<0>();
-      reg_fence(o);
-      reg_fence(lf);
-      reg_fence(pf[h]);
-      mbar_arrive(empty + i % NBUF);
-      if (next) {
-#pragma unroll
-        for (int n = 0; n < NO; ++n) {
-          o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
-          o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
-        }
-        if (LSUM) {
-          lf[0][0] *= alpha[0]; lf[0][1] *= alpha[0];
-          lf[0][2] *= alpha[1]; lf[0][3] *= alpha[1];
-        }
-      }
-    }
-  }
+  if (BK > sk) exps(0, std::true_type{});
+  else exps(0, std::false_type{});
+  pack();
+  for (int i = 0; i + 2 < ntile; ++i) stage(i, std::false_type{});
+  if (ntile > 1) stage(ntile - 2, std::true_type{});  // the last tile may be partial
+  mbar_wait(v_full + (ntile - 1) % NBUF, ((ntile - 1) / NBUF) & 1);
+  reg_fence(o);
+  reg_fence(pf);
+  wgmma_fence();
+  issue_pv(ntile - 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(o);
+  reg_fence(pf);
 
-  // finish: l of the row from its four threads (or the ones n-tile); o =
-  // acc / l; lse2
+  // finish: l of the row from its four threads; o = acc / l; lse2
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (LSUM) {
-      l[r] = lf[0][2 * r];
-    } else {
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    }
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -623,15 +620,15 @@ flash_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int NWG, int BK, int NBUF, bool PINGPONG = false, bool LSUM = false>
+template <int NWG, int BK, int NBUF>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse,
                          int bh, int sq, int sk, float scale, cudaStream_t stream) {
-  using T = WgTile<NWG, BK, NBUF, PINGPONG, LSUM>;
+  using T = WgTile<NWG, BK, NBUF>;
   CUtensorMap tq, tk, tv;
   if (!(tma_map_bhsd64(&tq, q, sq, bh, 64) && tma_map_bhsd64(&tk, k, sk, bh, BK) &&
         tma_map_bhsd64(&tv, v, sk, bh, BK)))
     return cudaErrorInvalidValue;
-  auto kern = flash_attn_fwd_wgmma_kernel<NWG, BK, NBUF, PINGPONG, LSUM>;
+  auto kern = flash_attn_fwd_wgmma_kernel<NWG, BK, NBUF>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::BYTES);
   if (err != cudaSuccess) return err;
@@ -1084,11 +1081,15 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* out,
 }
 
 // K1's bf16 body at d = 64: launch_wgmma<consumer warpgroups of 64 q rows,
-// keys a tile, ring stages>
+// keys a tile, ring stages>. One tile for every length: one consumer
+// warpgroup (BQ 64), 128 keys a tile and 3 stages (105 KB), two CTAs a SM.
+// Timed against 2 and 3 warpgroups a CTA, 64-key tiles and other ring depths
+// at the five d = 64 shapes of the main paths (scripts/tune_k1.py), it was
+// fastest or within 3% at each, so no second instantiation is dispatched.
 cudaError_t dispatch_bf16_d64(const void* q, const void* k, const void* v, void* out,
                               float* lse, int bh, int sq, int sk, float scale,
                               cudaStream_t stream) {
-  return launch_wgmma<2, 128, 3>(q, k, v, out, lse, bh, sq, sk, scale, stream);
+  return launch_wgmma<1, 128, 3>(q, k, v, out, lse, bh, sq, sk, scale, stream);
 }
 
 // the d = 64 CTA tiles (query rows, keys) of the profiling scripts' sweep
@@ -1118,7 +1119,7 @@ extern "C" const char* flash_attn_fwd_f32_body() {
 
 // The bf16 body it runs at d = 64 (dispatch_bf16_d64).
 extern "C" const char* flash_attn_fwd_bf16_body() {
-  return "wgmma m64nNk16, TMA K/V ring, BQ 128 x BK 128";
+  return "wgmma m64nNk16, TMA K/V ring, BQ 64 x BK 128";
 }
 
 // q: (bh, sq, d), k/v: (bh, sk, d), out: (bh, sq, d), all contiguous and of

@@ -70,10 +70,10 @@ def ptxas_info(text: str) -> dict[str, dict]:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
-            info[name] = {}
+            info.setdefault(name, {})  # advisories about it may come first
             continue
-        if re.search(r"serializ|wgmma\.|Performance Loss", line, re.I):  # its function, or the current
-            m = re.search(r"function '(\S+)'", line)
+        if re.search(r"serializ|wgmma\.|warpgroup\.|Performance Loss", line, re.I):
+            m = re.search(r"function '(\S+)'", line)  # the function it names, or the current
             info.setdefault(m.group(1) if m else name, {}).setdefault(
                 "advisories", []).append(line.strip())
             continue

@@ -174,3 +174,55 @@ def test_wrapper_refuses_unaligned_tensors():
     t_fa._check_aligned("flash_attention", flat[:-8].view(1, 64, 64), flat[8:].view(1, 64, 64))
     with pytest.raises(ValueError, match="16-byte"):
         t_fa._check_aligned("flash_attention", flat[1:-7].view(1, 64, 64))
+
+
+def _script(name: str):
+    spec = importlib.util.spec_from_file_location(name, SCRIPTS / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_tune_k1_replaces_the_bf16_dispatch():
+    """scripts/tune_k1.py --tile W,K,N builds the d=64 body as one
+    launch_wgmma<W, K, N> for every length: the body of dispatch_bf16_d64 is
+    its only edit, and this file reads the new key tile from it."""
+    import argparse
+    mod = _script("tune_k1")
+    args = argparse.Namespace(dtype="bf16", split=[], tile=["3,64,3"], baseline=[])
+    out = mod.variants(args)
+    shipped, edited = out["shipped"][0], out["tile_3_64_3"][0]
+    changed = [(a, b) for a, b in zip(shipped.splitlines(), edited.splitlines()) if a != b]
+    assert len(changed) == 1 and "launch_wgmma<3, 64, 3>(" in changed[0][1], changed
+    assert edited.replace(changed[0][1], changed[0][0]) == shipped
+    for bad in ("3,64", "a,b,c"):
+        with pytest.raises(SystemExit):
+            mod.variants(argparse.Namespace(dtype="bf16", split=[], tile=[bad], baseline=[]))
+    with pytest.raises(SystemExit):  # the split forms are f32's
+        mod.variants(argparse.Namespace(dtype="bf16", split=["cvt"], tile=[], baseline=[]))
+
+
+def test_kernel_resources_reads_wgmma():
+    """scripts/kernel_resources.py keeps ptxas's wgmma advisories, which ptxas
+    prints before the function's "Compiling entry" line, and counts HGMMA by
+    shape and types as it does HMMA."""
+    mod = _script("kernel_resources")
+    fn = "_Z6kernelv"
+    info = mod.ptxas_info(
+        "ptxas info    : (C7519) warpgroup.arrive is injected in around line 9 by compiler "
+        f"to allow use of registers in GMMA in function '{fn}'\n"
+        "ptxas info    : (C7514) Potential Performance Loss: wgmma.mma_async instructions "
+        f"are serialized due to ... in the function '{fn}'\n"
+        f"ptxas info    : Compiling entry function '{fn}' for 'sm_90a'\n"
+        "ptxas info    : Used 128 registers, 0 bytes smem\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n")
+    assert info[fn]["registers"] == 128 and info[fn]["spill_stores"] == 0
+    assert [a.split()[3] for a in info[fn]["advisories"]] == ["(C7519)", "(C7514)"]
+    sass = mod.sass_counts(
+        f"        Function : {fn}\n"
+        "        /*0860*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR16], RZ, !UPT, gsb0 ;\n"
+        "        /*0870*/                   HGMMA.64x64x16.F32.BF16 R88, R120, gdesc[UR16].tnspB, R88 ;\n"
+        "        /*0880*/                   WARPGROUP.DEPBAR.LE gsb0, 0x0 ;\n"
+        "        /*0890*/              @P0  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n")[fn]
+    assert sass == {"HGMMA.64x128x16.F32.BF16": 1, "HGMMA.64x64x16.F32.BF16": 1, "WARPGROUP": 1,
+                    "HMMA.16816.F32.BF16": 1, "total": 4}
