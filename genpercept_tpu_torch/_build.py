@@ -89,7 +89,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attn_fwd.argtypes = [p, p, p, p, p, i, i, i, i, f, i, p]
     lib.flash_attn_fwd.restype = i
-    for name in ("flash_attn_fwd_f32_body", "flash_attn_fwd_bf16_body"):
+    for name in ("flash_attn_fwd_f32_body", "flash_attn_fwd_bf16_body",
+                 "flash_attn_fwd_bf16_d512_body"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_char_p
     lib.flash_attn_fwd_tiled.argtypes = [p, p, p, p, p, i, i, i, i, f, i, i, i, p]

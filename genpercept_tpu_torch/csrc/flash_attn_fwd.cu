@@ -625,8 +625,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
                          int bh, int sq, int sk, float scale, cudaStream_t stream) {
   using T = WgTile<NWG, BK, NBUF>;
   CUtensorMap tq, tk, tv;
-  if (!(tma_map_bhsd64(&tq, q, sq, bh, 64) && tma_map_bhsd64(&tk, k, sk, bh, BK) &&
-        tma_map_bhsd64(&tv, v, sk, bh, BK)))
+  if (!(tma_map_bhsd(&tq, q, 64, sq, bh, 64) && tma_map_bhsd(&tk, k, 64, sk, bh, BK) &&
+        tma_map_bhsd(&tv, v, 64, sk, bh, BK)))
     return cudaErrorInvalidValue;
   auto kern = flash_attn_fwd_wgmma_kernel<NWG, BK, NBUF>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -635,6 +635,349 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
   dim3 grid((sq + T::BQ - 1) / T::BQ, bh);
   kern<<<grid, T::THREADS, T::BYTES, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse,
                                                sq, sk, scale);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bf16 at d = 512 (the VAE mid block): K1's body, on wgmma. What bounds it:
+// the two products at the bf16 tensor rate (4 * 512 = 2048 flop a logit,
+// eight times d = 64's), so the softmax's one exponential a logit is small
+// beside them; what the design must manage is where the operands live.
+//   - A 64-row O over all of d = 512 is 256 f32 registers a thread, more than
+//     a warpgroup holds, so a CTA runs two consumer warpgroups on one 64-row
+//     q tile (BQ = 64), and the work of a BK-key tile is split between them:
+//       S by keys: warpgroup w computes S_w = Q K_w^T for its BK / 2 keys
+//         over all of d, 32 k steps of wgmma m64n(BK/2)k16, A = Q from
+//         shared memory (loaded once, 64 KB) and B = the K tile, K-major;
+//       O by columns: warpgroup w owns O[:, 256 w : 256 w + 256] (128
+//         registers) and runs O += P V[:, its half] as m64n256k16, BK / 16
+//         k steps, A = P from shared memory (K-major) and B = V through the
+//         transpose bit (MN-major).
+//     Between the two, the warpgroups exchange through shared memory: each
+//     writes its 64 row maxima, and both take m_new = max(m, max(max_0,
+//     max_1)) read in one order, so both hold the same m and alpha bit for
+//     bit (O's two halves are rescaled alike); each writes its p, rounded to
+//     bf16, into its half of a 64 x BK P tile in the 128-byte swizzle, which
+//     both then read whole. l stays a per-thread sum of the rounded p over
+//     the thread's keys, combined across the two halves once at the end.
+//     The alternative, both products split by d with partial S summed
+//     through shared memory, moves 64 x BK f32 partial sums a tile where
+//     this one moves 64 x BK bf16 p and 64 maxima, and runs every
+//     exponential twice.
+//   - K and V stream as 64-column atoms: a tile of BK rows is 8 atoms of
+//     BK x 128 bytes, each its own 1024-byte-aligned unit in the 128-byte
+//     swizzle (chunk c of row r at chunk c ^ (r % 8)), as Q is 8 atoms of 64
+//     rows. A k step of Q K^T (16 columns of d) lies inside one atom, 32
+//     bytes on per step; the 256 columns of a warpgroup's V half are 4
+//     atoms that lie one ring stage apart, the descriptor's leading byte
+//     offset. Tile i's atoms take stream positions 16 i + j (K atom j) and
+//     16 i + 8 + j (V atom j) in a ring of NBUF atom stages, stage = position
+//     % NBUF; with NBUF a multiple of 4 the 4 V atoms of a half always take
+//     4 consecutive stages. 208 KB at BK = 128, NBUF = 8: Q 64, P 16, the
+//     ring 128.
+//   - TMA (the body) or cp.async (TMA false, the first step, kept to time
+//     against): with TMA a producer warpgroup, one thread of which issues one
+//     3-D tensor-map copy an atom (the map over (512, s, bh), boxes of (64,
+//     BK, 1); rows past s arrive as zeros) onto the stage's "full" mbarrier
+//     and waits on its "empty" one, on which every consumer thread arrives
+//     once the atom is read (K atoms after their Q K^T group retires, V
+//     atoms after P V). A warpgroup also waits on and releases the other
+//     half's V atoms, in stream order around its own: a parity wait cannot
+//     tell a phase from the one two before it, so no thread may skip one.
+//     setmaxnreg gives the producer's registers to the consumers (40 and
+//     232 of the 168 a thread the launch bounds give at 384 threads).
+//     Without TMA the 256 consumer threads stage each tile's K atoms, then
+//     its V atoms, into the 8 stages by cp.async with a barrier on each side.
+//   - Named barriers (bar.sync 1, 256) join the two consumer warpgroups,
+//     never the producer: after the maxima are written and after P is.
+//     Writes of P by st.shared are fenced into the async proxy before
+//     wgmma reads them.
+// Keys past Sk take the -1e30 logit (their zero rows would give 0); rows past
+// Sq are computed on zeros and not stored.
+
+template <int BK, int NBUF, bool TMA>
+struct WgD512Tile {
+  static constexpr int ATOMS = 8;                  // 64-column atoms of a 512 row
+  static constexpr int BQ = 64;
+  static constexpr int CONSUMERS = 256;            // two warpgroups
+  static constexpr int THREADS = CONSUMERS + (TMA ? 128 : 0);
+  static constexpr int QATOM = 64 * 128;           // bytes of a Q atom
+  static constexpr int ATOM = BK * 128;            // bytes of a K or V atom
+  static constexpr int PB = 64 * BK * 2;           // bytes of P
+  static constexpr int NBAR = 1 + 2 * NBUF;        // Q, full, empty
+  static constexpr size_t BYTES =
+      1024 + ATOMS * QATOM + PB + (size_t)NBUF * ATOM + 4 * 64 * sizeof(float) + 8 * NBAR;
+  // setmaxnreg as WgTile's: 65536 / 384 rounded down to 8 at launch
+  static constexpr int REGS = 65536 / THREADS / 8 * 8;
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int CONSUMER_REGS = REGS + (REGS - PRODUCER_REGS) / 2 / 8 * 8;
+  static_assert((BK == 64 || BK == 128) && NBUF % 4 == 0 && (TMA || NBUF == ATOMS),
+                "tile and ring");
+  static_assert(!TMA || CONSUMER_REGS <= 256, "setmaxnreg takes 24..256");
+  static_assert(BYTES <= 232448, "shared memory of a CTA");
+};
+
+// rows [row0, row0 + ROWS) of a (n, 512) bf16 matrix into its 8 atoms (dst +
+// a * ASTRIDE bytes) in the 128-byte swizzle by cp.async, zeros past n;
+// THREADS threads share the copy
+template <int ROWS, int ASTRIDE, int THREADS>
+__device__ __forceinline__ void cp_async_atoms(uint8_t* dst, const __nv_bfloat16* src, int row0,
+                                               int n) {
+  static_assert(ROWS * 64 % THREADS == 0, "whole rounds of 16-byte copies");
+#pragma unroll 4
+  for (int i = 0; i < ROWS * 64 / THREADS; ++i) {
+    const int idx = threadIdx.x + i * THREADS;
+    const int c = idx % 8, r = idx / 8 % ROWS, a = idx / (8 * ROWS);
+    const bool ok = row0 + r < n;
+    cp_async16(dst + a * ASTRIDE + r * 128 + ((c ^ (r & 7)) << 4),
+               src + (size_t)(ok ? row0 + r : 0) * 512 + a * 64 + c * 8, ok);
+  }
+}
+
+template <int BK, int NBUF, bool TMA>
+__global__ void __launch_bounds__(WgD512Tile<BK, NBUF, TMA>::THREADS, 1)
+flash_attn_fwd_wgmma_d512_kernel(const __grid_constant__ CUtensorMap tq,
+                                 const __grid_constant__ CUtensorMap tk,
+                                 const __grid_constant__ CUtensorMap tv,
+                                 const __nv_bfloat16* __restrict__ q,
+                                 const __nv_bfloat16* __restrict__ k,
+                                 const __nv_bfloat16* __restrict__ v,
+                                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                                 int sq, int sk, float scale) {
+  using T = WgD512Tile<BK, NBUF, TMA>;
+  constexpr int HALF = BK / 2;  // keys of a warpgroup's S
+  constexpr int NS = HALF / 8;  // 8-key column tiles of its S
+  constexpr int NO = 32;        // 8-wide column tiles of its 256 columns of O
+  constexpr int KP = BK / 16;   // k steps of P V
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);  // [8][64][128 B]
+  uint8_t* Ps = Qs + T::ATOMS * T::QATOM;  // [BK / 64][64][128 B]
+  uint8_t* ring = Ps + T::PB;               // [NBUF][BK][128 B]
+  float* red_max = reinterpret_cast<float*>(ring + NBUF * T::ATOM);  // [2][64]
+  float* red_l = red_max + 2 * 64;                                    // [2][64]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(red_l + 2 * 64);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + NBUF;
+
+  const int q0 = blockIdx.x * T::BQ;
+  const int bh = blockIdx.y;
+  const int ntile = (sk + BK - 1) / BK;
+  auto stage = [&](int pos) { return ring + (pos % NBUF) * T::ATOM; };
+  auto parity = [&](int pos) { return (uint32_t)(pos / NBUF) & 1; };
+
+  if constexpr (TMA) {
+    if (threadIdx.x == 0) {
+      mbar_init(q_full, 1);
+      for (int s = 0; s < NBUF; ++s) {
+        mbar_init(full + s, 1);
+        mbar_init(empty + s, T::CONSUMERS);
+      }
+      fence_mbarrier_init();
+    }
+    __syncthreads();
+    if (threadIdx.x >= T::CONSUMERS) {  // the producer warpgroup
+      setmaxnreg_dec<T::PRODUCER_REGS>();
+      if (threadIdx.x == T::CONSUMERS) {
+        mbar_expect_tx(q_full, T::ATOMS * T::QATOM);
+        for (int a = 0; a < T::ATOMS; ++a)
+          tma_load_3d(Qs + a * T::QATOM, &tq, q_full, 64 * a, q0, bh);
+        for (int pos = 0; pos < 16 * ntile; ++pos) {
+          const int s = pos % NBUF, j = pos % 16;
+          if (pos >= NBUF) mbar_wait(empty + s, parity(pos) ^ 1);  // position pos - NBUF read
+          mbar_expect_tx(full + s, T::ATOM);
+          tma_load_3d(ring + s * T::ATOM, j < 8 ? &tk : &tv, full + s, 64 * (j % 8),
+                      pos / 16 * BK, bh);
+        }
+      }
+      return;
+    }
+    setmaxnreg_inc<T::CONSUMER_REGS>();
+  }
+
+  const int wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
+  const int t = lane % 4;  // rows lane / 4 and lane / 4 + 8 of the warp's 16, columns 2t, 2t + 1
+  const int row0 = warp * 16 + lane / 4;  // this thread's rows row0 and row0 + 8 of the tile
+  const float c = scale * 1.4426950408889634f;
+  const __nv_bfloat16* kb = k + (size_t)bh * sk * 512;
+  const __nv_bfloat16* vb = v + (size_t)bh * sk * 512;
+
+  float o[NO][4], s[NS][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+#pragma unroll
+  for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  if constexpr (TMA) {
+    mbar_wait(q_full, 0);
+  } else {
+    cp_async_atoms<64, T::QATOM, T::CONSUMERS>(Qs, q + (size_t)bh * sq * 512, q0, sq);
+  }
+  for (int i = 0; i < ntile; ++i) {
+    // S = Q K^T over the 8 K atoms, this warpgroup's half of the keys
+    if constexpr (!TMA) {
+      if (i > 0) named_barrier_sync<1, T::CONSUMERS>();  // both halves' P V read the stages
+      cp_async_atoms<BK, T::ATOM, T::CONSUMERS>(ring, kb, i * BK, sk);
+      cp_async_commit();
+      cp_async_wait<0>();
+      fence_proxy_async();
+      named_barrier_sync<1, T::CONSUMERS>();
+    }
+    reg_fence(s);
+    wgmma_fence();
+#pragma unroll
+    for (int a = 0; a < T::ATOMS; ++a) {
+      const int pos = 16 * i + a;
+      if constexpr (TMA) mbar_wait(full + pos % NBUF, parity(pos));
+      const uint8_t* Ka = stage(pos) + wg * HALF * 128;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss(s, sw128_desc(Qs + a * T::QATOM + 32 * kk), sw128_desc(Ka + 32 * kk),
+                 a > 0 || kk > 0);
+      wgmma_commit();
+      if constexpr (TMA) {
+        if (a > 0) {
+          wgmma_wait<1>();  // the group of atom a - 1 retired
+          mbar_arrive(empty + (pos - 1) % NBUF);
+        }
+      }
+    }
+    wgmma_wait<0>();
+    reg_fence(s);
+    if constexpr (TMA) mbar_arrive(empty + (16 * i + 7) % NBUF);
+
+    // the mask of keys past Sk, the tile's row maxima over both halves
+    if (i * BK + BK > sk) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (i * BK + wg * HALF + n * 8 + 2 * t + (j & 1) >= sk) s[n][j] = kNegInf;
+    }
+    float tm[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      tm[0] = fmaxf(tm[0], fmaxf(s[n][0], s[n][1]));
+      tm[1] = fmaxf(tm[1], fmaxf(s[n][2], s[n][3]));
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      tm[r] = fmaxf(tm[r], __shfl_xor_sync(0xffffffffu, tm[r], 1));
+      tm[r] = fmaxf(tm[r], __shfl_xor_sync(0xffffffffu, tm[r], 2));
+      if (t == 0) red_max[wg * 64 + row0 + 8 * r] = tm[r];
+    }
+    named_barrier_sync<1, T::CONSUMERS>();
+    if constexpr (!TMA) {  // V's atoms into the stages K's left, under the softmax
+      cp_async_atoms<BK, T::ATOM, T::CONSUMERS>(ring, vb, i * BK, sk);
+      cp_async_commit();
+    }
+    float alpha[2], mc[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // one order in both warpgroups: the same bits
+      const float m_new = fmaxf(m[r], fmaxf(red_max[row0 + 8 * r], red_max[64 + row0 + 8 * r]));
+      alpha[r] = ex2((m[r] - m_new) * c);
+      m[r] = m_new;
+      mc[r] = m_new * c;
+    }
+    // p rounded to bf16 pairs into this half of P; l over the rounded p
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      const int col = wg * HALF + n * 8;  // the tile's key of this 8-key group
+      uint8_t* Pa = Ps + (col / 64) * T::QATOM;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint32_t pk = pack_bf16(ex2(fmaf(s[n][2 * r], c, -mc[r])),
+                                      ex2(fmaf(s[n][2 * r + 1], c, -mc[r])));
+        rs[r] += __uint_as_float(pk << 16) + __uint_as_float(pk & 0xFFFF0000u);
+        const int row = row0 + 8 * r;
+        *reinterpret_cast<uint32_t*>(Pa + row * 128 + ((((col % 64) / 8) ^ (row & 7)) << 4) +
+                                     4 * t) = pk;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
+    }
+    if constexpr (!TMA) cp_async_wait<0>();
+    fence_proxy_async();
+    named_barrier_sync<1, T::CONSUMERS>();
+
+    // O[:, this half] += P V[:, this half]. A parity wait tells only the
+    // last two phases of a stage apart, so every consumer thread sees every
+    // phase of every stage: the other half's V atoms are waited on and
+    // released too, in stream order around this half's own.
+    const int v0 = 16 * i + 8 + 4 * wg;   // position of this half's first V atom
+    const int vx = 16 * i + 12 - 4 * wg;  // and of the other half's
+    auto pass = [&](int pos) {
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        mbar_wait(full + (pos + a) % NBUF, parity(pos + a));
+        mbar_arrive(empty + (pos + a) % NBUF);
+      }
+    };
+    if constexpr (TMA) {
+      if (wg == 1) pass(vx);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) mbar_wait(full + (v0 + a) % NBUF, parity(v0 + a));
+    }
+    reg_fence(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KP; ++kk)
+      wgmma_ss_tb(o, sw128_desc(Ps + (kk / 4) * T::QATOM + 32 * (kk % 4)),
+                  sw128_desc(stage(v0) + 2048 * kk, T::ATOM), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(o);
+    if constexpr (TMA) {
+#pragma unroll
+      for (int a = 0; a < 4; ++a) mbar_arrive(empty + (v0 + a) % NBUF);
+      if (wg == 0) pass(vx);
+    }
+  }
+
+  // finish: l of the row from its four threads and both halves; o = acc / l
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    if (t == 0) red_l[wg * 64 + row0 + 8 * r] = l[r];
+  }
+  named_barrier_sync<1, T::CONSUMERS>();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + row0 + 8 * r;
+    if (row >= sq) continue;
+    const float lt = red_l[row0 + 8 * r] + red_l[64 + row0 + 8 * r];
+    __nv_bfloat16* orow = out + ((size_t)bh * sq + row) * 512 + 256 * wg;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t) =
+          __floats2bfloat162_rn(o[n][2 * r] / lt, o[n][2 * r + 1] / lt);
+    if (wg == 0 && t == 0) lse[(size_t)bh * sq + row] = m[r] * c + log2f(lt);
+  }
+}
+
+template <int BK, int NBUF, bool TMA>
+cudaError_t launch_wgmma_d512(const void* q, const void* k, const void* v, void* out, float* lse,
+                              int bh, int sq, int sk, float scale, cudaStream_t stream) {
+  using T = WgD512Tile<BK, NBUF, TMA>;
+  CUtensorMap tq{}, tk{}, tv{};
+  if (TMA && !(tma_map_bhsd(&tq, q, 512, sq, bh, 64) && tma_map_bhsd(&tk, k, 512, sk, bh, BK) &&
+               tma_map_bhsd(&tv, v, 512, sk, bh, BK)))
+    return cudaErrorInvalidValue;
+  auto kern = flash_attn_fwd_wgmma_d512_kernel<BK, NBUF, TMA>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::BYTES);
+  if (err != cudaSuccess) return err;
+  dim3 grid((sq + T::BQ - 1) / T::BQ, bh);
+  kern<<<grid, T::THREADS, T::BYTES, stream>>>(
+      tq, tk, tv, static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, sq, sk, scale);
   return cudaGetLastError();
 }
 
@@ -1092,6 +1435,14 @@ cudaError_t dispatch_bf16_d64(const void* q, const void* k, const void* v, void*
   return launch_wgmma<1, 128, 3>(q, k, v, out, lse, bh, sq, sk, scale, stream);
 }
 
+// K1's bf16 body at d = 512: launch_wgmma_d512<keys a tile, ring stages of
+// one 64-column atom, TMA>. One tile for every length: 128 keys, 8 stages.
+cudaError_t dispatch_bf16_d512(const void* q, const void* k, const void* v, void* out,
+                               float* lse, int bh, int sq, int sk, float scale,
+                               cudaStream_t stream) {
+  return launch_wgmma_d512<128, 8, true>(q, k, v, out, lse, bh, sq, sk, scale, stream);
+}
+
 // the d = 64 CTA tiles (query rows, keys) of the profiling scripts' sweep
 #define GP_D64_TILES(X) X(64, 32) X(64, 64) X(64, 128) X(128, 64) X(128, 128)
 
@@ -1122,6 +1473,12 @@ extern "C" const char* flash_attn_fwd_bf16_body() {
   return "wgmma m64nNk16, TMA K/V ring, BQ 64 x BK 128";
 }
 
+// The bf16 body it runs at d = 512 (dispatch_bf16_d512).
+extern "C" const char* flash_attn_fwd_bf16_d512_body() {
+  return "wgmma m64nNk16, two consumer warpgroups, TMA ring of 64-column K/V atoms, "
+         "BQ 64 x BK 128";
+}
+
 // q: (bh, sq, d), k/v: (bh, sk, d), out: (bh, sq, d), all contiguous and of
 // one dtype (0 = float32, 1 = bfloat16); lse: (bh, sq) float32.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
@@ -1133,7 +1490,7 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   if (dtype == 0) return (int)dispatch_f32(q, k, v, out, l, bh, sq, sk, d, scale, s);
   if (dtype == 1 && d == 64) return (int)dispatch_bf16_d64(q, k, v, out, l, bh, sq, sk, scale, s);
   if (dtype == 1 && d == 512)
-    return (int)launch_split<512, 32, 64, false>(q, k, v, out, l, bh, sq, sk, scale, s);
+    return (int)dispatch_bf16_d512(q, k, v, out, l, bh, sq, sk, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -2,9 +2,9 @@
 """Variants of K1's bodies, timed beside the shipped one, SDPA and the bound.
 
     python3 scripts/tune_k1.py [--dtype f32|bf16] [--split cvt onepass]
-                               [--tile 64:4,1,64,4 ... | --tile 2,128,3 ...]
+                               [--tile 64:4,1,64,4 ... | --tile 2,128,3 512:128,8,true ...]
                                [--baseline NAME=OLD/flash_attn_fwd.cu ...]
-                               [--shapes main|short] [--check]
+                               [--shapes main|short] [--d 64|512] [--check]
 
 Each variant is csrc/flash_attn_fwd.cu (with csrc/common.cuh) compiled by
 nvcc into a library of its own (scripts/kernel_variants.py), after one edit
@@ -22,13 +22,19 @@ to a copy:
                    instantiation for every length: W consumer warpgroups of
                    64 q rows, K keys a tile, N ring stages (the arguments of
                    launch_wgmma)
+  --tile 512:K,N,TMA  bf16: the d=512 body (dispatch_bf16_d512) as one
+                   instantiation for every length: K keys a tile, N ring
+                   stages of one 64-column atom, TMA true or false (cp.async
+                   by the consumers; the arguments of launch_wgmma_d512)
   --baseline NAME=FILE  another flash_attn_fwd.cu (an earlier commit's, with
                    its own common.cuh beside it) as the variant NAME
 
 The f32 shapes are chip_smoke.py's K1 shapes and the training recipe's; the
 bf16 ones are the five d=64 shapes of the main paths (768^2 levels 0-2, the
-recipe's level 0, and 768^2 at batch 2's level 0); --shapes short keeps the
-first three of either. Every library runs in turns (all variants in order,
+recipe's level 0, and 768^2 at batch 2's level 0) and the four d=512 ones
+(the VAE mid block at 768^2 per image and at batch 2, at 576x768, and the
+recipe's); --d keeps one head dim's shapes and checks, and --shapes short
+the first three of those. Every library runs in turns (all variants in order,
 then in reverse; CUDA events, mean of 10 calls after a warm-up), and one
 JSON line per shape gives SDPA's ms, the bound at the card's peak for the
 dtype (split TF32: a third of TF32's) and, per library, both times and the
@@ -62,12 +68,15 @@ from kernel_variants import build_variants, card  # noqa: E402
 SHAPES = {"f32": [(5, 9216, 64), (10, 2304, 64), (20, 576, 64), (1, 9216, 512),
                   (40, 4800, 64), (8, 4800, 512)],
           "bf16": [(5, 9216, 64), (10, 2304, 64), (20, 576, 64), (40, 4800, 64),
-                   (10, 9216, 64)]}
+                   (10, 9216, 64), (1, 9216, 512), (2, 9216, 512), (1, 6912, 512),
+                   (8, 4800, 512)]}
 # (bh, sq, sk, d): tests/test_torch_cuda.py's shapes with a ragged edge
 CHECK = {"f32": [(3, 200, 77, 64), (1, 130, 300, 64), (2, 100, 150, 512), (1, 300, 200, 512),
                  (6, 256, 77, 64), (2, 1000, 1000, 512)],
          "bf16": [(2, 256, 256, 64), (3, 200, 77, 64), (1, 130, 300, 64), (6, 256, 77, 64),
-                  (4, 40, 300, 64), (2, 4800, 1000, 64)]}
+                  (4, 40, 300, 64), (2, 4800, 1000, 64), (2, 100, 150, 512),
+                  (1, 300, 200, 512), (2, 1000, 1000, 512), (2, 40, 300, 512),
+                  (1, 300, 77, 512)]}
 SHIPPED_SPLIT = """  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
   lo = __float_as_uint(x - __uint_as_float(hi)) & 0xFFFFE000u;"""
 SPLITS = {
@@ -82,24 +91,34 @@ SMALL_PASSES = ("  for (int n = 0; n < N; ++n) mma_tf32(c[n], al, bh[n][0], bh[n
                 "  for (int n = 0; n < N; ++n) mma_tf32(c[n], ah, bl[n][0], bl[n][1]);\n"
                 "#pragma unroll\n")
 SHIPPED_TILE = re.compile(r"launch_f32<(\d+), (\d+), (\d+), (\d+), (\d+)>")
-# the body of dispatch_bf16_d64, every launch_wgmma it holds
-BF16_DISPATCH = re.compile(r"(cudaError_t dispatch_bf16_d64\([^)]*\) \{\n).*?(\n\}\n)", re.S)
-# K1's kernels by dtype; at bf16 also the mma.sync body K1 ran before its
-# wgmma one (its d=64, 4-warp, 64-key instantiation with l summed apart)
+# the body of a bf16 dispatch (d=64 or d=512), every launch it holds
+BF16_DISPATCH = {d: re.compile(rf"(cudaError_t dispatch_bf16_d{d}\([^)]*\) \{{\n).*?(\n\}}\n)",
+                               re.S) for d in (64, 512)}
+BF16_LAUNCH = {64: "launch_wgmma", 512: "launch_wgmma_d512"}
+# K1's kernels by dtype; at bf16 also the mma.sync bodies K1 ran before its
+# wgmma ones (d=64: the 4-warp, 64-key instantiation with l summed apart;
+# d=512: flash_attn_fwd_split_kernel<512, 32, 64, false>)
 KERNEL = {"f32": ("flash_attn_fwd_f32_kernel",),
-          "bf16": ("flash_attn_fwd_wgmma_kernel", "flash_attn_fwd_mma_kernelILi64ELi4ELi64ELb0E")}
+          "bf16": ("flash_attn_fwd_wgmma_kernel", "flash_attn_fwd_wgmma_d512_kernel",
+                   "flash_attn_fwd_mma_kernelILi64ELi4ELi64ELb0E",
+                   "flash_attn_fwd_split_kernelILi512ELi32ELi64ELb0E")}
 REPS = 10
 
 
 def bf16_tile(src: str, tile: str) -> str:
-    """src with dispatch_bf16_d64 launching launch_wgmma<tile> at every length."""
-    if re.fullmatch(r"\d+,\d+,\d+(,(true|false))*", tile) is None:
-        raise SystemExit(f"--tile {tile}: want W,K,N[,...], e.g. 2,128,3")
-    body = (f"  return launch_wgmma<{tile.replace(',', ', ')}>(q, k, v, out, lse, bh, sq, sk, "
+    """src with dispatch_bf16_d64 launching launch_wgmma<tile> at every length,
+    or, for a tile "512:...", dispatch_bf16_d512 launch_wgmma_d512<...>."""
+    d, _, args = tile.rpartition(":")
+    d = int(d) if d in ("64", "512") else 64 if d == "" else None
+    pattern = {64: r"\d+,\d+,\d+(,(true|false))*", 512: r"\d+,\d+,(true|false)"}.get(d)
+    if pattern is None or re.fullmatch(pattern, args) is None:
+        raise SystemExit(f"--tile {tile}: want W,K,N[,...] (d=64, e.g. 2,128,3) "
+                         "or 512:K,N,TMA (e.g. 512:128,8,true)")
+    body = (f"  return {BF16_LAUNCH[d]}<{args.replace(',', ', ')}>(q, k, v, out, lse, bh, sq, sk, "
             "scale, stream);")
-    edited, n = BF16_DISPATCH.subn(lambda mm: mm.group(1) + body + mm.group(2), src)
+    edited, n = BF16_DISPATCH[d].subn(lambda mm: mm.group(1) + body + mm.group(2), src)
     if n != 1:
-        raise SystemExit("--tile: dispatch_bf16_d64 not found in the shipped source")
+        raise SystemExit(f"--tile: dispatch_bf16_d{d} not found in the shipped source")
     return edited
 
 
@@ -121,7 +140,7 @@ def variants(args) -> dict[str, tuple[str, str]]:
         if args.split:
             raise SystemExit("--split: f32 only")
         for tile in args.tile:
-            out[f"tile_{tile.replace(',', '_')}"] = (bf16_tile(src, tile), hdr)
+            out[f"tile_{tile.replace(',', '_').replace(':', '_')}"] = (bf16_tile(src, tile), hdr)
     for spec in args.baseline:
         name, _, path = spec.partition("=")
         base = Path(path)
@@ -136,6 +155,7 @@ def main(argv=None) -> None:
     ap.add_argument("--tile", nargs="*", default=[])
     ap.add_argument("--baseline", nargs="*", default=[])
     ap.add_argument("--shapes", choices=("main", "short"), default="main")
+    ap.add_argument("--d", type=int, choices=(64, 512), default=None)
     ap.add_argument("--check", action="store_true")
     args = ap.parse_args(argv)
     if args.split is None:  # f32 times both split forms unless told otherwise
@@ -174,6 +194,8 @@ def main(argv=None) -> None:
 
         if args.check:
             for bh, sq, sk, d in CHECK[args.dtype]:
+                if args.d not in (None, d):
+                    continue
                 q = torch.randn(bh, sq, d, device="cuda", generator=gen).to(dt)
                 k, v = (torch.randn(bh, sk, d, device="cuda", generator=gen).to(dt)
                         for _ in range(2))
@@ -187,7 +209,8 @@ def main(argv=None) -> None:
                 bad = [n for n in libs if not max(rec[n]) <= bar]
                 if bad:
                     raise SystemExit(f"tune_k1: {bad} miss the bar {bar} at {(bh, sq, sk, d)}")
-        for bh, s, d in SHAPES[args.dtype][:3 if args.shapes == "short" else None]:
+        shapes = [x for x in SHAPES[args.dtype] if args.d in (None, x[2])]
+        for bh, s, d in shapes[:3 if args.shapes == "short" else None]:
             q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen).to(dt)
                        for _ in range(3))
             rec = {"shape": [bh, s, d],
