@@ -13,11 +13,11 @@ Phases, each printed as a JSON line:
       shapes and the training recipe's, in f32 and bf16: max abs error and
       CUDA-event times; K1 also at two ragged shapes (K1_RAGGED), and with
       the names of the f32 body the library holds (split TF32) and of the
-      bf16 body at d=64 (wgmma), the f32 bound at the split-TF32 rate beside
-      the FFMA rate of the body it replaced, and at bf16 d=64 parent_ms: the
-      mma.sync body K1 ran before its wgmma one, at its tile (K1_TILES)
-      through S1's entry, which sums l in the PV product where K1 summed it
-      apart;
+      bf16 bodies at d=64 and d=512 (wgmma), the f32 bound at the split-TF32
+      rate beside the FFMA rate of the body it replaced, and at bf16
+      parent_ms: the mma.sync body K1 ran before its wgmma one, at its tile
+      (K1_TILES) through S1's entry at d=64 (which sums l in the PV product
+      where K1 summed it apart) and S3's at d=512 (l summed apart, as K1);
   (e) the slice at full SD2.1 width (seeded random weights, JAX init scheme):
       a GenPerceptPipeline answers .batch over four 768x768 images
       (batch_size 2) and one __call__ on a 480x640 image, in f32 and bf16,
@@ -364,6 +364,9 @@ def phase_k1(gen: torch.Generator) -> dict:
     body = lib.flash_attn_fwd_bf16_body().decode()
     emit({"phase": "K1_bf16_body", "body": body})
     check(body.startswith("wgmma"), f"K1's bf16 body at d=64 is {body!r}")
+    body = lib.flash_attn_fwd_bf16_d512_body().decode()
+    emit({"phase": "K1_bf16_d512_body", "body": body})
+    check(body.startswith("wgmma"), f"K1's bf16 body at d=512 is {body!r}")
     worst = {dt: 0.0 for dt in DTYPES}
     # per 768^2 image and dtype: kernel, plain, bound and library ms
     per_image = {dt: [0.0, 0.0, Bound(), 0.0] for dt in DTYPES}
@@ -378,8 +381,9 @@ def phase_k1(gen: torch.Generator) -> dict:
             plain_ms = cuda_ms(lambda: fa._flash_bhsd_ref(q, k, v, scale), 3)
             library_ms = cuda_ms(lambda: sdpa(q, k, v), 10)
             f32 = dt == torch.float32
-            parent_ms = None if f32 or d != 64 else cuda_ms(
-                lambda: fa.flash_with_blocks(q, k, v, scale, *fa.K1_TILES[64]), 10)
+            parent_ms = None if f32 else cuda_ms(
+                (lambda: fa.flash_with_blocks(q, k, v, scale, *fa.K1_TILES[64])) if d == 64 else
+                (lambda: fa.flash_d512_blocks(q, k, v, scale, *fa.K1_TILES[512], False)), 10)
             nbytes = attn_bytes(bh, s, d, dt, 3, 1, 1)
             bd = bound(4.0 * bh * s * s * d, "tf32x3" if f32 else "bf16", nbytes)
             emit({"phase": "K1", "dtype": str(dt), "shape": [bh, s, d],
@@ -1249,7 +1253,7 @@ def phase_s14() -> dict:
         plain_ms = cuda_ms(lambda: fa._flash_bhsd_ref(q, k, v, scale), 2)
         library_ms = cuda_ms(lambda: sdpa(q, k, v), 5)
         k1_ms = cuda_ms(lambda: fa._flash_bhsd(q, k, v, scale), 5)
-        # K1_TILES: K1's mma.sync tile (at d=64 the one it ran before its wgmma body)
+        # K1_TILES: the mma.sync tile K1 ran before its wgmma bodies
         emit({"phase": "S_K1_baseline", "shape": [bh, s, d],
               "mma_sync_tile": list(fa.K1_TILES[d]),
               "k1_ms": k1_ms, "plain_ms": plain_ms, "library_ms": library_ms})

@@ -87,8 +87,10 @@ def _compile(out: Path) -> None:
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_attn_fwd.argtypes = [p, p, p, p, p, i, i, i, i, f, i, p]
+    lib.flash_attn_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, f, i, p]
     lib.flash_attn_fwd.restype = i
+    lib.flash_attn_fwd_scratch_bytes.argtypes = [i] * 5
+    lib.flash_attn_fwd_scratch_bytes.restype = ctypes.c_longlong
     for name in ("flash_attn_fwd_f32_body", "flash_attn_fwd_bf16_body",
                  "flash_attn_fwd_bf16_d512_body"):
         getattr(lib, name).argtypes = []

@@ -21,14 +21,17 @@
 //     165 TFLOP/s).
 //   - bf16, d = 64: wgmma for both products, K/V tiles through a TMA ring
 //     fed by a producer warpgroup (flash_attn_fwd_wgmma_kernel).
-//   - bf16, d = 512: mma.sync with d split over warps
-//     (flash_attn_fwd_split_kernel).
-// The profiling scripts run K1's function on the mma.sync bodies at
-// caller-chosen CTA tiles, out only, through flash_attn_fwd_tiled: S1
-// (scripts/profile_unet.py flash_with_blocks) on the d = 64 mma.sync body
-// (flash_attn_fwd_mma_kernel, K1's d = 64 body before the wgmma one), S3
-// (scripts/profile_attn_boundary.py part "sweep512") on the d = 512 body,
-// which is also a template over how l is summed (FOLD).
+//   - bf16, d = 512: wgmma for both products over two consumer warpgroups,
+//     K/V as 64-column atoms through a TMA ring fed by a producer warpgroup,
+//     the key axis split over CTAs where the grid's last wave would idle
+//     (flash_attn_fwd_wgmma_d512_kernel, and flash_attn_fwd_combine_kernel).
+// The profiling scripts run K1's function on the mma.sync bodies K1 ran
+// before its wgmma ones, at caller-chosen CTA tiles, out only, through
+// flash_attn_fwd_tiled: S1 (scripts/profile_unet.py flash_with_blocks) on
+// the d = 64 body (flash_attn_fwd_mma_kernel) and S3
+// (scripts/profile_attn_boundary.py part "sweep512") on the d = 512 body
+// (flash_attn_fwd_split_kernel), which is also a template over how l is
+// summed (FOLD).
 // The d = 64 mma.sync body is also a template over its softmax step, for
 // the scripts' two other variants, out only, reached through their own entries:
 //   S2 flash_bf16_softmax  scripts/profile_unet.py::kernel_bf (main(), part
@@ -54,8 +57,8 @@
 //      bf16's and f32's range, so nothing is rescaled.
 // The d = 64 mma.sync body carries l as the ones n-tile of PV (S1, S2 and S4
 // alike), as the TPU kernels append a ones-column to v.
-// The f32 and the d = 512 bodies stage their tiles by cp.async or by every
-// thread; TMA and wgmma there are later work.
+// The f32 body and the mma.sync ones stage their tiles by cp.async or by
+// every thread; the bf16 wgmma bodies by TMA.
 //
 // Design: one CTA per (q tile, batch*head). On the TPU the k blocks were a
 // sequential "arbitrary" grid axis carrying m, l and the accumulator in VMEM;
@@ -675,19 +678,19 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
 //     % NBUF; with NBUF a multiple of 4 the 4 V atoms of a half always take
 //     4 consecutive stages. 208 KB at BK = 128, NBUF = 8: Q 64, P 16, the
 //     ring 128.
-//   - TMA (the body) or cp.async (TMA false, the first step, kept to time
-//     against): with TMA a producer warpgroup, one thread of which issues one
-//     3-D tensor-map copy an atom (the map over (512, s, bh), boxes of (64,
-//     BK, 1); rows past s arrive as zeros) onto the stage's "full" mbarrier
-//     and waits on its "empty" one, on which every consumer thread arrives
-//     once the atom is read (K atoms after their Q K^T group retires, V
-//     atoms after P V). A warpgroup also waits on and releases the other
-//     half's V atoms, in stream order around its own: a parity wait cannot
-//     tell a phase from the one two before it, so no thread may skip one.
-//     setmaxnreg gives the producer's registers to the consumers (40 and
-//     232 of the 168 a thread the launch bounds give at 384 threads).
-//     Without TMA the 256 consumer threads stage each tile's K atoms, then
-//     its V atoms, into the 8 stages by cp.async with a barrier on each side.
+//   - TMA: a producer warpgroup, one thread of which issues one 3-D
+//     tensor-map copy an atom (the map over (512, s, bh), boxes of (64, BK,
+//     1); rows past s arrive as zeros) onto the stage's "full" mbarrier and
+//     waits on its "empty" one, on which every consumer thread arrives once
+//     the atom is read (K atoms after their Q K^T group retires, so that V's
+//     atoms stream in under Q K^T; V atoms after P V). A warpgroup also waits
+//     on and releases the other half's V atoms, in stream order around its
+//     own: a parity wait cannot tell a phase from the one two before it, so
+//     no thread may skip one. setmaxnreg gives the producer's registers to
+//     the consumers (40 and 232 of the 168 a thread the launch bounds give at
+//     384 threads). The first step of this body staged each tile's K atoms,
+//     then its V atoms, by cp.async from the 256 consumer threads with a
+//     barrier on each side: twice the time (PERF.md).
 //   - Named barriers (bar.sync 1, 256) join the two consumer warpgroups,
 //     never the producer: after the maxima are written and after P is.
 //     Writes of P by st.shared are fenced into the async proxy before
@@ -695,12 +698,12 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
 // Keys past Sk take the -1e30 logit (their zero rows would give 0); rows past
 // Sq are computed on zeros and not stored.
 
-template <int BK, int NBUF, bool TMA>
+template <int BK, int NBUF>
 struct WgD512Tile {
   static constexpr int ATOMS = 8;                  // 64-column atoms of a 512 row
   static constexpr int BQ = 64;
   static constexpr int CONSUMERS = 256;            // two warpgroups
-  static constexpr int THREADS = CONSUMERS + (TMA ? 128 : 0);
+  static constexpr int THREADS = CONSUMERS + 128;  // + the producer warpgroup
   static constexpr int QATOM = 64 * 128;           // bytes of a Q atom
   static constexpr int ATOM = BK * 128;            // bytes of a K or V atom
   static constexpr int PB = 64 * BK * 2;           // bytes of P
@@ -711,40 +714,20 @@ struct WgD512Tile {
   static constexpr int REGS = 65536 / THREADS / 8 * 8;
   static constexpr int PRODUCER_REGS = 40;
   static constexpr int CONSUMER_REGS = REGS + (REGS - PRODUCER_REGS) / 2 / 8 * 8;
-  static_assert((BK == 64 || BK == 128) && NBUF % 4 == 0 && (TMA || NBUF == ATOMS),
-                "tile and ring");
-  static_assert(!TMA || CONSUMER_REGS <= 256, "setmaxnreg takes 24..256");
+  static_assert((BK == 64 || BK == 128) && NBUF % 4 == 0, "tile and ring");
+  static_assert(CONSUMER_REGS <= 256, "setmaxnreg takes 24..256");
   static_assert(BYTES <= 232448, "shared memory of a CTA");
 };
 
-// rows [row0, row0 + ROWS) of a (n, 512) bf16 matrix into its 8 atoms (dst +
-// a * ASTRIDE bytes) in the 128-byte swizzle by cp.async, zeros past n;
-// THREADS threads share the copy
-template <int ROWS, int ASTRIDE, int THREADS>
-__device__ __forceinline__ void cp_async_atoms(uint8_t* dst, const __nv_bfloat16* src, int row0,
-                                               int n) {
-  static_assert(ROWS * 64 % THREADS == 0, "whole rounds of 16-byte copies");
-#pragma unroll 4
-  for (int i = 0; i < ROWS * 64 / THREADS; ++i) {
-    const int idx = threadIdx.x + i * THREADS;
-    const int c = idx % 8, r = idx / 8 % ROWS, a = idx / (8 * ROWS);
-    const bool ok = row0 + r < n;
-    cp_async16(dst + a * ASTRIDE + r * 128 + ((c ^ (r & 7)) << 4),
-               src + (size_t)(ok ? row0 + r : 0) * 512 + a * 64 + c * 8, ok);
-  }
-}
-
-template <int BK, int NBUF, bool TMA>
-__global__ void __launch_bounds__(WgD512Tile<BK, NBUF, TMA>::THREADS, 1)
+template <int BK, int NBUF>
+__global__ void __launch_bounds__(WgD512Tile<BK, NBUF>::THREADS, 1)
 flash_attn_fwd_wgmma_d512_kernel(const __grid_constant__ CUtensorMap tq,
                                  const __grid_constant__ CUtensorMap tk,
                                  const __grid_constant__ CUtensorMap tv,
-                                 const __nv_bfloat16* __restrict__ q,
-                                 const __nv_bfloat16* __restrict__ k,
-                                 const __nv_bfloat16* __restrict__ v,
                                  __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                                 float* __restrict__ o_part, float* __restrict__ lse_part,
                                  int sq, int sk, float scale) {
-  using T = WgD512Tile<BK, NBUF, TMA>;
+  using T = WgD512Tile<BK, NBUF>;
   constexpr int HALF = BK / 2;  // keys of a warpgroup's S
   constexpr int NS = HALF / 8;  // 8-key column tiles of its S
   constexpr int NO = 32;        // 8-wide column tiles of its 256 columns of O
@@ -761,45 +744,43 @@ flash_attn_fwd_wgmma_d512_kernel(const __grid_constant__ CUtensorMap tq,
 
   const int q0 = blockIdx.x * T::BQ;
   const int bh = blockIdx.y;
-  const int ntile = (sk + BK - 1) / BK;
+  // split z of gridDim.z runs key tiles [t0, t0 + ntile) of all of them
+  const int nall = (sk + BK - 1) / BK, z = blockIdx.z;
+  const int t0 = nall * z / gridDim.z, ntile = nall * (z + 1) / gridDim.z - t0;
   auto stage = [&](int pos) { return ring + (pos % NBUF) * T::ATOM; };
   auto parity = [&](int pos) { return (uint32_t)(pos / NBUF) & 1; };
 
-  if constexpr (TMA) {
-    if (threadIdx.x == 0) {
-      mbar_init(q_full, 1);
-      for (int s = 0; s < NBUF; ++s) {
-        mbar_init(full + s, 1);
-        mbar_init(empty + s, T::CONSUMERS);
-      }
-      fence_mbarrier_init();
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < NBUF; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, T::CONSUMERS);
     }
-    __syncthreads();
-    if (threadIdx.x >= T::CONSUMERS) {  // the producer warpgroup
-      setmaxnreg_dec<T::PRODUCER_REGS>();
-      if (threadIdx.x == T::CONSUMERS) {
-        mbar_expect_tx(q_full, T::ATOMS * T::QATOM);
-        for (int a = 0; a < T::ATOMS; ++a)
-          tma_load_3d(Qs + a * T::QATOM, &tq, q_full, 64 * a, q0, bh);
-        for (int pos = 0; pos < 16 * ntile; ++pos) {
-          const int s = pos % NBUF, j = pos % 16;
-          if (pos >= NBUF) mbar_wait(empty + s, parity(pos) ^ 1);  // position pos - NBUF read
-          mbar_expect_tx(full + s, T::ATOM);
-          tma_load_3d(ring + s * T::ATOM, j < 8 ? &tk : &tv, full + s, 64 * (j % 8),
-                      pos / 16 * BK, bh);
-        }
-      }
-      return;
-    }
-    setmaxnreg_inc<T::CONSUMER_REGS>();
+    fence_mbarrier_init();
   }
+  __syncthreads();
+  if (threadIdx.x >= T::CONSUMERS) {  // the producer warpgroup
+    setmaxnreg_dec<T::PRODUCER_REGS>();
+    if (threadIdx.x == T::CONSUMERS) {
+      mbar_expect_tx(q_full, T::ATOMS * T::QATOM);
+      for (int a = 0; a < T::ATOMS; ++a)
+        tma_load_3d(Qs + a * T::QATOM, &tq, q_full, 64 * a, q0, bh);
+      for (int pos = 0; pos < 16 * ntile; ++pos) {
+        const int s = pos % NBUF, j = pos % 16;
+        if (pos >= NBUF) mbar_wait(empty + s, parity(pos) ^ 1);  // position pos - NBUF read
+        mbar_expect_tx(full + s, T::ATOM);
+        tma_load_3d(ring + s * T::ATOM, j < 8 ? &tk : &tv, full + s, 64 * (j % 8),
+                    (t0 + pos / 16) * BK, bh);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<T::CONSUMER_REGS>();
 
   const int wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
   const int t = lane % 4;  // rows lane / 4 and lane / 4 + 8 of the warp's 16, columns 2t, 2t + 1
   const int row0 = warp * 16 + lane / 4;  // this thread's rows row0 and row0 + 8 of the tile
   const float c = scale * 1.4426950408889634f;
-  const __nv_bfloat16* kb = k + (size_t)bh * sk * 512;
-  const __nv_bfloat16* vb = v + (size_t)bh * sk * 512;
 
   float o[NO][4], s[NS][4];
 #pragma unroll
@@ -808,43 +789,31 @@ flash_attn_fwd_wgmma_d512_kernel(const __grid_constant__ CUtensorMap tq,
   for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
-  if constexpr (TMA) {
-    mbar_wait(q_full, 0);
-  } else {
-    cp_async_atoms<64, T::QATOM, T::CONSUMERS>(Qs, q + (size_t)bh * sq * 512, q0, sq);
-  }
-  for (int i = 0; i < ntile; ++i) {
-    // S = Q K^T over the 8 K atoms, this warpgroup's half of the keys
-    if constexpr (!TMA) {
-      if (i > 0) named_barrier_sync<1, T::CONSUMERS>();  // both halves' P V read the stages
-      cp_async_atoms<BK, T::ATOM, T::CONSUMERS>(ring, kb, i * BK, sk);
-      cp_async_commit();
-      cp_async_wait<0>();
-      fence_proxy_async();
-      named_barrier_sync<1, T::CONSUMERS>();
-    }
+  mbar_wait(q_full, 0);
+  for (int il = 0; il < ntile; ++il) {
+    const int i = t0 + il;  // the key tile; il its place in this CTA's stream
+    // S = Q K^T over the 8 K atoms, this warpgroup's half of the keys, each
+    // atom released once the group that reads it retires
     reg_fence(s);
     wgmma_fence();
 #pragma unroll
     for (int a = 0; a < T::ATOMS; ++a) {
-      const int pos = 16 * i + a;
-      if constexpr (TMA) mbar_wait(full + pos % NBUF, parity(pos));
+      const int pos = 16 * il + a;
+      mbar_wait(full + pos % NBUF, parity(pos));
       const uint8_t* Ka = stage(pos) + wg * HALF * 128;
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         wgmma_ss(s, sw128_desc(Qs + a * T::QATOM + 32 * kk), sw128_desc(Ka + 32 * kk),
                  a > 0 || kk > 0);
       wgmma_commit();
-      if constexpr (TMA) {
-        if (a > 0) {
-          wgmma_wait<1>();  // the group of atom a - 1 retired
-          mbar_arrive(empty + (pos - 1) % NBUF);
-        }
+      if (a > 0) {
+        wgmma_wait<1>();  // the group of atom a - 1 retired
+        mbar_arrive(empty + (pos - 1) % NBUF);
       }
     }
     wgmma_wait<0>();
     reg_fence(s);
-    if constexpr (TMA) mbar_arrive(empty + (16 * i + 7) % NBUF);
+    mbar_arrive(empty + (16 * il + 7) % NBUF);
 
     // the mask of keys past Sk, the tile's row maxima over both halves
     if (i * BK + BK > sk) {
@@ -867,10 +836,6 @@ flash_attn_fwd_wgmma_d512_kernel(const __grid_constant__ CUtensorMap tq,
       if (t == 0) red_max[wg * 64 + row0 + 8 * r] = tm[r];
     }
     named_barrier_sync<1, T::CONSUMERS>();
-    if constexpr (!TMA) {  // V's atoms into the stages K's left, under the softmax
-      cp_async_atoms<BK, T::ATOM, T::CONSUMERS>(ring, vb, i * BK, sk);
-      cp_async_commit();
-    }
     float alpha[2], mc[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {  // one order in both warpgroups: the same bits
@@ -902,7 +867,6 @@ flash_attn_fwd_wgmma_d512_kernel(const __grid_constant__ CUtensorMap tq,
       o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
       o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
     }
-    if constexpr (!TMA) cp_async_wait<0>();
     fence_proxy_async();
     named_barrier_sync<1, T::CONSUMERS>();
 
@@ -910,8 +874,8 @@ flash_attn_fwd_wgmma_d512_kernel(const __grid_constant__ CUtensorMap tq,
     // last two phases of a stage apart, so every consumer thread sees every
     // phase of every stage: the other half's V atoms are waited on and
     // released too, in stream order around this half's own.
-    const int v0 = 16 * i + 8 + 4 * wg;   // position of this half's first V atom
-    const int vx = 16 * i + 12 - 4 * wg;  // and of the other half's
+    const int v0 = 16 * il + 8 + 4 * wg;   // position of this half's first V atom
+    const int vx = 16 * il + 12 - 4 * wg;  // and of the other half's
     auto pass = [&](int pos) {
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
@@ -919,11 +883,9 @@ flash_attn_fwd_wgmma_d512_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_arrive(empty + (pos + a) % NBUF);
       }
     };
-    if constexpr (TMA) {
-      if (wg == 1) pass(vx);
+    if (wg == 1) pass(vx);
 #pragma unroll
-      for (int a = 0; a < 4; ++a) mbar_wait(full + (v0 + a) % NBUF, parity(v0 + a));
-    }
+    for (int a = 0; a < 4; ++a) mbar_wait(full + (v0 + a) % NBUF, parity(v0 + a));
     reg_fence(o);
     wgmma_fence();
 #pragma unroll
@@ -933,14 +895,14 @@ flash_attn_fwd_wgmma_d512_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(o);
-    if constexpr (TMA) {
 #pragma unroll
-      for (int a = 0; a < 4; ++a) mbar_arrive(empty + (v0 + a) % NBUF);
-      if (wg == 0) pass(vx);
-    }
+    for (int a = 0; a < 4; ++a) mbar_arrive(empty + (v0 + a) % NBUF);
+    if (wg == 0) pass(vx);
   }
 
   // finish: l of the row from its four threads and both halves; o = acc / l
+  // in bf16 and lse2, or, split, o in f32 and lse2 of this split's keys for
+  // the combine pass
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -948,36 +910,111 @@ flash_attn_fwd_wgmma_d512_kernel(const __grid_constant__ CUtensorMap tq,
     if (t == 0) red_l[wg * 64 + row0 + 8 * r] = l[r];
   }
   named_barrier_sync<1, T::CONSUMERS>();
+  const size_t rows = (size_t)gridDim.y * sq;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + row0 + 8 * r;
     if (row >= sq) continue;
     const float lt = red_l[row0 + 8 * r] + red_l[64 + row0 + 8 * r];
-    __nv_bfloat16* orow = out + ((size_t)bh * sq + row) * 512 + 256 * wg;
+    const size_t at = (size_t)bh * sq + row;
+    if (gridDim.z == 1) {
+      __nv_bfloat16* orow = out + at * 512 + 256 * wg;
 #pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(o[n][2 * r] / lt, o[n][2 * r + 1] / lt);
-    if (wg == 0 && t == 0) lse[(size_t)bh * sq + row] = m[r] * c + log2f(lt);
+      for (int n = 0; n < NO; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t) =
+            __floats2bfloat162_rn(o[n][2 * r] / lt, o[n][2 * r + 1] / lt);
+      if (wg == 0 && t == 0) lse[at] = m[r] * c + log2f(lt);
+    } else {
+      float* orow = o_part + (z * rows + at) * 512 + 256 * wg;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        *reinterpret_cast<float2*>(orow + n * 8 + 2 * t) =
+            make_float2(o[n][2 * r] / lt, o[n][2 * r + 1] / lt);
+      if (wg == 0 && t == 0) lse_part[z * rows + at] = m[r] * c + log2f(lt);
+    }
   }
 }
 
-template <int BK, int NBUF, bool TMA>
+// The combine pass of a split call: per row, lse2 = log2 sum_z 2^lse2_z and
+// out = sum_z 2^(lse2_z - lse2) o_z over the splits' f32 partial outputs o_z
+// (each normalized by its own l) and lse2_z, rounded to bf16 once. 64
+// threads a row, 8 columns each; bound by its bytes (S f32 rows in, a bf16
+// row out).
+constexpr int kMaxSplits = 4;
+
+__global__ void __launch_bounds__(256)
+flash_attn_fwd_combine_kernel(const float* __restrict__ o_part, const float* __restrict__ lse_part,
+                              __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                              int rows, int nsplit) {
+  const int row = blockIdx.x * 4 + threadIdx.x / 64, col = threadIdx.x % 64 * 8;
+  if (row >= rows) return;
+  float lz[kMaxSplits], mx = kNegInf;
+#pragma unroll
+  for (int z = 0; z < kMaxSplits; ++z)
+    if (z < nsplit) mx = fmaxf(mx, lz[z] = lse_part[(size_t)z * rows + row]);
+  float sum = 0.f;
+#pragma unroll
+  for (int z = 0; z < kMaxSplits; ++z)
+    if (z < nsplit) sum += lz[z] = exp2f(lz[z] - mx);
+  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int z = 0; z < kMaxSplits; ++z) {
+    if (z >= nsplit) break;
+    const float w = lz[z] / sum;
+    const float4* op = reinterpret_cast<const float4*>(o_part + ((size_t)z * rows + row) * 512 + col);
+    const float4 a = op[0], b = op[1];
+    acc[0] += w * a.x; acc[1] += w * a.y; acc[2] += w * a.z; acc[3] += w * a.w;
+    acc[4] += w * b.x; acc[5] += w * b.y; acc[6] += w * b.z; acc[7] += w * b.w;
+  }
+  uint4 packed;
+  packed.x = pack_bf16(acc[0], acc[1]);
+  packed.y = pack_bf16(acc[2], acc[3]);
+  packed.z = pack_bf16(acc[4], acc[5]);
+  packed.w = pack_bf16(acc[6], acc[7]);
+  *reinterpret_cast<uint4*>(out + (size_t)row * 512 + col) = packed;
+  if (col == 0) lse[row] = mx + log2f(sum);
+}
+
+// Splits of the key axis at d = 512, each a CTA of its own, so that the
+// last wave of one-CTA-a-SM tiles is not left mostly idle (see
+// dispatch_bf16_d512 for the rule). 1 runs no combine pass and needs no
+// scratch.
+int d512_splits(int bh, int sq, int sk);
+
+// bytes of scratch a bf16 d = 512 call takes: the splits' f32 partial
+// outputs and lse2
+size_t d512_scratch_bytes(int bh, int sq, int sk) {
+  const int n = d512_splits(bh, sq, sk);
+  return n == 1 ? 0 : (size_t)n * bh * sq * (512 + 1) * sizeof(float);
+}
+
+template <int BK, int NBUF>
 cudaError_t launch_wgmma_d512(const void* q, const void* k, const void* v, void* out, float* lse,
-                              int bh, int sq, int sk, float scale, cudaStream_t stream) {
-  using T = WgD512Tile<BK, NBUF, TMA>;
-  CUtensorMap tq{}, tk{}, tv{};
-  if (TMA && !(tma_map_bhsd(&tq, q, 512, sq, bh, 64) && tma_map_bhsd(&tk, k, 512, sk, bh, BK) &&
-               tma_map_bhsd(&tv, v, 512, sk, bh, BK)))
+                              void* scratch, int bh, int sq, int sk, float scale,
+                              cudaStream_t stream) {
+  using T = WgD512Tile<BK, NBUF>;
+  const int nsplit = d512_splits(bh, sq, sk);
+  if (nsplit < 1 || nsplit > kMaxSplits || nsplit > (sk + BK - 1) / BK ||
+      (nsplit > 1 && scratch == nullptr))
     return cudaErrorInvalidValue;
-  auto kern = flash_attn_fwd_wgmma_d512_kernel<BK, NBUF, TMA>;
+  float* o_part = static_cast<float*>(scratch);
+  float* lse_part = o_part + (size_t)nsplit * bh * sq * 512;
+  CUtensorMap tq, tk, tv;
+  if (!(tma_map_bhsd(&tq, q, 512, sq, bh, 64) && tma_map_bhsd(&tk, k, 512, sk, bh, BK) &&
+        tma_map_bhsd(&tv, v, 512, sk, bh, BK)))
+    return cudaErrorInvalidValue;
+  auto kern = flash_attn_fwd_wgmma_d512_kernel<BK, NBUF>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::BYTES);
   if (err != cudaSuccess) return err;
-  dim3 grid((sq + T::BQ - 1) / T::BQ, bh);
-  kern<<<grid, T::THREADS, T::BYTES, stream>>>(
-      tq, tk, tv, static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, sq, sk, scale);
+  dim3 grid((sq + T::BQ - 1) / T::BQ, bh, nsplit);
+  kern<<<grid, T::THREADS, T::BYTES, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(out),
+                                               lse, o_part, lse_part, sq, sk, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || nsplit == 1) return err;
+  const int rows = bh * sq;
+  flash_attn_fwd_combine_kernel<<<(rows + 3) / 4, 256, 0, stream>>>(
+      o_part, lse_part, static_cast<__nv_bfloat16*>(out), lse, rows, nsplit);
   return cudaGetLastError();
 }
 
@@ -1197,7 +1234,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
 
 
 // ---------------------------------------------------------------------------
-// bf16 at d = 512 (the VAE mid block): tensor cores with d split
+// bf16 at d = 512 on mma.sync m16n8k16: K1's d = 512 body until the wgmma
+// one (above), now the profiling scripts' (S1 at d = 512, S3), with d split
 // four ways. A 16-row accumulator over all of d=512 would need 256 f32
 // registers a thread, so each of 4*BQ/16 warps owns one 16-row part of a
 // BQ-row q tile and one quarter of d: its Q fragments (32 registers at
@@ -1208,8 +1246,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
 // PV on their own quarter of V's columns. l is either a per-thread partial
 // over the thread's columns that the four threads of a row add at the end
 // (FOLD false) or the ones n-tile of the d = 64 mma.sync body (FOLD true). K1
-// runs <32 rows, 64 keys, FOLD false>; the other instantiations are the
-// profiling scripts' sweep (S1 at d = 512, S3).
+// ran <32 rows, 64 keys, FOLD false>, and the scripts' sweep holds it.
 
 template <int D, int BQ, int BK, bool FOLD>
 __global__ void __launch_bounds__(32 * 4 * (BQ / 16))
@@ -1435,12 +1472,40 @@ cudaError_t dispatch_bf16_d64(const void* q, const void* k, const void* v, void*
   return launch_wgmma<1, 128, 3>(q, k, v, out, lse, bh, sq, sk, scale, stream);
 }
 
+// The key splits of a bf16 d = 512 call. One CTA a SM, so a grid of C
+// q-tile CTAs takes ceil(C / SMs) waves of one CTA's time; S splits take
+// ceil(C S / SMs) waves of 1/S of it. The rule takes the S of 1..4 (and at
+// most the key tiles) with the fewest such waves, but splits only where that
+// cuts the waves by a fifth or more: each split writes its partial output in
+// f32 and the combine pass reads them all back, which lost at the recipe's
+// (8, 4800, 512) (600 CTAs, 5 waves, 4.67 at S = 3: 0.83 ms against 0.71)
+// and won at (1, 9216, 512) (144 CTAs, 2 waves, 1.25 at S = 4: 0.39 ms
+// against 0.53) and (2, 9216, 512) (3 waves, 2.25 at S = 4: 0.70 against
+// 0.79) on an H100 (scripts/tune_k1.py).
+int d512_splits(int bh, int sq, int sk) {
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n > 0 ? n : 1;
+  }();
+  const int ctas = bh * ((sq + 63) / 64), ntile = (sk + 127) / 128;
+  const double whole = (double)((ctas + sms - 1) / sms);
+  int best = 1;
+  double best_t = 0.8 * whole;
+  for (int s = 2; s <= kMaxSplits && s <= ntile; ++s) {
+    const double t = (double)((ctas * s + sms - 1) / sms) / s;
+    if (t <= best_t) best = s, best_t = t;
+  }
+  return best;
+}
+
 // K1's bf16 body at d = 512: launch_wgmma_d512<keys a tile, ring stages of
-// one 64-column atom, TMA>. One tile for every length: 128 keys, 8 stages.
+// one 64-column atom>. One tile for every length: 128 keys, 8 stages.
 cudaError_t dispatch_bf16_d512(const void* q, const void* k, const void* v, void* out,
-                               float* lse, int bh, int sq, int sk, float scale,
+                               float* lse, void* scratch, int bh, int sq, int sk, float scale,
                                cudaStream_t stream) {
-  return launch_wgmma_d512<128, 8, true>(q, k, v, out, lse, bh, sq, sk, scale, stream);
+  return launch_wgmma_d512<128, 8>(q, k, v, out, lse, scratch, bh, sq, sk, scale, stream);
 }
 
 // the d = 64 CTA tiles (query rows, keys) of the profiling scripts' sweep
@@ -1479,10 +1544,18 @@ extern "C" const char* flash_attn_fwd_bf16_d512_body() {
          "BQ 64 x BK 128";
 }
 
+// Bytes of scratch flash_attn_fwd takes for these arguments (0: none).
+extern "C" long long flash_attn_fwd_scratch_bytes(int bh, int sq, int sk, int d, int dtype) {
+  if (bh <= 0 || sq <= 0 || sk <= 0) return 0;
+  return dtype == 1 && d == 512 ? (long long)d512_scratch_bytes(bh, sq, sk) : 0;
+}
+
 // q: (bh, sq, d), k/v: (bh, sk, d), out: (bh, sq, d), all contiguous and of
-// one dtype (0 = float32, 1 = bfloat16); lse: (bh, sq) float32.
+// one dtype (0 = float32, 1 = bfloat16); lse: (bh, sq) float32; scratch:
+// flash_attn_fwd_scratch_bytes of device memory, 16-byte aligned (or null
+// where that is 0).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
-                              void* out, void* lse, int bh, int sq, int sk,
+                              void* out, void* lse, void* scratch, int bh, int sq, int sk,
                               int d, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
@@ -1490,7 +1563,7 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   if (dtype == 0) return (int)dispatch_f32(q, k, v, out, l, bh, sq, sk, d, scale, s);
   if (dtype == 1 && d == 64) return (int)dispatch_bf16_d64(q, k, v, out, l, bh, sq, sk, scale, s);
   if (dtype == 1 && d == 512)
-    return (int)dispatch_bf16_d512(q, k, v, out, l, bh, sq, sk, scale, s);
+    return (int)dispatch_bf16_d512(q, k, v, out, l, scratch, bh, sq, sk, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -10,10 +10,15 @@ memory:
   (``m*c + log2 l`` with ``c = scale*log2 e``), as the TPU kernel returns.
   f32 inputs take both products on the tensor cores through split TF32
   (three tf32 products each, about f32 accuracy, whatever the TF32 flags of
-  ``torch.backends`` say); the plain version stays exact f32. bf16 at d=64
-  runs both products on ``wgmma`` with K/V tiles brought in by TMA, which
-  needs 16-byte-aligned tensors (every body reads 16 bytes a thread; the
-  wrappers raise on others);
+  ``torch.backends`` say); the plain version stays exact f32. bf16 runs both
+  products on ``wgmma`` with K/V brought in by TMA, which needs
+  16-byte-aligned tensors (every body reads 16 bytes a thread; the wrappers
+  raise on others): at d=64 one warpgroup a 64-row q tile, at d=512 two, S
+  split between them by keys and O by columns. Where a d=512 grid would
+  leave its last wave of CTAs mostly idle, the key axis is split over up to
+  4 CTAs, each writing an f32 partial output and lse2 into scratch that the
+  wrapper allocates, and a combine pass in the same call (plain version
+  ``_lse_combine_ref``) adds them;
 - K3 ``flash_attn_bwd_dq`` and K4 ``flash_attn_bwd_dkv`` in
   ``csrc/flash_attn_bwd.cu`` (TPU ``_flash_bwd_dq_kernel`` and
   ``_flash_bwd_dkv_kernel``), via ``_flash_bwd_bhsd``: dq, and dk with dv,
@@ -110,6 +115,18 @@ def _flash_bhsd_ref(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
     return out, m * c + torch.log2(l)
 
 
+def _lse_combine_ref(o_parts: torch.Tensor, lse_parts: torch.Tensor,
+                     dtype: torch.dtype):
+    """Plain version of K1's combine pass over key splits: o_parts (S, BH, Sq,
+    D) f32, each split's output normalized by its own l, and lse_parts (S, BH,
+    Sq, 1) its lse2 -> (out in dtype, lse2), lse2 = log2 sum_z 2^lse2_z and
+    out = sum_z 2^(lse2_z - lse2) o_z."""
+    mx = lse_parts.amax(dim=0)
+    w = torch.exp2(lse_parts - mx)
+    total = w.sum(dim=0)
+    return ((w / total) * o_parts).sum(dim=0).to(dtype), mx + torch.log2(total)
+
+
 def _check_kernel_args(name: str, qh: torch.Tensor, kh: torch.Tensor,
                        *rest: torch.Tensor) -> int:
     """Raise on what the kernels do not take; return the dtype code. ``rest``
@@ -151,10 +168,13 @@ def _flash_bhsd(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
     out = torch.empty_like(qh)
     lse = torch.empty((bh, sq, 1), dtype=torch.float32, device=qh.device)
     lib = _build.load()
+    # the bf16 d=512 body's key splits keep partial outputs here
+    nbytes = lib.flash_attn_fwd_scratch_bytes(bh, sq, sk, d, code)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=qh.device) if nbytes else None
     err = lib.flash_attn_fwd(
         qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), bh, sq, sk, d, ctypes.c_float(scale), code,
-        _dispatch.stream_handle(qh))
+        lse.data_ptr(), None if scratch is None else scratch.data_ptr(), bh, sq, sk, d,
+        ctypes.c_float(scale), code, _dispatch.stream_handle(qh))
     _build.check(err, "flash_attn_fwd")
     _flash_bhsd.launches += 1
     return out, lse
@@ -399,8 +419,8 @@ def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 #   n-tile of the PV mma and per-thread sums. The TPU swept VMEM blocks of
 #   256-9216 query rows; a CTA holds 16-128, so the port's sweep is over its
 #   own tiles, and each set holds the mma.sync tile K1 ran (``K1_TILES``) as
-#   the baseline: K1's own at d=512, and at d=64 the tile of the mma.sync
-#   body K1 ran before its wgmma one.
+#   the baseline: at both head dims the tile of the mma.sync body K1 ran
+#   before its wgmma one.
 #   Plain version: ``_flash_bhsd_ref``, as K1's: p rounded against the row's
 #   global max where the kernels round it against the running max, a
 #   difference of bf16 rounding that K1's bounds already admit.
@@ -413,7 +433,7 @@ def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 D64_TILES = ((64, 32), (64, 64), (64, 128), (128, 64), (128, 128))  # (query rows, keys)
 D512_TILES = ((16, 32), (16, 64), (32, 32), (32, 64))
-K1_TILES = {64: (64, 64), 512: (32, 64)}  # K1's mma.sync tiles (d=64: until its wgmma body)
+K1_TILES = {64: (64, 64), 512: (32, 64)}  # K1's mma.sync tiles, before its wgmma bodies
 
 
 def _check_tiled(name: str, qh, kh, vh, tiles, bq: int, bk: int) -> None:

@@ -2,7 +2,7 @@
 """Variants of K1's bodies, timed beside the shipped one, SDPA and the bound.
 
     python3 scripts/tune_k1.py [--dtype f32|bf16] [--split cvt onepass]
-                               [--tile 64:4,1,64,4 ... | --tile 2,128,3 512:128,8,true ...]
+                               [--tile 64:4,1,64,4 ... | --tile 2,128,3 512:128,8 ...]
                                [--baseline NAME=OLD/flash_attn_fwd.cu ...]
                                [--shapes main|short] [--d 64|512] [--check]
 
@@ -22,10 +22,12 @@ to a copy:
                    instantiation for every length: W consumer warpgroups of
                    64 q rows, K keys a tile, N ring stages (the arguments of
                    launch_wgmma)
-  --tile 512:K,N,TMA  bf16: the d=512 body (dispatch_bf16_d512) as one
+  --tile 512:K,N[,S]  bf16: the d=512 body (dispatch_bf16_d512) as one
                    instantiation for every length: K keys a tile, N ring
-                   stages of one 64-column atom, TMA true or false (cp.async
-                   by the consumers; the arguments of launch_wgmma_d512)
+                   stages of one 64-column atom (the arguments of
+                   launch_wgmma_d512); S splits of the key axis at every
+                   length (no more than its 128-key tiles) in place of
+                   d512_splits' rule
   --baseline NAME=FILE  another flash_attn_fwd.cu (an earlier commit's, with
                    its own common.cuh beside it) as the variant NAME
 
@@ -76,7 +78,7 @@ CHECK = {"f32": [(3, 200, 77, 64), (1, 130, 300, 64), (2, 100, 150, 512), (1, 30
          "bf16": [(2, 256, 256, 64), (3, 200, 77, 64), (1, 130, 300, 64), (6, 256, 77, 64),
                   (4, 40, 300, 64), (2, 4800, 1000, 64), (2, 100, 150, 512),
                   (1, 300, 200, 512), (2, 1000, 1000, 512), (2, 40, 300, 512),
-                  (1, 300, 77, 512)]}
+                  (1, 300, 77, 512), (1, 8500, 1200, 512)]}
 SHIPPED_SPLIT = """  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
   lo = __float_as_uint(x - __uint_as_float(hi)) & 0xFFFFE000u;"""
 SPLITS = {
@@ -95,6 +97,9 @@ SHIPPED_TILE = re.compile(r"launch_f32<(\d+), (\d+), (\d+), (\d+), (\d+)>")
 BF16_DISPATCH = {d: re.compile(rf"(cudaError_t dispatch_bf16_d{d}\([^)]*\) \{{\n).*?(\n\}}\n)",
                                re.S) for d in (64, 512)}
 BF16_LAUNCH = {64: "launch_wgmma", 512: "launch_wgmma_d512"}
+BF16_ARGS = {64: "q, k, v, out, lse, bh, sq, sk, scale, stream",
+             512: "q, k, v, out, lse, scratch, bh, sq, sk, scale, stream"}
+D512_SPLITS = re.compile(r"(int d512_splits\(int bh, int sq, int sk\) \{\n).*?(\n\}\n)", re.S)
 # K1's kernels by dtype; at bf16 also the mma.sync bodies K1 ran before its
 # wgmma ones (d=64: the 4-warp, 64-key instantiation with l summed apart;
 # d=512: flash_attn_fwd_split_kernel<512, 32, 64, false>)
@@ -110,12 +115,17 @@ def bf16_tile(src: str, tile: str) -> str:
     or, for a tile "512:...", dispatch_bf16_d512 launch_wgmma_d512<...>."""
     d, _, args = tile.rpartition(":")
     d = int(d) if d in ("64", "512") else 64 if d == "" else None
-    pattern = {64: r"\d+,\d+,\d+(,(true|false))*", 512: r"\d+,\d+,(true|false)"}.get(d)
+    pattern = {64: r"\d+,\d+,\d+(,(true|false))*", 512: r"\d+,\d+(,\d)?"}.get(d)
     if pattern is None or re.fullmatch(pattern, args) is None:
         raise SystemExit(f"--tile {tile}: want W,K,N[,...] (d=64, e.g. 2,128,3) "
-                         "or 512:K,N,TMA (e.g. 512:128,8,true)")
-    body = (f"  return {BF16_LAUNCH[d]}<{args.replace(',', ', ')}>(q, k, v, out, lse, bh, sq, sk, "
-            "scale, stream);")
+                         "or 512:K,N[,S] (e.g. 512:128,8,2)")
+    if d == 512 and args.count(",") == 2:
+        args, splits = args.rsplit(",", 1)
+        rule = f"  const int n = (sk + 127) / 128;\n  return n < {splits} ? n : {splits};"
+        src, n = D512_SPLITS.subn(lambda mm: mm.group(1) + rule + mm.group(2), src)
+        if n != 1:
+            raise SystemExit("--tile: d512_splits not found in the shipped source")
+    body = f"  return {BF16_LAUNCH[d]}<{args.replace(',', ', ')}>({BF16_ARGS[d]});"
     edited, n = BF16_DISPATCH[d].subn(lambda mm: mm.group(1) + body + mm.group(2), src)
     if n != 1:
         raise SystemExit(f"--tile: dispatch_bf16_d{d} not found in the shipped source")
@@ -170,8 +180,13 @@ def main(argv=None) -> None:
         libs = build_variants("flash_attn_fwd.cu", variants(args), Path(tmp))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         for lib, _ in libs.values():
-            lib.flash_attn_fwd.argtypes = [p, p, p, p, p, i, i, i, i, f, i, p]
+            # sources before the d=512 key splits take no scratch argument
+            scratch = [p] if hasattr(lib, "flash_attn_fwd_scratch_bytes") else []
+            lib.flash_attn_fwd.argtypes = [p, p, p, p, p, *scratch, i, i, i, i, f, i, p]
             lib.flash_attn_fwd.restype = i
+            if scratch:
+                lib.flash_attn_fwd_scratch_bytes.argtypes = [i] * 5
+                lib.flash_attn_fwd_scratch_bytes.restype = ctypes.c_longlong
         print(json.dumps({"ptxas": {n: {k: r for k, r in regs.items()
                                         if any(x in k for x in KERNEL[args.dtype])}
                                     for n, (_, regs) in libs.items()}}), flush=True)
@@ -180,11 +195,18 @@ def main(argv=None) -> None:
 
         def runner(lib, name, q, k, v, out, lse):
             bh, sq, d = q.shape
+            sk = k.shape[1]
+            scratch, buf = [], None
+            if hasattr(lib, "flash_attn_fwd_scratch_bytes"):
+                nbytes = lib.flash_attn_fwd_scratch_bytes(bh, sq, sk, d, code)
+                buf = torch.empty(nbytes, dtype=torch.uint8, device="cuda") if nbytes else None
+                scratch = [None if buf is None else buf.data_ptr()]
 
             def call():
                 _build.check(lib.flash_attn_fwd(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                    bh, sq, k.shape[1], d, ctypes.c_float(d ** -0.5), code, stream), name)
+                    *scratch, bh, sq, sk, d, ctypes.c_float(d ** -0.5), code, stream), name)
+            call.scratch = buf  # kept alive with the call
             return call
 
         def errors(q, k, v, out, lse):

@@ -76,6 +76,9 @@ def gen():
     # with keys over several key tiles (the last partial), and both lengths
     # off the tiles (TMA fills rows past Sq and Sk with zeros)
     (4, 40, 300, 64), (2, 4800, 1000, 64),
+    # and the d=512 body's: fewer q rows than its 64 with keys over several
+    # 128-key tiles, and keys off the tile and no multiple of 8
+    (2, 40, 300, 512), (1, 300, 77, 512),
 ])
 def test_flash_kernel_matches_plain(gen, bh, sq, sk, d, dtype, tol):
     q = torch.randn(bh, sq, d, device="cuda", generator=gen).to(dtype)
@@ -183,6 +186,48 @@ def test_flash_bf16_d64_repeats_bit_for_bit(gen, bh, sq, sk):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+def test_flash_bf16_d512_body_is_wgmma(gen):
+    """K1's bf16 body at d=512 runs both products on wgmma, which the library
+    names."""
+    from genpercept_tpu_torch import _build
+    assert _build.load().flash_attn_fwd_bf16_d512_body().decode().startswith("wgmma")
+
+
+@pytest.mark.parametrize("bh,sq,sk", [(8, 4800, 4800), (2, 1000, 1000)])
+def test_flash_bf16_d512_repeats_bit_for_bit(gen, bh, sq, sk):
+    """No atomics and a fixed order of products, sums and, where the key axis
+    is split, of the combine pass: two calls of K1's bf16 d=512 body on the
+    same inputs give the same bits."""
+    q = torch.randn(bh, sq, 512, device="cuda", generator=gen).to(torch.bfloat16)
+    k, v = (torch.randn(bh, sk, 512, device="cuda", generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    first = fa._flash_bhsd(q, k, v, 512 ** -0.5)
+    second = fa._flash_bhsd(q, k, v, 512 ** -0.5)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_bf16_d512_unequal_key_splits_match_plain(gen):
+    """A grid of 133 q tiles splits the key axis (the scratch a call takes
+    holds S f32 partial outputs and lse2), here 11 128-key tiles over S > 1
+    splits of unequal length, the last tile partial (1300 keys, no multiple
+    of 8) and the last q tile too: held to the plain version at K1's bar."""
+    from genpercept_tpu_torch import _build
+    bh, sq, sk = 1, 8500, 1300
+    splits = _build.load().flash_attn_fwd_scratch_bytes(bh, sq, sk, 512, 1) // (
+        bh * sq * 513 * 4)
+    assert splits > 1 and 11 % splits, splits
+    q = torch.randn(bh, sq, 512, device="cuda", generator=gen).to(torch.bfloat16)
+    k, v = (torch.randn(bh, sk, 512, device="cuda", generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    out, lse = fa._flash_bhsd(q, k, v, 512 ** -0.5)
+    ref, ref_lse = fa._flash_bhsd_ref(q, k, v, 512 ** -0.5)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 2e-2
 
 
 def test_flash_f32_bodies_are_split_tf32(gen):
