@@ -975,11 +975,34 @@ flash_attn_fwd_combine_kernel(const float* __restrict__ o_part, const float* __r
   if (col == 0) lse[row] = mx + log2f(sum);
 }
 
-// Splits of the key axis at d = 512, each a CTA of its own, so that the
-// last wave of one-CTA-a-SM tiles is not left mostly idle (see
-// dispatch_bf16_d512 for the rule). 1 runs no combine pass and needs no
-// scratch.
-int d512_splits(int bh, int sq, int sk);
+// The key splits of a bf16 d = 512 call, each a CTA of its own (1: no
+// combine pass, no scratch). One CTA a SM, so a grid of C q-tile CTAs takes
+// ceil(C / SMs) waves of one CTA's time; S splits take ceil(C S / SMs) waves
+// of 1/S of it. The rule takes the S of 1..4 (and at most the key tiles)
+// with the fewest such waves, but splits only where that cuts the waves by a
+// fifth or more: each split writes its partial output in f32 and the
+// combine pass reads them all back, which lost at the recipe's
+// (8, 4800, 512) (600 CTAs, 5 waves, 4.67 at S = 3: 0.83 ms against 0.71)
+// and won at (1, 9216, 512) (144 CTAs, 2 waves, 1.25 at S = 4: 0.39 ms
+// against 0.53) and (2, 9216, 512) (3 waves, 2.25 at S = 4: 0.70 against
+// 0.79) on an H100 (scripts/tune_k1.py).
+int d512_splits(int bh, int sq, int sk) {
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n > 0 ? n : 1;
+  }();
+  const int ctas = bh * ((sq + 63) / 64), ntile = (sk + 127) / 128;
+  const double whole = (double)((ctas + sms - 1) / sms);
+  int best = 1;
+  double best_t = 0.8 * whole;
+  for (int s = 2; s <= kMaxSplits && s <= ntile; ++s) {
+    const double t = (double)((ctas * s + sms - 1) / sms) / s;
+    if (t <= best_t) best = s, best_t = t;
+  }
+  return best;
+}
 
 // bytes of scratch a bf16 d = 512 call takes: the splits' f32 partial
 // outputs and lse2
@@ -1470,34 +1493,6 @@ cudaError_t dispatch_bf16_d64(const void* q, const void* k, const void* v, void*
                               float* lse, int bh, int sq, int sk, float scale,
                               cudaStream_t stream) {
   return launch_wgmma<1, 128, 3>(q, k, v, out, lse, bh, sq, sk, scale, stream);
-}
-
-// The key splits of a bf16 d = 512 call. One CTA a SM, so a grid of C
-// q-tile CTAs takes ceil(C / SMs) waves of one CTA's time; S splits take
-// ceil(C S / SMs) waves of 1/S of it. The rule takes the S of 1..4 (and at
-// most the key tiles) with the fewest such waves, but splits only where that
-// cuts the waves by a fifth or more: each split writes its partial output in
-// f32 and the combine pass reads them all back, which lost at the recipe's
-// (8, 4800, 512) (600 CTAs, 5 waves, 4.67 at S = 3: 0.83 ms against 0.71)
-// and won at (1, 9216, 512) (144 CTAs, 2 waves, 1.25 at S = 4: 0.39 ms
-// against 0.53) and (2, 9216, 512) (3 waves, 2.25 at S = 4: 0.70 against
-// 0.79) on an H100 (scripts/tune_k1.py).
-int d512_splits(int bh, int sq, int sk) {
-  static const int sms = [] {
-    int dev = 0, n = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    return n > 0 ? n : 1;
-  }();
-  const int ctas = bh * ((sq + 63) / 64), ntile = (sk + 127) / 128;
-  const double whole = (double)((ctas + sms - 1) / sms);
-  int best = 1;
-  double best_t = 0.8 * whole;
-  for (int s = 2; s <= kMaxSplits && s <= ntile; ++s) {
-    const double t = (double)((ctas * s + sms - 1) / sms) / s;
-    if (t <= best_t) best = s, best_t = t;
-  }
-  return best;
 }
 
 // K1's bf16 body at d = 512: launch_wgmma_d512<keys a tile, ring stages of
