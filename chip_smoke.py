@@ -11,7 +11,8 @@ Phases, each printed as a JSON line:
   (c) K1 flash attention and (d) K2 fused GEGLU feed-forward against their
       plain PyTorch versions on the card, at the inference path's 768^2
       shapes and the training recipe's, in f32 and bf16: max abs error and
-      CUDA-event times; K1 also at two ragged shapes (K1_RAGGED), and with
+      CUDA-event times (K1's bf16 output also relative to max|plain|); K1
+      also at two ragged shapes (K1_RAGGED), and with
       the names of the f32 body the library holds (split TF32) and of the
       bf16 bodies at d=64 and d=512 (wgmma), the f32 bound at the split-TF32
       rate beside the FFMA rate of the body it replaced, and at bf16
@@ -150,6 +151,10 @@ TOL = {  # kernel vs plain version on the card
     "K1": {torch.float32: 1e-4, torch.bfloat16: 2e-2},  # max abs, out and lse2
     "K2": {torch.float32: 1e-4, torch.bfloat16: 6e-2},  # f32: relative to max|ref|
 }
+# K1's bf16 out, also relative to max|plain|: a few bf16 ulps of the largest
+# output. With randn inputs over thousands of keys |out| is ~0.02, so 2e-2
+# alone would pass an error as large as the output itself
+K1_BF16_REL_TOL = 2.0 ** -6
 DTYPES = (torch.float32, torch.bfloat16)
 # img/s: back-to-back .batch passes over at least this window and count
 WINDOW_S, MIN_PASSES = 3.0, 5
@@ -346,14 +351,22 @@ def attn_bytes(bh, s, d, dt, n_in, n_out, n_rows=0) -> int:
     return bh * s * (d * elt(dt) * (n_in + n_out) + 4 * n_rows)
 
 
-def k1_errors(q, k, v) -> tuple[float, float]:
+def k1_errors(q, k, v) -> tuple[float, float, float]:
     """K1 against its plain version on the same inputs: max abs error of the
-    output and of lse2."""
+    output and of lse2, and max|plain output|."""
     scale = q.shape[-1] ** -0.5
     out, lse = fa._flash_bhsd(q, k, v, scale)
     ref, ref_lse = fa._flash_bhsd_ref(q, k, v, scale)
     torch.cuda.synchronize()
-    return (out.float() - ref.float()).abs().max().item(), (lse - ref_lse).abs().max().item()
+    return ((out.float() - ref.float()).abs().max().item(), (lse - ref_lse).abs().max().item(),
+            ref.float().abs().max().item())
+
+
+def k1_within(dt, err_o: float, err_l: float, top: float) -> bool:
+    """K1's errors within its bars: TOL["K1"] absolute, and in bf16 the output
+    within K1_BF16_REL_TOL of max|plain| too."""
+    return (err_o <= TOL["K1"][dt] and err_l <= TOL["K1"][dt] and
+            (dt == torch.float32 or err_o <= K1_BF16_REL_TOL * top))
 
 
 def phase_k1(gen: torch.Generator) -> dict:
@@ -376,7 +389,7 @@ def phase_k1(gen: torch.Generator) -> dict:
             q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen if n else rgen).to(dt)
                        for _ in range(3))
             scale = d ** -0.5
-            err_o, err_l = k1_errors(q, k, v)
+            err_o, err_l, top = k1_errors(q, k, v)
             ms = cuda_ms(lambda: fa._flash_bhsd(q, k, v, scale), 10)
             plain_ms = cuda_ms(lambda: fa._flash_bhsd_ref(q, k, v, scale), 3)
             library_ms = cuda_ms(lambda: sdpa(q, k, v), 10)
@@ -388,12 +401,13 @@ def phase_k1(gen: torch.Generator) -> dict:
             bd = bound(4.0 * bh * s * s * d, "tf32x3" if f32 else "bf16", nbytes)
             emit({"phase": "K1", "dtype": str(dt), "shape": [bh, s, d],
                   "max_abs_err_out": err_o, "max_abs_err_lse2": err_l,
+                  "output_max_abs": top, "rel_err_out": err_o / top,
                   "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                   "bound_ms": bd.ms, "bound_by": bd.by, "parent_ms": parent_ms,
                   # f32: the bound at the FFMA rate of the f32 body this one replaced
                   "bound_ffma_ms": bound(4.0 * bh * s * s * d, "f32", nbytes).ms if f32 else None})
-            check(err_o <= TOL["K1"][dt] and err_l <= TOL["K1"][dt],
-                  f"K1 {dt} {(bh, s, d)}: errors {err_o}, {err_l}")
+            check(k1_within(dt, err_o, err_l, top),
+                  f"K1 {dt} {(bh, s, d)}: errors {err_o}, {err_l}, max|plain| {top}")
             worst[dt] = max(worst[dt], err_o, err_l)
             for i, t in enumerate((ms, plain_ms, bd, library_ms)):
                 per_image[dt][i] += n * t  # 0 for the recipe's shapes
@@ -401,11 +415,12 @@ def phase_k1(gen: torch.Generator) -> dict:
         for bh, sq, sk, d in K1_RAGGED:
             q = torch.randn(bh, sq, d, device="cuda", generator=rgen).to(dt)
             k, v = (torch.randn(bh, sk, d, device="cuda", generator=rgen).to(dt) for _ in range(2))
-            err_o, err_l = k1_errors(q, k, v)
+            err_o, err_l, top = k1_errors(q, k, v)
             emit({"phase": "K1_ragged", "dtype": str(dt), "shape": [bh, sq, sk, d],
-                  "max_abs_err_out": err_o, "max_abs_err_lse2": err_l})
-            check(err_o <= TOL["K1"][dt] and err_l <= TOL["K1"][dt],
-                  f"K1 {dt} ragged {(bh, sq, sk, d)}: errors {err_o}, {err_l}")
+                  "max_abs_err_out": err_o, "max_abs_err_lse2": err_l,
+                  "output_max_abs": top, "rel_err_out": err_o / top})
+            check(k1_within(dt, err_o, err_l, top),
+                  f"K1 {dt} ragged {(bh, sq, sk, d)}: errors {err_o}, {err_l}, max|plain| {top}")
             worst[dt] = max(worst[dt], err_o, err_l)
     return {"worst": worst, "per_image": per_image}
 

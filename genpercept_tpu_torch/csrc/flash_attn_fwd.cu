@@ -650,7 +650,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
 //     a warpgroup holds, so a CTA runs two consumer warpgroups on one 64-row
 //     q tile (BQ = 64), and the work of a BK-key tile is split between them:
 //       S by keys: warpgroup w computes S_w = Q K_w^T for its BK / 2 keys
-//         over all of d, 32 k steps of wgmma m64n(BK/2)k16, A = Q from
+//         over all of d, 32 k steps of wgmma m64n64k16 (BK = 128), A = Q from
 //         shared memory (loaded once, 64 KB) and B = the K tile, K-major;
 //       O by columns: warpgroup w owns O[:, 256 w : 256 w + 256] (128
 //         registers) and runs O += P V[:, its half] as m64n256k16, BK / 16
@@ -714,7 +714,7 @@ struct WgD512Tile {
   static constexpr int REGS = 65536 / THREADS / 8 * 8;
   static constexpr int PRODUCER_REGS = 40;
   static constexpr int CONSUMER_REGS = REGS + (REGS - PRODUCER_REGS) / 2 / 8 * 8;
-  static_assert((BK == 64 || BK == 128) && NBUF % 4 == 0, "tile and ring");
+  static_assert(BK == 128 && NBUF % 4 == 0, "tile and ring");  // S: m64n64k16
   static_assert(CONSUMER_REGS <= 256, "setmaxnreg takes 24..256");
   static_assert(BYTES <= 232448, "shared memory of a CTA");
 };
@@ -1496,7 +1496,8 @@ cudaError_t dispatch_bf16_d64(const void* q, const void* k, const void* v, void*
 }
 
 // K1's bf16 body at d = 512: launch_wgmma_d512<keys a tile, ring stages of
-// one 64-column atom>. One tile for every length: 128 keys, 8 stages.
+// one 64-column atom>. One tile for every length: 128 keys, 8 stages (64
+// keys, whose Q K^T runs m64n32k16, measured 1.5-2x slower: PERF.md).
 cudaError_t dispatch_bf16_d512(const void* q, const void* k, const void* v, void* out,
                                float* lse, void* scratch, int bh, int sq, int sk, float scale,
                                cudaStream_t stream) {

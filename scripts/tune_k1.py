@@ -23,7 +23,8 @@ to a copy:
                    64 q rows, K keys a tile, N ring stages (the arguments of
                    launch_wgmma)
   --tile 512:K,N[,S]  bf16: the d=512 body (dispatch_bf16_d512) as one
-                   instantiation for every length: K keys a tile, N ring
+                   instantiation for every length: K keys a tile (128, the
+                   one tile the body takes), N ring
                    stages of one 64-column atom (the arguments of
                    launch_wgmma_d512); S splits of the key axis at every
                    length (no more than its 128-key tiles) in place of
@@ -115,10 +116,10 @@ def bf16_tile(src: str, tile: str) -> str:
     or, for a tile "512:...", dispatch_bf16_d512 launch_wgmma_d512<...>."""
     d, _, args = tile.rpartition(":")
     d = int(d) if d in ("64", "512") else 64 if d == "" else None
-    pattern = {64: r"\d+,\d+,\d+(,(true|false))*", 512: r"\d+,\d+(,\d)?"}.get(d)
+    pattern = {64: r"\d+,\d+,\d+(,(true|false))*", 512: r"128,\d+(,\d)?"}.get(d)
     if pattern is None or re.fullmatch(pattern, args) is None:
         raise SystemExit(f"--tile {tile}: want W,K,N[,...] (d=64, e.g. 2,128,3) "
-                         "or 512:K,N[,S] (e.g. 512:128,8,2)")
+                         "or 512:128,N[,S] (e.g. 512:128,8,2)")
     if d == 512 and args.count(",") == 2:
         args, splits = args.rsplit(",", 1)
         rule = f"  const int n = (sk + 127) / 128;\n  return n < {splits} ? n : {splits};"

@@ -9,7 +9,11 @@ without the repository's conftest:
 Tolerances: f32 1e-4 absolute (kernel and plain version differ in
 summation order only); bf16 2e-2 (flash attention: p is rounded to bf16
 against the running max in the kernel, the global max in the plain
-version) and 6e-2 (feed-forward, as the JAX package's bf16 test). The
+version) and 6e-2 (feed-forward, as the JAX package's bf16 test); K1's bf16
+output also within 2^-6 of max|plain|, a few bf16 ulps of the largest
+output (with randn inputs over thousands of keys |out| is ~0.02, so 2e-2
+alone passes an error as large as the output, such as one half of the
+d=512 body's O rescaled apart from the other, or a combine weight off). The
 backward kernels K3/K4 are held to 1e-4 (f32) and 2e-2 (bf16) relative to
 max|plain| (bf16: dS and P are rounded after sums taken in another order),
 and in f32 at 9216 tokens to 2e-5 as well, which catches an error that grows
@@ -52,6 +56,8 @@ from genpercept_tpu_torch.ops import reference_kernels
 
 pytestmark = pytest.mark.cuda
 
+K1_BF16_REL = 2.0 ** -6  # K1's bf16 output, of max|plain|
+
 
 @pytest.fixture
 def gen():
@@ -90,7 +96,9 @@ def test_flash_kernel_matches_plain(gen, bh, sq, sk, d, dtype, tol):
     torch.cuda.synchronize()
     assert fa._flash_bhsd.launches == before + 1
     assert out.dtype == dtype and lse.shape == (bh, sq, 1)
-    assert (out.float() - ref.float()).abs().max().item() <= tol
+    err, top = (out.float() - ref.float()).abs().max().item(), ref.float().abs().max().item()
+    assert err <= tol
+    assert dtype == torch.float32 or err <= K1_BF16_REL * top, (err, top)
     assert (lse - ref_lse).abs().max().item() <= tol
 
 
@@ -214,7 +222,7 @@ def test_flash_bf16_d512_unequal_key_splits_match_plain(gen):
     """A grid of 133 q tiles splits the key axis (the scratch a call takes
     holds S f32 partial outputs and lse2), here 11 128-key tiles over S > 1
     splits of unequal length, the last tile partial (1300 keys, no multiple
-    of 8) and the last q tile too: held to the plain version at K1's bar."""
+    of 8) and the last q tile too: held to the plain version at K1's bars."""
     from genpercept_tpu_torch import _build
     bh, sq, sk = 1, 8500, 1300
     splits = _build.load().flash_attn_fwd_scratch_bytes(bh, sq, sk, 512, 1) // (
@@ -226,7 +234,8 @@ def test_flash_bf16_d512_unequal_key_splits_match_plain(gen):
     out, lse = fa._flash_bhsd(q, k, v, 512 ** -0.5)
     ref, ref_lse = fa._flash_bhsd_ref(q, k, v, 512 ** -0.5)
     torch.cuda.synchronize()
-    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    err, top = (out.float() - ref.float()).abs().max().item(), ref.float().abs().max().item()
+    assert err <= 2e-2 and err <= K1_BF16_REL * top, (err, top)
     assert (lse - ref_lse).abs().max().item() <= 2e-2
 
 

@@ -58,17 +58,20 @@ def card_key_tiles() -> list[int]:
     return bks
 
 
-def k1_bf16_emulated(q, k, v, scale: float, bk: int, round_p: bool = True):
-    """K1's bf16 body over key tiles of bk: f32 logits, the running max,
-    p rounded to bf16 against it (round_p), l the sum of the rounded p, alpha
-    rescales. q/k/v bf16 -> (out bf16, lse2 f32 (BH, Sq, 1), the number of
-    tiles after the first that raised some row's max)."""
+def k1_online(q, k, v, scale: float, bk: int, round_p: bool = True, stale_cols: int = 0):
+    """The online softmax of K1's bf16 bodies over key tiles of bk: f32
+    logits, the running max, p rounded to bf16 against it (round_p), l the
+    sum of the rounded p, alpha rescales; stale_cols > 0 leaves the last
+    stale_cols columns of the accumulator unrescaled (a mutant). q/k/v bf16 ->
+    (acc / l in f32, lse2 f32 (BH, Sq, 1), the number of tiles after the first
+    that raised some row's max)."""
     c = scale * _LOG2E
     bh, sq, _ = q.shape
     qf = q.float()
     m = torch.full((bh, sq, 1), NEG_INF)
     l = torch.zeros((bh, sq, 1))
     acc = torch.zeros((bh, sq, v.shape[2]))
+    keep = v.shape[2] - stale_cols  # columns that alpha rescales
     raised = 0
     for k0 in range(0, k.shape[1], bk):
         s = torch.matmul(qf, k[:, k0:k0 + bk].float().transpose(1, 2))
@@ -79,9 +82,18 @@ def k1_bf16_emulated(q, k, v, scale: float, bk: int, round_p: bool = True):
             p = p.to(torch.bfloat16).float()
         alpha = torch.exp2((m - m_new) * c)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + torch.matmul(p, v[:, k0:k0 + bk].float())
+        acc[..., :keep] *= alpha
+        acc = acc + torch.matmul(p, v[:, k0:k0 + bk].float())
         m = m_new
-    return (acc / l).to(q.dtype), m * c + torch.log2(l), raised
+    return acc / l, m * c + torch.log2(l), raised
+
+
+def k1_bf16_emulated(q, k, v, scale: float, bk: int, round_p: bool = True):
+    """K1's bf16 body over key tiles of bk (``k1_online``) -> (out bf16,
+    lse2 f32 (BH, Sq, 1), the number of tiles after the first that raised
+    some row's max)."""
+    out, lse, raised = k1_online(q, k, v, scale, bk, round_p)
+    return out.to(q.dtype), lse, raised
 
 
 def _rising_inputs(seed: int, bh: int, s: int, d: int = 64):

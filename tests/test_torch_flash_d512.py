@@ -41,13 +41,11 @@ from genpercept_tpu.ops import flash_attention as j_fa
 from genpercept_tpu.ops.flash_attention import _flash_kernel
 from genpercept_tpu_torch import _build
 from genpercept_tpu_torch.ops import flash_attention as t_fa
-from test_torch_flash_bf16 import _out_errors, _rising_inputs, _torch
+from test_torch_flash_bf16 import _out_errors, _rising_inputs, _torch, k1_online
 from test_torch_flash_variants import _part_defs
 
 torch.set_num_threads(1)
 
-_LOG2E = 1.4426950408889634
-NEG_INF = -1e30
 SCALE = 512 ** -0.5
 
 
@@ -63,30 +61,22 @@ def card_key_tile() -> int:
 
 
 def _online(q, k, v, bk: int, round_p: bool):
-    """One run of the online softmax over key tiles of bk -> (acc / l in f32,
-    lse2 (BH, Sq, 1))."""
-    c = SCALE * _LOG2E
-    bh, sq, _ = q.shape
-    qf = q.float()
-    m = torch.full((bh, sq, 1), NEG_INF)
-    l = torch.zeros((bh, sq, 1))
-    acc = torch.zeros((bh, sq, v.shape[2]))
-    for k0 in range(0, k.shape[1], bk):
-        s = torch.matmul(qf, k[:, k0:k0 + bk].float().transpose(1, 2))
-        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        p = torch.exp2(s * c - m_new * c)
-        if round_p:
-            p = p.to(torch.bfloat16).float()
-        alpha = torch.exp2((m - m_new) * c)
-        l = l * alpha + p.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + torch.matmul(p, v[:, k0:k0 + bk].float())
-        m = m_new
-    return acc / l, m * c + torch.log2(l)
+    """One run of K1's online softmax (``k1_online``) at d=512 -> (acc / l
+    in f32, lse2 (BH, Sq, 1))."""
+    return k1_online(q, k, v, SCALE, bk, round_p)[:2]
 
 
 def split_bounds(n: int, splits: int) -> list[tuple[int, int]]:
     """The key tiles [t0, t1) of each split, as the kernel divides n tiles."""
     return [(n * z // splits, n * (z + 1) // splits) for z in range(splits)]
+
+
+def split_parts(q, k, v, bk: int, splits: int, round_p: bool = True):
+    """Each split's run over its key tiles -> (f32 outputs (S, BH, Sq, 512),
+    lse2 (S, BH, Sq, 1)), stacked as the combine pass reads them."""
+    parts = [_online(q, k[:, t0 * bk:t1 * bk], v[:, t0 * bk:t1 * bk], bk, round_p)
+             for t0, t1 in split_bounds(-(-k.shape[1] // bk), splits)]
+    return torch.stack([o for o, _ in parts]), torch.stack([l for _, l in parts])
 
 
 def k1_bf16_d512_emulated(q, k, v, bk: int, splits: int = 1, round_p: bool = True):
@@ -95,16 +85,13 @@ def k1_bf16_d512_emulated(q, k, v, bk: int, splits: int = 1, round_p: bool = Tru
     if splits == 1:
         out, lse = _online(q, k, v, bk, round_p)
         return out.to(q.dtype), lse
-    parts = [_online(q, k[:, t0 * bk:t1 * bk], v[:, t0 * bk:t1 * bk], bk, round_p)
-             for t0, t1 in split_bounds(-(-k.shape[1] // bk), splits)]
-    return t_fa._lse_combine_ref(torch.stack([o for o, _ in parts]),
-                                 torch.stack([l for _, l in parts]), q.dtype)
+    return t_fa._lse_combine_ref(*split_parts(q, k, v, bk, splits, round_p), q.dtype)
 
 
 def test_card_key_tile_is_the_emulated_one():
-    """wgmma takes n = BK / 2 keys a warpgroup, a multiple of 8; the body
-    takes 64 or 128."""
-    assert card_key_tile() in (64, 128)
+    """The body takes one key tile, 128: a warpgroup's Q K^T is wgmma
+    m64n64k16 over its 64 keys."""
+    assert card_key_tile() == 128
 
 
 def test_split_bounds_are_unequal_where_the_tiles_do_not_divide():
@@ -160,7 +147,7 @@ def test_k1_bf16_d512_key_partition_matches_pallas_at_its_tile(s):
     assert err_mean <= 1e-6, (err_max, err_mean)
     for mutant in (k1_bf16_d512_emulated(qt, xt, xt, bk, round_p=False),
                    k1_bf16_d512_emulated(qt, xt, xt, s),
-                   k1_bf16_d512_emulated(qt, xt, xt, 192 if bk == 64 else 64),
+                   k1_bf16_d512_emulated(qt, xt, xt, 64),
                    k1_bf16_d512_emulated(qt, xt, xt, bk, 2)):
         assert _out_errors(mutant[0], ref)[1] > 1e-5
 
@@ -175,12 +162,62 @@ def test_k1_bf16_d512_split_combine_is_exact_without_rounding(splits):
     q, k, v = map(_torch, _rising_inputs(43, 2, 1300, d=512))
     bk = card_key_tile()
     one = _online(q, k, v, bk, round_p=False)
-    parts = [_online(q, k[:, t0 * bk:t1 * bk], v[:, t0 * bk:t1 * bk], bk, round_p=False)
-             for t0, t1 in split_bounds(-(-1300 // bk), splits)]
-    out, lse = t_fa._lse_combine_ref(torch.stack([o for o, _ in parts]),
-                                     torch.stack([l for _, l in parts]), torch.float32)
+    out, lse = t_fa._lse_combine_ref(*split_parts(q, k, v, bk, splits, round_p=False),
+                                     torch.float32)
     assert (out - one[0]).abs().max().item() <= 2e-6
     assert (lse - one[1]).abs().max().item() <= 1e-5
+
+
+CARD_REL = 2.0 ** -6  # the card's bar on K1's bf16 out, of max|plain|
+
+
+def _randn_inputs(s: int, sq: int = 128):
+    """q (1, sq, 512) and k, v (1, s, 512) in bf16 from standard normals, as
+    the card tests draw them (fewer q rows: each row is its own softmax)."""
+    rng = np.random.default_rng(7)
+    return tuple(torch.from_numpy(rng.standard_normal((1, n, 512)).astype(np.float32))
+                 .to(torch.bfloat16) for n in (sq, s, s))
+
+
+# Readings, out error of max|plain| (max|plain| 0.104 and 0.085): 4.7e-3 at
+# 4800 keys and 2.9e-3 at 9216, unsplit and split in 4.
+@pytest.mark.parametrize("s", [4800, 9216])
+def test_k1_bf16_d512_meets_the_card_bar_on_randn_inputs(s):
+    """The card holds K1's bf16 out to 2^-6 of max|plain| beside 2e-2
+    absolute. On randn inputs over the VAE mid block's key lengths (the
+    recipe's 4800, 768^2's 9216) the body's partition meets it against the
+    plain version, unsplit and split in 4."""
+    q, k, v = _randn_inputs(s)
+    ref = t_fa._flash_bhsd_ref(q, k, v, SCALE)[0].float()
+    top = ref.abs().max().item()
+    bk = card_key_tile()
+    for splits in (1, 4):
+        out = k1_bf16_d512_emulated(q, k, v, bk, splits)[0]
+        assert (out.float() - ref).abs().max().item() <= CARD_REL * top, splits
+
+
+# Readings at 4800 keys, out error of max|plain| (abs): one half of O not
+# rescaled 1.6 (0.17); the combine without its last split 0.62 (0.065);
+# weighted by e^(lse2_z - max) in place of 2^ 3.5e-2 (3.6e-3).
+def test_k1_bf16_d512_card_bar_catches_a_fraction_of_the_output():
+    """Faults that fail nothing loudly: the second warpgroup's half of O
+    left unrescaled when the max rises, a combine that drops a split, and
+    one whose weights take the wrong base. Each misses 2^-6 of max|plain|;
+    the last stays under 2e-2 absolute, which |out| ~0.02 makes blind to
+    an error of a fraction of the output."""
+    q, k, v = _randn_inputs(4800)
+    ref = t_fa._flash_bhsd_ref(q, k, v, SCALE)[0].float()
+    top = ref.abs().max().item()
+    bk = card_key_tile()
+    o, lse = split_parts(q, k, v, bk, 4)
+    w = torch.exp(lse - lse.amax(dim=0))
+    mutants = {
+        "half unrescaled": k1_online(q, k, v, SCALE, bk, stale_cols=256)[0].to(torch.bfloat16),
+        "split dropped": t_fa._lse_combine_ref(o[:3], lse[:3], torch.bfloat16)[0],
+        "base e": ((w / w.sum(dim=0)) * o).sum(dim=0).to(torch.bfloat16)}
+    errs = {name: (m.float() - ref).abs().max().item() for name, m in mutants.items()}
+    assert all(e > CARD_REL * top for e in errs.values()), (errs, top)
+    assert errs["base e"] <= 2e-2, errs
 
 
 def test_tune_k1_replaces_the_d512_dispatch():
@@ -193,14 +230,14 @@ def test_tune_k1_replaces_the_d512_dispatch():
     from test_torch_flash_bf16 import _script
     mod = _script("tune_k1")
     out = mod.variants(argparse.Namespace(dtype="bf16", split=[], baseline=[],
-                                          tile=["512:64,16", "512:128,8,3"]))
+                                          tile=["512:128,4", "512:128,8,3"]))
     def rest(src):  # the source outside the two regions the edits may touch
         for pattern in (mod.D512_SPLITS, mod.BF16_DISPATCH[512]):
             src = pattern.sub(lambda mm: mm.group(1) + mm.group(2), src)
         return src
 
     shipped = out["shipped"][0]
-    for name, launch, rule in (("tile_512_64_16", "launch_wgmma_d512<64, 16>(", None),
+    for name, launch, rule in (("tile_512_128_4", "launch_wgmma_d512<128, 4>(", None),
                                ("tile_512_128_8_3", "launch_wgmma_d512<128, 8>(",
                                 "return n < 3 ? n : 3;")):
         edited = out[name][0]
@@ -208,6 +245,6 @@ def test_tune_k1_replaces_the_d512_dispatch():
         assert (mod.D512_SPLITS.search(edited).group(0) ==
                 mod.D512_SPLITS.search(shipped).group(0)) == (rule is None)
         assert rule is None or rule in edited
-    for bad in ("512:128", "512:128,8,true", "512:128,8,12"):
+    for bad in ("512:128", "512:128,8,true", "512:128,8,12", "512:64,16"):
         with pytest.raises(SystemExit):
             mod.variants(argparse.Namespace(dtype="bf16", split=[], tile=[bad], baseline=[]))
