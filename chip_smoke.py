@@ -11,11 +11,15 @@ Phases, each printed as a JSON line:
   (c) K1 flash attention and (d) K2 fused GEGLU feed-forward against their
       plain PyTorch versions on the card, at the inference path's 768^2
       shapes and the training recipe's, in f32 and bf16: max abs error and
-      CUDA-event times (K1's bf16 output also relative to max|plain|); K1
-      also at two ragged shapes (K1_RAGGED), and with
-      the names of the f32 body the library holds (split TF32) and of the
-      bf16 bodies at d=64 and d=512 (wgmma), the f32 bound at the split-TF32
-      rate beside the FFMA rate of the body it replaced, and at bf16
+      CUDA-event times (K1's bf16 output also relative to max|plain|, and
+      its f32 output at 9216 keys); K1 also at two ragged shapes
+      (K1_RAGGED); K2 also at the pipeline's batch of 2 (K2_BATCH), relative
+      to max|plain| in f32, beside the unfused composition in the same
+      dtype (composition_ms) and with the name of its f32 body (split TF32);
+      K1 with the names of the f32 body the library holds (split TF32) and
+      of the bf16 bodies at d=64 and d=512 (wgmma); K1 and K2 with the f32
+      bound at the split-TF32 rate beside the FFMA rate of the body it
+      replaced; K1 at bf16 with
       parent_ms: the mma.sync body K1 ran before its wgmma one, at its tile
       (K1_TILES) through S1's entry at d=64 (which sums l in the PV product
       where K1 summed it apart) and S3's at d=512 (l summed apart, as K1);
@@ -134,6 +138,9 @@ SEED = 0
 K1_SHAPES = [((5, 9216, 64), 5), ((10, 2304, 64), 5), ((20, 576, 64), 5),
              ((1, 9216, 512), 2)]
 K2_SHAPE, K2_PER_FORWARD = (1, 9216, 320), 5
+# the shape the pipeline launches K2 at: a .batch of 2 images, 5 per forward;
+# checked and timed, not counted in the per-image times
+K2_BATCH = (2, 9216, 320)
 K1_PER_FORWARD = sum(n for _, n in K1_SHAPES)  # 17
 # the training recipe's shapes (480x640, micro-batch 8): K1 at level 0 of the
 # UNet and in the VAE's mid blocks, K2 over 8 * 4800 rows; checked against
@@ -149,8 +156,12 @@ K1_RAGGED = [(6, 256, 77, 64), (2, 1000, 1000, 512)]
 K2_RECIPE = (8, 4800, 320)
 TOL = {  # kernel vs plain version on the card
     "K1": {torch.float32: 1e-4, torch.bfloat16: 2e-2},  # max abs, out and lse2
-    "K2": {torch.float32: 1e-4, torch.bfloat16: 6e-2},  # f32: relative to max|ref|
+    "K2": {torch.float32: 2e-5, torch.bfloat16: 6e-2},  # f32: relative to max|ref|
 }
+# K1's f32 out at 9216 keys, also relative to max|plain|: |out| is only
+# ~0.1 there, so 1e-4 absolute would pass an error that grows with the key
+# count (one tensor-core accumulator over every key tile read 7.8e-5)
+K1_F32_LONG_REL_TOL = 2e-5
 # K1's bf16 out, also relative to max|plain|: a few bf16 ulps of the largest
 # output. With randn inputs over thousands of keys |out| is ~0.02, so 2e-2
 # alone would pass an error as large as the output itself
@@ -362,11 +373,12 @@ def k1_errors(q, k, v) -> tuple[float, float, float]:
             ref.float().abs().max().item())
 
 
-def k1_within(dt, err_o: float, err_l: float, top: float) -> bool:
-    """K1's errors within its bars: TOL["K1"] absolute, and in bf16 the output
-    within K1_BF16_REL_TOL of max|plain| too."""
-    return (err_o <= TOL["K1"][dt] and err_l <= TOL["K1"][dt] and
-            (dt == torch.float32 or err_o <= K1_BF16_REL_TOL * top))
+def k1_within(dt, err_o: float, err_l: float, top: float, sk: int = 0) -> bool:
+    """K1's errors within its bars: TOL["K1"] absolute, and the output within
+    K1_BF16_REL_TOL of max|plain| in bf16, K1_F32_LONG_REL_TOL in f32 at
+    9216 keys."""
+    rel = K1_BF16_REL_TOL if dt == torch.bfloat16 else K1_F32_LONG_REL_TOL if sk >= 9216 else 1.0
+    return err_o <= TOL["K1"][dt] and err_l <= TOL["K1"][dt] and err_o <= rel * top
 
 
 def phase_k1(gen: torch.Generator) -> dict:
@@ -406,7 +418,7 @@ def phase_k1(gen: torch.Generator) -> dict:
                   "bound_ms": bd.ms, "bound_by": bd.by, "parent_ms": parent_ms,
                   # f32: the bound at the FFMA rate of the f32 body this one replaced
                   "bound_ffma_ms": bound(4.0 * bh * s * s * d, "f32", nbytes).ms if f32 else None})
-            check(k1_within(dt, err_o, err_l, top),
+            check(k1_within(dt, err_o, err_l, top, s),
                   f"K1 {dt} {(bh, s, d)}: errors {err_o}, {err_l}, max|plain| {top}")
             worst[dt] = max(worst[dt], err_o, err_l)
             for i, t in enumerate((ms, plain_ms, bd, library_ms)):
@@ -419,13 +431,16 @@ def phase_k1(gen: torch.Generator) -> dict:
             emit({"phase": "K1_ragged", "dtype": str(dt), "shape": [bh, sq, sk, d],
                   "max_abs_err_out": err_o, "max_abs_err_lse2": err_l,
                   "output_max_abs": top, "rel_err_out": err_o / top})
-            check(k1_within(dt, err_o, err_l, top),
+            check(k1_within(dt, err_o, err_l, top, sk),
                   f"K1 {dt} ragged {(bh, sq, sk, d)}: errors {err_o}, {err_l}, max|plain| {top}")
             worst[dt] = max(worst[dt], err_o, err_l)
     return {"worst": worst, "per_image": per_image}
 
 
 def phase_k2(gen: torch.Generator) -> dict:
+    body = _build.load().fused_geglu_ff_f32_body().decode()
+    emit({"phase": "K2_f32_body", "body": body})
+    check(body.startswith("split TF32"), f"K2's f32 body is {body!r}")
     c = K2_SHAPE[2]
     inner = 4 * c
     w1 = (torch.rand(2 * inner, c, device="cuda", generator=gen) * 2 - 1) / c ** 0.5
@@ -435,7 +450,7 @@ def phase_k2(gen: torch.Generator) -> dict:
     worst, per_image = {dt: 0.0 for dt in DTYPES}, {}
     rgen = recipe_generator()
     for dt in DTYPES:
-        for (b, s, _), n in ((K2_SHAPE, K2_PER_FORWARD), (K2_RECIPE, 0)):
+        for (b, s, _), n in ((K2_SHAPE, K2_PER_FORWARD), (K2_BATCH, 0), (K2_RECIPE, 0)):
             x = torch.randn(b, s, c, device="cuda", generator=gen if n else rgen).to(dt)
             args = (x, w1.to(dt), b1, w2.to(dt), b2)
             y = ff.fused_geglu_ff(*args)
@@ -445,13 +460,20 @@ def phase_k2(gen: torch.Generator) -> dict:
             scale = ref.float().abs().max().item()
             ms = cuda_ms(lambda: ff.fused_geglu_ff(*args), 10)
             plain_ms = cuda_ms(lambda: ff._fused_geglu_ff_ref(*args), 10)
+            # the unfused feed-forward in x's dtype (TF32 off in f32): the
+            # yardstick, as no single PyTorch call computes K2's function
+            composition_ms = cuda_ms(lambda: ff._geglu_ff_composition(*args), 10)
             rows = b * s
-            bd = bound(6.0 * rows * c * inner, rate_of(dt),
+            f32 = dt == torch.float32
+            bd = bound(6.0 * rows * c * inner, "tf32x3" if f32 else "bf16",
                        (2 * rows * c + 3 * c * inner) * elt(dt) + 4 * (2 * inner + c))
             emit({"phase": "K2", "dtype": str(dt), "shape": [b, s, c],
-                  "max_abs_err": err, "output_max_abs": scale, "ms": ms,
-                  "plain_ms": plain_ms, "bound_ms": bd.ms, "bound_by": bd.by})
-            bar = TOL["K2"][dt] * (scale if dt == torch.float32 else 1.0)
+                  "max_abs_err": err, "output_max_abs": scale, "rel_err": err / scale,
+                  "ms": ms, "plain_ms": plain_ms, "composition_ms": composition_ms,
+                  "bound_ms": bd.ms, "bound_by": bd.by,
+                  # f32: the bound at the FFMA rate of the f32 body this one replaced
+                  "bound_ffma_ms": bound(6.0 * rows * c * inner, "f32", 0).ms if f32 else None})
+            bar = TOL["K2"][dt] * (scale if f32 else 1.0)
             check(err <= bar, f"K2 {dt} {(b, s, c)}: error {err} > {bar}")
             worst[dt] = max(worst[dt], err)
             if n:

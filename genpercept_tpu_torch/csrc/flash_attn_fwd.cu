@@ -111,11 +111,17 @@ constexpr float kNegInf = -1e30f;  // same sentinel as the TPU kernel
 //     columns t or g) meet no bank conflict.
 //   - Each pass of mma_3xtf32 runs over several n tiles, so consecutive mma
 //     never wait on each other's accumulator.
+//   - Each key tile's P V sums from zero in accumulators of its own (four
+//     column tiles at a time, P's hi and lo kept in registers), added to
+//     the rescaled O by f32 adds: the tensor cores truncate every sum into
+//     an accumulator, so O's error stays flat over the key count.
 //   - Each warp owns a 16-row part of the BQ = 16 * PARTS-row q tile and a
 //     1/SPLITS slice of d.
-//       d = 64: 4 warps, SPLITS 1, 32 keys a tile, NBUF 4 (two K and V
-//         stages, 34 KB); Q's hi/lo fragments stay in registers (64 a
-//         thread), loaded once per CTA.
+//       d = 64: 4 warps, SPLITS 1, 64 keys a tile, NBUF 3 (52 KB); Q's
+//         hi/lo fragments stay in registers (64 a thread), loaded once per
+//         CTA. With the per-tile P V accumulators, 64 keys a tile ran 2-6%
+//         faster than 32 with 4 buffers (the per-tile adds and barriers
+//         halve; PERF.md).
 //       d = 512, the VAE mid block, carries over the bf16 split body's
 //         structure: 8 warps, 2 row parts x 4 quarters of d, each with its
 //         (16, 128) accumulator (64 registers). Q's hi/lo for a quarter would
@@ -297,30 +303,45 @@ flash_attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__
       o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
     }
 
-    // V tile: O += P V over this warp's slice of V's columns
+    // V tile: O += P V over this warp's slice of V's columns; key 2t of
+    // group j at k position t, key 2t + 1 at t + 4. The tile's products sum
+    // into accumulators of their own, from zero, which are added to the
+    // rescaled O once per tile: the tensor cores truncate each sum into an
+    // accumulator, and over thousands of keys in one accumulator that bias
+    // grew with the length (7.8e-5 of max|plain| at 9216 keys). Column
+    // groups run outside the keys, so P's hi and lo stay live across them.
     cp_async_wait<NBUF - 2>();
     __syncthreads();
     load_tile(tile + NBUF);
     const float* Vt = ring + ((tile + 1) % NBUF) * BK * LD;
+    uint32_t ph[NS][4], pl[NS][4];
 #pragma unroll
     for (int j = 0; j < NS; ++j) {
-      // key 2t of group j at k position t, key 2t + 1 at t + 4
-      uint32_t ah[4], al[4];
-      split_tf32(s[j][0], ah[0], al[0]);
-      split_tf32(s[j][2], ah[1], al[1]);
-      split_tf32(s[j][1], ah[2], al[2]);
-      split_tf32(s[j][3], ah[3], al[3]);
-      const float* vp = Vt + (j * 8 + 2 * t) * LD + d0 + g;  // keys 2t, 2t+1, column g
+      split_tf32(s[j][0], ph[j][0], pl[j][0]);
+      split_tf32(s[j][2], ph[j][1], pl[j][1]);
+      split_tf32(s[j][1], ph[j][2], pl[j][2]);
+      split_tf32(s[j][3], ph[j][3], pl[j][3]);
+    }
 #pragma unroll
-      for (int n0 = 0; n0 < NO; n0 += kPvTiles) {
+    for (int n0 = 0; n0 < NO; n0 += kPvTiles) {
+      float part[kPvTiles][4];
+#pragma unroll
+      for (int n = 0; n < kPvTiles; ++n) part[n][0] = part[n][1] = part[n][2] = part[n][3] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const float* vp = Vt + (j * 8 + 2 * t) * LD + d0 + g;  // keys 2t, 2t+1, column g
         uint32_t vh[kPvTiles][2], vl[kPvTiles][2];
 #pragma unroll
         for (int n = 0; n < kPvTiles; ++n) {
           split_tf32(vp[(n0 + n) * 8], vh[n][0], vl[n][0]);
           split_tf32(vp[LD + (n0 + n) * 8], vh[n][1], vl[n][1]);
         }
-        mma_3xtf32<kPvTiles>(o + n0, ah, al, vh, vl);
+        mma_3xtf32<kPvTiles>(part, ph[j], pl[j], vh, vl);
       }
+#pragma unroll
+      for (int n = 0; n < kPvTiles; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n0 + n][e] += part[n][e];
     }
   }
 
@@ -1477,7 +1498,7 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* out,
   switch (d) {
     // <D, row parts, d slices, keys a tile, ring buffers>: the f32 body's
     // two instantiations (its note above)
-    case 64:  return launch_f32<64, 4, 1, 32, 4>(q, k, v, out, lse, bh, sq, sk, scale, stream);
+    case 64:  return launch_f32<64, 4, 1, 64, 3>(q, k, v, out, lse, bh, sq, sk, scale, stream);
     case 512: return launch_f32<512, 2, 4, 32, 2>(q, k, v, out, lse, bh, sq, sk, scale, stream);
     default:  return cudaErrorInvalidValue;
   }
@@ -1526,7 +1547,7 @@ cudaError_t dispatch_variant(const void* q, const void* k, const void* v, void* 
 
 // The f32 body flash_attn_fwd runs, for the record of a run.
 extern "C" const char* flash_attn_fwd_f32_body() {
-  return "split TF32: 3xTF32 mma.sync m16n8k8, cp.async K/V ring";
+  return "split TF32: 3xTF32 mma.sync m16n8k8, cp.async K/V ring, per-tile P.V accumulators";
 }
 
 // The bf16 body it runs at d = 64 (dispatch_bf16_d64).

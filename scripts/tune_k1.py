@@ -41,7 +41,8 @@ the first three of those. Every library runs in turns (all variants in order,
 then in reverse; CUDA events, mean of 10 calls after a warm-up), and one
 JSON line per shape gives SDPA's ms, the bound at the card's peak for the
 dtype (split TF32: a third of TF32's) and, per library, both times and the
-max abs error of out and lse2 against the plain version; a line before them
+max abs error of out and lse2 against the plain version and out's over
+max|plain|; a line before them
 gives the registers, spill bytes and ptxas advisories of each library's K1
 kernels. --check first holds every library to the card tests' bar (1e-4 f32,
 2e-2 bf16) at the card tests' ragged shapes of the dtype, errors printed,
@@ -212,8 +213,9 @@ def main(argv=None) -> None:
 
         def errors(q, k, v, out, lse):
             ref, ref_lse = fa._flash_bhsd_ref(q, k, v, q.shape[2] ** -0.5)
-            return [(out.float() - ref.float()).abs().max().item(),
-                    (lse - ref_lse).abs().max().item()]
+            err = (out.float() - ref.float()).abs().max().item()
+            return [err, (lse - ref_lse).abs().max().item(),
+                    err / ref.float().abs().max().item()]
 
         if args.check:
             for bh, sq, sk, d in CHECK[args.dtype]:
@@ -229,7 +231,7 @@ def main(argv=None) -> None:
                     torch.cuda.synchronize()
                     rec[name] = errors(q, k, v, out, lse)
                 print(json.dumps(rec), flush=True)
-                bad = [n for n in libs if not max(rec[n]) <= bar]
+                bad = [n for n in libs if not max(rec[n][:2]) <= bar]
                 if bad:
                     raise SystemExit(f"tune_k1: {bad} miss the bar {bar} at {(bh, sq, sk, d)}")
         shapes = [x for x in SHAPES[args.dtype] if args.d in (None, x[2])]

@@ -13,7 +13,11 @@ version) and 6e-2 (feed-forward, as the JAX package's bf16 test); K1's bf16
 output also within 2^-6 of max|plain|, a few bf16 ulps of the largest
 output (with randn inputs over thousands of keys |out| is ~0.02, so 2e-2
 alone passes an error as large as the output, such as one half of the
-d=512 body's O rescaled apart from the other, or a combine weight off). The
+d=512 body's O rescaled apart from the other, or a combine weight off).
+K1's f32 output at 9216 keys and K2's f32 output are also held to 2e-5 of
+max|plain|: both bodies run split TF32 on the tensor cores, which truncate
+every sum into an accumulator, and an error that grows with the length
+stays under 1e-4 absolute where |out| is ~0.1. The
 backward kernels K3/K4 are held to 1e-4 (f32) and 2e-2 (bf16) relative to
 max|plain| (bf16: dS and P are rounded after sums taken in another order),
 and in f32 at 9216 tokens to 2e-5 as well, which catches an error that grows
@@ -57,6 +61,8 @@ from genpercept_tpu_torch.ops import reference_kernels
 pytestmark = pytest.mark.cuda
 
 K1_BF16_REL = 2.0 ** -6  # K1's bf16 output, of max|plain|
+K1_F32_LONG_REL = 2e-5  # K1's f32 output at 9216 keys, of max|plain|
+K2_F32_REL = 2e-5  # K2's f32 output, of max|plain|
 
 
 @pytest.fixture
@@ -113,7 +119,45 @@ def test_fused_ff_kernel_matches_plain(gen, rows, dtype, tol):
     y = ff.fused_geglu_ff(x, w1, b1, w2, None)
     ref = ff._fused_geglu_ff_ref(x, w1, b1, w2, None)
     torch.cuda.synchronize()
-    assert (y.float() - ref.float()).abs().max().item() <= tol
+    err = (y.float() - ref.float()).abs().max().item()
+    assert err <= tol
+    assert dtype != torch.float32 or err <= K2_F32_REL * ref.abs().max().item()
+
+
+def _ff_f32_inputs(gen, rows):
+    c, inner = 320, 1280
+    x = torch.randn(1, rows, c, device="cuda", generator=gen)
+    w1 = (torch.rand(2 * inner, c, device="cuda", generator=gen) * 2 - 1) / c ** 0.5
+    b1 = torch.randn(2 * inner, device="cuda", generator=gen) * 0.1
+    w2 = (torch.rand(c, inner, device="cuda", generator=gen) * 2 - 1) / inner ** 0.5
+    b2 = torch.randn(c, device="cuda", generator=gen) * 0.1
+    return x, w1, b1, w2, b2
+
+
+def test_fused_ff_f32_body_is_split_tf32(gen):
+    """K2's f32 body runs its three products on the tensor cores through
+    split TF32 (3xTF32 mma.sync), which the library names."""
+    from genpercept_tpu_torch import _build
+    assert _build.load().fused_geglu_ff_f32_body().decode().startswith("split TF32")
+
+
+@pytest.mark.parametrize("rows", [9216, 2 * 9216, 8 * 4800])  # an image, the batch of 2, the recipe
+def test_fused_ff_f32_matches_plain_and_repeats_bit_for_bit(gen, rows):
+    """K2's f32 body at the main paths' row counts: within 2e-5 of max|plain|
+    (and the shared 1e-4), and two calls give the same bits. At 9216 rows a
+    row block's inner dimension is split over two CTAs whose outputs are
+    added into zeros by atomics: two addends onto zero land on the same bits
+    in either order."""
+    args = _ff_f32_inputs(gen, rows)
+    before = ff._fused_geglu_ff_fwd.launches
+    first = ff.fused_geglu_ff(*args)
+    second = ff.fused_geglu_ff(*args)
+    ref = ff._fused_geglu_ff_ref(*args)
+    torch.cuda.synchronize()
+    assert ff._fused_geglu_ff_fwd.launches == before + 2
+    assert torch.equal(first, second)
+    err = (first - ref).abs().max().item()
+    assert err <= 1e-4 and err <= K2_F32_REL * ref.abs().max().item(), err
 
 
 def _bwd_inputs(gen, bh, sq, sk, d, dtype):
@@ -173,6 +217,22 @@ def test_flash_bwd_f32_error_stays_flat_at_length(gen, bh, s, d):
     torch.cuda.synchronize()
     for a, b in zip(got, ref):
         assert (a - b).abs().max().item() <= 2e-5 * b.abs().max().item()
+
+
+@pytest.mark.parametrize("bh,s,d", [(5, 9216, 64), (1, 9216, 512)])  # chip_smoke.K1_SHAPES' longest
+def test_flash_fwd_f32_error_stays_flat_at_length(gen, bh, s, d):
+    """K1's f32 body sums each key tile's P V in accumulators of its own: the
+    tensor cores round every sum into an accumulator toward zero, and with
+    one accumulator over the key loop the error grew with the length (7.8e-5
+    of max|plain| at 9216 keys, d=64 and 512). out held to 2e-5 of
+    max|plain| here, which per-tile sums keep and one accumulator does not
+    (tests/test_torch_flash_f32.py models both); lse2 to the shared 1e-4."""
+    q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen) for _ in range(3))
+    out, lse = fa._flash_bhsd(q, k, v, d ** -0.5)
+    ref, ref_lse = fa._flash_bhsd_ref(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= K1_F32_LONG_REL * ref.abs().max().item()
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
 
 
 def test_flash_bf16_d64_body_is_wgmma(gen):

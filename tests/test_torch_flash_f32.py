@@ -110,7 +110,11 @@ def k1_emulated(q, k, v, scale: float, bk: int, mm=mm3):
 
 
 def _bk(d: int) -> int:
-    return 64 if d == 64 else 32  # the kernel's keys a tile
+    """The kernel's keys a tile at head dim d: BK of the f32 instantiation in
+    csrc/flash_attn_fwd.cu's dispatch."""
+    src = (_build.CSRC / "flash_attn_fwd.cu").read_text()
+    (bk,) = set(re.findall(rf"launch_f32<{d}, \d+, \d+, (\d+), \d+>", src))
+    return int(bk)
 
 
 def _inputs(seed: int, bh: int, sq: int, sk: int, d: int):
@@ -362,6 +366,65 @@ def test_k34_per_tile_accumulators_keep_long_error_flat(rows, s, d):
 
     def rel_err(per_tile):
         got = output_products(ds, k, _bc(d), per_tile)
+        return ((got.double() - exact).abs().max() / exact.abs().max()).item()
+
+    tile, once = rel_err(True), rel_err(False)
+    assert tile <= LONG_BAR / 10, tile
+    assert once > LONG_BAR, once
+
+
+def k1_pv_products(q, k, v, scale: float, bk: int, per_tile: bool):
+    """K1's f32 output with P V summed as the tensor cores sum it (S exact
+    from float64, rounded to f32): the online softmax over key tiles of bk,
+    o rescaled by alpha in f32 at each tile, and each k step of 8 keys three
+    mma (lo.hi, hi.lo, hi.hi) that round their sums toward zero
+    (``rz_f32``). per_tile: each tile's products sum from zero in
+    accumulators of their own, added to the rescaled o by f32 adds (the
+    kernel); else they sum into o itself, one accumulator over every tile.
+    q: (rows, d), k, v: (keys, d). -> out (rows, d)."""
+    c = scale * _LOG2E
+    s_all = (q.double() @ k.double().T).float()
+    vh, vl = (x.double() for x in split(v))
+    m = torch.full((q.shape[0], 1), NEG_INF)
+    l = torch.zeros((q.shape[0], 1))
+    o = torch.zeros(q.shape[0], v.shape[1])
+    for k0 in range(0, k.shape[0], bk):
+        s = s_all[:, k0:k0 + bk]
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp2(s * c - m_new * c)
+        alpha = torch.exp2((m - m_new) * c)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        m = m_new
+        o = o * alpha
+        ph, pl = (x.double() for x in split(p))
+        acc = torch.zeros_like(o) if per_tile else o
+        for j0 in range(0, p.shape[1], 8):
+            ks, kv = slice(j0, j0 + 8), slice(k0 + j0, k0 + j0 + 8)
+            for a, b in ((pl, vh), (ph, vl), (ph, vh)):
+                acc = rz_f32(acc.double() + a[:, ks] @ b[kv])
+        o = o + acc if per_tile else acc
+    return o / l
+
+
+# Readings (max abs error / max|exact|, per-tile / one accumulator) at 9216
+# keys, in the order of the cases below: 8.9e-7 / 9.1e-5, 6.5e-7 / 9.7e-5.
+# The card read 7.8e-5 at 9216 keys (d=64 and 512) with one accumulator
+# over the key loop.
+@pytest.mark.parametrize("rows,d", [(32, 64), (16, 512)])
+def test_k1_per_tile_accumulators_keep_long_error_flat(rows, d):
+    """K1's P V in f32 at 9216 keys: in one tensor-core accumulator over the
+    whole key loop, the truncation of every sum drifts past the card's
+    long-sequence bar (2e-5 of max|plain|, tests/test_torch_cuda.py), in
+    accumulators of their own per key tile it stays a tenth of it."""
+    rng = np.random.default_rng(39)
+    q = torch.from_numpy(rng.standard_normal((rows, d), dtype=np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((9216, d), dtype=np.float32))
+            for _ in range(2))
+    scale = d ** -0.5
+    exact = torch.softmax(q.double() @ k.double().T * scale, dim=-1) @ v.double()
+
+    def rel_err(per_tile):
+        got = k1_pv_products(q, k, v, scale, _bk(d), per_tile)
         return ((got.double() - exact).abs().max() / exact.abs().max()).item()
 
     tile, once = rel_err(True), rel_err(False)
