@@ -92,7 +92,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.flash_attn_fwd_scratch_bytes.argtypes = [i] * 5
     lib.flash_attn_fwd_scratch_bytes.restype = ctypes.c_longlong
     for name in ("flash_attn_fwd_f32_body", "flash_attn_fwd_bf16_body",
-                 "flash_attn_fwd_bf16_d512_body", "fused_geglu_ff_f32_body"):
+                 "flash_attn_fwd_bf16_d512_body", "fused_geglu_ff_f32_body",
+                 "fused_geglu_ff_bf16_body"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_char_p
     lib.flash_attn_fwd_tiled.argtypes = [p, p, p, p, p, i, i, i, i, f, i, i, i, p]
@@ -101,8 +102,10 @@ def _bind(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, i, i, i, i, f, i, i, p]
         fn.restype = i
-    lib.fused_geglu_ff_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+    lib.fused_geglu_ff_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
     lib.fused_geglu_ff_fwd.restype = i
+    lib.fused_geglu_ff_scratch_bytes.argtypes = [i] * 4
+    lib.fused_geglu_ff_scratch_bytes.restype = ctypes.c_longlong
     lib.flash_attn_bwd_f32_body.argtypes = []
     lib.flash_attn_bwd_f32_body.restype = ctypes.c_char_p
     lib.flash_attn_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, i, p]

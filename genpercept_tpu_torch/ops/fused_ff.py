@@ -107,10 +107,14 @@ def _fused_geglu_ff_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor | No
     b2f = _bias_f32(b2, c, x.device)
     y = torch.empty_like(x2)
     lib = _build.load()
+    rows = bsz * s
+    # the bf16 body's f32 partial sums of the row blocks it splits
+    nbytes = lib.fused_geglu_ff_scratch_bytes(rows, c, inner, code)
+    scratch = torch.empty(nbytes // 4, dtype=torch.float32, device=x.device) if nbytes else None
     err = lib.fused_geglu_ff_fwd(
         x2.data_ptr(), w1c.data_ptr(), b1f.data_ptr(), w2c.data_ptr(),
-        b2f.data_ptr(), y.data_ptr(), bsz * s, c, inner, code,
-        _dispatch.stream_handle(x))
+        b2f.data_ptr(), y.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        rows, c, inner, code, _dispatch.stream_handle(x))
     _build.check(err, "fused_geglu_ff_fwd")
     _fused_geglu_ff_fwd.launches += 1
     return y.reshape(bsz, s, c)
