@@ -13,9 +13,12 @@ Phases, each printed as a JSON line:
       shapes and the training recipe's, in f32 and bf16: max abs error and
       CUDA-event times (K1's bf16 output also relative to max|plain|, and
       its f32 output at 9216 keys); K1 also at two ragged shapes
-      (K1_RAGGED); K2 also at the pipeline's batch of 2 (K2_BATCH), relative
-      to max|plain| in f32, beside the unfused composition in the same
-      dtype (composition_ms) and with the name of its f32 body (split TF32);
+      (K1_RAGGED); K2 also at the pipeline's batch of 2 (K2_BATCH) and at
+      the card tests' ragged rows (K2_RAGGED), relative to max|plain| in f32
+      and, in bf16, also within 2^-6 of max|plain| and with a mean abs error
+      within K2_BF16_MEAN_REL_TOL of it, two calls bit for bit equal, beside
+      the unfused composition in the same dtype (composition_ms) and with
+      the names of its f32 body (split TF32) and its bf16 body (wgmma);
       K1 with the names of the f32 body the library holds (split TF32) and
       of the bf16 bodies at d=64 and d=512 (wgmma); K1 and K2 with the f32
       bound at the split-TF32 rate beside the FFMA rate of the body it
@@ -166,6 +169,16 @@ K1_F32_LONG_REL_TOL = 2e-5
 # output. With randn inputs over thousands of keys |out| is ~0.02, so 2e-2
 # alone would pass an error as large as the output itself
 K1_BF16_REL_TOL = 2.0 ** -6
+# K2's bf16 output, also relative to max|plain| (|out| is ~0.9 at the K2
+# inputs): the max within a few bf16 ulps, as K1's; and the mean abs error,
+# which a body whose running sum passes through bf16 after each 64-column
+# unit of the inner dimension exceeds ~37-fold (CPU model,
+# tests/test_torch_fused_ff_bf16.py) while its max stays under both max bars.
+# The parent mma.sync body and the wgmma one read 0.8e-6 to 1.4e-6 mean.
+K2_BF16_REL_TOL = 2.0 ** -6
+K2_BF16_MEAN_REL_TOL = 1e-5
+# ragged row counts (the card tests'): checked and timed, not counted
+K2_RAGGED = [(1, 96, 320), (1, 1000, 320)]
 DTYPES = (torch.float32, torch.bfloat16)
 # img/s: back-to-back .batch passes over at least this window and count
 WINDOW_S, MIN_PASSES = 3.0, 5
@@ -437,10 +450,24 @@ def phase_k1(gen: torch.Generator) -> dict:
     return {"worst": worst, "per_image": per_image}
 
 
+def k2_within(dt, err: float, mean: float, top: float) -> bool:
+    """K2's errors within its bars: in f32 max abs within TOL["K2"] of
+    max|plain|; in bf16 TOL["K2"] absolute, K2_BF16_REL_TOL of max|plain| and
+    a mean abs error within K2_BF16_MEAN_REL_TOL of max|plain|."""
+    if dt == torch.float32:
+        return err <= TOL["K2"][dt] * top
+    return (err <= TOL["K2"][dt] and err <= K2_BF16_REL_TOL * top
+            and mean <= K2_BF16_MEAN_REL_TOL * top)
+
+
 def phase_k2(gen: torch.Generator) -> dict:
-    body = _build.load().fused_geglu_ff_f32_body().decode()
+    lib = _build.load()
+    body = lib.fused_geglu_ff_f32_body().decode()
     emit({"phase": "K2_f32_body", "body": body})
     check(body.startswith("split TF32"), f"K2's f32 body is {body!r}")
+    body = lib.fused_geglu_ff_bf16_body().decode()
+    emit({"phase": "K2_bf16_body", "body": body})
+    check(body.startswith("wgmma"), f"K2's bf16 body is {body!r}")
     c = K2_SHAPE[2]
     inner = 4 * c
     w1 = (torch.rand(2 * inner, c, device="cuda", generator=gen) * 2 - 1) / c ** 0.5
@@ -449,14 +476,18 @@ def phase_k2(gen: torch.Generator) -> dict:
     b2 = torch.randn(c, device="cuda", generator=gen) * 0.1
     worst, per_image = {dt: 0.0 for dt in DTYPES}, {}
     rgen = recipe_generator()
+    shapes = [(K2_SHAPE, K2_PER_FORWARD), (K2_BATCH, 0), (K2_RECIPE, 0)] + [
+        (shape, 0) for shape in K2_RAGGED]
     for dt in DTYPES:
-        for (b, s, _), n in ((K2_SHAPE, K2_PER_FORWARD), (K2_BATCH, 0), (K2_RECIPE, 0)):
+        for (b, s, _), n in shapes:
             x = torch.randn(b, s, c, device="cuda", generator=gen if n else rgen).to(dt)
             args = (x, w1.to(dt), b1, w2.to(dt), b2)
             y = ff.fused_geglu_ff(*args)
+            again = ff.fused_geglu_ff(*args)
             ref = ff._fused_geglu_ff_ref(*args)
             torch.cuda.synchronize()
-            err = (y.float() - ref.float()).abs().max().item()
+            diff = (y.float() - ref.float()).abs()
+            err, mean = diff.max().item(), diff.mean().item()
             scale = ref.float().abs().max().item()
             ms = cuda_ms(lambda: ff.fused_geglu_ff(*args), 10)
             plain_ms = cuda_ms(lambda: ff._fused_geglu_ff_ref(*args), 10)
@@ -468,17 +499,20 @@ def phase_k2(gen: torch.Generator) -> dict:
             bd = bound(6.0 * rows * c * inner, "tf32x3" if f32 else "bf16",
                        (2 * rows * c + 3 * c * inner) * elt(dt) + 4 * (2 * inner + c))
             emit({"phase": "K2", "dtype": str(dt), "shape": [b, s, c],
-                  "max_abs_err": err, "output_max_abs": scale, "rel_err": err / scale,
+                  "max_abs_err": err, "mean_abs_err": mean, "output_max_abs": scale,
+                  "rel_err": err / scale, "mean_rel_err": mean / scale,
+                  "repeats": torch.equal(y, again),
                   "ms": ms, "plain_ms": plain_ms, "composition_ms": composition_ms,
                   "bound_ms": bd.ms, "bound_by": bd.by,
                   # f32: the bound at the FFMA rate of the f32 body this one replaced
                   "bound_ffma_ms": bound(6.0 * rows * c * inner, "f32", 0).ms if f32 else None})
-            bar = TOL["K2"][dt] * (scale if f32 else 1.0)
-            check(err <= bar, f"K2 {dt} {(b, s, c)}: error {err} > {bar}")
+            check(k2_within(dt, err, mean, scale),
+                  f"K2 {dt} {(b, s, c)}: error {err}, mean {mean}, max|plain| {scale}")
+            check(torch.equal(y, again), f"K2 {dt} {(b, s, c)}: two calls differ")
             worst[dt] = max(worst[dt], err)
             if n:
                 per_image[dt] = [n * ms, n * plain_ms, n * bd]
-            del x, args, y, ref
+            del x, args, y, again, ref, diff
     return {"worst": worst, "per_image": per_image}
 
 

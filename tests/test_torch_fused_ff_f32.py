@@ -180,7 +180,8 @@ def _tune_k2():
 
 def _tune_args(tile=(), ctas=(), split=()):
     import argparse
-    return argparse.Namespace(tile=list(tile), ctas=list(ctas), split=list(split), baseline=[])
+    return argparse.Namespace(dtype="f32", tile=list(tile), ctas=list(ctas), split=list(split),
+                              share=[], variant=[], baseline=[])
 
 
 def test_tune_k2_variants_edit_what_they_name():
