@@ -10,9 +10,10 @@ Phases, each printed as a JSON line:
   (b) build: compiles the CUDA kernels from genpercept_tpu_torch/csrc;
   (c) K1 flash attention and (d) K2 fused GEGLU feed-forward against their
       plain PyTorch versions on the card, at the inference path's 768^2
-      shapes and the training recipe's, in f32 and bf16: max abs error and
-      CUDA-event times (K1's bf16 output also relative to max|plain|, and
-      its f32 output at 9216 keys); K1 also at two ragged shapes
+      shapes, the training recipe's and the VAE mid block's at the
+      pipeline's batch of 2 and at 576x768 (K1_D512_MORE), in f32 and bf16:
+      max abs error and CUDA-event times (K1's bf16 output also relative to
+      max|plain|, and its f32 output at 9216 keys); K1 also at two ragged shapes
       (K1_RAGGED); K2 also at the pipeline's batch of 2 (K2_BATCH) and at
       the card tests' ragged rows (K2_RAGGED), relative to max|plain| in f32
       and, in bf16, also within 2^-6 of max|plain| and with a mean abs error
@@ -151,6 +152,9 @@ K1_PER_FORWARD = sum(n for _, n in K1_SHAPES)  # 17
 # generator of their own, so the 768^2 shapes and the models get the same
 # draws as without them
 K1_RECIPE = [(40, 4800, 64), (8, 4800, 512)]
+# the VAE mid block's K1 at the pipeline's batch of 2 and at the 480x640
+# call's 576x768 (6912 tokens): checked and timed beside SDPA, not counted
+K1_D512_MORE = [(2, 9216, 512), (1, 6912, 512)]
 # (bh, sq, sk, d) where a key tile is partial and a q tile has rows past Sq:
 # JAX's padded-KV test (2 x 3 heads, 256 queries, 77 keys) and a d=512 length
 # that is no multiple of 32; checked once each, inputs from the recipe's
@@ -410,7 +414,7 @@ def phase_k1(gen: torch.Generator) -> dict:
     per_image = {dt: [0.0, 0.0, Bound(), 0.0] for dt in DTYPES}
     rgen = recipe_generator()
     for dt in DTYPES:
-        for (bh, s, d), n in K1_SHAPES + [(x, 0) for x in K1_RECIPE]:
+        for (bh, s, d), n in K1_SHAPES + [(x, 0) for x in K1_RECIPE + K1_D512_MORE]:
             q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen if n else rgen).to(dt)
                        for _ in range(3))
             scale = d ** -0.5

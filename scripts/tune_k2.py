@@ -27,9 +27,10 @@ edit to a copy:
   bf16 (--dtype bf16), the wgmma body:
   --tile NWG,NB1,NB2  the instantiation (GP_K2_BF16) with 64 * NWG rows a
                    CTA (NWG consumer warpgroups, 1 or 2), NB1 slots of W1
-                   chunks and NB2 of W2 chunks in the TMA rings
+                   chunks and NB2 of W2 chunks in the TMA rings (x and the
+                   rings within a CTA's 227 KB of shared memory)
   --ctas blocks    wg_grid returning one CTA a row block (waves, no split
-                   block, no combine pass)
+                   block)
   --share N        the walk's least units a CTA (kWgMinShare)
   --variant onebuf one register buffer for a: each stage's down-product is
                    issued before its up-product and both retire before GEGLU,
