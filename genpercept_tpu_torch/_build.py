@@ -106,8 +106,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.fused_geglu_ff_fwd.restype = i
     lib.fused_geglu_ff_scratch_bytes.argtypes = [i] * 4
     lib.fused_geglu_ff_scratch_bytes.restype = ctypes.c_longlong
-    lib.flash_attn_bwd_f32_body.argtypes = []
-    lib.flash_attn_bwd_f32_body.restype = ctypes.c_char_p
+    for name in ("flash_attn_bwd_f32_body", "flash_attn_bwd_bf16_body"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_char_p
     lib.flash_attn_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, i, p]
     lib.flash_attn_bwd_dq.restype = i
     lib.flash_attn_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, f, i, p]

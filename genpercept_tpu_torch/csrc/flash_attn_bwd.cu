@@ -31,7 +31,8 @@
 // get P = 0, so ragged lengths need no padding.
 //
 // Bodies, for SD2.1's head dims 64 (UNet) and 512 (VAE mid block), all on
-// the tensor cores through mma.sync. Every warp owns 16 rows and a 64-wide
+// the tensor cores: mma.sync but for bf16 at d = 64, which runs wgmma. In the
+// mma.sync bodies every warp owns 16 rows and a 64-wide
 // slice of d; at d=512 the eight slices of a row group each write partial X
 // and Y to shared memory and every warp sums the eight in one fixed order,
 // so all eight hold identical P and dS (the d split K1 uses against the
@@ -63,15 +64,62 @@
 //         d=64 64 rows a CTA (4 warps), 32 columns a tile, 2 buffers, K4
 //         with A pre-split; d=512 16 rows a CTA (8 warps, one slice each),
 //         16 columns a tile, 2 buffers.
-//   - bf16 (flash_attn_bwd_mma_kernel): mma.sync m16n8k16, f32 accumulate,
-//     as K1. E1 and E2 go from the accumulator layout straight into A
-//     operands, rounded to bf16. At d=64 (4 warps x 16 rows) B1, B2 and K4's
-//     lse2 and dsum of a 64-column tile arrive by cp.async through a ring of
-//     NBUF tiles (K3 4, K4 2, by measurement), so the next tiles load while
-//     this one's products run, one barrier a tile; the d=512 instantiation
-//     (8 warps share 16 rows) loads each tile with every thread, two
-//     barriers a tile (NBUF 1).
-// wgmma, TMA and warp specialisation are later work.
+//   - bf16, d = 512 (flash_attn_bwd_mma_kernel): mma.sync m16n8k16, f32
+//     accumulate. E1 and E2 go from the
+//     accumulator layout straight into A operands, rounded to bf16; 8 warps
+//     share 16 rows, every thread loads each column tile, two barriers a
+//     tile.
+//   - bf16, d = 64 (flash_attn_bwd_wgmma_kernel): the products at the bf16
+//     tensor rate (K3 3, K4 4 a tile pair: 6 and 8 flop a logit per d) and
+//     beside them one exponential a logit on the 16-a-clock MUFU, which at
+//     d = 64 takes about half as long as K4's products. The design keeps the
+//     tensor cores fed and runs the exponentials while they work:
+//       * wgmma only. A consumer warpgroup owns 64 rows: A1 and A2 (64 rows
+//         of 128 bytes each, the 128-byte swizzle) land once by TMA. X and Y
+//         are m64n64k16, four k steps over d, both operands K-major from
+//         shared memory. P and E1 (and K4's E2) are computed in the
+//         accumulator layout, packed to bf16 pairs and are at once the
+//         register A operands of out1 += E1 B1 (and out2 += E2 B2), m64n64k16
+//         over the tile's 64 columns, which read the B tile [col][d]
+//         MN-major through the transpose bit, as K1 reads V: one copy of
+//         each B tile serves both of its products.
+//       * A producer warpgroup (setmaxnreg 24; the consumers take the rest)
+//         issues every copy by TMA into a ring of NBUF stages, a "full"
+//         mbarrier a stage and an "empty" one that every consumer thread
+//         arrives on once the tile's output products have retired: B1 and
+//         B2 by 3-D maps (rows past their length arrive as zeros), and in
+//         K4 the column tile's lse2 and dsum by flat 1-D maps over bh * sq
+//         f32 values, boxes from the 16-byte boundary at or before the
+//         tile's first column (a 2-D map would need 16-byte row strides,
+//         which ragged Sq lacks). K3 reads its rows' lse2 and dsum once into
+//         registers.
+//       * Each stage overlaps within its warpgroup: it issues tile j + 1's
+//         X and Y and tile j's first output product together, and once the
+//         first retire (wgmma.wait_group 1) the exponentials of tile j + 1
+//         run while the product is in flight; K4's second output product
+//         follows through the same registers, beside tile j + 1's dS. (K4
+//         with both products in flight at once, two tiles' parts beside
+//         two tiles' X and Y, spilled and ran 27% slower.) A stage is
+//         straight-line code from its first wgmma to its last wait, the
+//         mask of the last tile compiled into its own copy: where ptxas
+//         cannot follow a stage it serializes every wgmma (advisory C7514).
+//         Across warpgroups the SM overlaps too: K3 runs two CTAs a SM of
+//         one consumer warpgroup each, K4 one CTA of two consumer
+//         warpgroups (240 registers each; at 232, two CTAs a SM, it spilled
+//         24 bytes and ran 4% slower). Tilings by measurement
+//         (scripts/tune_k34.py --dtype bf16, PERF.md): rings of 4 column
+//         tiles.
+//       * Each tile's output products sum from zero into a part of their
+//         own, added to the running sums by f32 adds, as the TPU adds each
+//         block's product into its accumulator (one accumulator over the
+//         loop ran 8% faster, at twice the mean error).
+//     exp2 is ex2.approx.ftz. Columns past their length get P = 0 (keys past
+//     Sk in K3; queries past Sq in K4, whose lse2 would come from the next
+//     head or zeros; with the zero rows of Q and dO they would add nothing,
+//     but a mask keeps P finite whatever lse2 holds); rows past theirs are
+//     computed on zeros and not stored.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -394,52 +442,42 @@ cudaError_t launch_f32(const Args& a, int bh, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 body: RG row groups of 16 rows, D/64 slices of d, one warp per pair;
-// NBUF 1: B tiles loaded in rows by every thread, two barriers a tile;
-// NBUF >= 2: a cp.async ring of NBUF (B1, B2, lse2, dsum) tiles, filled
-// NBUF - 1 tiles ahead, one barrier a tile (pack_bf16, load_rows and
-// cp_async_rows are common.cuh's)
+// bf16 at d = 512: mma.sync (the file header). RG row groups of 16 rows, D/64
+// slices of d, one warp per pair; every thread loads each column tile's B
+// tiles and lse2/dsum, two barriers a tile (pack_bf16 and load_rows are
+// common.cuh's)
 
 constexpr int kPartLD = kBC + 8;  // partial X / Y row stride (floats)
 
-// 4 bytes global -> shared (.ca: the 16-byte form needs 16-byte runs); zero
-// where !valid (src must still be a mapped address)
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0));
-}
-
-template <int D, int RG, int NBUF>
+template <int D, int RG>
 struct MmaTiling {
   static constexpr int SPLIT = D / kDC;
   static constexpr int THREADS = 32 * RG * SPLIT;
   static constexpr int BR = 16 * RG;
   static constexpr int LD = D + 8;
   static constexpr int TILE = 2 * kBC * LD;  // B1 and B2 of one column tile (bf16)
-  static constexpr size_t B_BYTES = (size_t)NBUF * TILE * sizeof(__nv_bfloat16);
+  static constexpr size_t B_BYTES = (size_t)TILE * sizeof(__nv_bfloat16);
   static constexpr size_t PART_BYTES =
       SPLIT > 1 ? (size_t)2 * SPLIT * BR * kPartLD * sizeof(float) : 0;
-  static constexpr size_t BYTES = B_BYTES + PART_BYTES + NBUF * 2 * kBC * sizeof(float);
+  static constexpr size_t BYTES = B_BYTES + PART_BYTES + 2 * kBC * sizeof(float);
   static_assert(BR <= kBC, "A rows are staged through a B buffer");
 };
 
-template <int D, int RG, int NBUF, bool DKV>
-__global__ void __launch_bounds__(MmaTiling<D, RG, NBUF>::THREADS)
+template <int D, int RG, bool DKV>
+__global__ void __launch_bounds__(MmaTiling<D, RG>::THREADS)
 flash_attn_bwd_mma_kernel(Args args) {
-  using L = MmaTiling<D, RG, NBUF>;
+  using L = MmaTiling<D, RG>;
   constexpr int LD = L::LD;
   constexpr int KD = kDC / 16;  // k-steps of X and Y over this warp's slice
   constexpr int NS = kBC / 8;   // 8-col tiles of X and Y
   constexpr int NO = kDC / 8;   // 8-wide tiles of this warp's output slice
   extern __shared__ float4 smem4[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem4);  // [NBUF][B1, B2]
-  __nv_bfloat16* B1s = ring;
+  __nv_bfloat16* B1s = reinterpret_cast<__nv_bfloat16*>(smem4);
   __nv_bfloat16* B2s = B1s + kBC * LD;
-  float* Xp = reinterpret_cast<float*>(ring + NBUF * L::TILE);  // [SPLIT][BR][kPartLD]
+  float* Xp = reinterpret_cast<float*>(B1s + L::TILE);  // [SPLIT][BR][kPartLD]
   float* Yp = Xp + L::SPLIT * L::BR * kPartLD;
-  float* colv = reinterpret_cast<float*>(reinterpret_cast<char*>(smem4) + L::B_BYTES +
-                                         L::PART_BYTES);  // [NBUF][lse2, dsum][kBC]
-  float* col_lse = colv;
+  float* col_lse = reinterpret_cast<float*>(reinterpret_cast<char*>(smem4) + L::B_BYTES +
+                                            L::PART_BYTES);  // [lse2, dsum][kBC]
   float* col_dsum = col_lse + kBC;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -461,24 +499,6 @@ flash_attn_bwd_mma_kernel(Args args) {
   const float c = scale * kLog2e;
   const int ntile = (n_cols + kBC - 1) / kBC;
 
-  // ring: one commit group per column tile, empty past the last, so that
-  // "tile j has landed" is always cp.async.wait_group NBUF - 2 at tile j
-  auto load_tile = [&](int j) {
-    if (j < ntile) {
-      __nv_bfloat16* dst = ring + (j % NBUF) * L::TILE;
-      cp_async_rows<D, kBC, L::THREADS>(dst, b1, j * kBC, n_cols);
-      cp_async_rows<D, kBC, L::THREADS>(dst + kBC * LD, b2, j * kBC, n_cols);
-      if (DKV)
-        for (int i = threadIdx.x; i < 2 * kBC; i += L::THREADS) {
-          const int col = j * kBC + i % kBC;
-          const bool ok = col < n_cols;
-          cp_async4(colv + (j % NBUF) * 2 * kBC + i, (i < kBC ? lse : dsum) + (ok ? col : 0),
-                    ok);
-        }
-    }
-    cp_async_commit();
-  };
-
   // A1, A2 fragments of this warp's rows and slice, staged through B1s, B2s
   load_rows<D, L::THREADS>(B1s, a1, r0, n_rows, L::BR);
   load_rows<D, L::THREADS>(B2s, a2, r0, n_rows, L::BR);
@@ -489,11 +509,6 @@ flash_attn_bwd_mma_kernel(Args args) {
     const int off = (rg * 16 + mr + 8 * (mi % 2)) * LD + d0 + kd * 16 + 8 * (mi / 2);
     ldsm_x4(B1s + off, a1f[kd]);
     ldsm_x4(B2s + off, a2f[kd]);
-  }
-  if constexpr (NBUF > 1) {
-    __syncthreads();  // every warp has its A fragments before tile 0 lands there
-#pragma unroll
-    for (int j = 0; j < NBUF - 1; ++j) load_tile(j);
   }
   float row_lse[2] = {0.f, 0.f}, row_dsum[2] = {0.f, 0.f};
   if (!DKV)
@@ -514,26 +529,16 @@ flash_attn_bwd_mma_kernel(Args args) {
 
   for (int jt = 0; jt < ntile; ++jt) {
     const int c0 = jt * kBC;
-    if constexpr (NBUF > 1) {
-      cp_async_wait<NBUF - 2>();
-      __syncthreads();  // tile jt is visible; every warp is done with tile jt - 1
-      load_tile(jt + NBUF - 1);
-      B1s = ring + (jt % NBUF) * L::TILE;
-      B2s = B1s + kBC * LD;
-      col_lse = colv + (jt % NBUF) * 2 * kBC;
-      col_dsum = col_lse + kBC;
-    } else {
-      __syncthreads();  // staging, or the previous tile's B, partial and col reads, are done
-      load_rows<D, L::THREADS>(B1s, b1, c0, n_cols, kBC);
-      load_rows<D, L::THREADS>(B2s, b2, c0, n_cols, kBC);
-      if (DKV)
-        for (int j = threadIdx.x; j < kBC; j += L::THREADS) {
-          const bool ok = c0 + j < n_cols;
-          col_lse[j] = ok ? lse[c0 + j] : 0.f;
-          col_dsum[j] = ok ? dsum[c0 + j] : 0.f;
-        }
-      __syncthreads();
-    }
+    __syncthreads();  // staging, or the previous tile's B, partial and col reads, are done
+    load_rows<D, L::THREADS>(B1s, b1, c0, n_cols, kBC);
+    load_rows<D, L::THREADS>(B2s, b2, c0, n_cols, kBC);
+    if (DKV)
+      for (int j = threadIdx.x; j < kBC; j += L::THREADS) {
+        const bool ok = c0 + j < n_cols;
+        col_lse[j] = ok ? lse[c0 + j] : 0.f;
+        col_dsum[j] = ok ? dsum[c0 + j] : 0.f;
+      }
+    __syncthreads();
 
     float x[NS][4], y[NS][4];
 #pragma unroll
@@ -641,15 +646,342 @@ flash_attn_bwd_mma_kernel(Args args) {
   }
 }
 
-template <int D, int RG, int NBUF, bool DKV>
+template <int D, int RG, bool DKV>
 cudaError_t launch_mma(const Args& a, int bh, cudaStream_t stream) {
-  using L = MmaTiling<D, RG, NBUF>;
-  auto kern = flash_attn_bwd_mma_kernel<D, RG, NBUF, DKV>;
+  using L = MmaTiling<D, RG>;
+  auto kern = flash_attn_bwd_mma_kernel<D, RG, DKV>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::BYTES);
   if (err != cudaSuccess) return err;
   dim3 grid((a.n_rows + L::BR - 1) / L::BR, bh);
   kern<<<grid, L::THREADS, L::BYTES, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bf16 at d = 64: the wgmma body (the file header gives the design). NWG
+// consumer warpgroups of 64 rows a CTA, a ring of NBUF column tiles
+
+// K4's lse2 and dsum boxes: a column tile's kBC values and up to 3 before
+// them, so that every box starts on a 16-byte boundary (a 1-D TMA box at an
+// element offset off 16 bytes faults: an illegal instruction at Sq = 77)
+constexpr int kColBox = kBC + 4;
+
+template <int NWG, int NBUF>
+struct WgBwdTile {
+  static constexpr int BR = 64 * NWG;              // rows a CTA
+  static constexpr int CONSUMERS = 128 * NWG;
+  static constexpr int THREADS = CONSUMERS + 128;  // + the producer warpgroup
+  static constexpr int AB = 64 * 128;              // bytes of a warpgroup's A1 or A2
+  static constexpr int TB = kBC * 128;             // bytes of a B1 or B2 tile
+  static constexpr int STAGE = 2 * TB;             // B1 and B2 of a column tile
+  // K4: lse2 and dsum of a column tile, each a box of kColBox values from the
+  // 16-byte boundary at or before the tile's first, in a 384-byte slot
+  static constexpr int COLV = 2 * 384;
+  static constexpr size_t BYTES =
+      1024 + (size_t)NWG * 2 * AB + (size_t)NBUF * (STAGE + COLV) + 8 * (1 + 2 * NBUF);
+  // setmaxnreg as K1's bf16 bodies: a kernel starts with 64K / (THREADS *
+  // MINB) registers a thread, rounded down to 8; the producer keeps 24 and
+  // the consumers share the rest. Two CTAs a SM at one consumer warpgroup.
+  static constexpr int MINB = NWG == 1 ? 2 : 1;
+  static constexpr int REGS = 65536 / (THREADS * MINB) / 8 * 8;
+  static constexpr int PRODUCER_REGS = 24;
+  static constexpr int CONSUMER_REGS = REGS + (REGS - PRODUCER_REGS) / NWG / 8 * 8;
+  static_assert((NWG == 1 || NWG == 2) && NBUF >= 2, "warpgroups and ring");
+  static_assert(CONSUMER_REGS <= 256, "setmaxnreg takes 24..256");
+  static_assert(MINB * BYTES <= 232448, "shared memory of the CTAs of a SM");
+};
+
+template <int NWG, int NBUF, bool DKV>
+__global__ void __launch_bounds__(WgBwdTile<NWG, NBUF>::THREADS, WgBwdTile<NWG, NBUF>::MINB)
+flash_attn_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap ta1,
+                            const __grid_constant__ CUtensorMap ta2,
+                            const __grid_constant__ CUtensorMap tb1,
+                            const __grid_constant__ CUtensorMap tb2,
+                            const __grid_constant__ CUtensorMap tlse,
+                            const __grid_constant__ CUtensorMap tdsum, const Args args) {
+  using T = WgBwdTile<NWG, NBUF>;
+  constexpr int NS = kBC / 8;   // 8-column tiles of X and Y
+  constexpr int KP = kBC / 16;  // k steps of the output products
+  constexpr int NO = 8;         // 8-wide tiles of an output row (d = 64)
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* As = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);  // [NWG][A1, A2]
+  uint8_t* ring = As + NWG * 2 * T::AB;                          // [NBUF][B1, B2]
+  uint8_t* colv = ring + NBUF * T::STAGE;  // [NBUF][lse2, dsum][384 B]
+  uint64_t* a_full = reinterpret_cast<uint64_t*>(colv + NBUF * T::COLV);
+  uint64_t* full = a_full + 1;
+  uint64_t* empty = full + NBUF;
+
+  const int n_rows = args.n_rows, n_cols = args.n_cols;
+  const int r0 = blockIdx.x * T::BR;
+  const int bh = blockIdx.y;
+  const int ntile = (n_cols + kBC - 1) / kBC;
+
+  if (threadIdx.x == 0) {
+    mbar_init(a_full, 1);
+    for (int s = 0; s < NBUF; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, T::CONSUMERS);
+    }
+    fence_mbarrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x >= T::CONSUMERS) {  // the producer warpgroup
+    setmaxnreg_dec<T::PRODUCER_REGS>();
+    if (threadIdx.x == T::CONSUMERS) {
+      mbar_expect_tx(a_full, NWG * 2 * T::AB);
+      for (int w = 0; w < NWG; ++w) {
+        tma_load_3d(As + 2 * w * T::AB, &ta1, a_full, 0, r0 + 64 * w, bh);
+        tma_load_3d(As + (2 * w + 1) * T::AB, &ta2, a_full, 0, r0 + 64 * w, bh);
+      }
+      for (int i = 0; i < ntile; ++i) {
+        const int s = i % NBUF;
+        if (i >= NBUF) mbar_wait(empty + s, (i / NBUF - 1) & 1);  // tile i - NBUF released
+        mbar_expect_tx(full + s, T::STAGE + (DKV ? 2 * kColBox * 4 : 0));
+        tma_load_3d(ring + s * T::STAGE, &tb1, full + s, 0, i * kBC, bh);
+        tma_load_3d(ring + s * T::STAGE + T::TB, &tb2, full + s, 0, i * kBC, bh);
+        if constexpr (DKV) {  // this head's columns in the flat (bh * sq) maps
+          const int c0 = (bh * n_cols + i * kBC) & ~3;
+          tma_load_1d(colv + s * T::COLV, &tlse, full + s, c0);
+          tma_load_1d(colv + s * T::COLV + T::COLV / 2, &tdsum, full + s, c0);
+        }
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<T::CONSUMER_REGS>();
+
+  const int wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
+  const int t = lane % 4;  // rows lane / 4 and lane / 4 + 8 of the warp's 16, columns 2t, 2t + 1
+  const int row0 = r0 + wg * 64 + warp * 16 + lane / 4;
+  const uint8_t* A1w = As + 2 * wg * T::AB;
+  const uint8_t* A2w = A1w + T::AB;
+  const float scale = args.scale, c = scale * kLog2e;
+  // K4: where a column tile's first value lies in its lse2 and dsum boxes
+  const int col0 = (bh * n_cols) & 3;
+
+  // K3: lse2 and dsum of this thread's rows (queries)
+  float row_lse[2] = {0.f, 0.f}, row_dsum[2] = {0.f, 0.f};
+  if constexpr (!DKV)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (row0 + 8 * h < n_rows) {
+        row_lse[h] = args.lse[(size_t)bh * n_rows + row0 + 8 * h];
+        row_dsum[h] = args.dsum[(size_t)bh * n_rows + row0 + 8 * h];
+      }
+
+  float x[NS][4], y[NS][4];                  // X, Y of a column tile; then E1, E2 in f32
+  float acc1[NO][4], acc2[DKV ? NO : 1][4];  // out1, out2 over the column loop
+  float prod[NO][4];                         // a column tile's output product
+  uint32_t e1f[KP][4], e2f[DKV ? KP : 1][4];  // E1, E2 in bf16: the register A operands
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc1[n][e] = 0.f;
+      if constexpr (DKV) acc2[n][e] = 0.f;
+    }
+
+  // The descriptors of a chain step on from its tiles' bases by whole 16-byte
+  // units, from bases the compiler cannot hoist out of the column loop.
+  // X = A1 B1^T (m = 0) or Y = A2 B2^T (m = 1), both K-major
+  auto issue_xy = [&](int j, int m, float (&d)[NS][4]) {
+    const uint8_t* st = ring + (j % NBUF) * T::STAGE + m * T::TB;
+    const uint32_t step = opaque(0);
+    const uint64_t da = sw128_desc(m ? A2w : A1w), db = sw128_desc(st);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(d, da + step + 2 * kk, db + step + 2 * kk, kk);
+  };
+  // prod = E B1 (m = 0) or E B2 (m = 1): the B tile [col][d] read MN-major,
+  // 16 columns (2048 bytes) a k step
+  auto issue_out = [&](int j, int m, float (&prod)[NO][4], const uint32_t (&e)[KP][4]) {
+    const uint8_t* st = ring + (j % NBUF) * T::STAGE + m * T::TB;
+    const uint32_t step = opaque(0);
+    const uint64_t db = sw128_desc(st);
+#pragma unroll
+    for (int kk = 0; kk < KP; ++kk) wgmma_rs(prod, e[kk], db + step + 128 * kk, kk);
+  };
+  // P = exp2(X c - lse2) into x, 0 past the columns' end (MASK: the last
+  // tile). K4 reads each column's lse2 (the query's) from the ring
+  auto probs = [&](int j, auto mask) {
+    const float* cl = reinterpret_cast<const float*>(colv + (j % NBUF) * T::COLV) + col0;
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      float2 l2 = make_float2(row_lse[0], row_lse[1]);
+      if constexpr (DKV) l2 = make_float2(cl[n * 8 + 2 * t], cl[n * 8 + 2 * t + 1]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float le = (DKV ? e & 1 : e / 2) ? l2.y : l2.x;
+        const float p = ex2(fmaf(x[n][e], c, -le));
+        x[n][e] = decltype(mask)::value && j * kBC + n * 8 + 2 * t + (e & 1) >= n_cols ? 0.f : p;
+      }
+    }
+  };
+  // E1 = P (Y - dsum) scale into x and E2 = P into y, from P in x
+  auto grads = [&](int j) {
+    const float* cl =
+        reinterpret_cast<const float*>(colv + (j % NBUF) * T::COLV + T::COLV / 2) + col0;
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      float2 ds = make_float2(row_dsum[0], row_dsum[1]);
+      if constexpr (DKV) ds = make_float2(cl[n * 8 + 2 * t], cl[n * 8 + 2 * t + 1]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = x[n][e];
+        x[n][e] = p * (y[n][e] - ((DKV ? e & 1 : e / 2) ? ds.y : ds.x)) * scale;
+        y[n][e] = p;
+      }
+    }
+  };
+  // v rounded to bf16 pairs into the A operand e: k step n / 2, register
+  // 2 (n % 2) + r is the accumulator's n-tile n, row half r
+  auto pack = [&](auto& e, const float (&v)[NS][4]) {
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) e[n / 2][(n % 2) * 2 + r] = pack_bf16(v[n][2 * r], v[n][2 * r + 1]);
+  };
+  // a tile's output product, retired in prod, into a running sum: f32 adds
+  auto add_part = [&](float (&acc)[NO][4]) {
+    reg_fence(prod);
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += prod[n][e];
+  };
+  // X and Y of tile j, then E1 and E2 packed (the first tile)
+  auto xy_alone = [&](int j, auto mask) {
+    mbar_wait(full + j % NBUF, (j / NBUF) & 1);
+    reg_fence(x);
+    reg_fence(y);
+    wgmma_fence();
+    issue_xy(j, 0, x);
+    issue_xy(j, 1, y);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(x);
+    reg_fence(y);
+    probs(j, mask);
+    grads(j);
+    pack(e1f, x);
+    if constexpr (DKV) pack(e2f, y);
+  };
+  // tile j's output products one after the other, then its ring stage
+  // released (the last tile)
+  auto out_alone = [&](int j) {
+    reg_fence(prod);
+    reg_fence(e1f);
+    wgmma_fence();
+    issue_out(j, 0, prod, e1f);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(e1f);
+    add_part(acc1);
+    if constexpr (DKV) {
+      reg_fence(e2f);
+      wgmma_fence();
+      issue_out(j, 1, prod, e2f);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(e2f);
+      add_part(acc2);
+    }
+    mbar_arrive(empty + j % NBUF);
+  };
+  // Stage j, straight-line from its first wgmma to its last wait (ptxas
+  // serializes every wgmma when it cannot follow a stage): X and Y of tile
+  // j + 1 and out1's product of tile j on the tensor cores; once X and Y
+  // retire, tile j + 1's P while the product is in flight. In K4 out2's
+  // product follows through the same registers (two parts beside two tiles' X
+  // and Y spilled), beside tile j + 1's E. Then tile j's stage is released
+  // and tile j + 1's E packed.
+  auto stage = [&](int j, auto mask) {
+    mbar_wait(full + (j + 1) % NBUF, ((j + 1) / NBUF) & 1);
+    reg_fence(x);
+    reg_fence(y);
+    reg_fence(prod);
+    reg_fence(e1f);
+    wgmma_fence();
+    issue_xy(j + 1, 0, x);
+    issue_xy(j + 1, 1, y);
+    wgmma_commit();
+    issue_out(j, 0, prod, e1f);
+    wgmma_commit();
+    wgmma_wait<1>();  // X, Y retired; E1 B1 in flight
+    reg_fence(x);
+    reg_fence(y);
+    probs(j + 1, mask);
+    if constexpr (DKV) {
+      wgmma_wait<0>();
+      reg_fence(e1f);
+      add_part(acc1);
+      reg_fence(e2f);
+      wgmma_fence();
+      issue_out(j, 1, prod, e2f);
+      wgmma_commit();
+      grads(j + 1);
+      pack(e1f, x);
+      wgmma_wait<0>();
+      reg_fence(e2f);
+      mbar_arrive(empty + j % NBUF);
+      add_part(acc2);
+      pack(e2f, y);
+    } else {
+      grads(j + 1);
+      wgmma_wait<0>();
+      reg_fence(e1f);
+      mbar_arrive(empty + j % NBUF);
+      add_part(acc1);
+      pack(e1f, x);
+    }
+  };
+
+  mbar_wait(a_full, 0);
+  if (ntile == 1) xy_alone(0, std::true_type{});
+  else xy_alone(0, std::false_type{});
+  for (int j = 0; j + 2 < ntile; ++j) stage(j, std::false_type{});
+  if (ntile > 1) stage(ntile - 2, std::true_type{});  // the last tile may be partial
+  out_alone(ntile - 1);
+
+  __nv_bfloat16* out1 = static_cast<__nv_bfloat16*>(args.out1) + (size_t)bh * n_rows * 64;
+  __nv_bfloat16* out2 =
+      DKV ? static_cast<__nv_bfloat16*>(args.out2) + (size_t)bh * n_rows * 64 : nullptr;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    if (row >= n_rows) continue;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const size_t off = (size_t)row * 64 + n * 8 + 2 * t;
+      *reinterpret_cast<__nv_bfloat162*>(out1 + off) =
+          __floats2bfloat162_rn(acc1[n][2 * h], acc1[n][2 * h + 1]);
+      if constexpr (DKV)
+        *reinterpret_cast<__nv_bfloat162*>(out2 + off) =
+            __floats2bfloat162_rn(acc2[n][2 * h], acc2[n][2 * h + 1]);
+    }
+  }
+}
+
+// K3: A = (q, dout) rows of sq, B = (k, v) rows of sk; K4 the other way
+// round, with lse2 and dsum by the flat 1-D maps
+template <int NWG, int NBUF, bool DKV>
+cudaError_t launch_wgmma(const Args& a, int bh, cudaStream_t stream) {
+  using T = WgBwdTile<NWG, NBUF>;
+  const size_t sq = DKV ? a.n_cols : a.n_rows;
+  CUtensorMap ta1, ta2, tb1, tb2, tlse, tdsum;
+  if (!(tma_map_bhsd(&ta1, a.a1, 64, a.n_rows, bh, 64) &&
+        tma_map_bhsd(&ta2, a.a2, 64, a.n_rows, bh, 64) &&
+        tma_map_bhsd(&tb1, a.b1, 64, a.n_cols, bh, kBC) &&
+        tma_map_bhsd(&tb2, a.b2, 64, a.n_cols, bh, kBC) &&
+        tma_map_f32_1d(&tlse, a.lse, (size_t)bh * sq, kColBox) &&
+        tma_map_f32_1d(&tdsum, a.dsum, (size_t)bh * sq, kColBox)))
+    return cudaErrorInvalidValue;
+  auto kern = flash_attn_bwd_wgmma_kernel<NWG, NBUF, DKV>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::BYTES);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.n_rows + T::BR - 1) / T::BR, bh);
+  kern<<<grid, T::THREADS, T::BYTES, stream>>>(ta1, ta2, tb1, tb2, tlse, tdsum, a);
   return cudaGetLastError();
 }
 
@@ -663,10 +995,10 @@ cudaError_t dispatch(const Args& a, int bh, int d, int dtype, cudaStream_t s) {
   if (dtype == 0 && d == 512)
     return DKV ? launch_f32<512, 1, 8, 16, 2, false, true>(a, bh, s)
                : launch_f32<512, 1, 8, 16, 2, false, false>(a, bh, s);
-  // bf16: <D, RG, NBUF>
+  // bf16 d = 64: <NWG, NBUF>, K3 then K4; d = 512: <D, RG>
   if (dtype == 1 && d == 64)
-    return DKV ? launch_mma<64, 4, 2, true>(a, bh, s) : launch_mma<64, 4, 4, false>(a, bh, s);
-  if (dtype == 1 && d == 512) return launch_mma<512, 1, 1, DKV>(a, bh, s);
+    return DKV ? launch_wgmma<2, 4, true>(a, bh, s) : launch_wgmma<1, 4, false>(a, bh, s);
+  if (dtype == 1 && d == 512) return launch_mma<512, 1, DKV>(a, bh, s);
   return cudaErrorInvalidValue;
 }
 
@@ -674,6 +1006,10 @@ cudaError_t dispatch(const Args& a, int bh, int d, int dtype, cudaStream_t s) {
 
 extern "C" const char* flash_attn_bwd_f32_body() {
   return "split TF32: 3xTF32 mma.sync m16n8k8, cp.async column-tile ring";
+}
+
+extern "C" const char* flash_attn_bwd_bf16_body() {
+  return "wgmma m64n64k16, TMA ring of 64-column tiles, producer warpgroup, per-tile sums";
 }
 
 // q, dout, dq: (bh, sq, d); k, v, dk, dv: (bh, sk, d); all contiguous and of one

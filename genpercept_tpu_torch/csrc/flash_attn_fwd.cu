@@ -442,12 +442,6 @@ struct WgTile {
   static_assert(REGS <= 248 && CONSUMER_REGS <= 256, "setmaxnreg takes 24..256");
 };
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 template <int NWG, int BK, int NBUF>
 __global__ void __launch_bounds__(WgTile<NWG, BK, NBUF>::THREADS, WgTile<NWG, BK, NBUF>::MINB)
 flash_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,

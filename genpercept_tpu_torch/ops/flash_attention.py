@@ -24,7 +24,8 @@ memory:
   ``_flash_bwd_dkv_kernel``), via ``_flash_bwd_bhsd``: dq, and dk with dv,
   from the saved ``lse2`` and ``dsum = rowsum(dO*O)``; in f32 all of their
   products run through split TF32 as K1's, and the plain version stays
-  exact f32;
+  exact f32; in bf16 at d=64 they run on ``wgmma`` with their tiles (and
+  K4's lse2 and dsum) brought by TMA, one warpgroup a 64-row tile;
 - K6 ``csrc/flash_attn_int8.cu`` (TPU ``_flash_int8_kernel``), via
   ``_flash_int8_codes``: the inference-only W8A8 attention (section below);
 - S1-S4, the profiling scripts' variants of K1 (last section): K1's function

@@ -2,8 +2,9 @@
 """Tilings of K3/K4's bodies, timed beside the shipped ones and SDPA's backward.
 
     python3 scripts/tune_k34.py [--dtype f32|bf16] [--tile dq64:4,1,32,3,true ...]
-                                [--variant oneacc] [--baseline OLD/flash_attn_bwd.cu]
-                                [--shapes all|recipe|long]
+                                [--variant oneacc noexp nomath]
+                                [--baseline OLD/flash_attn_bwd.cu]
+                                [--shapes all|recipe|long|d64]
 
 Each variant is csrc/flash_attn_bwd.cu (with csrc/common.cuh) compiled by
 nvcc into a library of its own (scripts/kernel_variants.py), after one edit
@@ -15,24 +16,33 @@ to a copy:
                    P row parts of 16 rows, S slices of d, C columns a tile, N
                    ring buffers, A (true: A1 and A2 split once into hi and lo
                    in shared memory; false: split at each k step). bf16
-                   (launch_mma), e.g. dq64:4,2: RG row groups of 16 rows, N
-                   ring buffers (1: loaded by every thread, no ring)
-  --variant oneacc f32 only: each column tile's output products summed into
-                   dq (dk, dv) in one accumulator over the whole column loop,
-                   not into accumulators of their own: the tensor cores
-                   truncate every sum into an accumulator, so its error grows
-                   with the length (printed; the shipped body's does not)
+                   at d=64 (launch_wgmma), e.g. dkv64:2,3: W consumer
+                   warpgroups of 64 rows a CTA (1: two CTAs a SM), N ring
+                   stages of 64 columns. The bf16 d=512 body is one
+                   instantiation for both kernels and takes no --tile
+  --variant oneacc each column tile's output products summed into dq (dk,
+                   dv) in one accumulator over the whole column loop, not
+                   into accumulators of their own: the tensor cores truncate
+                   every sum into an accumulator, so its error grows with the
+                   length (printed; the shipped body's does not); in bf16
+                   also what the per-tile adds cost
+  --variant noexp  bf16 d=64 only, a timing probe with wrong results: P =
+                   X c - lse2 without the exponential, what the MUFU costs
+  --variant nomath bf16 d=64 only, a timing probe with wrong results: no P
+                   and no E, X and Y packed as they are: the products, the
+                   copies and the adds alone
   --baseline FILE  another flash_attn_bwd.cu (an earlier commit's, with its
                    own common.cuh beside it), as the variant "baseline"
 
 At chip_smoke.py's K3/K4 shapes (K34_RECIPE and K34_768; --shapes recipe for
-the first two, long for the two of 9216 tokens), in --dtype (default f32),
-every library runs in turns (all variants in order, then in reverse; CUDA
-events, mean of 5 calls after a warm-up), and one JSON line per shape gives
-SDPA's backward ms and, per library, K3's and K4's times and their errors
-(max abs of dq, dk, dv over max|plain|); a line before them gives the
-registers and spill bytes ptxas reports for each kernel. K1 (the package's)
-makes the forward's out and lse2. Needs the card and nvcc.
+the first two, long for the two of 9216 tokens, d64 for the four at head dim
+64), in --dtype (default f32), every library runs in turns (all variants in
+order, then in reverse; CUDA events, mean of 5 calls after a warm-up), and
+one JSON line per shape gives SDPA's backward ms and, per library, K3's and
+K4's times and their errors (max abs and mean abs of dq, dk, dv over
+max|plain|); a line before them gives the registers and spill bytes ptxas
+reports for each kernel. K1 (the package's) makes the forward's out and
+lse2. Needs the card and nvcc.
 """
 
 from __future__ import annotations
@@ -57,7 +67,8 @@ from kernel_variants import build_variants, card  # noqa: E402
 
 SHAPES = {"all": [s for s, _ in K34_RECIPE] + K34_768,
           "recipe": [s for s, _ in K34_RECIPE],
-          "long": [s for s in K34_768 if s[1] == 9216]}
+          "long": [s for s in K34_768 if s[1] == 9216],
+          "d64": [s for s in [s for s, _ in K34_RECIPE] + K34_768 if s[2] == 64]}
 REPS = 5
 # --variant oneacc: the tile's output products go straight into acc1/acc2
 SHIPPED_PART = """        float part[kOutTiles][4];
@@ -71,29 +82,59 @@ SHIPPED_ADD = """        float(*acc)[4] = (m ? acc2 : acc1) + n0;
           for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
 """
 ONE_ACC = "        float(*part)[4] = (m ? acc2 : acc1) + n0;\n"
+# the bf16 d=64 body's variants: (shipped text, edit, times it occurs)
+WG_EDITS = {
+    "oneacc": [
+        ("wgmma_rs(prod, e[kk], db + step + 128 * kk, kk);",
+         "wgmma_rs(prod, e[kk], db + step + 128 * kk, 1);", 1),
+        ("issue_out(j, 0, prod, e1f);", "issue_out(j, 0, acc1, e1f);", 2),
+        ("issue_out(j, 1, prod, e2f);", "issue_out(j, 1, acc2, e2f);", 2),
+        ("#pragma unroll\n    for (int n = 0; n < NO; ++n)\n#pragma unroll\n"
+         "      for (int e = 0; e < 4; ++e) acc[n][e] += prod[n][e];\n", "", 1)],
+    "noexp": [("const float p = ex2(fmaf(x[n][e], c, -le));",
+               "const float p = fmaf(x[n][e], c, -le);", 1)],
+    "nomath": [("  auto probs = [&](int j, auto mask) {\n",
+                "  auto probs = [&](int j, auto mask) {\n    return;\n", 1),
+               ("  auto grads = [&](int j) {\n", "  auto grads = [&](int j) {\n    return;\n", 1)],
+}
+
+
+def _instantiation(dtype: str, d: str, args_: str, dkv: str) -> tuple[str, str]:
+    """(pattern of the shipped instantiation, its replacement)"""
+    if dtype == "bf16" and d == "64":
+        return rf"launch_wgmma<[^<>]*, {dkv}>", f"launch_wgmma<{args_}, {dkv}>"
+    launcher = "launch_f32" if dtype == "f32" else "launch_mma"
+    return rf"{launcher}<{d}, [^<>]*, {dkv}>", f"{launcher}<{d}, {args_}, {dkv}>"
 
 
 def variants(args) -> dict[str, tuple[str, str]]:
-    launcher = "launch_f32" if args.dtype == "f32" else "launch_mma"
     src = (_build.CSRC / "flash_attn_bwd.cu").read_text()
     hdr = (_build.CSRC / "common.cuh").read_text()
     out = {"shipped": (src, hdr)}
     for spec in args.tile:
         edited = src
         for part in spec.split("+"):
-            m = re.fullmatch(r"(dq|dkv)(\d+):([a-z0-9,]+)", part)
+            m = re.fullmatch(r"(dq|dkv)(\d+):([A-Za-z0-9,]+)", part)
             if m is None:
                 raise SystemExit(f"--tile {part}: want dq64:ARGS or dkv512:ARGS")
             dkv = "true" if m.group(1) == "dkv" else "false"
-            args_ = m.group(3).replace(",", ", ")
-            edited, n = re.subn(rf"{launcher}<{m.group(2)}, [^<>]*, {dkv}>",
-                                f"{launcher}<{m.group(2)}, {args_}, {dkv}>", edited)
+            pattern, repl = _instantiation(args.dtype, m.group(2), m.group(3).replace(",", ", "),
+                                           dkv)
+            edited, n = re.subn(pattern, repl, edited)
             if n != 1:
                 raise SystemExit(f"--tile {part}: no single shipped instantiation to replace")
-        out[re.sub(r"[^a-z0-9]+", "_", spec)] = (edited, hdr)
+        out[re.sub(r"[^A-Za-z0-9]+", "_", spec)] = (edited, hdr)
     for name in args.variant:
-        if args.dtype != "f32" or SHIPPED_PART not in src or SHIPPED_ADD not in src:
-            raise SystemExit(f"--variant {name}: needs --dtype f32 and the shipped output products")
+        if args.dtype == "bf16":
+            edited = src
+            for old, new, times in WG_EDITS[name]:
+                if edited.count(old) != times:
+                    raise SystemExit(f"--variant {name}: the shipped bf16 body changed")
+                edited = edited.replace(old, new)
+            out[name] = (edited, hdr)
+            continue
+        if name != "oneacc" or SHIPPED_PART not in src or SHIPPED_ADD not in src:
+            raise SystemExit(f"--variant {name}: in f32 only oneacc, on the shipped products")
         out[name] = (src.replace(SHIPPED_PART, ONE_ACC).replace(SHIPPED_ADD, ""), hdr)
     if args.baseline:
         base = Path(args.baseline)
@@ -105,7 +146,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dtype", choices=("f32", "bf16"), default="f32")
     ap.add_argument("--tile", nargs="*", default=[])
-    ap.add_argument("--variant", nargs="*", default=[], choices=["oneacc"])
+    ap.add_argument("--variant", nargs="*", default=[], choices=list(WG_EDITS))
     ap.add_argument("--baseline", default=None)
     ap.add_argument("--shapes", choices=list(SHAPES), default="all")
     args = ap.parse_args(argv)
@@ -158,9 +199,10 @@ def main(argv=None) -> None:
                 r = rec.setdefault(name, {"ms_dq": [], "ms_dkv": []})
                 r["ms_dq"].append(cuda_ms(call_dq, REPS))
                 r["ms_dkv"].append(cuda_ms(call_dkv, REPS))
-                r["rel_err"] = [(a.float() - b.float()).abs().max().item()
-                                / b.float().abs().max().item()
-                                for a, b in zip((dq, dk, dv), ref)]
+                diffs = [((a.float() - b.float()).abs(), b.float().abs().max().item())
+                         for a, b in zip((dq, dk, dv), ref)]
+                r["rel_err"] = [e.max().item() / top for e, top in diffs]
+                r["mean_rel_err"] = [e.mean().item() / top for e, top in diffs]
             print(json.dumps(rec), flush=True)
             del q, k, v, do, out, lse, dsum, ref, dq, dk, dv
             torch.cuda.empty_cache()

@@ -450,7 +450,8 @@ def _tune_args(dtype, tile=(), variant=()):
 @pytest.mark.parametrize("dtype,tile,line", [
     ("f32", "dkv512:1,8,8,2,true", "launch_f32<512, 1, 8, 8, 2, true, true>"),
     ("f32", "dq64:4,1,32,3,true", "launch_f32<64, 4, 1, 32, 3, true, false>"),
-    ("bf16", "dq64:4,2", "launch_mma<64, 4, 2, false>"),
+    ("bf16", "dq64:2,3", "launch_wgmma<2, 3, false>"),
+    ("bf16", "dkv64:1,2", "launch_wgmma<1, 2, true>"),
 ])
 def test_tune_k34_replaces_one_instantiation(dtype, tile, line):
     """scripts/tune_k34.py builds a variant from the shipped source with the
@@ -478,5 +479,26 @@ def test_tune_k34_one_accumulator_variant():
     assert "float part[kOutTiles][4];" not in edited and "+= part[n][e]" not in edited
     assert edited.count("float(*part)[4] = (m ? acc2 : acc1) + n0;") == 1
     assert len(shipped.splitlines()) - len(edited.splitlines()) == 7
-    with pytest.raises(SystemExit):  # f32 only
-        mod.variants(_tune_args("bf16", variant=["oneacc"]))
+    with pytest.raises(SystemExit):  # the timing probes are bf16's
+        mod.variants(_tune_args("f32", variant=["noexp"]))
+
+
+@pytest.mark.parametrize("name,removed", [
+    ("oneacc", 4),  # the per-tile adds go; the products sum into the running sums
+    ("noexp", 0),
+    ("nomath", -2),  # P and E return at once
+])
+def test_tune_k34_bf16_variants_edit_what_they_name(name, removed):
+    """In bf16 --variant edits the d=64 wgmma body alone: oneacc sums the
+    output products into the running sums (no per-tile parts or adds),
+    noexp drops the exponential, nomath the P and E arithmetic."""
+    mod = _tune_k34()
+    out = mod.variants(_tune_args("bf16", variant=[name]))
+    shipped, edited = out["shipped"][0].splitlines(), out[name][0].splitlines()
+    assert len(shipped) - len(edited) == removed
+    assert "flash_attn_bwd_wgmma_kernel" in out[name][0] and out[name][0] != out["shipped"][0]
+    assert "f32_kernel" in out[name][0]  # the f32 body stays as it is
+    if name == "oneacc":
+        assert "acc[n][e] += prod[n][e];" not in out[name][0]
+    if name == "noexp":
+        assert "ex2(fmaf(x[n][e], c, -le))" not in out[name][0]
