@@ -106,7 +106,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.fused_geglu_ff_fwd.restype = i
     lib.fused_geglu_ff_scratch_bytes.argtypes = [i] * 4
     lib.fused_geglu_ff_scratch_bytes.restype = ctypes.c_longlong
-    for name in ("flash_attn_bwd_f32_body", "flash_attn_bwd_bf16_body"):
+    for name in ("flash_attn_bwd_f32_body", "flash_attn_bwd_bf16_body",
+                 "flash_attn_bwd_bf16_d512_body"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_char_p
     lib.flash_attn_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, i, p]

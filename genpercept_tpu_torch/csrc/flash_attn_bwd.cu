@@ -16,8 +16,8 @@
 // and both recompute P; in f32 every product is three tf32 products. Two
 // kernels, as on the TPU, so that no sum crosses CTAs: K3's CTA owns a q tile
 // and loops over k tiles, K4's owns a k tile and loops over q tiles holding
-// its dk and dv accumulators. No atomics: results
-// repeat bit for bit from run to run.
+// its dk and dv accumulators (bf16 at d = 512: one of them a pass, below).
+// No atomics: results repeat bit for bit from run to run.
 //
 // One body serves both kernels. A CTA owns a tile of "rows" and loops over
 // tiles of "cols" (64 in bf16; in f32 the tiling's BC):
@@ -31,12 +31,12 @@
 // get P = 0, so ragged lengths need no padding.
 //
 // Bodies, for SD2.1's head dims 64 (UNet) and 512 (VAE mid block), all on
-// the tensor cores: mma.sync but for bf16 at d = 64, which runs wgmma. In the
-// mma.sync bodies every warp owns 16 rows and a 64-wide
-// slice of d; at d=512 the eight slices of a row group each write partial X
-// and Y to shared memory and every warp sums the eight in one fixed order,
-// so all eight hold identical P and dS (the d split K1 uses against the
-// 227 KB limit), and each accumulates its slice of the outputs.
+// the tensor cores: mma.sync in f32, wgmma in bf16. In the f32 bodies every
+// warp owns 16 rows and a 64-wide slice of d; at d=512 the eight slices of a
+// row group each write partial X and Y to shared memory and every warp sums
+// the eight in one fixed order, so all eight hold identical P and dS (the d
+// split K1 uses against the 227 KB limit), and each accumulates its slice of
+// the outputs.
 //   - f32 (flash_attn_bwd_f32_kernel): split TF32, as K1's f32 body. Every
 //     operand x is split into hi = tf32(x), rounded to nearest with ties
 //     away, and lo = x - hi truncated (common.cuh split_tf32), and each
@@ -64,11 +64,65 @@
 //         d=64 64 rows a CTA (4 warps), 32 columns a tile, 2 buffers, K4
 //         with A pre-split; d=512 16 rows a CTA (8 warps, one slice each),
 //         16 columns a tile, 2 buffers.
-//   - bf16, d = 512 (flash_attn_bwd_mma_kernel): mma.sync m16n8k16, f32
-//     accumulate. E1 and E2 go from the
-//     accumulator layout straight into A operands, rounded to bf16; 8 warps
-//     share 16 rows, every thread loads each column tile, two barriers a
-//     tile.
+//   - bf16, d = 512 (flash_attn_bwd_wgmma_d512_kernel): the products at the
+//     bf16 tensor rate, eight times d = 64's work a logit, so the one
+//     exponential a logit is small beside them; what decides the design is
+//     where the operands and sums fit. The budgets:
+//       * registers: a 64-row f32 output over d = 512 is 128 KB, 128
+//         registers a thread over two warpgroups (as K1 holds O). K3 has one
+//         (dq); K4's two (dk, dv) would take the SM's whole register file,
+//         and shared memory cannot hold them either. So K4 runs two passes
+//         of the body, each a kernel of its own: the dk pass (S^T, dP^T,
+//         dk += dS^T Q: K3's structure, the roles swapped) and the dv pass
+//         (S^T, dv += round(P^T) dO: the forward's). Five products to the
+//         function's four, 25% more work. The dv pass is launched with PDL
+//         (programmatic dependent launch): it starts once every CTA of the
+//         dk pass has started, fills the dk pass's last wave, and ends only
+//         after the dk pass. No room for per-tile parts either (another 128
+//         registers): each output sums in one f32 accumulator over the
+//         column loop.
+//       * shared memory (232,448 bytes a CTA): A1 and A2 resident, 64 rows
+//         as 8 atoms of 64 columns each (2 x 64 KB; the dv pass loads A1
+//         alone); the E tile, 64 x 64 bf16, twice (16 KB); the column tiles
+//         stream as 64-column atoms (8 KB: 64 columns' rows of 64 values of
+//         d) through a ring of NBUF = 10 stages (80 KB). B1 is read by X and
+//         again, MN-major, by the output product, so its 8 atoms stay from X
+//         to the end of that product; B2 is read by Y alone, each atom
+//         released as its group retires. So Y runs first, then X, and tile
+//         j + 1's first B2 atoms land in the two spare stages, the rest as
+//         the output product releases B1's.
+//       * shared-memory bandwidth: a wgmma m64nNk16 with both operands in
+//         shared memory reads (64 + N) 32 bytes for 64 N 32 flop; at about
+//         4,100 dense bf16 flop and 128 bytes a clock an SM sits at the
+//         limit with N = 64 and needs 1.5x at N = 32.
+//     The design: a CTA of 64 rows, a producer warpgroup (setmaxnreg 40, one
+//     thread issuing every TMA copy onto a "full" mbarrier a stage, waiting
+//     on its "empty" one: the first product's A by the 3-D map, 8 atoms, then
+//     each column tile's 16 atoms, B2's then B1's (the dv pass: B1's then
+//     B2's), and in the XY passes A1 after the first tile's B2 atoms) and two
+//     consumer warpgroups (232 registers) that split X and Y by columns:
+//     warpgroup w computes both for the tile's columns 32 w.., as m64n32k16
+//     over d (4 k steps an atom). Its P and E in the accumulator layout,
+//     rounded to bf16, go into its half of the E tile in the 128-byte
+//     swizzle; a named barrier joins the two; then warpgroup w owns
+//     out[:, 256 w : 256 w + 256] and adds E B over its 4 atoms of B as
+//     m64n64k16, E K-major and B MN-major through the transpose bit, each
+//     atom released as its group retires. One product of an atom, not one
+//     m64n256k16 over four: the four atoms of a half need not lie in
+//     consecutive stages, so the ring takes 10 stages, not 8. Every thread
+//     waits on every atom of the stream in order (the dv pass's B2 atoms
+//     after X, where the XY passes wait on B1's) and releases the other
+//     warpgroup's half of the kept atoms at once; the code is the same in
+//     both warpgroups, only addresses differ (a branch by warpgroup around
+//     the waits made ptxas serialize every wgmma, advisory C7520, as did one
+//     kernel for both of K4's passes). K4 reads its columns' lse2 and dsum
+//     from global memory as a tile starts, so the loads land under its
+//     products. Each stage waits for its own products (wait_group 0 before
+//     any branch), so ptxas can follow every wgmma. Measured variants
+//     (scripts/tune_k34.py, PERF.md): rings of 8 to 10 stages within 1%, K4's
+//     passes launched without PDL up to 20% slower; E loaded into registers
+//     by ldmatrix for the output product (a quarter of its shared-memory
+//     reads) ran 5% slower and is not kept.
 //   - bf16, d = 64 (flash_attn_bwd_wgmma_kernel): the products at the bf16
 //     tensor rate (K3 3, K4 4 a tile pair: 6 and 8 flop a logit per d) and
 //     beside them one exponential a logit on the 16-a-clock MUFU, which at
@@ -119,6 +173,7 @@
 //     but a mask keeps P finite whatever lse2 holds); rows past theirs are
 //     computed on zeros and not stored.
 
+#include <atomic>
 #include <type_traits>
 
 #include "common.cuh"
@@ -128,8 +183,8 @@ namespace {
 using namespace gp;
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kBC = 64;  // cols per tile of the bf16 body
-constexpr int kDC = 64;  // the slice of d a warp owns
+constexpr int kBC = 64;  // cols per tile of the bf16 bodies
+constexpr int kDC = 64;  // the slice of d a warp of the f32 body owns
 
 struct Args {
   const void* a1;
@@ -433,223 +488,6 @@ template <int D, int PARTS, int SPLITS, int BC, int NBUF, bool APRE, bool DKV>
 cudaError_t launch_f32(const Args& a, int bh, cudaStream_t stream) {
   using L = F32Tile<D, PARTS, SPLITS, BC, NBUF, APRE>;
   auto kern = flash_attn_bwd_f32_kernel<D, PARTS, SPLITS, BC, NBUF, APRE, DKV>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::BYTES);
-  if (err != cudaSuccess) return err;
-  dim3 grid((a.n_rows + L::BR - 1) / L::BR, bh);
-  kern<<<grid, L::THREADS, L::BYTES, stream>>>(a);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// bf16 at d = 512: mma.sync (the file header). RG row groups of 16 rows, D/64
-// slices of d, one warp per pair; every thread loads each column tile's B
-// tiles and lse2/dsum, two barriers a tile (pack_bf16 and load_rows are
-// common.cuh's)
-
-constexpr int kPartLD = kBC + 8;  // partial X / Y row stride (floats)
-
-template <int D, int RG>
-struct MmaTiling {
-  static constexpr int SPLIT = D / kDC;
-  static constexpr int THREADS = 32 * RG * SPLIT;
-  static constexpr int BR = 16 * RG;
-  static constexpr int LD = D + 8;
-  static constexpr int TILE = 2 * kBC * LD;  // B1 and B2 of one column tile (bf16)
-  static constexpr size_t B_BYTES = (size_t)TILE * sizeof(__nv_bfloat16);
-  static constexpr size_t PART_BYTES =
-      SPLIT > 1 ? (size_t)2 * SPLIT * BR * kPartLD * sizeof(float) : 0;
-  static constexpr size_t BYTES = B_BYTES + PART_BYTES + 2 * kBC * sizeof(float);
-  static_assert(BR <= kBC, "A rows are staged through a B buffer");
-};
-
-template <int D, int RG, bool DKV>
-__global__ void __launch_bounds__(MmaTiling<D, RG>::THREADS)
-flash_attn_bwd_mma_kernel(Args args) {
-  using L = MmaTiling<D, RG>;
-  constexpr int LD = L::LD;
-  constexpr int KD = kDC / 16;  // k-steps of X and Y over this warp's slice
-  constexpr int NS = kBC / 8;   // 8-col tiles of X and Y
-  constexpr int NO = kDC / 8;   // 8-wide tiles of this warp's output slice
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* B1s = reinterpret_cast<__nv_bfloat16*>(smem4);
-  __nv_bfloat16* B2s = B1s + kBC * LD;
-  float* Xp = reinterpret_cast<float*>(B1s + L::TILE);  // [SPLIT][BR][kPartLD]
-  float* Yp = Xp + L::SPLIT * L::BR * kPartLD;
-  float* col_lse = reinterpret_cast<float*>(reinterpret_cast<char*>(smem4) + L::B_BYTES +
-                                            L::PART_BYTES);  // [lse2, dsum][kBC]
-  float* col_dsum = col_lse + kBC;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int rg = warp % RG, slice = warp / RG;
-  const int g = lane / 4, qd = lane % 4;  // accumulator row g (and g+8), cols 2qd, 2qd+1
-  const int mi = lane / 8, mr = lane % 8; // ldmatrix: matrix index, row in matrix
-  const int d0 = slice * kDC;
-  const int n_rows = args.n_rows, n_cols = args.n_cols;
-  const int r0 = blockIdx.x * L::BR;
-  const size_t bh = blockIdx.y;
-  const __nv_bfloat16* a1 = static_cast<const __nv_bfloat16*>(args.a1) + bh * n_rows * D;
-  const __nv_bfloat16* a2 = static_cast<const __nv_bfloat16*>(args.a2) + bh * n_rows * D;
-  const __nv_bfloat16* b1 = static_cast<const __nv_bfloat16*>(args.b1) + bh * n_cols * D;
-  const __nv_bfloat16* b2 = static_cast<const __nv_bfloat16*>(args.b2) + bh * n_cols * D;
-  const size_t sq = DKV ? n_cols : n_rows;
-  const float* lse = args.lse + bh * sq;
-  const float* dsum = args.dsum + bh * sq;
-  const float scale = args.scale;
-  const float c = scale * kLog2e;
-  const int ntile = (n_cols + kBC - 1) / kBC;
-
-  // A1, A2 fragments of this warp's rows and slice, staged through B1s, B2s
-  load_rows<D, L::THREADS>(B1s, a1, r0, n_rows, L::BR);
-  load_rows<D, L::THREADS>(B2s, a2, r0, n_rows, L::BR);
-  __syncthreads();
-  uint32_t a1f[KD][4], a2f[KD][4];
-#pragma unroll
-  for (int kd = 0; kd < KD; ++kd) {
-    const int off = (rg * 16 + mr + 8 * (mi % 2)) * LD + d0 + kd * 16 + 8 * (mi / 2);
-    ldsm_x4(B1s + off, a1f[kd]);
-    ldsm_x4(B2s + off, a2f[kd]);
-  }
-  float row_lse[2] = {0.f, 0.f}, row_dsum[2] = {0.f, 0.f};
-  if (!DKV)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = r0 + rg * 16 + g + 8 * h;
-      if (row < n_rows) {
-        row_lse[h] = lse[row];
-        row_dsum[h] = dsum[row];
-      }
-    }
-
-  float acc1[NO][4], acc2[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc1[n][j] = acc2[n][j] = 0.f;
-
-  for (int jt = 0; jt < ntile; ++jt) {
-    const int c0 = jt * kBC;
-    __syncthreads();  // staging, or the previous tile's B, partial and col reads, are done
-    load_rows<D, L::THREADS>(B1s, b1, c0, n_cols, kBC);
-    load_rows<D, L::THREADS>(B2s, b2, c0, n_cols, kBC);
-    if (DKV)
-      for (int j = threadIdx.x; j < kBC; j += L::THREADS) {
-        const bool ok = c0 + j < n_cols;
-        col_lse[j] = ok ? lse[c0 + j] : 0.f;
-        col_dsum[j] = ok ? dsum[c0 + j] : 0.f;
-      }
-    __syncthreads();
-
-    float x[NS][4], y[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) x[n][j] = y[n][j] = 0.f;
-#pragma unroll
-    for (int kd = 0; kd < KD; ++kd)
-#pragma unroll
-      for (int n = 0; n < NS; n += 2) {
-        const int off = (n * 8 + mr + 8 * (mi / 2)) * LD + d0 + kd * 16 + 8 * (mi % 2);
-        uint32_t b[4];
-        ldsm_x4(B1s + off, b);
-        mma_bf16(x[n], a1f[kd], b[0], b[1]);
-        mma_bf16(x[n + 1], a1f[kd], b[2], b[3]);
-        ldsm_x4(B2s + off, b);
-        mma_bf16(y[n], a2f[kd], b[0], b[1]);
-        mma_bf16(y[n + 1], a2f[kd], b[2], b[3]);
-      }
-    if constexpr (L::SPLIT > 1) {
-      // partial sums over d slices: publish, then sum all in a fixed order
-      float* xm = Xp + (slice * L::BR + rg * 16) * kPartLD;
-      float* ym = Yp + (slice * L::BR + rg * 16) * kPartLD;
-#pragma unroll
-      for (int n = 0; n < NS; ++n)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int off = (g + 8 * h) * kPartLD + n * 8 + 2 * qd;
-          *reinterpret_cast<float2*>(xm + off) = make_float2(x[n][2 * h], x[n][2 * h + 1]);
-          *reinterpret_cast<float2*>(ym + off) = make_float2(y[n][2 * h], y[n][2 * h + 1]);
-        }
-      __syncthreads();
-#pragma unroll
-      for (int n = 0; n < NS; ++n)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int off = (rg * 16 + g + 8 * h) * kPartLD + n * 8 + 2 * qd;
-          float2 sx = make_float2(0.f, 0.f), sy = sx;
-#pragma unroll
-          for (int s = 0; s < L::SPLIT; ++s) {
-            const float2 px = *reinterpret_cast<const float2*>(Xp + s * L::BR * kPartLD + off);
-            const float2 py = *reinterpret_cast<const float2*>(Yp + s * L::BR * kPartLD + off);
-            sx.x += px.x; sx.y += px.y;
-            sy.x += py.x; sy.y += py.y;
-          }
-          x[n][2 * h] = sx.x; x[n][2 * h + 1] = sx.y;
-          y[n][2 * h] = sy.x; y[n][2 * h + 1] = sy.y;
-        }
-    }
-
-    // P; E1 = P (Y - dsum) scale and E2 = P, rounded to bf16 as A operands
-    uint32_t e1f[NS / 2][4], e2f[NS / 2][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      float e1[4], e2[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = n * 8 + 2 * qd + (j & 1);
-        const float l2 = DKV ? col_lse[col] : row_lse[j / 2];
-        const float ds = DKV ? col_dsum[col] : row_dsum[j / 2];
-        const float p = (c0 + col < n_cols) ? exp2f(x[n][j] * c - l2) : 0.f;
-        e1[j] = p * (y[n][j] - ds) * scale;
-        e2[j] = p;
-      }
-      e1f[n / 2][(n % 2) * 2 + 0] = pack_bf16(e1[0], e1[1]);
-      e1f[n / 2][(n % 2) * 2 + 1] = pack_bf16(e1[2], e1[3]);
-      if (DKV) {
-        e2f[n / 2][(n % 2) * 2 + 0] = pack_bf16(e2[0], e2[1]);
-        e2f[n / 2][(n % 2) * 2 + 1] = pack_bf16(e2[2], e2[3]);
-      }
-    }
-#pragma unroll
-    for (int jk = 0; jk < NS / 2; ++jk)
-#pragma unroll
-      for (int n = 0; n < NO; n += 2) {
-        const int off = (jk * 16 + mr + 8 * (mi % 2)) * LD + d0 + n * 8 + 8 * (mi / 2);
-        uint32_t b[4];
-        ldsm_x4_trans(B1s + off, b);
-        mma_bf16(acc1[n], e1f[jk], b[0], b[1]);
-        mma_bf16(acc1[n + 1], e1f[jk], b[2], b[3]);
-        if (DKV) {
-          ldsm_x4_trans(B2s + off, b);
-          mma_bf16(acc2[n], e2f[jk], b[0], b[1]);
-          mma_bf16(acc2[n + 1], e2f[jk], b[2], b[3]);
-        }
-      }
-  }
-
-  __nv_bfloat16* out1 = static_cast<__nv_bfloat16*>(args.out1) + bh * n_rows * D;
-  __nv_bfloat16* out2 =
-      DKV ? static_cast<__nv_bfloat16*>(args.out2) + bh * n_rows * D : nullptr;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = r0 + rg * 16 + g + 8 * h;
-    if (row >= n_rows) continue;
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      const size_t off = (size_t)row * D + d0 + n * 8 + 2 * qd;
-      *reinterpret_cast<__nv_bfloat162*>(out1 + off) =
-          __floats2bfloat162_rn(acc1[n][2 * h], acc1[n][2 * h + 1]);
-      if (DKV)
-        *reinterpret_cast<__nv_bfloat162*>(out2 + off) =
-            __floats2bfloat162_rn(acc2[n][2 * h], acc2[n][2 * h + 1]);
-    }
-  }
-}
-
-template <int D, int RG, bool DKV>
-cudaError_t launch_mma(const Args& a, int bh, cudaStream_t stream) {
-  using L = MmaTiling<D, RG>;
-  auto kern = flash_attn_bwd_mma_kernel<D, RG, DKV>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::BYTES);
   if (err != cudaSuccess) return err;
@@ -985,6 +823,358 @@ cudaError_t launch_wgmma(const Args& a, int bh, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at d = 512: the wgmma body (the file header gives the design). CTAs of
+// 64 rows: two consumer warpgroups and a producer one; the column tiles'
+// 64-column atoms stream through a ring of NBUF atom stages
+
+// what a kernel of the d = 512 body computes: K3's dq, or K4's dk (its dk
+// pass: S^T, dP^T, dS^T Q) or dv (its dv pass: S^T, P^T dO)
+enum D512Pass { kPassDq, kPassDk, kPassDv };
+
+template <int NBUF>
+struct WgD512Bwd {
+  static constexpr int ATOMS = 8;                  // 64-column atoms of a 512 row
+  static constexpr int CONSUMERS = 256;            // two warpgroups
+  static constexpr int THREADS = CONSUMERS + 128;  // + the producer warpgroup
+  static constexpr int ATOM = 64 * 128;            // bytes of an atom: 64 rows of 64 bf16
+  static constexpr int NBAR = 2 + 2 * NBUF;        // A (two), full, empty
+  // A1 and A2 (8 atoms each), two E tiles (an atom each), the ring, the
+  // mbarriers
+  static constexpr size_t BYTES = 1024 + (size_t)(2 * ATOMS + 2 + NBUF) * ATOM + 8 * NBAR;
+  // setmaxnreg as K1's d = 512 body: 65536 / 384 rounded down to 8 at launch
+  static constexpr int REGS = 65536 / THREADS / 8 * 8;
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int CONSUMER_REGS = REGS + (REGS - PRODUCER_REGS) / 2 / 8 * 8;
+  static_assert(NBUF >= ATOMS, "a column tile's kept B atoms fit the ring");
+  static_assert(CONSUMER_REGS <= 256, "setmaxnreg takes 24..256");
+  static_assert(BYTES <= 232448, "shared memory of a CTA");
+};
+
+// The consumer warpgroups of one pass (the producer is the kernel's). Tile j
+// takes stream positions 16 j + a: first the 8 atoms of the B that one
+// product reads (B2 for Y; the dv pass's B1 for X), each released once read,
+// then the 8 of the B that the output product reads (B1, also read by X; the
+// dv pass's B2).
+template <int NBUF, int PASS>
+__device__ __forceinline__ void bwd_d512_consumer(const Args& args, const uint8_t* A1s,
+                                                  const uint8_t* A2s, uint8_t* Es,
+                                                  const uint8_t* ring, uint64_t* a1_full,
+                                                  uint64_t* full, uint64_t* empty, int ntile) {
+  using T = WgD512Bwd<NBUF>;
+  constexpr bool XY = PASS != kPassDv;      // E = dS from X and Y; the dv pass: E = P
+  constexpr bool BY_COL = PASS != kPassDq;  // lse2 and dsum of the column (K4)
+  constexpr int NS = 4;                     // 8-column tiles of a warpgroup's 32 columns
+  const int wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
+  const int t = lane % 4;
+  const int row0 = warp * 16 + lane / 4;  // this thread's rows row0 and row0 + 8 of the tile
+  const int n_rows = args.n_rows, n_cols = args.n_cols;
+  const int r0 = blockIdx.x * 64, bh = blockIdx.y;
+  const float scale = args.scale, c = scale * kLog2e;
+  auto stage = [&](int pos) { return ring + (pos % NBUF) * T::ATOM; };
+  auto parity = [&](int pos) { return (uint32_t)(pos / NBUF) & 1; };
+
+  // K3: lse2 and dsum of this thread's rows (queries)
+  float row_lse[2] = {0.f, 0.f}, row_dsum[2] = {0.f, 0.f};
+  if constexpr (!BY_COL)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (r0 + row0 + 8 * r < n_rows) {
+        row_lse[r] = args.lse[(size_t)bh * n_rows + r0 + row0 + 8 * r];
+        row_dsum[r] = args.dsum[(size_t)bh * n_rows + r0 + row0 + 8 * r];
+      }
+
+  float acc[4][8][4];  // out[:, 256 wg + 64 a + 8 n ..] over the column loop
+  float x[NS][4], y[NS][4];  // X, Y of this warpgroup's 32 columns of a tile
+  // K4: lse2 and dsum of this thread's columns (queries) of a tile, read
+  // from global memory as the tile starts, so that the loads land under its
+  // products (the dv pass reads no dsum)
+  float col_lse[BY_COL ? NS : 1][2], col_dsum[BY_COL && XY ? NS : 1][2];
+  auto load_cols = [&](int j) {
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = j * kBC + 32 * wg + 8 * n + 2 * t + h;
+        const bool ok = col < n_cols;
+        const size_t at = (size_t)bh * n_cols + (ok ? col : 0);
+        col_lse[n][h] = ok ? args.lse[at] : 0.f;
+        if constexpr (XY) col_dsum[n][h] = ok ? args.dsum[at] : 0.f;
+      }
+  };
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) acc[a][n][0] = acc[a][n][1] = acc[a][n][2] = acc[a][n][3] = 0.f;
+
+  // d = A B^T over d = 512 for the tile's columns 32 wg..: A the resident
+  // rows (atom a: their 64 columns of d from 64 a), B the atoms at stream
+  // positions p..p + 7 (rows 32 wg.. of each), m64n32k16, 4 k steps an atom.
+  // RELEASE: each atom's stage released once the group that reads it
+  // retires; else kept for the output product. The descriptors step on from
+  // a base the compiler cannot hoist out of the column loop.
+  auto products = [&](float (&d)[NS][4], const uint8_t* As, int p, auto release) {
+    const uint64_t da = sw128_desc(As) + opaque(0);
+    reg_fence(d);
+    wgmma_fence();
+#pragma unroll
+    for (int a = 0; a < T::ATOMS; ++a) {
+      mbar_wait(full + (p + a) % NBUF, parity(p + a));
+      const uint64_t db = sw128_desc(stage(p + a) + wg * 32 * 128);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss(d, da + (a * T::ATOM + 32 * kk) / 16, db + 2 * kk, a > 0 || kk > 0);
+      wgmma_commit();
+      if constexpr (decltype(release)::value)
+        if (a > 0) {
+          wgmma_wait<1>();  // the group of atom a - 1 retired
+          mbar_arrive(empty + (p + a - 1) % NBUF);
+        }
+    }
+    wgmma_wait<0>();
+    reg_fence(d);
+    if constexpr (decltype(release)::value) mbar_arrive(empty + (p + 7) % NBUF);
+  };
+  // P = exp2(X c - lse2), 0 past the columns' end; E = P (Y - dsum) scale (the
+  // dv pass: E = P), rounded to bf16 into this warpgroup's 32 columns of the
+  // 64 x 64 E tile in the 128-byte swizzle (chunk k of row r at k ^ (r % 8))
+  auto write_e = [&](int j, uint8_t* E) {
+    const bool ragged = (j + 1) * kBC > n_cols;
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      const int col = 32 * wg + 8 * n + 2 * t;  // the tile's column of e = 0, 2 (e = 1, 3: + 1)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float e[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float le = BY_COL ? col_lse[n][h] : row_lse[r];
+          float p = ex2(fmaf(x[n][2 * r + h], c, -le));
+          if (ragged && j * kBC + col + h >= n_cols) p = 0.f;
+          if constexpr (XY)
+            e[h] = p * (y[n][2 * r + h] - (BY_COL ? col_dsum[n][h] : row_dsum[r])) * scale;
+          else
+            e[h] = p;
+        }
+        const int row = row0 + 8 * r;
+        *reinterpret_cast<uint32_t*>(E + row * 128 + (((4 * wg + n) ^ (row & 7)) << 4) + 4 * t) =
+            pack_bf16(e[0], e[1]);
+      }
+    }
+  };
+  // acc[a] += E B[:, 256 wg + 64 a ..] for the atoms at stream positions p +
+  // 4 wg + a, read MN-major through the transpose bit, m64n64k16 over the
+  // tile's 64 columns, E K-major from shared memory; each atom released once
+  // its group retires
+  auto out_product = [&](const uint8_t* E, int p) {
+    const int own = p + 4 * wg;
+    const uint64_t de = sw128_desc(E) + opaque(0);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) reg_fence(acc[a]);
+    wgmma_fence();
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const uint64_t db = sw128_desc(stage(own + a));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss_tb(acc[a], de + 2 * kk, db + 128 * kk, 1);
+      wgmma_commit();
+    }
+    wgmma_wait<3>();
+    mbar_arrive(empty + own % NBUF);
+    wgmma_wait<2>();
+    mbar_arrive(empty + (own + 1) % NBUF);
+    wgmma_wait<1>();
+    mbar_arrive(empty + (own + 2) % NBUF);
+    wgmma_wait<0>();
+    mbar_arrive(empty + (own + 3) % NBUF);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) reg_fence(acc[a]);
+  };
+
+  for (int j = 0; j < ntile; ++j) {
+    const int p = 16 * j;
+    uint8_t* E = Es + (j % 2) * T::ATOM;
+    if constexpr (BY_COL) load_cols(j);
+    if constexpr (XY) {
+      products(y, A2s, p, std::true_type{});
+      mbar_wait(a1_full, 0);  // at once after the first tile
+      products(x, A1s, p + 8, std::false_type{});
+    } else {
+      products(x, A1s, p, std::true_type{});
+      // B2's atoms, which the output product alone reads, waited on in
+      // stream order where the XY passes' X waits on B1's: every thread sees
+      // every phase of every stage, and both passes synchronize alike
+#pragma unroll
+      for (int a = 0; a < 8; ++a) mbar_wait(full + (p + 8 + a) % NBUF, parity(p + 8 + a));
+    }
+    // the other warpgroup's half of the kept atoms, which this one reads in
+    // X alone (the dv pass: not at all). The code is the same in both
+    // warpgroups, only addresses differ: a branch by warpgroup around waits
+    // made ptxas serialize every wgmma (advisory C7520)
+#pragma unroll
+    for (int a = 0; a < 4; ++a) mbar_arrive(empty + (p + 8 + 4 * (1 - wg) + a) % NBUF);
+    // E of tile j into its own tile: the one of tile j - 2, which it
+    // overwrites, was read by output products that retired before either
+    // warpgroup reached tile j - 1's barrier
+    write_e(j, E);
+    fence_proxy_async();
+    named_barrier_sync<1, T::CONSUMERS>();
+    out_product(E, p + 8);
+  }
+
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(PASS == kPassDv ? args.out2 : args.out1) +
+                       (size_t)bh * n_rows * 512;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + row0 + 8 * r;
+    if (row >= n_rows) continue;
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * 512 + 256 * wg + 64 * a + 8 * n +
+                                           2 * t) =
+            __floats2bfloat162_rn(acc[a][n][2 * r], acc[a][n][2 * r + 1]);
+  }
+}
+
+template <int NBUF, int PASS>
+__global__ void __launch_bounds__(WgD512Bwd<NBUF>::THREADS, 1)
+flash_attn_bwd_wgmma_d512_kernel(const __grid_constant__ CUtensorMap ta1,
+                                 const __grid_constant__ CUtensorMap ta2,
+                                 const __grid_constant__ CUtensorMap tb1,
+                                 const __grid_constant__ CUtensorMap tb2, const Args args) {
+  using T = WgD512Bwd<NBUF>;
+  constexpr bool dv = PASS == kPassDv;  // no A2, no Y
+  // K4's dv pass may start once every CTA of its dk pass has started
+  if constexpr (PASS == kPassDk) griddep_launch_dependents();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* A1s = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);  // [8][64][128 B]
+  uint8_t* A2s = A1s + T::ATOMS * T::ATOM;
+  uint8_t* Es = A2s + T::ATOMS * T::ATOM;   // [2][64][128 B]
+  uint8_t* ring = Es + 2 * T::ATOM;         // [NBUF][64][128 B]
+  // the A of the first product (A2 for Y; the dv pass's A1), then the XY
+  // passes' A1, which lands after the first tile's B2 atoms
+  uint64_t* a_full = reinterpret_cast<uint64_t*>(ring + NBUF * T::ATOM);
+  uint64_t* full = a_full + 2;
+  uint64_t* empty = full + NBUF;
+  const int ntile = (args.n_cols + kBC - 1) / kBC;
+
+  if (threadIdx.x == 0) {
+    mbar_init(a_full, 1);
+    mbar_init(a_full + 1, 1);
+    for (int s = 0; s < NBUF; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, T::CONSUMERS);
+    }
+    fence_mbarrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x >= T::CONSUMERS) {  // the producer warpgroup
+    setmaxnreg_dec<T::PRODUCER_REGS>();
+    if (threadIdx.x == T::CONSUMERS) {
+      const int r0 = blockIdx.x * 64, bh = blockIdx.y;
+      auto load_a = [&](uint8_t* dst, const CUtensorMap* map, uint64_t* bar) {
+        mbar_expect_tx(bar, T::ATOMS * T::ATOM);
+        for (int a = 0; a < T::ATOMS; ++a) tma_load_3d(dst + a * T::ATOM, map, bar, 64 * a, r0, bh);
+      };
+      if (dv) load_a(A1s, &ta1, a_full);
+      else load_a(A2s, &ta2, a_full);
+      for (int pos = 0; pos < 16 * ntile; ++pos) {
+        const int s = pos % NBUF, j = pos / 16, a = pos % 16;
+        if (!dv && pos == 8) load_a(A1s, &ta1, a_full + 1);
+        if (pos >= NBUF) mbar_wait(empty + s, ((pos / NBUF) & 1) ^ 1);  // pos - NBUF released
+        mbar_expect_tx(full + s, T::ATOM);
+        tma_load_3d(ring + s * T::ATOM, (a < 8) == dv ? &tb1 : &tb2, full + s, 64 * (a % 8),
+                    j * kBC, bh);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<T::CONSUMER_REGS>();
+  mbar_wait(a_full, 0);
+  bwd_d512_consumer<NBUF, PASS>(args, A1s, A2s, Es, ring, a_full + 1, full, empty, ntile);
+  // the dv pass ends after the dk pass it may have overlapped, so that the
+  // stream's next work sees both outputs
+  if constexpr (PASS == kPassDv) griddep_wait();
+}
+
+// PDL: launched programmatically, to start while the stream's previous
+// kernel runs, once all its CTAs have started
+template <int NBUF, int PASS>
+cudaError_t launch_d512_pass(const CUtensorMap (&m)[4], const Args& a, int bh, bool pdl,
+                             cudaStream_t stream) {
+  using T = WgD512Bwd<NBUF>;
+  auto kern = flash_attn_bwd_wgmma_d512_kernel<NBUF, PASS>;
+  // the shared-memory limit set once a device (bit d of `done`): at the
+  // ragged lengths a call's host time is its time, and K4 launches twice
+  static std::atomic<uint64_t> done{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? 1ull << dev : 0;
+  if (!(done.load(std::memory_order_relaxed) & bit)) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::BYTES);
+    if (err != cudaSuccess) return err;
+    done.fetch_or(bit, std::memory_order_relaxed);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((a.n_rows + 63) / 64, bh);
+  cfg.blockDim = dim3(T::THREADS);
+  cfg.dynamicSmemBytes = T::BYTES;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kern, m[0], m[1], m[2], m[3], a);
+}
+
+// tma_map_bhsd at d = 512, memoized a thread: a map is a pure function of
+// its arguments (the base address, not the data), and at the ragged
+// lengths a call's host time, four encodes and two launches, is its time
+bool tma_map_d512(CUtensorMap* map, const void* base, int rows, int bh, int box_rows) {
+  struct Entry {
+    CUtensorMap map;
+    const void* base;
+    int rows, bh, box_rows;
+  };
+  thread_local Entry cache[8] = {};
+  thread_local int next = 0;
+  for (const Entry& e : cache)
+    if (e.base == base && e.rows == rows && e.bh == bh && e.box_rows == box_rows) {
+      *map = e.map;
+      return true;
+    }
+  if (!tma_map_bhsd(map, base, 512, rows, bh, box_rows)) return false;
+  cache[next] = Entry{*map, base, rows, bh, box_rows};
+  next = (next + 1) % 8;
+  return true;
+}
+
+// K3: A = (q, dout) rows of sq, B = (k, v) rows of sk; K4 the other way
+// round, its dk and dv passes as two kernels: as one kernel that picked its
+// pass by grid z, ptxas serialized every wgmma of both (advisory C7520), and
+// without that a dv CTA's column atoms stopped landing. PDL: the dv pass
+// starts once every dk CTA has started and fills the dk pass's last wave (at
+// small shapes the two run side by side: one launch's latency).
+template <int NBUF, bool PDL, bool DKV>
+cudaError_t launch_wgmma_d512(const Args& a, int bh, cudaStream_t stream) {
+  CUtensorMap m[4];  // A1, A2, B1, B2
+  if (!(tma_map_d512(&m[0], a.a1, a.n_rows, bh, 64) &&
+        tma_map_d512(&m[1], a.a2, a.n_rows, bh, 64) &&
+        tma_map_d512(&m[2], a.b1, a.n_cols, bh, kBC) &&
+        tma_map_d512(&m[3], a.b2, a.n_cols, bh, kBC)))
+    return cudaErrorInvalidValue;
+  if constexpr (!DKV) {
+    return launch_d512_pass<NBUF, kPassDq>(m, a, bh, false, stream);
+  } else {
+    const cudaError_t err = launch_d512_pass<NBUF, kPassDk>(m, a, bh, false, stream);
+    return err != cudaSuccess ? err : launch_d512_pass<NBUF, kPassDv>(m, a, bh, PDL, stream);
+  }
+}
+
 template <bool DKV>
 cudaError_t dispatch(const Args& a, int bh, int d, int dtype, cudaStream_t s) {
   if (bh <= 0 || a.n_rows <= 0 || a.n_cols <= 0) return cudaErrorInvalidValue;
@@ -995,10 +1185,12 @@ cudaError_t dispatch(const Args& a, int bh, int d, int dtype, cudaStream_t s) {
   if (dtype == 0 && d == 512)
     return DKV ? launch_f32<512, 1, 8, 16, 2, false, true>(a, bh, s)
                : launch_f32<512, 1, 8, 16, 2, false, false>(a, bh, s);
-  // bf16 d = 64: <NWG, NBUF>, K3 then K4; d = 512: <D, RG>
+  // bf16 d = 64: <NWG, NBUF>, K3 then K4; d = 512: <NBUF, PDL>, K3 then K4
   if (dtype == 1 && d == 64)
     return DKV ? launch_wgmma<2, 4, true>(a, bh, s) : launch_wgmma<1, 4, false>(a, bh, s);
-  if (dtype == 1 && d == 512) return launch_mma<512, 1, DKV>(a, bh, s);
+  if (dtype == 1 && d == 512)
+    return DKV ? launch_wgmma_d512<10, true, true>(a, bh, s)
+               : launch_wgmma_d512<10, true, false>(a, bh, s);
   return cudaErrorInvalidValue;
 }
 
@@ -1010,6 +1202,11 @@ extern "C" const char* flash_attn_bwd_f32_body() {
 
 extern "C" const char* flash_attn_bwd_bf16_body() {
   return "wgmma m64n64k16, TMA ring of 64-column tiles, producer warpgroup, per-tile sums";
+}
+
+extern "C" const char* flash_attn_bwd_bf16_d512_body() {
+  return "wgmma m64n32k16 and m64n64k16, two consumer warpgroups, TMA ring of 64-column atoms, "
+         "K4 as dk and dv passes";
 }
 
 // q, dout, dq: (bh, sq, d); k, v, dk, dv: (bh, sk, d); all contiguous and of one

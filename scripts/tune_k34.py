@@ -4,7 +4,7 @@
     python3 scripts/tune_k34.py [--dtype f32|bf16] [--tile dq64:4,1,32,3,true ...]
                                 [--variant oneacc noexp nomath]
                                 [--baseline OLD/flash_attn_bwd.cu]
-                                [--shapes all|recipe|long|d64]
+                                [--shapes all|recipe|long|d64|d512]
 
 Each variant is csrc/flash_attn_bwd.cu (with csrc/common.cuh) compiled by
 nvcc into a library of its own (scripts/kernel_variants.py), after one edit
@@ -18,8 +18,12 @@ to a copy:
                    in shared memory; false: split at each k step). bf16
                    at d=64 (launch_wgmma), e.g. dkv64:2,3: W consumer
                    warpgroups of 64 rows a CTA (1: two CTAs a SM), N ring
-                   stages of 64 columns. The bf16 d=512 body is one
-                   instantiation for both kernels and takes no --tile
+                   stages of 64 columns. bf16 at d=512
+                   (launch_wgmma_d512), e.g. dkv512:8,false: a ring of N
+                   stages of 64-column atoms (8 KB each; 8 to 10 fit beside
+                   the resident rows) and K4's dv pass launched
+                   programmatically, to overlap its dk pass (true: PDL), or
+                   after it (false; K3 ignores it)
   --variant oneacc each column tile's output products summed into dq (dk,
                    dv) in one accumulator over the whole column loop, not
                    into accumulators of their own: the tensor cores truncate
@@ -31,12 +35,15 @@ to a copy:
   --variant nomath bf16 d=64 only, a timing probe with wrong results: no P
                    and no E, X and Y packed as they are: the products, the
                    copies and the adds alone
+  --variant dkpass, dvpass  bf16 d=512 only, timing probes: K4 launches its
+                   dk (dv) pass alone, the other output unwritten
   --baseline FILE  another flash_attn_bwd.cu (an earlier commit's, with its
                    own common.cuh beside it), as the variant "baseline"
 
 At chip_smoke.py's K3/K4 shapes (K34_RECIPE and K34_768; --shapes recipe for
 the first two, long for the two of 9216 tokens, d64 for the four at head dim
-64), in --dtype (default f32), every library runs in turns (all variants in
+64, d512 for the two at head dim 512 and the ragged d=512 lengths of
+chip_smoke.K34_RAGGED, whose times are launch-bound), in --dtype (default f32), every library runs in turns (all variants in
 order, then in reverse; CUDA events, mean of 5 calls after a warm-up), and
 one JSON line per shape gives SDPA's backward ms and, per library, K3's and
 K4's times and their errors (max abs and mean abs of dq, dk, dv over
@@ -60,7 +67,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from chip_smoke import K34_768, K34_RECIPE, cuda_ms  # noqa: E402
+from chip_smoke import K34_768, K34_RAGGED, K34_RECIPE, cuda_ms  # noqa: E402
 from genpercept_tpu_torch import _build  # noqa: E402
 from genpercept_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from kernel_variants import build_variants, card  # noqa: E402
@@ -68,7 +75,9 @@ from kernel_variants import build_variants, card  # noqa: E402
 SHAPES = {"all": [s for s, _ in K34_RECIPE] + K34_768,
           "recipe": [s for s, _ in K34_RECIPE],
           "long": [s for s in K34_768 if s[1] == 9216],
-          "d64": [s for s in [s for s, _ in K34_RECIPE] + K34_768 if s[2] == 64]}
+          "d64": [s for s in [s for s, _ in K34_RECIPE] + K34_768 if s[2] == 64],
+          "d512": [s for s in [s for s, _ in K34_RECIPE] + K34_768 if s[2] == 512]
+          + [s for s in K34_RAGGED if s[3] == 512]}
 REPS = 5
 # --variant oneacc: the tile's output products go straight into acc1/acc2
 SHIPPED_PART = """        float part[kOutTiles][4];
@@ -96,15 +105,21 @@ WG_EDITS = {
     "nomath": [("  auto probs = [&](int j, auto mask) {\n",
                 "  auto probs = [&](int j, auto mask) {\n    return;\n", 1),
                ("  auto grads = [&](int j) {\n", "  auto grads = [&](int j) {\n    return;\n", 1)],
+    # the bf16 d=512 body's K4 as one of its two passes alone: timing probes
+    # (the other output is not written)
+    "dkpass": [("    return err != cudaSuccess ? err : launch_d512_pass<NBUF, kPassDv>(m, a, bh, PDL, "
+                "stream);", "    return err;", 1)],
+    "dvpass": [("    const cudaError_t err = launch_d512_pass<NBUF, kPassDk>(m, a, bh, false, stream);",
+                "    const cudaError_t err = cudaSuccess;", 1)],
 }
 
 
 def _instantiation(dtype: str, d: str, args_: str, dkv: str) -> tuple[str, str]:
     """(pattern of the shipped instantiation, its replacement)"""
-    if dtype == "bf16" and d == "64":
-        return rf"launch_wgmma<[^<>]*, {dkv}>", f"launch_wgmma<{args_}, {dkv}>"
-    launcher = "launch_f32" if dtype == "f32" else "launch_mma"
-    return rf"{launcher}<{d}, [^<>]*, {dkv}>", f"{launcher}<{d}, {args_}, {dkv}>"
+    if dtype == "bf16":
+        launcher = {"64": "launch_wgmma", "512": "launch_wgmma_d512"}.get(d, "launch_bf16")
+        return rf"{launcher}<[^<>]*, {dkv}>", f"{launcher}<{args_}, {dkv}>"
+    return rf"launch_f32<{d}, [^<>]*, {dkv}>", f"launch_f32<{d}, {args_}, {dkv}>"
 
 
 def variants(args) -> dict[str, tuple[str, str]]:
@@ -167,9 +182,10 @@ def main(argv=None) -> None:
                                     for n, (_, regs) in libs.items()}}), flush=True)
         gen = torch.Generator(device="cuda").manual_seed(0)
         stream = torch.cuda.current_stream().cuda_stream
-        for bh, s, d in SHAPES[args.shapes]:
-            q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=gen).to(dt)
-                           for _ in range(4))
+        for shape in SHAPES[args.shapes]:
+            bh, sq, sk, d = shape if len(shape) == 4 else (shape[0], shape[1], *shape[1:])
+            q, do = (torch.randn(bh, sq, d, device="cuda", generator=gen).to(dt) for _ in range(2))
+            k, v = (torch.randn(bh, sk, d, device="cuda", generator=gen).to(dt) for _ in range(2))
             scale = d ** -0.5
             out, lse = fa._flash_bhsd(q, k, v, scale)
             dsum = (do.float() * out.float()).sum(dim=-1, keepdim=True)
@@ -177,7 +193,7 @@ def main(argv=None) -> None:
             qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
             o_lib = torch.nn.functional.scaled_dot_product_attention(qg[None], kg[None],
                                                                      vg[None])[0]
-            rec = {"shape": [bh, s, d], "sdpa_bwd_ms": cuda_ms(
+            rec = {"shape": list(shape), "sdpa_bwd_ms": cuda_ms(
                 lambda: torch.autograd.grad(o_lib, (qg, kg, vg), do, retain_graph=True), REPS)}
             del qg, kg, vg, o_lib
             dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
@@ -187,13 +203,13 @@ def main(argv=None) -> None:
                 def call_dq():
                     _build.check(lib.flash_attn_bwd_dq(
                         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                        dsum.data_ptr(), dq.data_ptr(), bh, s, s, d, ctypes.c_float(scale), code,
+                        dsum.data_ptr(), dq.data_ptr(), bh, sq, sk, d, ctypes.c_float(scale), code,
                         stream), name)
 
                 def call_dkv():
                     _build.check(lib.flash_attn_bwd_dkv(
                         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                        dsum.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, s, s, d,
+                        dsum.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, sq, sk, d,
                         ctypes.c_float(scale), code, stream), name)
 
                 r = rec.setdefault(name, {"ms_dq": [], "ms_dkv": []})

@@ -216,6 +216,9 @@ def _bwd_inputs(gen, bh, sq, sk, d, dtype):
     # K4's bf16 d=64 body reads lse2/dsum of 64 queries from a flat map over
     # BH * Sq values: Sq = 77 puts a head's first column off 16 bytes
     (3, 77, 200, 64),
+    # the bf16 d=512 body's too (64-query tiles, the same maps), and K3 at
+    # fewer rows than its 64-row CTA
+    (1, 77, 200, 512), (2, 40, 300, 512),
 ])
 def test_flash_bwd_kernels_match_plain(gen, bh, sq, sk, d, dtype, tol):
     args = _bwd_inputs(gen, bh, sq, sk, d, dtype)
@@ -242,9 +245,17 @@ def test_flash_bwd_bf16_d64_body_is_wgmma(gen):
     assert _build.load().flash_attn_bwd_bf16_body().decode().startswith("wgmma")
 
 
+def test_flash_bwd_bf16_d512_body_is_wgmma(gen):
+    """K3/K4's bf16 body at d=512 runs its products on wgmma, which the
+    library names."""
+    from genpercept_tpu_torch import _build
+    assert _build.load().flash_attn_bwd_bf16_d512_body().decode().startswith("wgmma")
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bh,sq,sk,d", [(3, 200, 77, 64), (1, 300, 200, 512),
-                                        (8, 1200, 1200, 64), (40, 4800, 4800, 64)])
+                                        (8, 1200, 1200, 64), (40, 4800, 4800, 64),
+                                        (8, 4800, 4800, 512), (2, 9216, 9216, 512)])
 def test_flash_bwd_kernels_repeat_bit_for_bit(gen, bh, sq, sk, d, dtype):
     """No atomics: every output element is summed by one thread in one
     order, so two calls on the same inputs give the same bits."""
