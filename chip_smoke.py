@@ -66,11 +66,13 @@ Phases, each printed as a JSON line:
       load_calibration round trip into a fresh pipeline gives identical depth;
   (k) K8 fused GroupNorm -> SiLU -> conv3x3 (+ residual) against its plain
       version at every resblock convolution shape of a 768^2 forward (batch
-      2), f32 and bf16: error relative to max|plain| (border pixels too),
-      ms of the kernel, of its plain version, of the GroupNorm statistics the
-      wrapper computes around it and of the unfused composition (GN, SiLU,
-      cuDNN conv, + residual: the yardstick; no single PyTorch call computes
-      K8);
+      2), f32 and bf16: error relative to max|plain| (border pixels too;
+      f32 within 2e-5 of it), ms of the kernel, of its plain version, of the
+      GroupNorm statistics the wrapper computes around it and of the unfused
+      composition (GN, SiLU, cuDNN conv, + residual: the yardstick; no
+      single PyTorch call computes K8), with the name of the f32 body (split
+      TF32 on wgmma) and its bound at the split-TF32 rate beside the FFMA
+      rate of the body it replaced;
   (l) K7 W8A8 conv3x3 against its plain version (quant.qconv_apply) at
       scripts/profile_quant_conv_torch.py's shapes, batch 2, f32 and bf16
       (error 0.0); then K7's path, that script's profile() at batch 2 in
@@ -269,7 +271,11 @@ K8_SHAPES = [((768, 128, 128, False), 4), ((768, 128, 128, True), 5),
              ((192, 512, 512, True), 5), ((192, 512, 512, False), 4),
              ((96, 512, 512, False), 9), ((96, 512, 512, True), 9)]
 K8_PER_FORWARD = sum(n for _, n in K8_SHAPES)  # 48
-K8_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # of max|plain|
+# of max|plain|, whole output and border pixels. f32: the body runs split
+# TF32 on wgmma; 3xTF32 reads 1e-6-5e-6 here, a single TF32 pass ~3e-4 and one
+# accumulator over every chunk of C up to 3.7e-5 at C = 512, both past the bar
+# (tests/test_torch_fused_conv_f32.py models the two)
+K8_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # the fused-VAE slice: launches per 768^2 forward; the 480x640 call (576x768
 # processing) passes the predicate at every level
 FUSED_PER_FORWARD = {"K1": K1_PER_FORWARD, "K2": K2_PER_FORWARD, "K5": 0, "K6": 0, "K7": 0,
@@ -326,10 +332,6 @@ class Bound:
 
 def bound(ops: float, rate: str, nbytes: float) -> Bound:
     return Bound(ops / PEAK[rate] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3)
-
-
-def rate_of(dt) -> str:
-    return "f32" if dt == torch.float32 else "bf16"
 
 
 def elt(dt) -> int:
@@ -1131,10 +1133,14 @@ def unfused_conv(x, gs, gb, w, b, r):
 def phase_k8() -> dict:
     """K8 against its plain version on the same inputs and folded statistics
     at every resblock convolution shape of a 768^2 forward (batch 2)."""
+    body = _build.load().fused_gn_silu_conv3x3_f32_body().decode()
+    emit({"phase": "K8_f32_body", "body": body})
+    check(body.startswith("split TF32") and "wgmma" in body, f"K8's f32 body is {body!r}")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     worst = {dt: 0.0 for dt in DTYPES}
-    # per 768^2 forward and dtype: kernel, plain, bound, statistics, unfused ms
-    per_forward = {dt: [0.0, 0.0, Bound(), 0.0, 0.0] for dt in DTYPES}
+    # per 768^2 forward and dtype: kernel, plain, bound, statistics, unfused ms,
+    # and in f32 the bound at the FFMA rate of the body the split-TF32 one replaced
+    per_forward = {dt: [0.0, 0.0, Bound(), 0.0, 0.0, Bound()] for dt in DTYPES}
     for dt in DTYPES:
         for (hw, c, co, res), n in K8_SHAPES:
             def randn(*shape):
@@ -1161,24 +1167,29 @@ def phase_k8() -> dict:
             # x, residual and output once, the weight, a, b and the bias
             nbytes = ((c + co * (2 if res else 1)) * 2 * hw * hw + 9 * c * co) * elt(dt) \
                 + 4 * (4 * c + co)
-            bd = bound(2.0 * 9 * 2 * hw * hw * c * co, rate_of(dt), nbytes)
+            f32 = dt == torch.float32
+            ops = 2.0 * 9 * 2 * hw * hw * c * co
+            bd = bound(ops, "tf32x3" if f32 else "bf16", nbytes)
+            bd_ffma = bound(ops, "f32", nbytes) if f32 else Bound()
             emit({"phase": "K8", "dtype": str(dt), "shape": [2, c, hw, hw], "co": co,
                   "residual": res, "launches_per_forward": n, "max_abs_err": err,
                   "max_abs_err_border": err_border, "output_max_abs": scale,
-                  "rel_err": err / scale, "ms": ms,
+                  "rel_err": err / scale, "rel_err_border": err_border / scale, "ms": ms,
                   "plain_ms": plain_ms, "stats_ms": stats_ms, "unfused_ms": unfused_ms,
-                  "bound_ms": bd.ms, "bound_by": bd.by, "library_ms": None})
+                  "bound_ms": bd.ms, "bound_by": bd.by,
+                  "bound_ffma_ms": bd_ffma.ms if f32 else None, "library_ms": None})
             bar = K8_TOL[dt] * scale
             check(err <= bar and err_border <= bar, f"K8 {dt} {(hw, c, co, res)}: error {err}")
             worst[dt] = max(worst[dt], err)
-            for i, t in enumerate((ms, plain_ms, bd, stats_ms, unfused_ms)):
+            for i, t in enumerate((ms, plain_ms, bd, stats_ms, unfused_ms, bd_ffma)):
                 per_forward[dt][i] += n * t
             del x, r, a, bb
             torch.cuda.empty_cache()
-        k, p, bd, st, un = per_forward[dt]
+        k, p, bd, st, un, bd_ffma = per_forward[dt]
         emit({"phase": "K8_per_forward", "dtype": str(dt), "launches": K8_PER_FORWARD,
               "ms": k, "plain_ms": p, "stats_ms": st, "unfused_ms": un, "bound_ms": bd.ms,
-              "bound_by": bd.by})
+              "bound_by": bd.by,
+              "bound_ffma_ms": bd_ffma.ms if dt == torch.float32 else None})
     return {"worst": worst, "per_forward": per_forward}
 
 

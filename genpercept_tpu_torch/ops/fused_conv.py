@@ -85,6 +85,19 @@ def _fused_gn_silu_conv3x3_ref(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor
     return acc.to(dt)
 
 
+def _split_tf32_weights(conv_w: torch.Tensor) -> torch.Tensor:
+    """(Co, C, 3, 3) -> (2, 9, Co, C) f32: the f32 body's weights, split once a
+    call as the body splits its activated input (csrc/common.cuh split_tf32):
+    hi = w rounded to tf32 (10 mantissa bits) to nearest with ties away from
+    zero, by an add and a mask of the bits; lo = w - hi (exact in f32)
+    truncated to tf32. Taps in row-major order, input channels contiguous."""
+    co, c = conv_w.shape[:2]
+    w = conv_w.float().permute(2, 3, 0, 1).reshape(9, co, c).contiguous()
+    hi = ((w.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    lo = ((w - hi).view(torch.int32) & -0x2000).view(torch.float32)
+    return torch.stack((hi, lo))
+
+
 def _refuse_grad(name: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(f"{name} is inference only (no backward, as in the TPU "
@@ -127,11 +140,10 @@ def fused_conv_apply(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
             f"w {tuple(conv_w.shape)}, residual "
             f"{None if residual is None else (tuple(residual.shape), residual.dtype)}")
     a, b = a.float().contiguous(), b.float().contiguous()
-    wt = conv_w.to(x.dtype)
-    # bf16 body: (Co, 3, 3, C), channels contiguous per tap; f32 body:
-    # (3, 3, C, Co), output channels contiguous
-    wt = (wt.permute(2, 3, 1, 0) if x.dtype == torch.float32 else wt.permute(0, 2, 3, 1))
-    wt = wt.contiguous()
+    # bf16 body: (Co, 3, 3, C), channels contiguous per tap; f32 body: the
+    # weights split to tf32 hi and lo, (2, 9, Co, C)
+    wt = (_split_tf32_weights(conv_w) if x.dtype == torch.float32
+          else conv_w.to(x.dtype).permute(0, 2, 3, 1).contiguous())
     bias = _bias_f32(conv_b, co, x.device)
     xc = x.contiguous()
     res = None if residual is None else residual.contiguous()

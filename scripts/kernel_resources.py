@@ -19,7 +19,8 @@ kernel):
   sass            counts of SASS instructions in the kernel's code (each
                   instruction once, however often it runs): HMMA (mma.sync)
                   and HGMMA (wgmma) by shape and types (e.g.
-                  HMMA.1688.F32.TF32, HGMMA.64x128x16.F32.BF16), the others
+                  HMMA.1688.F32.TF32, HGMMA.64x128x16.F32.BF16, and K8's f32
+                  body's HGMMA.64x128x8.F32.TF32), the others
                   by mnemonic without modifiers (FFMA, LDS, LDGSTS = cp.async,
                   UTMALDG = TMA, SYNCS = mbarrier, ...), and the total
 

@@ -18,7 +18,8 @@ seed. Each function is timed with CUDA events (one warm-up, then the mean of
 
 and printed as one JSON line per level with TFLOP/s (2*9*H*W*C*Co*batch over
 each time), after chip_smoke's device lines (the card's name and power
-limit). Exits 1 without a CUDA device.
+limit) and, with --f32, a line naming K8's f32 body. Exits 1 without a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from chip_smoke import cuda_ms, phase_device  # noqa: E402
+from genpercept_tpu_torch import _build  # noqa: E402
 from genpercept_tpu_torch.ops import conv2d, group_norm  # noqa: E402
 from genpercept_tpu_torch.ops import fused_conv as fc  # noqa: E402
 
@@ -77,6 +79,9 @@ def main() -> None:
     args = ap.parse_args()
     phase_device()  # TF32 off for --f32
     dtype = torch.float32 if args.f32 else torch.bfloat16
+    if args.f32:
+        print(json.dumps({"f32_body": _build.load().fused_gn_silu_conv3x3_f32_body().decode()}),
+              flush=True)
     for rec in profile(args.batch, args.reps, dtype):
         print(json.dumps(rec), flush=True)
 

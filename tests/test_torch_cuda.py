@@ -36,7 +36,11 @@ K8, the fused GroupNorm -> SiLU -> conv3x3: 1e-4 (f32) and 2e-2 (bf16) of
 max|plain|, over the whole output and over its border pixels alone (the
 kernel and its plain version sum 9*C products in another order; in bf16 an
 activated input that rounds the other way moves a sum by one bf16 ulp of
-that input). K7, the W8A8 conv3x3: bit-identical to its plain version.
+that input); in f32 also 2e-5 of max|plain|: the body runs split TF32 on
+wgmma, and a single TF32 pass (~3e-4) or one tensor-core accumulator over
+all of K = 9*C (3.7e-5 at C = 512) reads past it
+(tests/test_torch_fused_conv_f32.py). K7, the W8A8 conv3x3: bit-identical
+to its plain version.
 The profiling scripts' kernels: S1, S3 and S4 2e-2 of max|plain|. S1 and
 S3 are K1's function at other CTA tiles: p is rounded against the running
 max, in the plain version against the global max. S4 (no running max)
@@ -69,6 +73,7 @@ pytestmark = pytest.mark.cuda
 K1_BF16_REL = 2.0 ** -6  # K1's bf16 output, of max|plain|
 K1_F32_LONG_REL = 2e-5  # K1's f32 output at 9216 keys, of max|plain|
 K2_F32_REL = 2e-5  # K2's f32 output, of max|plain|
+K8_F32_REL = 2e-5  # K8's f32 output and its border pixels, of max|plain|
 K2_BF16_REL = 2.0 ** -6  # K2's bf16 output, of max|plain|
 K2_BF16_MEAN_REL = 1e-5  # K2's bf16 mean abs error, of max|plain|
 K34_BF16_REL = 2.0 ** -6  # K3/K4's bf16 outputs, of max|plain|
@@ -597,6 +602,7 @@ def _border(t):
     (2, 128, 16, 24, 128, False), (1, 128, 20, 40, 256, True),  # ragged tiles
     (1, 256, 72, 96, 128, True), (2, 512, 16, 16, 512, False),
     (2, 128, 96, 96, 128, True),
+    (2, 512, 96, 96, 512, True),  # K = 9 * 512 = 4608 terms a sum
 ])
 def test_fused_conv_kernel_matches_plain(gen, n, c, h, w, co, res, dtype, tol):
     x = (torch.randn(n, c, h, w, device="cuda", generator=gen) * 2 + 0.5).to(dtype)
@@ -612,8 +618,33 @@ def test_fused_conv_kernel_matches_plain(gen, n, c, h, w, co, res, dtype, tol):
     assert fc.fused_gn_silu_conv3x3.launches == before + 1
     assert out.dtype == dtype and out.shape == (n, co, h, w)
     scale = ref.float().abs().max().item()
+    if dtype == torch.float32:
+        tol = min(tol, K8_F32_REL)
     assert (out.float() - ref.float()).abs().max().item() <= tol * scale
     assert (_border(out.float()) - _border(ref.float())).abs().max().item() <= tol * scale
+
+
+def test_fused_conv_f32_body_is_split_tf32(gen):
+    """K8's f32 body runs its products on the tensor cores through split
+    TF32 on wgmma, which the library names."""
+    from genpercept_tpu_torch import _build
+    body = _build.load().fused_gn_silu_conv3x3_f32_body().decode()
+    assert body.startswith("split TF32") and "wgmma" in body, body
+
+
+@pytest.mark.parametrize("n,c,h,w,co", [(1, 128, 20, 40, 256), (2, 512, 96, 96, 512)])
+def test_fused_conv_f32_repeats_bit_for_bit(gen, n, c, h, w, co):
+    """No atomics on the output and a fixed order of sums: two calls give
+    the same bits."""
+    x = torch.randn(n, c, h, w, device="cuda", generator=gen) * 2 + 0.5
+    gs, gb = (torch.randn(c, device="cuda", generator=gen) for _ in range(2))
+    cw = torch.randn(co, c, 3, 3, device="cuda", generator=gen) * (9 * c) ** -0.5
+    cb = torch.randn(co, device="cuda", generator=gen) * 0.1
+    r = torch.randn(n, co, h, w, device="cuda", generator=gen)
+    first = fc.fused_gn_silu_conv3x3(x, gs, gb, cw, cb, residual=r)
+    second = fc.fused_gn_silu_conv3x3(x, gs, gb, cw, cb, residual=r)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
