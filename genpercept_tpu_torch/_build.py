@@ -93,7 +93,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.flash_attn_fwd_scratch_bytes.restype = ctypes.c_longlong
     for name in ("flash_attn_fwd_f32_body", "flash_attn_fwd_bf16_body",
                  "flash_attn_fwd_bf16_d512_body", "fused_geglu_ff_f32_body",
-                 "fused_geglu_ff_bf16_body", "fused_gn_silu_conv3x3_f32_body"):
+                 "fused_geglu_ff_bf16_body", "fused_gn_silu_conv3x3_f32_body",
+                 "fused_gn_silu_conv3x3_bf16_body"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_char_p
     lib.flash_attn_fwd_tiled.argtypes = [p, p, p, p, p, i, i, i, i, f, i, i, i, p]

@@ -98,6 +98,13 @@ def _split_tf32_weights(conv_w: torch.Tensor) -> torch.Tensor:
     return torch.stack((hi, lo))
 
 
+def _tap_major_weights(conv_w: torch.Tensor) -> torch.Tensor:
+    """(Co, C, 3, 3) -> (9, Co, C): the bf16 body's weights, one (Co, C) slice
+    a tap in row-major tap order, input channels contiguous."""
+    co, c = conv_w.shape[:2]
+    return conv_w.permute(2, 3, 0, 1).reshape(9, co, c).contiguous()
+
+
 def _refuse_grad(name: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(f"{name} is inference only (no backward, as in the TPU "
@@ -140,10 +147,10 @@ def fused_conv_apply(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
             f"w {tuple(conv_w.shape)}, residual "
             f"{None if residual is None else (tuple(residual.shape), residual.dtype)}")
     a, b = a.float().contiguous(), b.float().contiguous()
-    # bf16 body: (Co, 3, 3, C), channels contiguous per tap; f32 body: the
-    # weights split to tf32 hi and lo, (2, 9, Co, C)
+    # bf16 body: (9, Co, C), each tap's slice K-major; f32 body: the weights
+    # split to tf32 hi and lo, (2, 9, Co, C)
     wt = (_split_tf32_weights(conv_w) if x.dtype == torch.float32
-          else conv_w.to(x.dtype).permute(0, 2, 3, 1).contiguous())
+          else _tap_major_weights(conv_w.to(x.dtype)))
     bias = _bias_f32(conv_b, co, x.device)
     xc = x.contiguous()
     res = None if residual is None else residual.contiguous()

@@ -18,8 +18,8 @@ seed. Each function is timed with CUDA events (one warm-up, then the mean of
 
 and printed as one JSON line per level with TFLOP/s (2*9*H*W*C*Co*batch over
 each time), after chip_smoke's device lines (the card's name and power
-limit) and, with --f32, a line naming K8's f32 body. Exits 1 without a CUDA
-device.
+limit) and a line naming K8's body of the dtype (the bf16 body, or with
+--f32 the f32 body). Exits 1 without a CUDA device.
 """
 
 from __future__ import annotations
@@ -79,8 +79,11 @@ def main() -> None:
     args = ap.parse_args()
     phase_device()  # TF32 off for --f32
     dtype = torch.float32 if args.f32 else torch.bfloat16
+    lib = _build.load()
     if args.f32:
-        print(json.dumps({"f32_body": _build.load().fused_gn_silu_conv3x3_f32_body().decode()}),
+        print(json.dumps({"f32_body": lib.fused_gn_silu_conv3x3_f32_body().decode()}), flush=True)
+    else:
+        print(json.dumps({"bf16_body": lib.fused_gn_silu_conv3x3_bf16_body().decode()}),
               flush=True)
     for rec in profile(args.batch, args.reps, dtype):
         print(json.dumps(rec), flush=True)

@@ -39,7 +39,11 @@ activated input that rounds the other way moves a sum by one bf16 ulp of
 that input); in f32 also 2e-5 of max|plain|: the body runs split TF32 on
 wgmma, and a single TF32 pass (~3e-4) or one tensor-core accumulator over
 all of K = 9*C (3.7e-5 at C = 512) reads past it
-(tests/test_torch_fused_conv_f32.py). K7, the W8A8 conv3x3: bit-identical
+(tests/test_torch_fused_conv_f32.py); in bf16 also 2^-6 of max|plain| and a
+mean abs error of 1e-5 of max|plain|, whole output and border: a halo zeroed
+before the transform or a dropped tap or chunk reads past the max bars, a
+running sum that passes through bf16 after each chunk past the mean bar
+(tests/test_torch_fused_conv_bf16.py). K7, the W8A8 conv3x3: bit-identical
 to its plain version.
 The profiling scripts' kernels: S1, S3 and S4 2e-2 of max|plain|. S1 and
 S3 are K1's function at other CTA tiles: p is rounded against the running
@@ -74,6 +78,8 @@ K1_BF16_REL = 2.0 ** -6  # K1's bf16 output, of max|plain|
 K1_F32_LONG_REL = 2e-5  # K1's f32 output at 9216 keys, of max|plain|
 K2_F32_REL = 2e-5  # K2's f32 output, of max|plain|
 K8_F32_REL = 2e-5  # K8's f32 output and its border pixels, of max|plain|
+K8_BF16_REL = 2.0 ** -6  # K8's bf16 output and its border pixels, of max|plain|
+K8_BF16_MEAN_REL = 1e-5  # K8's bf16 mean abs error, whole and border, of max|plain|
 K2_BF16_REL = 2.0 ** -6  # K2's bf16 output, of max|plain|
 K2_BF16_MEAN_REL = 1e-5  # K2's bf16 mean abs error, of max|plain|
 K34_BF16_REL = 2.0 ** -6  # K3/K4's bf16 outputs, of max|plain|
@@ -618,10 +624,39 @@ def test_fused_conv_kernel_matches_plain(gen, n, c, h, w, co, res, dtype, tol):
     assert fc.fused_gn_silu_conv3x3.launches == before + 1
     assert out.dtype == dtype and out.shape == (n, co, h, w)
     scale = ref.float().abs().max().item()
-    if dtype == torch.float32:
-        tol = min(tol, K8_F32_REL)
-    assert (out.float() - ref.float()).abs().max().item() <= tol * scale
-    assert (_border(out.float()) - _border(ref.float())).abs().max().item() <= tol * scale
+    tol = min(tol, K8_F32_REL if dtype == torch.float32 else K8_BF16_REL)
+    d = (out.float() - ref.float()).abs()
+    d_border = (_border(out.float()) - _border(ref.float())).abs()
+    assert d.max().item() <= tol * scale
+    assert d_border.max().item() <= tol * scale
+    if dtype == torch.bfloat16:
+        assert d.mean().item() <= K8_BF16_MEAN_REL * scale
+        assert d_border.mean().item() <= K8_BF16_MEAN_REL * scale
+
+
+def test_fused_conv_bf16_body_is_wgmma(gen):
+    """K8's bf16 body runs its products on wgmma, which the library names."""
+    from genpercept_tpu_torch import _build
+    body = _build.load().fused_gn_silu_conv3x3_bf16_body().decode()
+    assert body.startswith("wgmma"), body
+
+
+@pytest.mark.parametrize("n,c,h,w,co", [(1, 128, 20, 40, 256), (2, 128, 96, 96, 128),
+                                        (2, 512, 96, 96, 512)])
+def test_fused_conv_bf16_repeats_bit_for_bit(gen, n, c, h, w, co):
+    """No atomics on the output and a fixed order of sums: two calls of K8's
+    bf16 body give the same bits (both tiles: 16 x 16 x 128 at Co = 128,
+    8 x 16 x 256 else)."""
+    x = (torch.randn(n, c, h, w, device="cuda", generator=gen) * 2 + 0.5).to(torch.bfloat16)
+    gs, gb = (torch.randn(c, device="cuda", generator=gen) for _ in range(2))
+    cw = (torch.randn(co, c, 3, 3, device="cuda", generator=gen) * (9 * c) ** -0.5) \
+        .to(torch.bfloat16)
+    cb = torch.randn(co, device="cuda", generator=gen) * 0.1
+    r = torch.randn(n, co, h, w, device="cuda", generator=gen).to(torch.bfloat16)
+    first = fc.fused_gn_silu_conv3x3(x, gs, gb, cw, cb, residual=r)
+    second = fc.fused_gn_silu_conv3x3(x, gs, gb, cw, cb, residual=r)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_fused_conv_f32_body_is_split_tf32(gen):
