@@ -55,7 +55,11 @@ Phases, each printed as a JSON line:
       memory;
   (h) K5 int8 fused GEGLU FF and (i) K6 int8 flash attention against their
       plain versions at the 768^2 path's shapes (and K6 at 480x640's), f32
-      and bf16, beside the bf16 K2 / K1 times at the same shapes;
+      and bf16, beside the bf16 K2 / K1 times at the same shapes; K6 bit for
+      bit (error 0.0, and a second call equal to the first), with the name
+      of its d=512 body (int8 wgmma), the design's floor (1.5x the
+      function's operations: a max pass per k block) beside the bound, and
+      the wrapper's quantization and transpose of v;
   (j) W8A8 int8 inference at full width in bf16 (int8_vae, int8_unet,
       int8_unet_ff, int8_vae_attn; asymmetric refined stats, the default
       placement): the first .batch of two natural-like 768x768 images
@@ -1025,8 +1029,14 @@ def phase_k5() -> dict:
 
 def phase_k6() -> dict:
     """K6 against its plain version on the same int8 operands at the VAE mid
-    blocks' shapes, f32 and bf16 outputs; K1 at the same shape beside it and
-    the operands' quantization (torch, outside the kernel)."""
+    blocks' shapes, f32 and bf16 outputs: bit for bit (0.0), and again on a
+    second call; with the name of its d=512 body (int8 wgmma), the design's
+    floor (its max pass runs Q K^T twice: 1.5x the function's operations)
+    beside the function's bound, K1's bf16 time at the same shape and the
+    wrapper's operand work in torch (quantization and the transpose of v)."""
+    body = _build.load().flash_attn_int8_d512_body().decode()
+    emit({"phase": "K6_d512_body", "body": body})
+    check(body.startswith("wgmma"), f"K6 d=512 body {body!r}")
     gen = int8_generator()
     worst = {dt: 0.0 for dt in DTYPES}
     per_forward = {dt: [0.0, 0.0, Bound()] for dt in DTYPES}
@@ -1038,25 +1048,33 @@ def phase_k6() -> dict:
             ops = fa.int8_operands(q, k, v)
             out = fa._flash_int8_codes(*ops, scale, k_blk, dt)
             ref = fa._flash_int8_ref(*ops, scale, k_blk, dt)
+            again = fa._flash_int8_codes(*ops, scale, k_blk, dt)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             rel = err / ref.float().abs().max().item()
             ms = cuda_ms(lambda: fa._flash_int8_codes(*ops, scale, k_blk, dt), 5)
             plain_ms = cuda_ms(lambda: fa._flash_int8_ref(*ops, scale, k_blk, dt), 2)
-            quantize_ms = cuda_ms(lambda: fa.int8_operands(q, k, v), 5)
+            quantize_ms = cuda_ms(lambda: fa.int8_operands(q, k, v)[2].transpose(1, 2)
+                                  .contiguous(), 5)
             k1_ms = cuda_ms(lambda: fa._flash_bhsd(q, k, v, scale), 5)
+            qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+            k1_bf16_ms = cuda_ms(lambda: fa._flash_bhsd(qb, kb, vb, scale), 5)
             bd = bound(4.0 * bh * s * s * d, "int8",
                        bh * s * (3 * d + d * elt(dt) + 8) + 4 * bh * d)
             emit({"phase": "K6", "dtype": str(dt), "shape": [bh, s, d], "k_block": k_blk,
-                  "max_abs_err": err, "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
-                  "quantize_ms": quantize_ms,
-                  "k1_ms_same_shape": k1_ms, "bound_ms": bd.ms, "bound_by": bd.by,
-                  "library_ms": None})
+                  "max_abs_err": err, "rel_err": rel, "bit_identical": bool(torch.equal(out, ref)),
+                  "repeat_bit_identical": bool(torch.equal(out, again)), "ms": ms,
+                  "plain_ms": plain_ms, "quantize_transpose_ms": quantize_ms,
+                  "k1_ms_same_shape": k1_ms, "k1_bf16_ms_same_shape": k1_bf16_ms,
+                  "bound_ms": bd.ms, "bound_by": bd.by,
+                  "design_floor_ms": 1.5 * bd.ops_ms, "library_ms": None})
             check(rel <= INT8_TOL["K6"][dt], f"K6 {dt} {(bh, s, d)}: error {rel}")
+            check(err == 0.0, f"K6 {dt} {(bh, s, d)}: error {err}, not 0.0")
+            check(torch.equal(out, again), f"K6 {dt} {(bh, s, d)}: a second call differs")
             worst[dt] = max(worst[dt], err)
             for i, t in enumerate((ms, plain_ms, bd)):
                 per_forward[dt][i] += n * t
-            del q, k, v, ops, out, ref
+            del q, k, v, qb, kb, vb, ops, out, ref, again
             torch.cuda.empty_cache()
     return {"worst": worst, "per_forward": per_forward}
 

@@ -298,7 +298,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # the TPU's. d=512 is the VAE mid block's head; d=64 is the UNet's, which
 # only scripts/profile_unet_torch.py runs through K6.
 
-_INT8_MAX_K_BLK = {64: 2304, 512: 1536}  # the (16, k_blk) f32 logits fit shared memory
+# the k blocks each body takes (any multiple of 64 that divides Sk): at d=64
+# up to 2304 (the (16, k_blk) f32 logits fit shared memory); at d=512 the
+# wgmma body's max pass and recompute take any length
+_INT8_MAX_K_BLK = {64: 2304, 512: None}
 
 
 def _rowq(x: torch.Tensor, dim: int):
@@ -362,7 +365,9 @@ def _flash_int8_codes(q8, k8, v8, qs, ks, vs, scale: float, k_blk: int,
     bh, sq, d = q8.shape
     sk = k8.shape[1]
     code = _dispatch.dtype_code(dtype, "flash_attention_int8")
-    if (d not in _INT8_MAX_K_BLK or k_blk % 64 or k_blk > _INT8_MAX_K_BLK[d] or sk % k_blk
+    cap = _INT8_MAX_K_BLK.get(d, 0)
+    if (d not in _INT8_MAX_K_BLK or k_blk <= 0 or k_blk % 64 or sk % k_blk
+            or (cap is not None and k_blk > cap)
             or k8.shape != (bh, sk, d) or v8.shape != (bh, sk, d)
             or qs.shape != (bh, sq, 1) or ks.shape != (bh, sk, 1) or vs.shape != (bh, 1, d)
             or any(t.dtype != torch.int8 for t in (q8, k8, v8))
@@ -373,10 +378,16 @@ def _flash_int8_codes(q8, k8, v8, qs, ks, vs, scale: float, k_blk: int,
     q8, k8, qs, ks, vs = (t.contiguous() for t in (q8, k8, qs, ks, vs))
     vt = v8.transpose(1, 2).contiguous()  # (BH, D, Sk): PV's B operand, k-major
     out = torch.empty((bh, sq, d), dtype=dtype, device=q8.device)
-    err = _build.load().flash_attn_int8(
+    lib = _build.load()
+    # the d=512 body parks its f32 running output here between k blocks
+    # where the output is bf16 (an f32 output holds it in place)
+    n = lib.flash_attn_int8_scratch_bytes(bh, sq, sk, d, k_blk, code)
+    scratch = torch.empty(n, dtype=torch.uint8, device=q8.device) if n else None
+    err = lib.flash_attn_int8(
         q8.data_ptr(), k8.data_ptr(), vt.data_ptr(), qs.data_ptr(), ks.data_ptr(),
-        vs.data_ptr(), out.data_ptr(), bh, sq, sk, d, k_blk,
-        ctypes.c_float(scale * _LOG2E), code, _dispatch.stream_handle(q8))
+        vs.data_ptr(), out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        bh, sq, sk, d, k_blk, ctypes.c_float(scale * _LOG2E), code,
+        _dispatch.stream_handle(q8))
     _build.check(err, "flash_attn_int8")
     _flash_int8_codes.launches += 1
     return out

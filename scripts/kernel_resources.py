@@ -22,7 +22,8 @@ kernel):
                   HMMA.1688.F32.TF32, HGMMA.64x128x16.F32.BF16, K8's f32
                   body's HGMMA.64x128x8.F32.TF32 and its bf16 body's
                   HGMMA.64x256x16.F32.BF16; --match wgmma_kernel keeps the
-                  latter), the others
+                  latter), IMMA and IGMMA (their int8 forms, e.g. K6's
+                  d=512 body's IGMMA.64x256x32) likewise, the others
                   by mnemonic without modifiers (FFMA, LDS, LDGSTS = cp.async,
                   UTMALDG = TMA, SYNCS = mbarrier, ...), and the total
 
@@ -110,7 +111,7 @@ def sass_counts(text: str) -> dict[str, collections.Counter]:
         op = m.group(1)
         c = counts[name]
         c["total"] += 1
-        c[op if op.startswith(("HMMA", "HGMMA")) else op.split(".")[0]] += 1
+        c[op if op.startswith(("HMMA", "HGMMA", "IMMA", "IGMMA")) else op.split(".")[0]] += 1
     return counts
 
 

@@ -30,7 +30,9 @@ with the length; in bf16 also to 2^-6 of max|plain| and a mean abs error of
 bf16 per tile where the max bars do not (tests/test_torch_flash_bwd_bf16.py).
 The int8 kernels: K5 1e-4 of max|plain| in f32 and 6e-2 absolute in bf16,
 K6 1e-4 (f32) and 2e-2 (bf16) of max|plain| (both take every f32 step as one
-rounded operation, as their plain versions; bf16 rounds the output). The
+rounded operation, as their plain versions; bf16 rounds the output), and K6
+at d=512 also 0.0: its int32 sums are exact in any order and its f32 steps
+are the plain version's, so its output is the plain version's bits. The
 int8 convolution's int32 sums are exact: card and CPU agree bit for bit.
 K8, the fused GroupNorm -> SiLU -> conv3x3: 1e-4 (f32) and 2e-2 (bf16) of
 max|plain|, over the whole output and over its border pixels alone (the
@@ -542,6 +544,52 @@ def test_flash_int8_kernel_matches_plain(gen, bh, sq, sk, d, dtype):
     err = (out.float() - ref.float()).abs().max().item()
     bar = (1e-4 if dtype == torch.float32 else 2e-2) * ref.float().abs().max().item()
     assert err <= bar
+
+
+def test_flash_int8_d512_body_is_wgmma(gen):
+    """K6's body at d=512 runs both products on int8 wgmma, which the library
+    names."""
+    from genpercept_tpu_torch import _build
+    assert _build.load().flash_attn_int8_d512_body().decode().startswith("wgmma")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,sq,sk,k_blk", [
+    (1, 100, 1024, None), (2, 512, 2048, None), (1, 6912, 6912, None), (2, 9216, 9216, None),
+    (1, 130, 1152, 576), (2, 200, 1728, None), (1, 70, 256, 64), (1, 64, 64, None)])
+def test_flash_int8_d512_bit_for_bit(gen, bh, sq, sk, k_blk, dtype):
+    """K6's d=512 body gives its plain version's bits (error 0.0) at the
+    existing d=512 cases and at k blocks that end on a 64-key tile (576: the
+    wrapper's at 1728 keys, and forced at 1152) or are one (64), with rows
+    past Sq: the max pass, the recompute and the parked output are the same
+    function."""
+    q = (torch.randn(bh, sq, 512, device="cuda", generator=gen) * 0.5).to(dtype)
+    k = (torch.randn(bh, sk, 512, device="cuda", generator=gen) * 0.5).to(dtype)
+    v = torch.randn(bh, sk, 512, device="cuda", generator=gen).to(dtype)
+    ops = fa.int8_operands(q, k, v)
+    k_blk = k_blk or fa._int8_k_block(sq, sk, 512)
+    if sk == 1728:
+        assert k_blk == 576
+    out = fa._flash_int8_codes(*ops, 512 ** -0.5, k_blk, dtype)
+    ref = fa._flash_int8_ref(*ops, 512 ** -0.5, k_blk, dtype)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (bh, sq, 512)
+    assert (out.float() - ref.float()).abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_int8_d512_repeats_bit_for_bit(gen, dtype):
+    """Two calls of K6 at the pipeline's (2, 9216, 512) give the same bits:
+    nothing in the body depends on the order in which CTAs or warpgroups
+    run."""
+    q, k, v = (torch.randn(2, 9216, 512, device="cuda", generator=gen).to(dtype)
+               for _ in range(3))
+    ops = fa.int8_operands(q, k, v)
+    k_blk = fa._int8_k_block(9216, 9216, 512)
+    first = fa._flash_int8_codes(*ops, 512 ** -0.5, k_blk, dtype)
+    second = fa._flash_int8_codes(*ops, 512 ** -0.5, k_blk, dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("asym", [False, True])
