@@ -55,11 +55,13 @@ Phases, each printed as a JSON line:
       memory;
   (h) K5 int8 fused GEGLU FF and (i) K6 int8 flash attention against their
       plain versions at the 768^2 path's shapes (and K6 at 480x640's), f32
-      and bf16, beside the bf16 K2 / K1 times at the same shapes; K6 bit for
-      bit (error 0.0, and a second call equal to the first), with the name
-      of its d=512 body (int8 wgmma), the design's floor (1.5x the
-      function's operations: a max pass per k block) beside the bound, and
-      the wrapper's quantization and transpose of v;
+      and bf16, both bit for bit (error 0.0, and a second call equal to the
+      first), with the names of their bodies (int8 wgmma); K5 beside the
+      bf16 composition at both shapes and K2 bf16 at C=320, its epilogue
+      floor (FP32-pipe operations) beside the bound; K6 beside K1, the
+      design's floor (1.5x the function's operations: a max pass per k
+      block) beside the bound, and the wrapper's quantization and transpose
+      of v;
   (j) W8A8 int8 inference at full width in bf16 (int8_vae, int8_unet,
       int8_unet_ff, int8_vae_attn; asymmetric refined stats, the default
       placement): the first .batch of two natural-like 768x768 images
@@ -986,9 +988,21 @@ def ff_int8_trees(gen, c: int, x: torch.Tensor):
     return qh, qg, tq.quantize_dense(w2, b2, tq.mse_optimal_clip_asym(a))
 
 
+# FP32-pipe operations of one hidden element of K5's epilogue, counted from
+# its source (scripts/tune_k5.py): its floor at 67 TFLOP/s FFMA (33.5 T
+# operations a second) beside the tensor-core bound
+K5_EPILOGUE_OPS = 47
+
+
 def phase_k5() -> dict:
     """K5 against its plain version at the 768^2 forward's two FF shapes
-    (batch 2), f32 and bf16; bf16 K2 time at the C=320 shape beside it."""
+    (batch 2), f32 and bf16: bit for bit (0.0), and again on a second call;
+    with the name of its body (int8 wgmma), the epilogue floor beside the
+    bound, and as yardsticks K2's bf16 time at the C=320 shape and the bf16
+    composition's (the bf16 path's feed-forward) at both."""
+    body = _build.load().fused_geglu_ff_int8_body().decode()
+    emit({"phase": "K5_body", "body": body})
+    check(body.startswith("wgmma"), f"K5 body {body!r}")
     gen = int8_generator()
     worst = {dt: 0.0 for dt in DTYPES}
     per_forward = {dt: [0.0, 0.0, Bound()] for dt in DTYPES}  # kernel, plain ms, bound
@@ -998,6 +1012,7 @@ def phase_k5() -> dict:
             trees = ff_int8_trees(gen, c, x)
             rows, inner = b * s, 4 * c
             y = ff.fused_geglu_ff_int8(x, *trees)
+            again = ff.fused_geglu_ff_int8(x, *trees)
             ref = ff._fused_geglu_ff_int8_ref(x.reshape(rows, c), *trees).reshape(x.shape)
             torch.cuda.synchronize()
             err = (y.float() - ref.float()).abs().max().item()
@@ -1006,24 +1021,34 @@ def phase_k5() -> dict:
             plain_ms = cuda_ms(lambda: ff._fused_geglu_ff_int8_ref(x.reshape(rows, c), *trees), 5)
             bd = bound(6.0 * rows * c * inner, "int8",
                        2 * rows * c * elt(dt) + 3 * c * inner + 4 * (4 * c + 6 * inner))
+            # yardsticks in bf16 on the same x: the bf16 composition, and K2
+            # (the non-int8 fused kernel) where it has a body (C=320)
+            xb = x.to(torch.bfloat16)
+            w1 = ((torch.rand(2 * inner, c, device="cuda", generator=gen) * 2 - 1)
+                  / c ** 0.5).to(torch.bfloat16)
+            w2 = ((torch.rand(c, inner, device="cuda", generator=gen) * 2 - 1)
+                  / inner ** 0.5).to(torch.bfloat16)
             rec = {"phase": "K5", "dtype": str(dt), "shape": [b, s, c], "max_abs_err": err,
-                   "output_max_abs": scale, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": bd.ms, "bound_by": bd.by, "library_ms": None}
-            if c == 320:  # K2, the non-int8 kernel, on the same x
-                w1 = ((torch.rand(2 * inner, c, device="cuda", generator=gen) * 2 - 1)
-                      / c ** 0.5).to(dt)
-                w2 = ((torch.rand(c, inner, device="cuda", generator=gen) * 2 - 1)
-                      / inner ** 0.5).to(dt)
-                rec["k2_ms_same_shape"] = cuda_ms(lambda: ff.fused_geglu_ff(x, w1, None, w2,
-                                                                            None), 10)
-                del w1, w2
+                   "output_max_abs": scale, "bit_identical": bool(torch.equal(y, ref)),
+                   "repeat_bit_identical": bool(torch.equal(y, again)), "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bd.ms, "bound_by": bd.by,
+                   "epilogue_floor_ms": rows * inner * K5_EPILOGUE_OPS / (PEAK["f32"] / 2) * 1e3,
+                   "composition_bf16_ms": cuda_ms(
+                       lambda: ff._geglu_ff_composition(xb, w1, None, w2, None), 10),
+                   "library_ms": None}
+            if c == 320:
+                rec["k2_bf16_ms_same_shape"] = cuda_ms(
+                    lambda: ff.fused_geglu_ff(xb, w1, None, w2, None), 10)
             emit(rec)
             bar = INT8_TOL["K5"][dt] * (scale if dt == torch.float32 else 1.0)
             check(err <= bar, f"K5 {dt} {(b, s, c)}: error {err} > {bar}")
+            check(err == 0.0, f"K5 {dt} {(b, s, c)}: error {err}, not 0.0")
+            check(torch.equal(y, again), f"K5 {dt} {(b, s, c)}: a second call differs")
             worst[dt] = max(worst[dt], err)
             for i, t in enumerate((ms, plain_ms, bd)):
                 per_forward[dt][i] += n * t
-            del x, trees, y, ref
+            del x, xb, w1, w2, trees, y, again, ref
+            torch.cuda.empty_cache()
     return {"worst": worst, "per_forward": per_forward}
 
 

@@ -94,7 +94,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     for name in ("flash_attn_fwd_f32_body", "flash_attn_fwd_bf16_body",
                  "flash_attn_fwd_bf16_d512_body", "fused_geglu_ff_f32_body",
                  "fused_geglu_ff_bf16_body", "fused_gn_silu_conv3x3_f32_body",
-                 "fused_gn_silu_conv3x3_bf16_body", "flash_attn_int8_d512_body"):
+                 "fused_gn_silu_conv3x3_bf16_body", "flash_attn_int8_d512_body",
+                 "fused_geglu_ff_int8_body"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_char_p
     lib.flash_attn_fwd_tiled.argtypes = [p, p, p, p, p, i, i, i, i, f, i, i, i, p]
@@ -119,8 +120,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.flash_attn_int8.restype = i
     lib.flash_attn_int8_scratch_bytes.argtypes = [i] * 6
     lib.flash_attn_int8_scratch_bytes.restype = ctypes.c_longlong
-    lib.fused_geglu_ff_int8.argtypes = [p] * 15 + [i] * 4 + [p]
+    lib.fused_geglu_ff_int8.argtypes = [p] * 16 + [i] * 4 + [p]
     lib.fused_geglu_ff_int8.restype = i
+    lib.fused_geglu_ff_int8_scratch_bytes.argtypes = [i] * 3
+    lib.fused_geglu_ff_int8_scratch_bytes.restype = ctypes.c_longlong
     lib.fused_gn_silu_conv3x3.argtypes = [p] * 7 + [i] * 6 + [p]
     lib.fused_gn_silu_conv3x3.restype = i
     lib.quantized_conv3x3.argtypes = [p] * 6 + [i] * 6 + [p]

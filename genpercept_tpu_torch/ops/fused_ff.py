@@ -210,7 +210,14 @@ def _fused_geglu_ff_int8_ref(x2: torch.Tensor, qh, qg, q2) -> torch.Tensor:
 def _vec(v: torch.Tensor | None, n: int, device) -> torch.Tensor:
     if v is None:
         return torch.zeros(n, dtype=torch.float32, device=device)
-    return v.float().contiguous()
+    return _aligned(v.float().contiguous())
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its data does not start on 16 bytes (the
+    kernel reads x and the vectors by 16-byte loads and bulk copies, the
+    weights by TMA)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def fused_geglu_ff_int8(x: torch.Tensor, qh, qg, q2) -> torch.Tensor:
@@ -227,24 +234,29 @@ def fused_geglu_ff_int8(x: torch.Tensor, qh, qg, q2) -> torch.Tensor:
         return _fused_geglu_ff_int8_ref(x2, qh, qg, q2).reshape(bsz, s, c)
     code = _dispatch.dtype_code(x, "fused_geglu_ff_int8")
     inner = qh.w_int8.shape[0]
-    if (c not in (320, 640) or inner % 64 or qh.w_int8.shape != (inner, c)
+    if (c not in (320, 640) or inner % 128 or qh.w_int8.shape != (inner, c)
             or qg.w_int8.shape != (inner, c) or q2.w_int8.shape != (c, inner)
             or any(q.w_int8.dtype != torch.int8 or q.w_int8.device != x.device
                    for q in (qh, qg, q2))):
         raise ValueError(f"fused_geglu_ff_int8: no kernel for x {tuple(x.shape)}, "
                          f"w_h {tuple(qh.w_int8.shape)}, w2 {tuple(q2.w_int8.shape)}")
     dev = x.device
-    x2 = x2.contiguous()
-    ws = [q.w_int8.contiguous() for q in (qh, qg, q2)]
+    x2 = _aligned(x2.contiguous())
+    ws = [_aligned(q.w_int8.contiguous()) for q in (qh, qg, q2)]
     vecs = [_vec(qh.inv_a, c, dev), _vec(qh.zp, c, dev),
             _vec(qh.o_scale, inner, dev), _vec(qh.bias, inner, dev),
             _vec(qg.o_scale, inner, dev), _vec(qg.bias, inner, dev),
             _vec(q2.inv_a, inner, dev), _vec(q2.zp, inner, dev),
             _vec(q2.o_scale, c, dev), _vec(q2.bias, c, dev)]
     y = torch.empty_like(x2)
-    err = _build.load().fused_geglu_ff_int8(
+    lib = _build.load()
+    # the int32 partial sums of the row blocks the kernel's walk splits
+    nbytes = lib.fused_geglu_ff_int8_scratch_bytes(rows, c, inner)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev) if nbytes else None
+    err = lib.fused_geglu_ff_int8(
         x2.data_ptr(), *(w.data_ptr() for w in ws), *(v.data_ptr() for v in vecs),
-        y.data_ptr(), rows, c, inner, code, _dispatch.stream_handle(x))
+        y.data_ptr(), None if scratch is None else scratch.data_ptr(), rows, c, inner, code,
+        _dispatch.stream_handle(x))
     _build.check(err, "fused_geglu_ff_int8")
     fused_geglu_ff_int8.launches += 1
     return y.reshape(bsz, s, c)

@@ -47,7 +47,7 @@ from genpercept_tpu_torch.pipeline import (  # noqa: E402
 FAMILIES = [  # (family, pattern on the kernel name); first match wins
     ("K8 fused_gn_silu_conv3x3", r"gn_silu_conv"),
     ("K7 quantized_conv3x3", r"qconv3x3_kernel"),
-    ("K5 fused_geglu_ff_int8", r"ff_int8_kernel"),
+    ("K5 fused_geglu_ff_int8", r"ff_int8_(wgmma_)?kernel"),
     ("K6 flash_attn_int8", r"flash_int8_(wgmma_)?kernel"),
     ("K1 flash_attn_fwd", r"flash_attn_fwd"),
     ("K2 fused_geglu_ff", r"fused_geglu_ff"),

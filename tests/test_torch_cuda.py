@@ -30,9 +30,10 @@ with the length; in bf16 also to 2^-6 of max|plain| and a mean abs error of
 bf16 per tile where the max bars do not (tests/test_torch_flash_bwd_bf16.py).
 The int8 kernels: K5 1e-4 of max|plain| in f32 and 6e-2 absolute in bf16,
 K6 1e-4 (f32) and 2e-2 (bf16) of max|plain| (both take every f32 step as one
-rounded operation, as their plain versions; bf16 rounds the output), and K6
-at d=512 also 0.0: its int32 sums are exact in any order and its f32 steps
-are the plain version's, so its output is the plain version's bits. The
+rounded operation, as their plain versions; bf16 rounds the output), and K5
+and K6 at d=512 also 0.0: their int32 sums are exact in any order and their
+f32 steps are the plain version's, so their output is the plain version's
+bits. The
 int8 convolution's int32 sums are exact: card and CPU agree bit for bit.
 K8, the fused GroupNorm -> SiLU -> conv3x3: 1e-4 (f32) and 2e-2 (bf16) of
 max|plain|, over the whole output and over its border pixels alone (the
@@ -519,6 +520,32 @@ def test_fused_ff_int8_kernel_matches_plain(gen, c, rows, asym, dtype):
     err = (y.float() - ref.float()).abs().max().item()
     bar = 1e-4 * ref.float().abs().max().item() if dtype == torch.float32 else 6e-2
     assert err <= bar
+
+
+def test_fused_ff_int8_body_is_wgmma(gen):
+    """K5 runs its three products on int8 wgmma, which the library names."""
+    from genpercept_tpu_torch import _build
+    assert _build.load().fused_geglu_ff_int8_body().decode().startswith("wgmma")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("asym", [False, True])
+@pytest.mark.parametrize("c,rows", [(320, 18432), (640, 4608), (320, 1000), (640, 96)])
+def test_fused_ff_int8_bit_for_bit(gen, c, rows, asym, dtype):
+    """K5 gives its plain version's bits (error 0.0), and a second call the
+    same bits, at the 768^2 forward's shapes and ragged ones: its int32
+    sums are exact in any order and split, and each f32 step is the plain
+    version's rounded operation (erf's division included). Tightens, and
+    does not replace, test_fused_ff_int8_kernel_matches_plain."""
+    x = (torch.randn(1, rows, c, device="cuda", generator=gen) + 0.3).to(dtype)
+    trees = _ff_trees(gen, c, asym, dtype, x)
+    y = ff.fused_geglu_ff_int8(x, *trees)
+    again = ff.fused_geglu_ff_int8(x, *trees)
+    with reference_kernels():
+        ref = ff.fused_geglu_ff_int8(x, *trees)
+    torch.cuda.synchronize()
+    assert (y.float() - ref.float()).abs().max().item() == 0.0
+    assert torch.equal(y, again)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
