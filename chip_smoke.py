@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's one-step depth inference, its training step, its
-W8A8 int8 inference and its fused-VAE inference once on one NVIDIA GPU.
+W8A8 int8 inference, its fused-VAE inference and its checkpoint loader and
+folder CLI (depth and the DPT head) once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -101,7 +102,22 @@ Phases, each printed as a JSON line:
   (q) the two profiling scripts' paths: scripts/profile_unet_torch.py and
       scripts/profile_attn_boundary_torch.py, profile() once per part that
       reaches a kernel (batch 2, fusedff 8), exact launch counts per part
-      and no refused configuration.
+      and no refused configuration;
+  (r) checkpoint_cli: the golden's weights (the torch oracles of
+      tests/test_{unet,vae}_oracle.py at SD2.1 width, seeds 0 and 1, as
+      scripts/make_torch_golden.py builds them; their fingerprint checked
+      first), written as a published-layout checkpoint with the port's
+      safetensors writer and loaded with load_genpercept_checkpoint: z, v
+      and pred against golden/torch_golden_768.npz (mean, p99, max) in f32
+      with the backend's defaults (cuDNN TF32 on), f32 with TF32 off and
+      bf16, pred's mean within 1e-2, 1e-4 and 1e-2; then a DPT-identity
+      checkpoint beside it (the same unet/ files, conv_out dropped by the
+      loader; a seeded head) and the folder CLI in-process over two 768x768
+      PNGs and one 480x640: depth f32 one image at a time, depth bf16 with
+      --batch_size -1 (the H100 table) and disparity_dpt_head bf16, each
+      with exact K1/K2 launch counts, every file written, each npy equal to
+      the pipeline's own output on the decoded image; the DPT path also
+      under reference_kernels() (mean deviation within 1e-2).
 Every phase's launch counts include K7, K8 and S1-S4 (0 outside their
 paths).
 K1 and K3+K4 are also timed against one PyTorch call computing the same
@@ -115,6 +131,8 @@ the repository around it the import fails.
 
 from __future__ import annotations
 
+import ast
+import contextlib
 import copy
 import dataclasses
 import importlib.util
@@ -133,8 +151,11 @@ import torch.nn.functional as F
 from genpercept_tpu_torch import _build
 from genpercept_tpu_torch.data.sampler import DataLoader, MixedBatchSampler
 from genpercept_tpu_torch.diffusion import GENPERCEPT_SCHEDULER
+from genpercept_tpu_torch.io.checkpoints import load_genpercept_checkpoint
+from genpercept_tpu_torch.io.weights import save_safetensors
 from genpercept_tpu_torch.models import (
-    AutoencoderKL, CLIPTextModel, UNet2DConditionModel, init_params_)
+    DPT_IDENTITY, AutoencoderKL, CLIPTextModel, DPTHead, UNet2DConditionModel, init_params_,
+    unet_apply, vae_encode)
 from genpercept_tpu_torch.ops import conv2d, group_norm
 from genpercept_tpu_torch.ops import flash_attention as fa
 from genpercept_tpu_torch.ops import fused_conv as fc
@@ -143,7 +164,7 @@ from genpercept_tpu_torch.ops import quant as tq
 from genpercept_tpu_torch.ops import quant_conv as qc
 from genpercept_tpu_torch.ops import reference_kernels
 from genpercept_tpu_torch.pipeline import (
-    GenPerceptModels, GenPerceptPipeline, PipelineConfig)
+    GenPerceptModels, GenPerceptPipeline, PipelineConfig, build_single_infer)
 from genpercept_tpu_torch.utils.synthetic import natural_like_images
 from genpercept_tpu_torch.train import TrainConfig, build_loss_fn, init_train_state
 from genpercept_tpu_torch.train import losses as train_losses
@@ -1551,6 +1572,337 @@ def phase_scripts() -> dict:
     return launched
 
 
+# ------------------------------------------------------------ checkpoint_cli
+# The torch oracles of the golden (tests/test_{unet,vae}_oracle.py) import jax
+# at their top, so their classes are taken from the files' syntax trees and
+# run in a namespace of torch alone; the width constants are the files' own
+# unless given, as scripts/make_torch_golden.py:59-78 patches them to SD2.1.
+ORACLE_FILES = {"unet": "tests/test_unet_oracle.py", "vae": "tests/test_vae_oracle.py"}
+ORACLE_CONSTANTS = ("C", "HEADS", "CTX", "TEMB")
+SD21_ORACLE = {"unet": dict(C=(320, 640, 1280, 1280), HEADS=(5, 10, 20, 20), CTX=1024,
+                            TEMB=1280),
+               "vae": dict(C=(128, 256, 512, 512))}
+GOLDEN_SEEDS = {"unet": 0, "vae": 1}
+GOLDEN = Path(__file__).resolve().parent / "golden" / "torch_golden_768.npz"
+# fingerprint() of the golden's modules, built with torch 2.13.0+cpu (the
+# torch that wrote the golden) and equal on the card's torch 2.11.0+cu128:
+# a difference in default init would read as "weights differ" here, before
+# any comparison could blame the port
+GOLDEN_FINGERPRINT = {
+    "unet": {"conv_in": [3.582708143781929, -2.1165475963600606],
+             "time_embedding": [21.934820322989037, 18.956832992612572],
+             "down_blocks": [31095.0938000275, 135.1767829191433],
+             "mid_block": [10189.795578992405, -14.339363130926218],
+             "up_blocks": [58191.31878901554, 145.78934737254065],
+             "conv_norm_out": [320.0, -0.3437191830318703],
+             "conv_out": [-2.4797791274342558, -0.4478952767852077]},
+    "vae": {"encoder": [8324.914027864152, 23.23833826416533],
+            "quant_conv": [-0.15034631034359336, -0.11382218203540084],
+            "post_quant_conv": [-0.5147169232368469, 0.8599414394990137],
+            "decoder": [11518.47925779799, 87.57393368364605]},
+}
+# pred's mean abs error against the golden: f32 with TF32 off is the same
+# math as the golden's CPU f32; the CLI's f32 (cuDNN TF32 on, the backend
+# default) and bf16 are held to the north star's per-pixel bar
+GOLDEN_BARS = {"f32_defaults": 1e-2, "f32_tf32_off": 1e-4, "bf16": 1e-2}
+# the backend's switches as a caller of the pipeline or the CLI finds them,
+# read before phase_device turns TF32 off
+DEFAULT_TF32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+DPT_SEED = 2
+# K1 per forward on the DPT path: the VAE encoder's mid block and the UNet
+# (the decoder does not run); 480x640 -> 72x96 latent: level 0 and the encoder
+DPT_K1 = {768: K1_PER_FORWARD - 1, 480: 6}
+
+
+def oracle_namespace(which: str, widths: dict | None = None) -> dict:
+    """The classes and functions of an oracle file (its tests left out) and
+    its width constants, executed without its imports; ``widths`` replace
+    the constants."""
+    path = Path(__file__).resolve().parent / ORACLE_FILES[which]
+    keep = [n for n in ast.parse(path.read_text()).body
+            if isinstance(n, (ast.ClassDef, ast.FunctionDef)) and not n.name.startswith("test_")
+            or isinstance(n, ast.Assign)
+            and all(isinstance(t, ast.Name) and t.id in ORACLE_CONSTANTS for t in n.targets)]
+    ns = {"torch": torch, "nn": torch.nn, "F": F, "np": np}
+    exec(compile(ast.Module(body=keep, type_ignores=[]), str(path), "exec"), ns)
+    ns.update(widths or {})
+    return ns
+
+
+def oracle_modules(widths: dict | None = None):
+    """The golden's UNet and VAE oracles, seeded as make_torch_golden.py seeds
+    them (the global CPU generator, forked so nothing else sees the draws);
+    ``widths`` {"unet": {...}, "vae": {...}} or the files' own small ones."""
+    widths = widths or {}
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(GOLDEN_SEEDS["unet"])
+        unet = oracle_namespace("unet", widths.get("unet"))["TUNet"]().eval()
+        torch.manual_seed(GOLDEN_SEEDS["vae"])
+        vae = oracle_namespace("vae", widths.get("vae"))["TVAE"]().eval()
+    return unet, vae
+
+
+def fingerprint(module: torch.nn.Module) -> dict:
+    """Per child: the sum of its parameters, and their sum weighted by the
+    cosine of each element's index (which tells seeds apart where the
+    first is all norm weights), in float64."""
+    out = {}
+    for name, child in module.named_children():
+        total = weighted = 0.0
+        for p in child.parameters():
+            flat = p.detach().double().flatten()
+            total += float(flat.sum())
+            weighted += float((flat * torch.cos(torch.arange(flat.numel(),
+                                                             dtype=torch.float64))).sum())
+        out[name] = [total, weighted]
+    return out
+
+
+def write_oracle_checkpoint(root: Path, unet, vae, ns_unet: dict, ns_vae: dict,
+                            text_embed: np.ndarray) -> Path:
+    """The oracles' state dicts in the published layout, with the port's
+    writer: unet/ and vae/ with their config.json, empty_text_embed.npy."""
+    for sub, module, cfg in (
+            ("unet", unet, {"block_out_channels": list(ns_unet["C"]),
+                            "attention_head_dim": list(ns_unet["HEADS"]),
+                            "cross_attention_dim": ns_unet["CTX"],
+                            "down_block_types": ["CrossAttnDownBlock2D"] * 3 + ["DownBlock2D"],
+                            "layers_per_block": 2, "norm_eps": 1e-5}),
+            ("vae", vae, {"block_out_channels": list(ns_vae["C"]), "latent_channels": 4,
+                          "scaling_factor": 0.18215})):
+        (root / sub).mkdir(parents=True)
+        save_safetensors(module.state_dict(), str(root / sub / "diffusion_pytorch_model.safetensors"))
+        (root / sub / "config.json").write_text(json.dumps(cfg))
+    np.save(root / "empty_text_embed.npy", text_embed)
+    return root
+
+
+def err_stats(ours, ref) -> dict:
+    d = np.abs(np.asarray(ours, np.float64) - np.asarray(ref, np.float64))
+    return {"mean": float(d.mean()), "p99": float(np.percentile(d, 99)), "max": float(d.max())}
+
+
+@contextlib.contextmanager
+def tf32(matmul: bool, cudnn: bool):
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = matmul, cudnn
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def golden_reading(models, golden: dict, dtype) -> dict:
+    """pred (build_single_infer) on the golden's rgb and the pipeline's first
+    steps, z and, where the golden holds it, v (NHWC), each against the
+    golden: mean, p99 and max abs error."""
+    rgb = torch.from_numpy(golden["rgb"]).to(models.device)
+    pred = build_single_infer(models, PipelineConfig(dtype=dtype))(rgb)
+    with torch.no_grad():
+        z = vae_encode(models.vae, rgb.to(dtype).permute(0, 3, 1, 2) * 2.0 - 1.0)
+        got = {"z": z.permute(0, 2, 3, 1), "pred": pred}
+        if "v" in golden:
+            v = unet_apply(models.unet, z, torch.tensor(1, device=models.device),
+                           models.get_text_embed().to(dtype))
+            got["v"] = v.permute(0, 2, 3, 1)
+    return {k: err_stats(t.float().cpu().numpy(), golden[k]) for k, t in got.items()}
+
+
+def write_dpt_checkpoint(root: Path, ckpt: Path, head_state: dict, cfg) -> Path:
+    """A DPT-identity checkpoint beside ``ckpt``: its unet/ (conv_out and all,
+    which the loader drops), vae/ and embedding linked, and
+    dpt_head_identity/ with ``head_state`` and ``cfg``'s widths."""
+    root.mkdir()
+    for sub in ("unet", "vae", "empty_text_embed.npy"):
+        (root / sub).symlink_to(ckpt / sub)
+    (root / "dpt_head_identity").mkdir()
+    save_safetensors(head_state, str(root / "dpt_head_identity" / "model.safetensors"))
+    (root / "dpt_head_identity" / "config.json").write_text(json.dumps(
+        {"neck_hidden_sizes": list(cfg.neck_hidden_sizes),
+         "fusion_hidden_size": cfg.fusion_hidden_size,
+         "add_projection": cfg.add_projection, "head_in_index": cfg.head_in_index}))
+    return root
+
+
+def write_cli_images(root: Path) -> list:
+    """Two 768x768 PNGs and one 480x640, natural-like from SEED."""
+    from PIL import Image
+
+    root.mkdir()
+    images = [*natural_like_images(SEED + 5, 2, 768),
+              natural_like_images(SEED + 6, 1, 768)[0][:480, :640]]
+    paths = []
+    for i, im in enumerate(images):
+        paths.append(root / f"img{i}.png")
+        Image.fromarray((im * 255).astype(np.uint8)).save(paths[-1])
+    return paths
+
+
+def check_cli_outputs(paths, out_dir: Path, mode: str, direct) -> float:
+    """Every file the CLI writes per image exists, each npy equals the
+    pipeline's own output on the decoded image, each png its truncation;
+    returns the largest npy difference (0.0)."""
+    from PIL import Image
+
+    worst = 0.0
+    for path, out in zip(paths, direct):
+        base = out_dir / (path.stem + "_pred")
+        for suffix in (".npy", ".png", "_colored.png"):
+            check(Path(f"{base}{suffix}").is_file(), f"CLI wrote no {base}{suffix}")
+        npy = np.load(f"{base}.npy")
+        check(npy.shape == out.pred_np.shape, f"{base}.npy shape {npy.shape}")
+        worst = max(worst, float(np.abs(npy - out.pred_np).max()))
+        scale, dt = (65535.0, np.uint16) if mode == "depth" else (255.0, np.uint8)
+        with Image.open(f"{base}.png") as im:
+            check(np.array_equal(np.asarray(im).astype(dt), (npy * scale).astype(dt)),
+                  f"{base}.png is not the npy's truncation")
+        with Image.open(f"{base}_colored.png") as im:
+            check(np.array_equal(np.asarray(im), out.pred_colored),
+                  f"{base}_colored.png differs from the pipeline's")
+    return worst
+
+
+def fingerprint_matches(fp: dict) -> bool:
+    return all(fp[m].keys() == want.keys()
+               and all(math.isclose(a, b, rel_tol=1e-9, abs_tol=1e-9)
+                       for k in want for a, b in zip(want[k], fp[m][k]))
+               for m, want in GOLDEN_FINGERPRINT.items())
+
+
+def golden_readings(ckpt: Path, golden: dict) -> dict:
+    """The golden checkpoint loaded in f32 and in bf16, each held to the
+    golden: f32 with the backend's defaults and with TF32 off, bf16 with
+    the defaults."""
+    readings = {}
+    for name, dt, switches in (("f32_defaults", torch.float32, DEFAULT_TF32),
+                               ("f32_tf32_off", torch.float32, (False, False)),
+                               ("bf16", torch.bfloat16, DEFAULT_TF32)):
+        t0 = time.perf_counter()
+        models = load_genpercept_checkpoint(str(ckpt), dtype=dt, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        check(models.dpt_head is None and models.unet.cfg.with_conv_out,
+              "the plain checkpoint loaded a head")
+        with tf32(*switches):
+            readings[name] = {**golden_reading(models, golden, dt), "load_s": load_s}
+        del models
+        torch.cuda.empty_cache()
+    return readings
+
+
+def cli_run(name, ckpt: Path, mode: str, dt, batch_size: int, paths, decoded,
+            out_dir: Path) -> dict:
+    """One in-process run of the folder CLI with the backend's defaults, its
+    launches, and its files held to the pipeline's own outputs on the
+    decoded images (a fresh load of the same checkpoint); on the DPT path
+    also the plain kernels' run of the same images."""
+    import PIL
+
+    from genpercept_tpu_torch.cli import run as cli
+
+    argv = ["--checkpoint", str(ckpt), "--input_rgb_dir", str(paths[0].parent),
+            "--output_dir", str(out_dir), "--mode", mode, "--batch_size", str(batch_size)]
+    argv += ["--bf16"] if dt == torch.bfloat16 else []
+    with tf32(*DEFAULT_TF32):
+        reset_counts()
+        t0 = time.perf_counter()
+        cli.main(argv)
+        torch.cuda.synchronize()
+        rec = {"run": name, "mode": mode, "dtype": str(dt), "batch_size": batch_size,
+               "seconds": time.perf_counter() - t0, "launches": launch_counts(),
+               "image_io": f"PIL {PIL.__version__}"}
+        pipe = GenPerceptPipeline(load_genpercept_checkpoint(str(ckpt), dtype=dt),
+                                  PipelineConfig(mode=mode, dtype=dt))
+        direct = ([pipe(im) for im in decoded] if batch_size == 0
+                  else pipe.batch(decoded, batch_size=0))
+        rec["npy_max_abs_diff_vs_pipeline"] = check_cli_outputs(paths, out_dir, mode, direct)
+        rec["files"] = sorted(p.name for p in out_dir.iterdir())
+        preds = [o.pred_np for o in direct]
+        rec["pred_std"] = [float(np.std(p)) for p in preds]
+        rec["pred_range"] = [float(min(p.min() for p in preds)), float(max(p.max() for p in preds))]
+        if mode == "disparity_dpt_head":
+            reset_counts()
+            with reference_kernels():
+                plain = [pipe(im).pred_np for im in decoded]
+            rec["launches_reference"] = launch_counts()
+            rec["mean_abs_dev_vs_reference"] = float(np.mean(np.concatenate(
+                [np.abs(a - b).ravel() for a, b in zip(preds, plain)])))
+    emit({"phase": "checkpoint_cli", "step": "cli", **rec})
+    # .batch clamps to [0, 1] before resizing an image back to its size, as
+    # the JAX package does: the bilinear weights' f32 sums may step past 1 by
+    # an ulp or so
+    for p in preds:
+        check(bool(np.isfinite(p).all()) and p.min() >= -1e-6 and p.max() <= 1.0 + 1e-6,
+              f"CLI {name}: prediction not finite or outside [0, 1]")
+    check(min(rec["pred_std"]) > 1e-4, f"CLI {name}: a constant prediction")
+    check(rec["npy_max_abs_diff_vs_pipeline"] == 0.0,
+          f"CLI {name}: an npy differs from the pipeline's output")
+    if "launches_reference" in rec:
+        check(not any(rec["launches_reference"].values()),
+              "kernels launched under reference_kernels()")
+        check(rec["mean_abs_dev_vs_reference"] <= 1e-2,
+              f"DPT kernels vs reference_kernels(): {rec['mean_abs_dev_vs_reference']}")
+    del pipe, direct
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_checkpoint_cli() -> None:
+    """A published-layout checkpoint of the golden's weights and a DPT one,
+    written with the port's writer and loaded with load_genpercept_checkpoint:
+    held to golden/torch_golden_768.npz three ways, then driven through the
+    folder CLI three ways (section (r))."""
+    from PIL import Image
+
+    t0 = time.perf_counter()
+    unet_o, vae_o = oracle_modules(SD21_ORACLE)
+    fp = {"unet": fingerprint(unet_o), "vae": fingerprint(vae_o)}
+    emit({"phase": "checkpoint_cli", "step": "golden_weights",
+          "fingerprint_matched": fingerprint_matches(fp),
+          "seconds": time.perf_counter() - t0, "fingerprint": fp})
+    check(fingerprint_matches(fp),
+          "the golden's weights differ: this torch's default init is not the golden's")
+    with np.load(GOLDEN) as zf:
+        golden = {k: zf[k] for k in zf.files}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        ckpt = write_oracle_checkpoint(root / "ckpt", unet_o, vae_o, SD21_ORACLE["unet"],
+                                       SD21_ORACLE["vae"], golden["ctx"])
+        del unet_o, vae_o
+        head = init_params_(DPTHead(DPT_IDENTITY),
+                            torch.Generator().manual_seed(SEED + DPT_SEED))
+        dpt = write_dpt_checkpoint(root / "ckpt_dpt", ckpt, head.state_dict(), DPT_IDENTITY)
+        write_s = time.perf_counter() - t0
+        readings = golden_readings(ckpt, golden)
+        emit({"phase": "checkpoint_cli", "step": "golden_768", "write_s": write_s,
+              "backend_defaults": {
+                  "matmul.allow_tf32": DEFAULT_TF32[0], "cudnn.allow_tf32": DEFAULT_TF32[1],
+                  "matmul.allow_bf16_reduced_precision_reduction":
+                  torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction},
+              "bars_pred_mean": GOLDEN_BARS, **readings})
+        for key, bar in GOLDEN_BARS.items():
+            got = readings[key]["pred"]["mean"]
+            check(got <= bar, f"golden 768 {key}: pred mean abs error {got} > {bar}")
+
+        paths = write_cli_images(root / "images")
+        decoded = []
+        for p in paths:
+            with Image.open(p) as im:
+                decoded.append(np.asarray(im.convert("RGB")))
+        zero = {k: 0 for k in COUNTERS}
+        for name, ck, mode, dt, bs, expect in (
+                ("depth_f32_loop", ckpt, "depth", torch.float32, 0,
+                 {"K1": 2 * K1_PER_FORWARD + 7, "K2": 2 * K2_PER_FORWARD}),
+                ("depth_bf16_batch_auto", ckpt, "depth", torch.bfloat16, -1,
+                 {"K1": K1_PER_FORWARD + 7, "K2": K2_PER_FORWARD}),
+                ("disparity_dpt_head_bf16_loop", dpt, "disparity_dpt_head", torch.bfloat16, 0,
+                 {"K1": 2 * DPT_K1[768] + DPT_K1[480], "K2": 2 * K2_PER_FORWARD})):
+            rec = cli_run(name, ck, mode, dt, bs, paths, decoded, root / f"out_{name}")
+            check(rec["launches"] == {**zero, **expect},
+                  f"CLI {name}: launches {rec['launches']} != {expect}")
+
+
 def kernel_record(name, source, replaces, launches, max_abs_err, ms, plain_ms, bd: Bound,
                   library_ms):
     return {"name": name, "route": "cuda", "source": f"genpercept_tpu_torch/csrc/{source}",
@@ -1580,6 +1932,7 @@ def main() -> None:
     phase_k6_d64()
     s14 = phase_s14()
     paths = phase_scripts()
+    phase_checkpoint_cli()
     # per 768^2 image (K1, K2: f32), per recipe micro-step (K3, K4: bf16),
     # per 768^2 forward of batch 2 (K5, K6, K8: bf16), per pass of K7's path
     # over its five shapes at batch 2 (bf16)

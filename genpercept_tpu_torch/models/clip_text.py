@@ -2,8 +2,9 @@
 
 Counterpart of ``genpercept_tpu/models/clip_text.py``. The pipeline encodes
 one prompt, the empty string, and caches the (1, 77, hidden) embedding.
-State-dict keys are the transformers names under ``text_model.``
-(embeddings.token_embedding.weight, encoder.layers.N.self_attn.q_proj...).
+State-dict keys are the transformers names below ``text_model.``
+(embeddings.token_embedding.weight, encoder.layers.N.self_attn.q_proj...);
+the checkpoint loader strips that prefix, as the JAX loader does.
 """
 
 from __future__ import annotations

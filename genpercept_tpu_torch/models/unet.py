@@ -1,7 +1,8 @@
 """SD2.1 UNet2DConditionModel as an nn.Module (NCHW), exact path only.
 
-Counterpart of ``genpercept_tpu/models/unet.py::unet_apply`` without
-``return_features`` (the DPT head's taps).
+Counterpart of ``genpercept_tpu/models/unet.py::unet_apply``, with its
+``return_features`` taps (the DPT head's input) and ``with_conv_out=False``
+(the UNet of a DPT-head checkpoint, which has no conv_norm_out/conv_out).
 Geometry (SD2.1): 4-channel latent, block_out_channels (320, 640, 1280,
 1280), 2 resnets per block, cross-attention on 1024-d CLIP states, heads
 (5, 10, 20, 20) of dim 64, linear projections in the transformers.
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -44,6 +45,7 @@ class UNetConfig:
     attention_heads: Tuple[int, ...] = (5, 10, 20, 20)
     cross_attention_dim: int = 1024
     norm_eps: float = 1e-5
+    with_conv_out: bool = True
 
 
 SD21_UNET = UNetConfig()
@@ -113,8 +115,9 @@ class UNet2DConditionModel(nn.Module):
             up.append(_UNetBlock(res, attn, upsample=None if last else Upsample(cout)))
         self.up_blocks = nn.ModuleList(up)
 
-        self.conv_norm_out = Norm(chans[0])
-        self.conv_out = nn.Conv2d(chans[0], cfg.out_channels, 3)
+        if cfg.with_conv_out:
+            self.conv_norm_out = Norm(chans[0])
+            self.conv_out = nn.Conv2d(chans[0], cfg.out_channels, 3)
 
 
 def _unit(rb, attn, h: torch.Tensor, skip: Optional[torch.Tensor],
@@ -133,9 +136,14 @@ def _unit(rb, attn, h: torch.Tensor, skip: Optional[torch.Tensor],
 
 def unet_apply(unet: UNet2DConditionModel, sample: torch.Tensor,
                timesteps: torch.Tensor, encoder_hidden_states: torch.Tensor,
-               remat: Optional[str] = None, conv_fn=None, dense_fn=None) -> torch.Tensor:
+               remat: Optional[str] = None, conv_fn=None, dense_fn=None,
+               return_features: bool = False
+               ) -> torch.Tensor | Tuple[Optional[torch.Tensor], List[torch.Tensor]]:
     """sample: (N, 4, h, w); timesteps: (N,) or scalar; text states
-    (N, 77, ctx). Returns the v-prediction (N, 4, h, w).
+    (N, 77, ctx). Returns the v-prediction (N, 4, h, w), or with
+    return_features=True a tuple (v or None, feats): feats are the four up
+    blocks' outputs, each taken after the block's upsampler, and v is None
+    when the UNet has no conv_out (``with_conv_out=False``).
 
     remat (training): "unet" recomputes the whole UNet forward in the
     backward (one checkpoint, the JAX training step's ``jax.checkpoint``
@@ -150,7 +158,8 @@ def unet_apply(unet: UNet2DConditionModel, sample: torch.Tensor,
     if remat is not None and hooked:
         raise ValueError("remat is a training feature; the int8 hooks are inference")
     if remat == "unet":
-        return checkpointed(unet_apply, unet, sample, timesteps, encoder_hidden_states)
+        return checkpointed(unet_apply, unet, sample, timesteps, encoder_hidden_states,
+                            return_features=return_features)
     if remat not in (None, "block"):
         raise ValueError(f"remat={remat!r}")
     if remat == "block":
@@ -186,6 +195,7 @@ def unet_apply(unet: UNet2DConditionModel, sample: torch.Tensor,
     h = unit(mid.resnets[1], None, h, None, temb, ctx, 0, eps, name="mid_block.{}.1")
 
     rev_heads = tuple(reversed(cfg.attention_heads))
+    feats: List[torch.Tensor] = []
     for i, blk in enumerate(unet.up_blocks):
         attns = getattr(blk, "attentions", None)
         for j, rb in enumerate(blk.resnets):
@@ -196,7 +206,13 @@ def unet_apply(unet: UNet2DConditionModel, sample: torch.Tensor,
             target = tuple(residuals[-1].shape[2:]) if residuals else None
             h = upsample2d(blk.upsamplers[0], h, target, conv_fn=conv_fn,
                            name=f"up_blocks.{i}.upsamplers.0")
+        feats.append(h)
 
+    if not cfg.with_conv_out:
+        if not return_features:
+            raise ValueError("a UNet without conv_out only returns features")
+        return None, feats
     out = F.silu(group_norm(h, unet.conv_norm_out.weight, unet.conv_norm_out.bias,
                             32, eps))
-    return conv(unet.conv_out, out)
+    out = conv(unet.conv_out, out)
+    return (out, feats) if return_features else out

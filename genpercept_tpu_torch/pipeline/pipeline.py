@@ -1,11 +1,13 @@
 """One-step GenPercept inference on PyTorch.
 
 Counterpart of ``genpercept_tpu/pipeline/pipeline.py`` for the genpercept
-arch without a DPT head:
+arch:
     z_rgb  = 0.18215 * mean(vae.encode(2*rgb - 1))
     v      = unet(z_rgb, t=1, empty_text_embed)
     z_pred = -v                           # beta == 1 scheduler algebra
     pred   = vae.decode(z_pred) -> channel mean -> clip [-1,1] -> (x+1)/2
+and, for a checkpoint with a DPT head, the UNet's up-block features at t=1
+through the head and a per-image min-max instead of the decode.
 ``GenPerceptPipeline`` adds the resize to the processing resolution, the
 resize back and the Spectral colorizing, and W8A8 int8 inference: the first
 batch calibrates, every later one runs int8 (``ops/quant.py``), and the
@@ -31,8 +33,11 @@ from genpercept_tpu_torch.diffusion import (
 from genpercept_tpu_torch.models import (
     AutoencoderKL,
     CLIPTextModel,
+    DPTHead,
+    DPTHeadConfig,
     UNet2DConditionModel,
     clip_text_apply,
+    dpt_head_apply,
     empty_prompt_ids,
     unet_apply,
     vae_decode,
@@ -43,6 +48,7 @@ from genpercept_tpu_torch.ops.attention import attention_projection
 from genpercept_tpu_torch.ops.colorize import colorize_depth
 from genpercept_tpu_torch.ops.resize import max_res_shape, resize
 from genpercept_tpu_torch.pipeline.tasks import TASKS, TaskSpec
+from genpercept_tpu_torch.utils.batchsize import find_batch_size
 
 # Fields of the JAX package's PipelineConfig that this port does not
 # implement yet: each accepts only its default.
@@ -89,8 +95,6 @@ class PipelineConfig:
                     f"ported yet (only {f.default!r})")
         if self.int8_unet and not self.int8_vae:
             raise AssertionError("int8_unet rides the int8_vae calibration")
-        if self.task.dpt_head is not None:
-            raise NotImplementedError(f"mode {self.mode!r} needs the DPT head")
 
     @property
     def task(self) -> TaskSpec:
@@ -109,6 +113,11 @@ class GenPerceptModels:
     vae: AutoencoderKL
     text_embed: Optional[torch.Tensor] = None  # precomputed (1, 77, ctx)
     clip: Optional[CLIPTextModel] = None
+    dpt_head: Optional[DPTHead] = None  # with it, the UNet has no conv_out
+
+    @property
+    def dpt_cfg(self) -> Optional[DPTHeadConfig]:
+        return None if self.dpt_head is None else self.dpt_head.cfg
 
     @property
     def device(self) -> torch.device:
@@ -195,8 +204,16 @@ def build_single_infer(models: GenPerceptModels, cfg: PipelineConfig,
                   "corr" (the bias-correction residuals);
       "quant"     the calibrated layers in int8, from ``vae_quant`` =
                   {"enc"|"dec"[|"unet"]: {path: QConv|QDense}}.
-    The JAX package's diagnostic "fake:" modes are not ported."""
+    The JAX package's diagnostic "fake:" modes are not ported.
+
+    With ``models.dpt_head`` (as the JAX package chooses the branch, by the
+    checkpoint and not the mode) the UNet's features go through the head
+    and each image is min-max normalized; int8 on that branch is not
+    ported."""
     task = cfg.task
+    if models.dpt_head is not None and quant_mode is not None:
+        raise NotImplementedError("int8 inference with a DPT head is not ported "
+                                  "(ROADMAP Queue 1, int8 extras)")
     t_host = int(leading_timesteps(cfg.scheduler, cfg.denoising_steps)[0])
     dtype = cfg.dtype
 
@@ -213,6 +230,13 @@ def build_single_infer(models: GenPerceptModels, cfg: PipelineConfig,
         embed = models.get_text_embed().to(dtype)
         text = embed.expand((rgb.shape[0],) + tuple(embed.shape[-2:]))
         t = torch.tensor(t_host, dtype=torch.long, device=rgb.device)
+        if models.dpt_head is not None:
+            _, feats = unet_apply(models.unet, rgb_latent, t, text, return_features=True)
+            pred = dpt_head_apply(models.dpt_head, feats[::-1])
+            # per-image min-max in the compute dtype, as the JAX package
+            lo = pred.amin(dim=(1, 2), keepdim=True)
+            hi = pred.amax(dim=(1, 2), keepdim=True)
+            return ((pred - lo) / torch.clamp(hi - lo, min=1e-6)).float()
         v = unet_apply(models.unet, rgb_latent, t, text, conv_fn=hk["u_conv"],
                        dense_fn=hk["u_dense"])
         decoded = vae_decode(  # beta == 1: pred_x0 == -v
@@ -256,6 +280,8 @@ class GenPerceptPipeline:
                                "device is available; pass device=\"cpu\" to run on the CPU")
         models.unet.to(self.device)
         models.vae.to(self.device)
+        if models.dpt_head is not None:
+            models.dpt_head.to(self.device)
         if models.clip is not None:
             models.clip.to(self.device)
         if models.text_embed is not None:
@@ -362,17 +388,20 @@ class GenPerceptPipeline:
         pred = self._resize_back(self._run(x), (h, w)).clamp(0.0, 1.0)
         return self._output(pred, color_map)
 
-    def batch(self, images: List[np.ndarray], batch_size: int,
+    def batch(self, images: List[np.ndarray], batch_size: int = 0,
               color_map: Optional[str] = "auto") -> List[GenPerceptOutput]:
         """Batched inference over (H, W, 3) arrays: images are resized to
         the processing resolution, grouped by that shape into batches of
-        ``batch_size``, run, then resized back one by one. ``batch_size``
-        must be given: no table of batch sizes is measured on a GPU yet."""
+        ``batch_size``, run, then resized back one by one. ``batch_size`` 0
+        (or less) takes the largest batch measured to fit one H100 80GB at
+        the processing resolution and dtype (``utils/batchsize.py``)."""
         cfg = self.cfg
-        if batch_size <= 0:
-            raise ValueError("batch_size must be > 0")
         if cfg.processing_res <= 0:
             raise ValueError("batched mode needs a fixed processing_res")
+        if batch_size <= 0:
+            batch_size = find_batch_size(
+                cfg.ensemble_size, cfg.processing_res,
+                "bfloat16" if cfg.dtype == torch.bfloat16 else "float32")
         groups: Dict[tuple, list] = {}
         for idx, image in enumerate(images):
             h, w = image.shape[:2]

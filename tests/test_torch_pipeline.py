@@ -108,15 +108,24 @@ def test_batch_matches_jax(pipes):
         assert_depth_close(o.pred_np, r.pred_np)
 
 
-def test_batch_needs_batch_size(pipes):
-    with pytest.raises(ValueError):
-        pipes[1].batch(images(4, [(64, 64)]), batch_size=0)
+def test_batch_needs_batch_size(pipes, monkeypatch):
+    """batch_size 0 takes its size from the H100 table (find_batch_size at
+    the processing resolution and dtype, as the JAX package takes its v5e
+    table's), giving what an explicit size gives."""
+    from genpercept_tpu_torch.pipeline import pipeline as tp
+
+    asked = []
+    monkeypatch.setattr(tp, "find_batch_size", lambda *a: asked.append(a) or 2)
+    imgs = images(4, [(64, 64), (64, 64)])
+    auto = pipes[1].batch(imgs, batch_size=0)
+    assert asked == [(1, 64, "float32")]
+    for a, b in zip(auto, pipes[1].batch(imgs, batch_size=2)):
+        np.testing.assert_array_equal(a.pred_np, b.pred_np)
 
 
 @pytest.mark.parametrize("field,value", [
     ("arch", "marigold"), ("ensemble_size", 3),
     ("int8_gptq", True), ("fix_timesteps", 10),
-    ("mode", "disparity_dpt_head"),
 ])
 def test_unported_config_raises(field, value):
     with pytest.raises(NotImplementedError):
