@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's one-step depth inference, its training step, its
-W8A8 int8 inference, its fused-VAE inference and its checkpoint loader and
-folder CLI (depth and the DPT head) once on one NVIDIA GPU.
+W8A8 int8 inference, its fused-VAE inference, its checkpoint loader and
+folder CLI (depth and the DPT head) and its marigold arch (multi-step DDIM,
+the 8-channel UNet input, test-time ensembling) once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -117,7 +118,24 @@ Phases, each printed as a JSON line:
       --batch_size -1 (the H100 table) and disparity_dpt_head bf16, each
       with exact K1/K2 launch counts, every file written, each npy equal to
       the pipeline's own output on the decoded image; the DPT path also
-      under reference_kernels() (mean deviation within 1e-2).
+      under reference_kernels() (mean deviation within 1e-2);
+  (s) marigold: the same weights with the UNet's conv_in widened to 8
+      channels by scripts/make_torch_golden.py's own _conv_in_8ch (taken from
+      its syntax tree), written with in_channels 8 and loaded; 10 DDIM steps
+      of the marigold arch (build_single_infer) on the golden's rgb and noise
+      against golden/torch_golden_768_marigold.npz: z and pred (mean, p99,
+      max) in f32 with TF32 off, f32 with the backend's defaults and bf16,
+      pred's mean within 1e-3, 1e-2 and 1e-2; exact launches per call
+      derived from the routing predicates (K1 152, K2 50) and none under
+      reference_kernels() (bf16 mean deviation within 1e-2); __call__ with
+      an ensemble of 3 in bf16 (pred in [0, 1], a finite uncertainty map of
+      the image's shape, equal seeds equal bit for bit, K1 152 and K2 50);
+      the folder CLI with --archs marigold --denoise_steps 10
+      --ensemble_size 3 --seed 0 --bf16 over checkpoint_cli's three images
+      (every file, _uncert.npy too, each npy equal to __call__ with a
+      generator seeded 0; K1 356, K2 100); seconds per 768^2 image for 10
+      steps in f32 and bf16 and for the ensemble in bf16 (CUDA events,
+      median of 3 calls after a warm-up).
 Every phase's launch counts include K7, K8 and S1-S4 (0 outside their
 paths).
 K1 and K3+K4 are also timed against one PyTorch call computing the same
@@ -1659,11 +1677,12 @@ def fingerprint(module: torch.nn.Module) -> dict:
 
 
 def write_oracle_checkpoint(root: Path, unet, vae, ns_unet: dict, ns_vae: dict,
-                            text_embed: np.ndarray) -> Path:
+                            text_embed: np.ndarray, in_channels: int = 4) -> Path:
     """The oracles' state dicts in the published layout, with the port's
     writer: unet/ and vae/ with their config.json, empty_text_embed.npy."""
     for sub, module, cfg in (
-            ("unet", unet, {"block_out_channels": list(ns_unet["C"]),
+            ("unet", unet, {"in_channels": in_channels,
+                            "block_out_channels": list(ns_unet["C"]),
                             "attention_head_dim": list(ns_unet["HEADS"]),
                             "cross_attention_dim": ns_unet["CTX"],
                             "down_block_types": ["CrossAttnDownBlock2D"] * 3 + ["DownBlock2D"],
@@ -1740,7 +1759,8 @@ def write_cli_images(root: Path) -> list:
 
 def check_cli_outputs(paths, out_dir: Path, mode: str, direct) -> float:
     """Every file the CLI writes per image exists, each npy equals the
-    pipeline's own output on the decoded image, each png its truncation;
+    pipeline's own output on the decoded image (the ensemble's uncertainty
+    map too, written exactly when there is one), each png its truncation;
     returns the largest npy difference (0.0)."""
     from PIL import Image
 
@@ -1752,6 +1772,13 @@ def check_cli_outputs(paths, out_dir: Path, mode: str, direct) -> float:
         npy = np.load(f"{base}.npy")
         check(npy.shape == out.pred_np.shape, f"{base}.npy shape {npy.shape}")
         worst = max(worst, float(np.abs(npy - out.pred_np).max()))
+        uncert = Path(f"{base}_uncert.npy")
+        check(uncert.is_file() == (out.uncertainty is not None),
+              f"CLI wrote {'no ' * (out.uncertainty is not None)}{uncert}")
+        if out.uncertainty is not None:
+            u = np.load(uncert)
+            check(u.shape == out.uncertainty.shape, f"{uncert} shape {u.shape}")
+            worst = max(worst, float(np.abs(u - out.uncertainty).max()))
         scale, dt = (65535.0, np.uint16) if mode == "depth" else (255.0, np.uint8)
         with Image.open(f"{base}.png") as im:
             check(np.array_equal(np.asarray(im).astype(dt), (npy * scale).astype(dt)),
@@ -1903,6 +1930,289 @@ def phase_checkpoint_cli() -> None:
                   f"CLI {name}: launches {rec['launches']} != {expect}")
 
 
+# ------------------------------------------------------------------ marigold
+# The marigold golden (scripts/make_torch_golden.py run_torch_marigold): the
+# one-step golden's weights with conv_in widened to 8 channels, 10 DDIM steps
+# over the SD2.1 betas from the stored noise. pred's mean abs error: f32 with
+# TF32 off compounds ten UNet passes of the one-step golden's v error
+# (3.5e-5 mean) into 1e-3; f32 with the backend's defaults and bf16 are
+# held to the golden's own bar.
+GOLDEN_MARIGOLD = GOLDEN.parent / "torch_golden_768_marigold.npz"
+GOLDEN_SCRIPT = "scripts/make_torch_golden.py"
+MARIGOLD_STEPS, MARIGOLD_E = 10, 3
+MARIGOLD_BARS = {"f32_tf32_off": 1e-3, "f32_defaults": 1e-2, "bf16": 1e-2}
+MARIGOLD_REF_BAR = 1e-2  # bf16 pred, kernels against reference_kernels()
+MARIGOLD_REPS = 3
+# self-attention transformers per UNet level at head dim 64 (levels 0-2: two
+# down, three up; the mid block's at level 3) and the VAE's two mid blocks
+UNET_TRANSFORMERS = {0: 5, 1: 5, 2: 5, 3: 1}
+UNET_WIDTHS = SD21_ORACLE["unet"]["C"]
+
+
+def golden_script_function(name: str):
+    """A function of scripts/make_torch_golden.py, taken from its syntax tree
+    and run without the script's imports."""
+    path = Path(__file__).resolve().parent / GOLDEN_SCRIPT
+    node = next(n for n in ast.parse(path.read_text()).body
+                if isinstance(n, ast.FunctionDef) and n.name == name)
+    ns: dict = {}
+    exec(compile(ast.Module(body=[node], type_ignores=[]), str(path), "exec"), ns)
+    return ns[name]
+
+
+def ddim_launches(lh: int, lw: int, batch: int, steps: int) -> dict:
+    """K1 and K2 launches of one DDIM call at latent lh x lw, derived from
+    the routing predicates: K1 where a self-attention routes to flash (the
+    UNet's per level, each pass; the VAE encoder's and decoder's mid block),
+    K2 where a level's GEGLU feed-forward does; one launch each per call of
+    the batch."""
+    from genpercept_tpu_torch.ops.attention import routes_to_flash
+
+    k1 = k2 = 0
+    h, w = lh, lw
+    for level, n in UNET_TRANSFORMERS.items():
+        s = h * w
+        k1 += n * routes_to_flash(s, s, 64)
+        k2 += n * ff.supported(batch, s, UNET_WIDTHS[level])
+        h, w = (h + 1) // 2, (w + 1) // 2
+    vae = 2 * routes_to_flash(lh * lw, lh * lw, 512)
+    return {"K1": steps * k1 + vae, "K2": steps * k2}
+
+
+def call_seconds(fn) -> dict:
+    """Seconds of fn on the card, CUDA events around each of MARIGOLD_REPS
+    calls after a warm-up: median, min, max."""
+    fn()
+    times = []
+    for _ in range(MARIGOLD_REPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 1e3)
+    return {"median_s": float(np.median(times)), "min_s": min(times), "max_s": max(times),
+            "calls": len(times)}
+
+
+def marigold_reading(models, golden: dict, dtype, steps: int = MARIGOLD_STEPS) -> tuple:
+    """One marigold build_single_infer call of ``steps`` DDIM steps on the
+    golden's rgb and noise: z and pred against the golden (mean, p99, max
+    abs error) and the call's launches; pred; and the call again."""
+    rgb = torch.from_numpy(golden["rgb"]).to(models.device)
+    noise = torch.from_numpy(golden["noise"]).to(models.device)
+    infer = build_single_infer(models, PipelineConfig(arch="marigold", denoising_steps=steps,
+                                                      dtype=dtype))
+    reset_counts()
+    pred = infer(rgb, noise=noise)
+    launches = launch_counts()
+    with torch.no_grad():
+        z = vae_encode(models.vae, rgb.to(dtype).permute(0, 3, 1, 2) * 2.0 - 1.0)
+    got = {"z": z.permute(0, 2, 3, 1), "pred": pred}
+    reading = {k: err_stats(t.float().cpu().numpy(), golden[k]) for k, t in got.items()}
+    return {**reading, "launches": launches}, pred, lambda: infer(rgb, noise=noise)
+
+
+def phase_marigold() -> dict:
+    """The marigold arch at full width (section (s)): the golden's weights
+    with conv_in widened as the golden's script widens it, written as a
+    checkpoint and loaded; 10 DDIM steps held to
+    golden/torch_golden_768_marigold.npz three ways with exact launches and
+    against reference_kernels(); an ensemble of 3 through __call__; the
+    folder CLI with --archs marigold; seconds per image."""
+    from PIL import Image
+
+    from genpercept_tpu_torch.cli import run as cli
+    from genpercept_tpu_torch.diffusion import SchedulerConfig, leading_timesteps
+
+    t0 = time.perf_counter()
+    unet_o, vae_o = oracle_modules(SD21_ORACLE)
+    fp = {"unet": fingerprint(unet_o), "vae": fingerprint(vae_o)}
+    check(fingerprint_matches(fp),
+          "the golden's weights differ: this torch's default init is not the golden's")
+    unet_o = golden_script_function("_conv_in_8ch")(unet_o)
+    with np.load(GOLDEN_MARIGOLD) as zf:
+        golden = {k: zf[k] for k in zf.files}
+    meta = json.loads(str(golden["meta"]))
+    check(meta["steps"] == MARIGOLD_STEPS and meta["timesteps"]
+          == leading_timesteps(SchedulerConfig(), MARIGOLD_STEPS).tolist(),
+          f"the marigold golden's schedule: {meta}")
+    # one call of 1 image (the golden) or of an ensemble's MARIGOLD_E members
+    zero = {k: 0 for k in COUNTERS}
+    per_call = {b: {**zero, **ddim_launches(96, 96, b, MARIGOLD_STEPS)} for b in (1, MARIGOLD_E)}
+    per_call_576 = {**zero, **ddim_launches(72, 96, MARIGOLD_E, MARIGOLD_STEPS)}
+    check(per_call[1] == per_call[MARIGOLD_E] == {**zero, "K1": 152, "K2": 50}
+          and per_call_576 == {**zero, "K1": 52, "K2": 0},
+          f"routing predicates: {per_call}, {per_call_576}")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        ckpt = write_oracle_checkpoint(root / "ckpt", unet_o, vae_o, SD21_ORACLE["unet"],
+                                       SD21_ORACLE["vae"], golden["ctx"], in_channels=8)
+        del unet_o, vae_o
+        emit({"phase": "marigold", "step": "golden_weights", "fingerprint_matched": True,
+              "conv_in": "8 channels (make_torch_golden._conv_in_8ch)",
+              "seconds": time.perf_counter() - t0, "golden_meta": meta})
+
+        readings, times = {}, {}
+        for dt in (torch.float32, torch.bfloat16):
+            models = load_genpercept_checkpoint(str(ckpt), dtype=dt, device="cuda")
+            check(models.unet.cfg.in_channels == 8 and models.unet.conv_in.weight.shape[1] == 8,
+                  "the checkpoint's conv_in is not 8 channels wide")
+            runs = ((("f32_defaults", DEFAULT_TF32), ("f32_tf32_off", (False, False)))
+                    if dt == torch.float32 else (("bf16", DEFAULT_TF32),))
+            for name, switches in runs:
+                with tf32(*switches):
+                    readings[name], pred, again = marigold_reading(models, golden, dt)
+                    check(readings[name]["launches"] == per_call[1],
+                          f"marigold {name}: launches {readings[name]['launches']}")
+                    if name != "f32_tf32_off":
+                        times[name] = call_seconds(again)
+                if name == "bf16":
+                    reset_counts()
+                    with reference_kernels(), tf32(*switches):
+                        plain = again()
+                    torch.cuda.synchronize()
+                    readings[name]["launches_reference"] = launch_counts()
+                    readings[name]["mean_abs_dev_vs_reference"] = float(
+                        (pred - plain).abs().mean())
+            if dt == torch.bfloat16:
+                ensemble = marigold_ensemble(models, golden, per_call[MARIGOLD_E])
+                times["bf16_e3"] = ensemble.pop("seconds")
+            del models
+            torch.cuda.empty_cache()
+        emit({"phase": "marigold", "step": "golden_768", "bars_pred_mean": MARIGOLD_BARS,
+              **readings})
+        for key, bar in MARIGOLD_BARS.items():
+            got = readings[key]["pred"]["mean"]
+            check(got <= bar, f"marigold golden {key}: pred mean abs error {got} > {bar}")
+        check(not any(readings["bf16"]["launches_reference"].values()),
+              "kernels launched under reference_kernels()")
+        check(readings["bf16"]["mean_abs_dev_vs_reference"] <= MARIGOLD_REF_BAR,
+              f"marigold bf16 kernels vs reference_kernels(): "
+              f"{readings['bf16']['mean_abs_dev_vs_reference']}")
+        emit({"phase": "marigold", "step": "ensemble", **ensemble})
+
+        paths = write_cli_images(root / "images")
+        decoded = []
+        for p in paths:
+            with Image.open(p) as im:
+                decoded.append(np.asarray(im.convert("RGB")))
+        out_dir = root / "out_marigold"
+        expect = {k: 2 * per_call[MARIGOLD_E][k] + per_call_576[k] for k in zero}
+        with tf32(*DEFAULT_TF32):
+            reset_counts()
+            t1 = time.perf_counter()
+            cli.main(["--checkpoint", str(ckpt), "--input_rgb_dir", str(paths[0].parent),
+                      "--output_dir", str(out_dir), "--mode", "depth", "--archs", "marigold",
+                      "--denoise_steps", str(MARIGOLD_STEPS),
+                      "--ensemble_size", str(MARIGOLD_E), "--seed", "0", "--bf16"])
+            torch.cuda.synchronize()
+            rec = {"seconds": time.perf_counter() - t1, "launches": launch_counts(),
+                   "expect": expect}
+            pipe = GenPerceptPipeline(
+                load_genpercept_checkpoint(str(ckpt), dtype=torch.bfloat16),
+                PipelineConfig(arch="marigold", denoising_steps=MARIGOLD_STEPS,
+                               ensemble_size=MARIGOLD_E, dtype=torch.bfloat16))
+            direct = [pipe(im, generator=torch.Generator("cuda").manual_seed(0))
+                      for im in decoded]
+            rec["npy_max_abs_diff_vs_pipeline"] = check_cli_outputs(paths, out_dir, "depth",
+                                                                    direct)
+        rec["files"] = sorted(p.name for p in out_dir.iterdir())
+        emit({"phase": "marigold", "step": "cli", **rec})
+        check(rec["launches"] == expect, f"marigold CLI: launches {rec['launches']} != {expect}")
+        check(rec["npy_max_abs_diff_vs_pipeline"] == 0.0,
+              "marigold CLI: an npy differs from the pipeline's output")
+        del pipe, direct
+        torch.cuda.empty_cache()
+    per_image = {k: v["median_s"] / (MARIGOLD_E if k == "bf16_e3" else 1)
+                 for k, v in times.items()}
+    emit({"phase": "marigold", "step": "seconds_per_768_image", "steps": MARIGOLD_STEPS,
+          "per_call": times, "per_image_median_s": per_image,
+          "seconds": time.perf_counter() - t0})
+    return {"readings": readings, "times": times}
+
+
+def marigold_ensemble(models, golden: dict, per_call: dict) -> dict:
+    """__call__ with E = MARIGOLD_E in bf16 on the golden's rgb: pred in
+    [0, 1], a finite uncertainty map of the image's shape, equal seeds equal
+    bit for bit, one call's launches those of one 10-step call; its time."""
+    with tf32(*DEFAULT_TF32):
+        pipe = GenPerceptPipeline(models, PipelineConfig(
+            arch="marigold", denoising_steps=MARIGOLD_STEPS, ensemble_size=MARIGOLD_E,
+            dtype=torch.bfloat16))
+        image = golden["rgb"][0]
+
+        def call():
+            return pipe(image, generator=torch.Generator("cuda").manual_seed(SEED))
+
+        reset_counts()
+        out = call()
+        launches = launch_counts()
+        again = call()
+        seconds = call_seconds(call)
+    rec = {"ensemble_size": MARIGOLD_E, "launches": launches,
+           "pred_range": [float(out.pred_np.min()), float(out.pred_np.max())],
+           "pred_std": float(out.pred_np.std()),
+           "uncertainty_shape": list(out.uncertainty.shape),
+           "uncertainty_mean": float(out.uncertainty.mean()),
+           "uncertainty_max": float(out.uncertainty.max()),
+           "equal_seeds_equal": bool(np.array_equal(out.pred_np, again.pred_np)
+                                     and np.array_equal(out.uncertainty, again.uncertainty)),
+           "seconds": seconds}
+    check(launches == per_call, f"marigold ensemble: launches {launches} != {per_call}")
+    check(bool(np.isfinite(out.pred_np).all()) and out.pred_np.min() >= 0.0
+          and out.pred_np.max() <= 1.0, "marigold ensemble: pred not finite or outside [0, 1]")
+    check(out.pred_np.std() > 1e-4, "marigold ensemble: a constant prediction")
+    check(out.uncertainty.shape == image.shape[:2] and bool(np.isfinite(out.uncertainty).all()),
+          "marigold ensemble: the uncertainty is not finite or not of the image's shape")
+    check(rec["equal_seeds_equal"], "marigold ensemble: equal seeds gave different outputs")
+    return rec
+
+
+def profile_marigold() -> list:
+    """Where the device time of one 10-step marigold __call__ on a 768x768
+    image goes (not part of main): seeded random weights at full width, the
+    UNet's conv_in widened as the golden's; one warm-up call, then one call
+    traced with torch.profiler and summarized by
+    scripts/profile_torch_slice.py's summarize() (wall, device busy, idle
+    share, kernel families): f32 (TF32 off), bf16, bf16 with an ensemble of
+    MARIGOLD_E.
+
+        python3 -c "import chip_smoke as c; c.phase_device(); c.phase_build(); c.profile_marigold()"
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    summarize = load_script("profile_torch_slice").summarize
+    unet, vae, clip = build_models(torch.Generator(device="cuda").manual_seed(SEED))
+    unet = golden_script_function("_conv_in_8ch")(unet)
+    image = (np.random.default_rng(SEED).uniform(size=(768, 768, 3)) * 255).astype(np.uint8)
+    records = []
+    for dt, e in ((torch.float32, 1), (torch.bfloat16, 1), (torch.bfloat16, MARIGOLD_E)):
+        models = GenPerceptModels(unet=copy.deepcopy(unet).to(dt), vae=copy.deepcopy(vae).to(dt),
+                                  clip=copy.deepcopy(clip).to(dt))
+        pipe = GenPerceptPipeline(models, PipelineConfig(
+            arch="marigold", denoising_steps=MARIGOLD_STEPS, ensemble_size=e, dtype=dt))
+
+        def call():
+            return pipe(image, generator=torch.Generator("cuda").manual_seed(SEED))
+
+        call()  # warm-up: cuDNN plans
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1000.0
+        rec = {"phase": "marigold_profile", "dtype": str(dt), "ensemble_size": e,
+               "steps": MARIGOLD_STEPS, **summarize(prof, wall_ms)}
+        rec.pop("all")
+        emit(rec)
+        records.append(rec)
+        del models, pipe, prof
+        torch.cuda.empty_cache()
+    return records
+
+
 def kernel_record(name, source, replaces, launches, max_abs_err, ms, plain_ms, bd: Bound,
                   library_ms):
     return {"name": name, "route": "cuda", "source": f"genpercept_tpu_torch/csrc/{source}",
@@ -1933,6 +2243,7 @@ def main() -> None:
     s14 = phase_s14()
     paths = phase_scripts()
     phase_checkpoint_cli()
+    phase_marigold()
     # per 768^2 image (K1, K2: f32), per recipe micro-step (K3, K4: bf16),
     # per 768^2 forward of batch 2 (K5, K6, K8: bf16), per pass of K7's path
     # over its five shapes at batch 2 (bf16)

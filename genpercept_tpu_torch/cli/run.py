@@ -6,8 +6,11 @@
 
 Counterpart of ``genpercept_tpu/cli/run.py``, with the same flags and
 outputs. Saves, per image: <name>_pred.npy, <name>_pred.png (16-bit for
-depth, 8-bit otherwise) and <name>_pred_colored.png where the task has a
-color map. Runs on the card unless ``--device cpu`` is given.
+depth, 8-bit otherwise), <name>_pred_colored.png where the task has a
+color map and <name>_pred_uncert.npy when an ensemble ran. The marigold
+arch draws each image's initial noise from a generator seeded with
+``--seed`` (0 by default), the same draw for every image. Runs on the card
+unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="bfloat16 compute")
     p.add_argument("--fix_timesteps", type=int, default=None)
     p.add_argument("--seed", type=int, default=None,
-                   help="initial noise of the marigold arch (not ported)")
+                   help="seed of the marigold arch's initial noise (default 0)")
     p.add_argument("--batch_size", type=int, default=0,
                    help="0 = single-image loop; >0 = batches of that size; -1 = "
                         "the largest measured to fit one H100 80GB")
@@ -73,10 +76,6 @@ def build_parser() -> argparse.ArgumentParser:
 def _refuse_unported(args) -> None:
     if args.data_parallel:
         raise NotImplementedError("--data_parallel is not ported (ROADMAP Queue 1 item 11)")
-    if args.archs != "genpercept" or args.fix_timesteps is not None:
-        raise NotImplementedError(
-            f"--archs {args.archs} and --fix_timesteps are not ported "
-            "(ROADMAP Queue 1 item 5, the marigold and rgb_blending archs)")
 
 
 def main(argv=None):
@@ -89,8 +88,9 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     _refuse_unported(args)
-    # genpercept forces one step, no ensemble (reference run.py:209-211)
-    args.denoise_steps, args.ensemble_size = 1, 1
+    if args.archs == "genpercept":
+        # genpercept forces one step, no ensemble (reference run.py:209-211)
+        args.denoise_steps, args.ensemble_size = 1, 1
 
     dtype = torch.bfloat16 if args.half_precision else torch.float32
     models = load_genpercept_checkpoint(args.checkpoint, dtype=dtype,
@@ -103,6 +103,7 @@ def main(argv=None):
         match_input_res=not args.output_processing_res,
         denoising_steps=args.denoise_steps,
         ensemble_size=args.ensemble_size,
+        fix_timesteps=args.fix_timesteps,
         resample_method=args.resample_method,
         dtype=dtype,
         int8_vae=args.int8_vae,
@@ -139,19 +140,24 @@ def main(argv=None):
             Image.fromarray(png).save(osp.join(out_dir, base + ".png"))
         if out.pred_colored is not None:
             Image.fromarray(out.pred_colored).save(osp.join(out_dir, base + "_colored.png"))
+        if out.uncertainty is not None:  # the ensemble's disagreement map
+            np.save(osp.join(out_dir, base + "_uncert.npy"), out.uncertainty)
         logging.info(f"saved {base} -> {out_dir}")
 
     def read(path):
         with Image.open(path) as im:
             return np.asarray(im.convert("RGB"))
 
-    if args.batch_size != 0:
+    if args.batch_size != 0 and args.archs == "genpercept":
         outs = pipe.batch([read(p) for p in rgb_paths], batch_size=max(args.batch_size, 0))
         for path, out in zip(rgb_paths, outs):
             save_one(path, out)
     else:
+        seed = 0 if args.seed is None else args.seed
         for path in rgb_paths:
-            save_one(path, pipe(read(path)))
+            # a fresh generator per image: each image gets the same draw
+            generator = torch.Generator(pipe.device).manual_seed(seed)
+            save_one(path, pipe(read(path), generator=generator))
 
     if (args.int8_calibration and args.int8_vae and pipe.calibrated
             and not osp.exists(args.int8_calibration)):

@@ -1,17 +1,19 @@
-"""The scheduler pieces the one-step path and the training step need.
+"""Diffusion schedulers on PyTorch.
 
-Counterpart of a subset of ``genpercept_tpu/diffusion/schedulers.py``: the
-config, GenPercept's degenerate beta_start = beta_end = 1 schedule, the
-'leading' timestep spacing, the beta tables (``make_scheduler``) and the
-forward-process pieces of training (``add_noise``, ``get_velocity``). With
-beta == 1 everywhere alpha_bar_t == 0, so ``add_noise`` returns the noise,
-``get_velocity`` returns -x0, and the v-prediction's original sample is
-exactly -v (see pipeline.py).
+Counterpart of ``genpercept_tpu/diffusion/schedulers.py``: the config,
+GenPercept's degenerate beta_start = beta_end = 1 schedule, the 'leading'
+timestep spacing, the beta tables (``make_scheduler``), the forward-process
+pieces of training (``add_noise``, ``get_velocity``) and the reverse steps
+of the marigold and rgb_blending archs (``pred_original_sample``,
+``ddim_step``, ``ddpm_step``). With beta == 1 everywhere alpha_bar_t == 0,
+so ``add_noise`` returns the noise, ``get_velocity`` returns -x0, and the
+v-prediction's original sample is exactly -v (see pipeline.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -115,3 +117,72 @@ def get_velocity(state: SchedulerState, x0: torch.Tensor, noise: torch.Tensor,
     """v target = sqrt(abar) eps - sqrt(1 - abar) x0, in f32."""
     abar = _extract(state.alphas_cumprod, t, x0.ndim)
     return torch.sqrt(abar) * noise.float() - torch.sqrt(1.0 - abar) * x0.float()
+
+
+def pred_original_sample(cfg: SchedulerConfig, state: SchedulerState,
+                         model_output: torch.Tensor, sample: torch.Tensor,
+                         t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(pred_x0, pred_epsilon) from the model output at timestep t, in f32."""
+    abar = _extract(state.alphas_cumprod, t, sample.ndim)
+    sqrt_a, sqrt_1ma = torch.sqrt(abar), torch.sqrt(1.0 - abar)
+    out, x = model_output.float(), sample.float()
+    if cfg.prediction_type == "epsilon":
+        x0 = (x - sqrt_1ma * out) / sqrt_a
+        eps = out
+    elif cfg.prediction_type == "sample":
+        x0 = out
+        eps = (x - sqrt_a * x0) / sqrt_1ma
+    elif cfg.prediction_type == "v_prediction":
+        x0 = sqrt_a * x - sqrt_1ma * out
+        eps = sqrt_a * out + sqrt_1ma * x
+    else:
+        raise ValueError(f"unknown prediction type {cfg.prediction_type!r}")
+    if cfg.clip_sample:
+        x0 = x0.clamp(-cfg.clip_sample_range, cfg.clip_sample_range)
+    return x0, eps
+
+
+def ddim_step(cfg: SchedulerConfig, state: SchedulerState, model_output: torch.Tensor,
+              t: torch.Tensor, sample: torch.Tensor, num_inference_steps: int,
+              eta: float = 0.0, noise: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One DDIM update, deterministic at eta = 0; t of shape (B,) or a
+    scalar. Returns (prev_sample, pred_x0), both f32: the caller casts back."""
+    prev_t = t - cfg.num_train_timesteps // num_inference_steps
+    table = state.alphas_cumprod.to(t.device)
+    abar_prev = torch.where(prev_t >= 0, table[prev_t.clamp(min=0)],
+                            state.final_alpha_cumprod.to(t.device))
+    abar_prev = abar_prev.reshape(abar_prev.shape + (1,) * (sample.ndim - abar_prev.ndim))
+    x0, eps = pred_original_sample(cfg, state, model_output, sample, t)
+    if eta > 0.0:
+        if noise is None:
+            raise ValueError("eta > 0 requires noise")
+        abar_t = _extract(state.alphas_cumprod, t, sample.ndim)
+        variance = (1.0 - abar_prev) / (1.0 - abar_t) * (1.0 - abar_t / abar_prev)
+        std = eta * torch.sqrt(variance)
+        dir_xt = torch.sqrt(1.0 - abar_prev - std ** 2) * eps
+        prev = torch.sqrt(abar_prev) * x0 + dir_xt + std * noise.float()
+    else:
+        prev = torch.sqrt(abar_prev) * x0 + torch.sqrt(1.0 - abar_prev) * eps
+    return prev, x0
+
+
+def ddpm_step(cfg: SchedulerConfig, state: SchedulerState, model_output: torch.Tensor,
+              t: torch.Tensor, sample: torch.Tensor, noise: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Ancestral DDPM update. Returns (prev_sample, pred_x0), both f32."""
+    abar_t = _extract(state.alphas_cumprod, t, sample.ndim)
+    lead = abar_t.shape[:t.ndim] + (1,) * (abar_t.ndim - t.ndim)
+    abar_prev = torch.where((t - 1 >= 0).reshape(lead),
+                            _extract(state.alphas_cumprod, (t - 1).clamp(min=0), sample.ndim),
+                            torch.ones_like(abar_t))
+    beta_t = 1.0 - abar_t / abar_prev
+    alpha_t = 1.0 - beta_t
+    x0, _ = pred_original_sample(cfg, state, model_output, sample, t)
+    # the posterior mean's coefficients (Ho et al. eq. 7)
+    coef_x0 = torch.sqrt(abar_prev) * beta_t / (1.0 - abar_t)
+    coef_xt = torch.sqrt(alpha_t) * (1.0 - abar_prev) / (1.0 - abar_t)
+    mean = coef_x0 * x0 + coef_xt * sample.float()
+    variance = ((1.0 - abar_prev) / (1.0 - abar_t) * beta_t).clamp(min=1e-20)
+    std = torch.where((t > 0).reshape(lead), torch.sqrt(variance), torch.zeros_like(variance))
+    return mean + std * noise.float(), x0

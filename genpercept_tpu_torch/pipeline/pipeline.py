@@ -1,19 +1,23 @@
-"""One-step GenPercept inference on PyTorch.
+"""GenPercept inference on PyTorch.
 
-Counterpart of ``genpercept_tpu/pipeline/pipeline.py`` for the genpercept
-arch:
+Counterpart of ``genpercept_tpu/pipeline/pipeline.py``. The genpercept arch
+is one step:
     z_rgb  = 0.18215 * mean(vae.encode(2*rgb - 1))
     v      = unet(z_rgb, t=1, empty_text_embed)
     z_pred = -v                           # beta == 1 scheduler algebra
     pred   = vae.decode(z_pred) -> channel mean -> clip [-1,1] -> (x+1)/2
 and, for a checkpoint with a DPT head, the UNet's up-block features at t=1
-through the head and a per-image min-max instead of the decode.
+through the head and a per-image min-max instead of the decode. The
+rgb_blending and marigold archs run DDIM over the SD2.1 betas from z_rgb
+(rgb_blending) or from Gaussian noise with z_rgb concatenated to the UNet's
+input (marigold, 8 channels), and decode the last step's pred_x0.
 ``GenPerceptPipeline`` adds the resize to the processing resolution, the
-resize back and the Spectral colorizing, and W8A8 int8 inference: the first
-batch calibrates, every later one runs int8 (``ops/quant.py``), and the
-fused VAE resblocks (``fused_vae``, ``ops/fused_conv.py``). Its public
-API keeps the JAX package's layouts: images (H, W, 3) in, depth (H, W) out.
-It runs on the card unless the caller asks for the CPU.
+noise draw and test-time ensembling (``pipeline/ensemble.py``), the resize
+back and the Spectral colorizing, and W8A8 int8 inference: the first batch
+calibrates, every later one runs int8 (``ops/quant.py``), and the fused VAE
+resblocks (``fused_vae``, ``ops/fused_conv.py``). Its public API keeps the
+JAX package's layouts: images (H, W, 3) in, depth (H, W) out, noise
+(B, h/8, w/8, 4). It runs on the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -28,7 +32,9 @@ import torch
 from genpercept_tpu_torch.diffusion import (
     GENPERCEPT_SCHEDULER,
     SchedulerConfig,
+    ddim_step,
     leading_timesteps,
+    make_scheduler,
 )
 from genpercept_tpu_torch.models import (
     AutoencoderKL,
@@ -47,14 +53,13 @@ from genpercept_tpu_torch.ops import quant
 from genpercept_tpu_torch.ops.attention import attention_projection
 from genpercept_tpu_torch.ops.colorize import colorize_depth
 from genpercept_tpu_torch.ops.resize import max_res_shape, resize
+from genpercept_tpu_torch.pipeline.ensemble import ensemble_predictions
 from genpercept_tpu_torch.pipeline.tasks import TASKS, TaskSpec
 from genpercept_tpu_torch.utils.batchsize import find_batch_size
 
 # Fields of the JAX package's PipelineConfig that this port does not
 # implement yet: each accepts only its default.
-_UNPORTED = (
-    "arch", "denoising_steps", "ensemble_size", "fix_timesteps", "int8_gptq",
-)
+_UNPORTED = ("int8_gptq",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,7 +69,7 @@ class PipelineConfig:
     their default."""
 
     mode: str = "depth"
-    arch: str = "genpercept"
+    arch: str = "genpercept"  # genpercept | rgb_blending | marigold
     processing_res: int = 768  # 0 = keep input resolution
     match_input_res: bool = True
     denoising_steps: int = 1
@@ -93,6 +98,9 @@ class PipelineConfig:
                 raise NotImplementedError(
                     f"PipelineConfig.{f.name}={getattr(self, f.name)!r} is not "
                     f"ported yet (only {f.default!r})")
+        if self.arch == "genpercept" and (self.denoising_steps, self.ensemble_size) != (1, 1):
+            # one step, no ensemble (reference run.py:209-211)
+            raise AssertionError("the genpercept arch runs one step and no ensemble")
         if self.int8_unet and not self.int8_vae:
             raise AssertionError("int8_unet rides the int8_vae calibration")
 
@@ -102,7 +110,9 @@ class PipelineConfig:
 
     @property
     def scheduler(self) -> SchedulerConfig:
-        return GENPERCEPT_SCHEDULER
+        if self.arch == "genpercept":
+            return GENPERCEPT_SCHEDULER
+        return SchedulerConfig()  # the SD2.1 betas of the DDIM archs
 
 
 @dataclasses.dataclass
@@ -192,10 +202,17 @@ def _int8_hooks(cfg: PipelineConfig, quant_mode: Optional[str], vq: Optional[Dic
 
 def build_single_infer(models: GenPerceptModels, cfg: PipelineConfig,
                        quant_mode: Optional[str] = None):
-    """Returns fn(rgb, vae_quant=None) -> prediction, rgb: (B, H, W, 3) float
-    in [0, 1] at the processing resolution (H, W multiples of 8), on the
-    models' device. Returns (B, H, W) float32 in [0, 1] (or (B, H, W, 3) for
-    3-channel tasks).
+    """Returns fn(rgb, vae_quant=None, noise=None) -> prediction, rgb:
+    (B, H, W, 3) float in [0, 1] at the processing resolution (H, W
+    multiples of 8), on the models' device. Returns (B, H, W) float32 in
+    [0, 1] (or (B, H, W, 3) for 3-channel tasks).
+
+    The arch picks the denoising: genpercept one UNet pass at the first
+    timestep; rgb_blending DDIM from the rgb latent; marigold DDIM from
+    ``noise`` (B, H/8, W/8, 4), required, with the rgb latent concatenated
+    before it on the UNet's 8 input channels. The timesteps are
+    ``cfg.fix_timesteps`` repeated, else the 'leading' spacing. Every UNet
+    input and the decode run in ``cfg.dtype``; the DDIM update runs in f32.
 
     quant_mode (W8A8, ops/quant.py):
       None        full precision;
@@ -214,33 +231,66 @@ def build_single_infer(models: GenPerceptModels, cfg: PipelineConfig,
     if models.dpt_head is not None and quant_mode is not None:
         raise NotImplementedError("int8 inference with a DPT head is not ported "
                                   "(ROADMAP Queue 1, int8 extras)")
-    t_host = int(leading_timesteps(cfg.scheduler, cfg.denoising_steps)[0])
+    sched_cfg = cfg.scheduler
+    sched = make_scheduler(sched_cfg, device=models.device)
+    if cfg.fix_timesteps:
+        ts = np.full((cfg.denoising_steps,), cfg.fix_timesteps, np.int64)
+    else:
+        ts = leading_timesteps(sched_cfg, cfg.denoising_steps)
     dtype = cfg.dtype
 
     def attn_kept(path):
         return not any(e in path for e in cfg.int8_exclude)
 
     @torch.no_grad()
-    def single_infer(rgb: torch.Tensor, vae_quant: Optional[Dict] = None):
+    def single_infer(rgb: torch.Tensor, vae_quant: Optional[Dict] = None,
+                     noise: Optional[torch.Tensor] = None):
         hk = _int8_hooks(cfg, quant_mode, vae_quant)
         x = rgb.to(dtype).permute(0, 3, 1, 2) * 2.0 - 1.0
         rgb_latent = vae_encode(
             models.vae, x, conv_fn=hk["enc"], dense_fn=hk["enc_dense"], fused=cfg.fused_vae,
             attn_int8=hk["vattn"] and attn_kept("encoder.mid_block.attentions.0"))
         embed = models.get_text_embed().to(dtype)
-        text = embed.expand((rgb.shape[0],) + tuple(embed.shape[-2:]))
-        t = torch.tensor(t_host, dtype=torch.long, device=rgb.device)
+        b = rgb.shape[0]
+        text = embed.expand((b,) + tuple(embed.shape[-2:]))
+
+        def timestep(t_host):
+            return torch.full((b,), int(t_host), dtype=torch.long, device=rgb.device)
+
         if models.dpt_head is not None:
-            _, feats = unet_apply(models.unet, rgb_latent, t, text, return_features=True)
+            _, feats = unet_apply(models.unet, rgb_latent, timestep(ts[0]), text,
+                                  return_features=True)
             pred = dpt_head_apply(models.dpt_head, feats[::-1])
             # per-image min-max in the compute dtype, as the JAX package
             lo = pred.amin(dim=(1, 2), keepdim=True)
             hi = pred.amax(dim=(1, 2), keepdim=True)
             return ((pred - lo) / torch.clamp(hi - lo, min=1e-6)).float()
-        v = unet_apply(models.unet, rgb_latent, t, text, conv_fn=hk["u_conv"],
-                       dense_fn=hk["u_dense"])
-        decoded = vae_decode(  # beta == 1: pred_x0 == -v
-            models.vae, -v, conv_fn=hk["dec"], dense_fn=hk["dec_dense"], fused=cfg.fused_vae,
+        if cfg.arch in ("genpercept", "rgb_blending"):
+            pred_latent = rgb_latent
+        elif noise is None:
+            raise ValueError("the marigold arch needs initial noise")
+        else:
+            pred_latent = noise.to(rgb.device, dtype).permute(0, 3, 1, 2)
+
+        if cfg.arch == "genpercept":
+            v = unet_apply(models.unet, pred_latent, timestep(ts[0]), text,
+                           conv_fn=hk["u_conv"], dense_fn=hk["u_dense"])
+            pred_latent = -v  # beta == 1: pred_x0 == -v
+        else:
+            for t_host in ts:
+                t = timestep(t_host)
+                unet_in = (torch.cat([rgb_latent, pred_latent], dim=1)
+                           if cfg.arch == "marigold" else pred_latent)
+                v = unet_apply(models.unet, unet_in, t, text, conv_fn=hk["u_conv"],
+                               dense_fn=hk["u_dense"])
+                prev, pred_x0 = ddim_step(sched_cfg, sched, v, t, pred_latent,
+                                          cfg.denoising_steps)
+                # the update runs in f32; every UNet pass and the decode in dtype
+                pred_latent = prev.to(dtype)
+            pred_latent = pred_x0.to(dtype)
+        decoded = vae_decode(
+            models.vae, pred_latent, conv_fn=hk["dec"], dense_fn=hk["dec_dense"],
+            fused=cfg.fused_vae,
             attn_int8=hk["vattn"] and attn_kept("decoder.mid_block.attentions.0"))
         if task.channel_mean:
             decoded = decoded.mean(dim=1)
@@ -258,6 +308,9 @@ def build_single_infer(models: GenPerceptModels, cfg: PipelineConfig,
 class GenPerceptOutput:
     pred_np: np.ndarray  # (H, W) or (H, W, 3) float in [0, 1]
     pred_colored: Optional[np.ndarray]  # (H, W, 3) uint8 or None
+    # per-pixel disagreement of the aligned ensemble members (median
+    # absolute deviation, in the merged output's units) when ensemble_size > 1
+    uncertainty: Optional[np.ndarray] = None
 
 
 class GenPerceptPipeline:
@@ -299,14 +352,14 @@ class GenPerceptPipeline:
         return not self.cfg.int8_vae or self.vae_quant is not None
 
     @torch.no_grad()
-    def _calibrate(self, x: torch.Tensor) -> torch.Tensor:
+    def _calibrate(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The calibration pass over x (JAX GenPerceptPipeline._run :507-568):
         stats in chunks of 2 images with asymmetric stats, else 4; the int8
         trees of the kept layers, bias-corrected; the self-check. Returns
         the full-precision prediction."""
         cfg = self.cfg
         chunk = 2 if cfg.int8_asymmetric else 4
-        pred, stats = quant.calibrate_chunked(self._calib_infer, x, chunk=chunk)
+        pred, stats = quant.calibrate_chunked(self._calib_infer, x, None, noise, chunk=chunk)
         m = 1.0 if cfg.int8_refine else cfg.int8_margin
 
         def keep(st):
@@ -324,7 +377,7 @@ class GenPerceptPipeline:
         if cfg.int8_selfcheck:
             # one quantized forward on the calibration batch against the
             # full-precision prediction in hand
-            q_pred = self._infer(x, vq)
+            q_pred = self._infer(x, vq, noise)
             self.int8_mean_dev = float((q_pred.float() - pred.float()).abs().mean())
             if self.int8_mean_dev > 1e-2:
                 logging.getLogger(__name__).warning(
@@ -334,12 +387,13 @@ class GenPerceptPipeline:
                     "'decoder.up_blocks.3.'))", self.int8_mean_dev)
         return pred
 
-    def _run(self, x: torch.Tensor) -> torch.Tensor:
-        """One device batch: the calibration pass first if int8 is set and
-        not yet calibrated, else the (quantized) forward."""
+    def _run(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One device batch (with the marigold arch's initial noise): the
+        calibration pass first if int8 is set and not yet calibrated, else
+        the (quantized) forward."""
         if not self.calibrated:
-            return self._calibrate(x)
-        return self._infer(x, self.vae_quant)
+            return self._calibrate(x, noise)
+        return self._infer(x, self.vae_quant, noise)
 
     def save_calibration(self, path) -> None:
         """Write the int8 tree built by the first batch (JAX's .npz layout)."""
@@ -367,26 +421,54 @@ class GenPerceptPipeline:
             return resize(pred[..., None], hw, cfg.resample_method)[..., 0]
         return resize(pred, hw, cfg.resample_method)
 
-    def _output(self, pred: torch.Tensor,
-                color_map: Optional[str]) -> GenPerceptOutput:
+    def _output(self, pred: torch.Tensor, color_map: Optional[str],
+                uncertainty: Optional[torch.Tensor] = None) -> GenPerceptOutput:
         if color_map == "auto":
             color_map = self.cfg.task.color_map
         colored = None
         if color_map is not None and pred.ndim == 3:
             colored = (colorize_depth(pred[0]) * 255).to(torch.uint8).cpu().numpy()
-        return GenPerceptOutput(pred_np=pred[0].cpu().numpy(), pred_colored=colored)
+        return GenPerceptOutput(
+            pred_np=pred[0].cpu().numpy(), pred_colored=colored,
+            uncertainty=None if uncertainty is None else uncertainty.cpu().numpy())
 
-    def __call__(self, image: np.ndarray,
-                 color_map: Optional[str] = "auto") -> GenPerceptOutput:
-        """image: (H, W, 3) uint8 or float in [0, 1]."""
+    def __call__(self, image: np.ndarray, color_map: Optional[str] = "auto", *,
+                 generator: Optional[torch.Generator] = None) -> GenPerceptOutput:
+        """image: (H, W, 3) uint8 or float in [0, 1].
+
+        With ``ensemble_size`` E > 1 the image runs as E members in one
+        batch, each from its own noise, and the members are ensembled (the
+        output then carries an uncertainty map); the marigold arch draws its
+        initial noise, (E, h/8, w/8, 4), from ``generator``, a generator on
+        the pipeline's device (default: one seeded 0, so that an unseeded
+        call is deterministic)."""
         cfg = self.cfg
         h, w = image.shape[:2]
         x = self._to_tensor(image)[None]
         ph, pw = max_res_shape(h, w, cfg.processing_res) if cfg.processing_res > 0 \
             else (h, w)
         x = resize(x, (ph, pw), cfg.resample_method, antialias=True)
-        pred = self._resize_back(self._run(x), (h, w)).clamp(0.0, 1.0)
-        return self._output(pred, color_map)
+        lh, lw = ph, pw  # the latent: three stride-2 convs, each a floor-halving
+        for _ in range(3):
+            lh, lw = lh // 2, lw // 2
+        if generator is None:
+            generator = torch.Generator(self.device).manual_seed(0)
+
+        def draw(n):
+            return torch.randn((n, lh, lw, 4), generator=generator, device=self.device)
+
+        e = cfg.ensemble_size
+        uncertainty = None
+        if e > 1:
+            preds = self._run(x.expand(e, ph, pw, 3), draw(e))
+            pred, uncertainty = ensemble_predictions(preds, return_uncertainty=True)
+            pred = pred[None]
+        else:
+            pred = self._run(x, draw(1) if cfg.arch == "marigold" else None)
+        if uncertainty is not None:
+            uncertainty = self._resize_back(uncertainty[None], (h, w))[0]
+        pred = self._resize_back(pred, (h, w)).clamp(0.0, 1.0)
+        return self._output(pred, color_map, uncertainty)
 
     def batch(self, images: List[np.ndarray], batch_size: int = 0,
               color_map: Optional[str] = "auto") -> List[GenPerceptOutput]:
@@ -394,7 +476,9 @@ class GenPerceptPipeline:
         the processing resolution, grouped by that shape into batches of
         ``batch_size``, run, then resized back one by one. ``batch_size`` 0
         (or less) takes the largest batch measured to fit one H100 80GB at
-        the processing resolution and dtype (``utils/batchsize.py``)."""
+        the processing resolution and dtype (``utils/batchsize.py``). It
+        runs each image once: no ensemble, and no noise, so the marigold
+        arch raises here as in the JAX package."""
         cfg = self.cfg
         if cfg.processing_res <= 0:
             raise ValueError("batched mode needs a fixed processing_res")

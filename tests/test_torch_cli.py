@@ -127,11 +127,38 @@ def test_cli_outputs_are_the_pipelines(ckpts, image_dir, tmp_path, mode):  # noq
         assert chip_smoke.check_cli_outputs([path], out_dir, mode, [d]) == 0.0
 
 
-@pytest.mark.parametrize("extra", [["--data_parallel", "--batch_size", "2"],
-                                   ["--archs", "marigold"], ["--fix_timesteps", "5"]])
+@pytest.mark.parametrize("extra", [["--data_parallel", "--batch_size", "2"]])
 def test_cli_refuses_unported(ckpts, image_dir, tmp_path, extra):  # noqa: F811
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_run.main(argv(ckpts, image_dir, tmp_path, "depth", "--device", "cpu", *extra))
+
+
+class _Stop(Exception):
+    pass
+
+
+@pytest.mark.parametrize("extra,expect", [
+    (["--archs", "marigold", "--denoise_steps", "4", "--ensemble_size", "3"],
+     dict(arch="marigold", denoising_steps=4, ensemble_size=3, fix_timesteps=None)),
+    (["--fix_timesteps", "5", "--denoise_steps", "4", "--ensemble_size", "3"],
+     dict(arch="genpercept", denoising_steps=1, ensemble_size=1, fix_timesteps=5)),
+])
+def test_cli_passes_the_ddim_flags(ckpts, image_dir, tmp_path, monkeypatch, extra,  # noqa: F811
+                                   expect):
+    """--archs, --denoise_steps, --ensemble_size and --fix_timesteps reach
+    the pipeline's config as in the JAX CLI, which forces one step and no
+    ensemble on the genpercept arch only (tests/test_torch_marigold.py runs
+    them end to end)."""
+    import genpercept_tpu_torch.pipeline as tpipeline
+
+    def capture(models, cfg, device):
+        raise _Stop(cfg)
+
+    monkeypatch.setattr(tpipeline, "GenPerceptPipeline", capture)
+    with pytest.raises(_Stop) as stop:
+        torch_run.main(argv(ckpts, image_dir, tmp_path, "depth", "--device", "cpu", *extra))
+    cfg = stop.value.args[0]
+    assert {k: getattr(cfg, k) for k in expect} == expect
 
 
 def test_cli_flags_mirror_jax_and_default_to_the_card(ckpts, image_dir, tmp_path,  # noqa: F811

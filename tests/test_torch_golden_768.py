@@ -1,15 +1,17 @@
 """The port against the committed 768^2 torch goldens, on the CPU.
 
-golden/torch_golden_768.npz and golden/torch_golden_768_dpt.npz are full
-SD2.1-width torch f32 forwards of the independent oracles
-(scripts/make_torch_golden.py). Here the same weights (seeds 0, 1 and, for
-the head, 2; fingerprinted first) are written as published-layout
-checkpoints with the port's writer, loaded with the port's loader and run
-through ``build_single_infer`` on the golden's rgb and text embedding. z,
+golden/torch_golden_768.npz, golden/torch_golden_768_dpt.npz and
+golden/torch_golden_768_marigold.npz are full SD2.1-width torch f32
+forwards of the independent oracles (scripts/make_torch_golden.py; the
+marigold one 10 DDIM steps from its stored noise, with conv_in widened to 8
+channels). Here the same weights (seeds 0, 1 and, for the head, 2;
+fingerprinted first) are written as published-layout checkpoints with the
+port's writer, loaded with the port's loader and run through
+``build_single_infer`` on the golden's rgb, text embedding and noise. z,
 v (where stored) and pred are reported as mean, p99 and max abs error, as
 ``compare_ours`` reports them; the bar is its own, pred's mean <= 1e-2.
 
-Full width on the CPU takes many minutes and tens of GB, so both tests run
+Full width on the CPU takes many minutes and tens of GB, so these tests run
 only with RUN_GOLDEN_768=1, and the module is marked slow. The DPT head is
 built from transformers' DPT pieces through tests/test_models.py, which
 imports jax, so the DPT golden needs the JAX side's environment;
@@ -44,12 +46,15 @@ def load_golden(name: str) -> dict:
         return {k: zf[k] for k in zf.files}
 
 
-def golden_checkpoint(root: Path, ctx: np.ndarray) -> Path:
+def golden_checkpoint(root: Path, ctx: np.ndarray, marigold: bool = False) -> Path:
     unet, vae = chip_smoke.oracle_modules(chip_smoke.SD21_ORACLE)
     fp = {"unet": chip_smoke.fingerprint(unet), "vae": chip_smoke.fingerprint(vae)}
     assert chip_smoke.fingerprint_matches(fp), fp
+    if marigold:
+        unet = chip_smoke.golden_script_function("_conv_in_8ch")(unet)
     return chip_smoke.write_oracle_checkpoint(root, unet, vae, chip_smoke.SD21_ORACLE["unet"],
-                                              chip_smoke.SD21_ORACLE["vae"], ctx)
+                                              chip_smoke.SD21_ORACLE["vae"], ctx,
+                                              in_channels=8 if marigold else 4)
 
 
 def report(name: str, reading: dict) -> None:
@@ -76,4 +81,14 @@ def test_port_golden_768_dpt(tmp_path):
     models = load_genpercept_checkpoint(str(dpt), device="cpu")
     reading = chip_smoke.golden_reading(models, golden, torch.float32)
     report("dpt", reading)
+    assert reading["pred"]["mean"] <= BAR, reading
+
+
+def test_port_golden_768_marigold(tmp_path):
+    golden = load_golden("torch_golden_768_marigold.npz")
+    ckpt = golden_checkpoint(tmp_path / "ckpt", golden["ctx"], marigold=True)
+    models = load_genpercept_checkpoint(str(ckpt), device="cpu")
+    assert models.unet.cfg.in_channels == 8
+    reading, _, _ = chip_smoke.marigold_reading(models, golden, torch.float32)
+    report("marigold", reading)
     assert reading["pred"]["mean"] <= BAR, reading

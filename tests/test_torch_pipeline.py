@@ -123,13 +123,20 @@ def test_batch_needs_batch_size(pipes, monkeypatch):
         np.testing.assert_array_equal(a.pred_np, b.pred_np)
 
 
-@pytest.mark.parametrize("field,value", [
-    ("arch", "marigold"), ("ensemble_size", 3),
-    ("int8_gptq", True), ("fix_timesteps", 10),
-])
+@pytest.mark.parametrize("field,value", [("int8_gptq", True)])
 def test_unported_config_raises(field, value):
     with pytest.raises(NotImplementedError):
         PipelineConfig(**{field: value})
+
+
+@pytest.mark.parametrize("fields", [dict(arch="marigold", denoising_steps=10),
+                                    dict(arch="rgb_blending", ensemble_size=3),
+                                    dict(fix_timesteps=10)])
+def test_ddim_config_accepted(fields):
+    """The DDIM archs, their ensembles and fixed timesteps, as the JAX
+    package takes them (tests/test_torch_marigold.py runs them)."""
+    cfg = PipelineConfig(**fields)
+    assert all(getattr(cfg, k) == v for k, v in fields.items())
 
 
 @pytest.mark.parametrize("fields", [dict(fused_vae=True),
