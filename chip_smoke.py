@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's one-step depth inference, its training step, its
 W8A8 int8 inference, its fused-VAE inference, its checkpoint loader and
-folder CLI (depth and the DPT head) and its marigold arch (multi-step DDIM,
-the 8-channel UNet input, test-time ensembling) once on one NVIDIA GPU.
+folder CLI (depth and the DPT head), its marigold arch (multi-step DDIM,
+the 8-channel UNet input, test-time ensembling) and its serving path (the
+HTTP server, the hub predictor, the dataset inference CLI) once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -135,7 +137,35 @@ Phases, each printed as a JSON line:
       (every file, _uncert.npy too, each npy equal to __call__ with a
       generator seeded 0; K1 356, K2 100); seconds per 768^2 image for 10
       steps in f32 and bf16 and for the ensemble in bf16 (CUDA events,
-      median of 3 calls after a warm-up).
+      median of 3 calls after a warm-up);
+  (t) serve: the same one-step weights as (r), loaded by the port's server
+      through its own start-up (make_server on the parsed flags, port 0,
+      one worker thread), in f32 with the backend's defaults and in bf16:
+      /healthz; a 768x768 and a 480x640 PNG through ?format=npy against a
+      direct __call__ on a pipeline loaded from the same checkpoint (f32
+      max within 1e-6, bf16 mean within 1e-2) with exact K1/K2 launches
+      per request from the routing predicates (17/5 and 7/0); png16, png
+      and colored against the npy; a bad payload's 500 and the request
+      after it; single-image latency: SERVE_REQUESTS sequential 768x768
+      /v1/infer_json requests after SERVE_WARMUPS and SERVE_480_REQUESTS
+      480x640 ones, the client's wall, the server's latency_ms and the
+      pipeline call alone (CUDA events), median, min, max; a burst of
+      SERVE_BURST identical 768x768 requests with --max_batch 8, queued
+      while the worker holds a lone request (HeldPipeline), in f32 with
+      TF32 off, in bf16 and once with --data_parallel (one worker on one
+      card): one fused .batch, each response against the lone one's (f32
+      max 1e-4, bf16 mean 1e-2), requests per second from the release to
+      the last response, launches; the hub's GenPercept_Depth (bf16,
+      resolution 512) on a 480x640 PIL image: shape, equal to the
+      pipeline on its resize resized back (1e-6), launches, seconds per
+      image; the dataset inference CLI on NYU's layout (the split's first
+      three paths as a tar of synthetic 480x640 PNGs, a copy of
+      configs/dataset/eval/nyu.yaml) in f32, bf16 and bf16 with --prompt
+      (a seeded SD2.1 text encoder and a toy tokenizer beside the
+      checkpoint): the file tree against get_pred_name, each npy equal to
+      the pipeline's output on the dataset's decoded rgb, K1 21 / K2 0,
+      seconds per image (checkpoint load included), the prompt's
+      prediction unlike the empty prompt's.
 Every phase's launch counts include K7, K8 and S1-S4 (0 outside their
 paths).
 K1 and K3+K4 are also timed against one PyTorch call computing the same
@@ -1979,20 +2009,37 @@ def ddim_launches(lh: int, lw: int, batch: int, steps: int) -> dict:
     return {"K1": steps * k1 + vae, "K2": steps * k2}
 
 
+def spread(values) -> dict:
+    return {"median": float(np.median(values)), "min": float(min(values)),
+            "max": float(max(values)), "n": len(values)}
+
+
+def device_ms(fn, device: str, reps: int) -> dict:
+    """ms of each of reps calls of fn after a warm-up: CUDA events on the
+    card, the host clock on the CPU."""
+    fn()
+    times = []
+    for _ in range(reps):
+        if device == "cuda":
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return spread(times)
+
+
 def call_seconds(fn) -> dict:
     """Seconds of fn on the card, CUDA events around each of MARIGOLD_REPS
     calls after a warm-up: median, min, max."""
-    fn()
-    times = []
-    for _ in range(MARIGOLD_REPS):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / 1e3)
-    return {"median_s": float(np.median(times)), "min_s": min(times), "max_s": max(times),
-            "calls": len(times)}
+    ms = device_ms(fn, "cuda", MARIGOLD_REPS)
+    return {"median_s": ms["median"] / 1e3, "min_s": ms["min"] / 1e3, "max_s": ms["max"] / 1e3,
+            "calls": ms["n"]}
 
 
 def marigold_reading(models, golden: dict, dtype, steps: int = MARIGOLD_STEPS) -> tuple:
@@ -2213,6 +2260,479 @@ def profile_marigold() -> list:
     return records
 
 
+# --------------------------------------------------------------------- serve
+# The serving path (section (t)): the golden's weights as a checkpoint, loaded
+# by the server's own start-up, by the hub and by the dataset inference CLI.
+SERVE_WARMUPS, SERVE_REQUESTS, SERVE_480_REQUESTS = 2, 10, 3
+SERVE_BURST = 8
+# the served npy against a direct __call__ on the decoded image, on a
+# pipeline loaded from the same checkpoint in the same dtype (backend
+# defaults): (statistic, bar)
+SERVE_BARS = {torch.float32: ("max", 1e-6), torch.bfloat16: ("mean", 1e-2)}
+# each burst response against a lone request's: f32 with TF32 off, bf16
+BURST_BARS = {torch.float32: ("max", 1e-4), torch.bfloat16: ("mean", 1e-2)}
+HUB_BAR = 1e-6  # the hub's output against the pipeline on its resize, resized back
+HUB_CALLS = 3
+NYU_YAML = "configs/dataset/eval/nyu.yaml"
+NYU_SPLIT = "data_split/nyu/labeled/filename_list_test.txt"
+NYU_IMAGES = 3
+SERVE_PROMPT = "the depth of an indoor scene, and the hands"
+CLIP_SEED = 8
+
+
+def png_bytes(image: np.ndarray) -> bytes:
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(image).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    import io
+
+    from PIL import Image
+
+    with Image.open(io.BytesIO(data)) as im:
+        return np.asarray(im)
+
+
+def http(url: str, data: bytes | None = None, timeout: float = 600.0) -> bytes:
+    import urllib.request
+
+    with urllib.request.urlopen(urllib.request.Request(url, data=data), timeout=timeout) as r:
+        return r.read()
+
+
+def npy_of(data: bytes) -> np.ndarray:
+    import io
+
+    return np.load(io.BytesIO(data))
+
+
+def start_server(flags: list):
+    """make_server on the flags, with its own start-up (no pipeline
+    injected), served on a thread; returns the server and its URL."""
+    import threading
+
+    from genpercept_tpu_torch.cli import serve
+
+    server = serve.make_server(serve.build_parser().parse_args(flags))
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server, f"http://127.0.0.1:{server.server_address[1]}"
+
+
+def stop_server(server) -> None:
+    server.shutdown()
+    server.server_close()
+    server.worker.close()
+
+
+def served_launches(hw: tuple, batch: int = 1) -> dict:
+    """K1 and K2 launches of one genpercept forward of ``batch`` images at
+    processing size hw, from the routing predicates; every other kernel 0."""
+    return {**{k: 0 for k in COUNTERS}, **ddim_launches(hw[0] // 8, hw[1] // 8, batch, 1)}
+
+
+def within(stat: tuple, reading: dict) -> bool:
+    return reading[stat[0]] <= stat[1]
+
+
+def serve_reading(ckpt: Path, dt, images: list, device: str = "cuda",
+                  processing_res: int = 768) -> dict:
+    """The server through make_server(args) in ``dt``: healthz; a 768x768
+    PNG through ?format=npy against a direct __call__ on a pipeline loaded
+    from the same checkpoint; png16, png and colored against the npy; a bad
+    payload's 500 and the request after it; then the latency of
+    SERVE_REQUESTS sequential 768x768 /v1/infer_json requests after
+    SERVE_WARMUPS (client wall, the server's latency_ms) and of a 480x640,
+    beside the direct pipeline call alone; launches per request."""
+    from genpercept_tpu_torch.ops.colorize import colorize_depth
+
+    flags = ["--checkpoint", str(ckpt), "--port", "0", "--device", device,
+             "--processing_res", str(processing_res)]
+    flags += ["--bf16"] if dt == torch.bfloat16 else []
+    t0 = time.perf_counter()
+    server, url = start_server(flags)
+    rec = {"dtype": str(dt), "start_s": time.perf_counter() - t0}
+    try:
+        rec["healthz"] = json.loads(http(url + "/healthz"))
+        direct = GenPerceptPipeline(load_genpercept_checkpoint(str(ckpt), dtype=dt, device=device),
+                                    PipelineConfig(processing_res=processing_res, dtype=dt),
+                                    device=device)
+        pngs = [png_bytes(im) for im in images]
+        decoded = [decode_png(p) for p in pngs]
+        for _ in range(SERVE_WARMUPS):
+            http(url + "/v1/infer?format=npy", pngs[0])
+        for i, size in enumerate(("768", "480x640")):
+            reset_counts()
+            npy = npy_of(http(url + "/v1/infer?format=npy", pngs[i]))
+            rec[f"launches_{size}"] = launch_counts()
+            ref = direct(decoded[i])
+            rec[f"vs_direct_{size}"] = err_stats(npy, ref.pred_np)
+            rec[f"shape_{size}"] = list(npy.shape)
+            if i == 0:
+                pred = npy
+        p16 = decode_png(http(url + "/v1/infer?format=png16", pngs[0]))
+        p8 = decode_png(http(url + "/v1/infer?format=png", pngs[0]))
+        col = decode_png(http(url + "/v1/infer?format=colored", pngs[0]))
+        colored = (colorize_depth(torch.from_numpy(pred).to(device)) * 255).to(torch.uint8).cpu()
+        rec["formats_consistent"] = {
+            "png16": bool(np.array_equal(p16.astype(np.uint16),
+                                         (np.clip(pred, 0, 1) * 65535.0).astype(np.uint16))),
+            "png": bool(np.array_equal(p8, (np.clip(pred, 0, 1) * 255.0).astype(np.uint8))),
+            "colored": bool(np.array_equal(col, colored.numpy()))}
+        import urllib.error
+
+        try:
+            http(url + "/v1/infer", b"not an image")
+            rec["bad_payload"] = {"code": 200}
+        except urllib.error.HTTPError as e:
+            rec["bad_payload"] = {"code": e.code, "error": json.loads(e.read()).get("error")}
+        rec["after_error_equal"] = bool(np.array_equal(
+            npy_of(http(url + "/v1/infer?format=npy", pngs[0])), pred))
+        import base64
+
+        for i, (size, n) in enumerate((("768", SERVE_REQUESTS), ("480x640", SERVE_480_REQUESTS))):
+            body = json.dumps({"image_b64": base64.b64encode(pngs[i]).decode()}).encode()
+            client, server_ms = [], []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                out = json.loads(http(url + "/v1/infer_json", body))
+                client.append((time.perf_counter() - t0) * 1e3)
+                server_ms.append(out["latency_ms"])
+            rec[f"latency_{size}"] = {
+                "client_ms": spread(client), "server_latency_ms": spread(server_ms),
+                "pipeline_call_ms": device_ms(lambda im=decoded[i]: direct(im), device, n)}
+        del direct
+    finally:
+        stop_server(server)
+    return rec
+
+
+class HeldPipeline(GenPerceptPipeline):
+    """A served pipeline whose single-image calls, once computed, wait for
+    ``release`` (keeping its worker busy while a burst queues), and whose
+    .batch calls are recorded: images and seconds."""
+
+    def __call__(self, *args, **kw):
+        out = super().__call__(*args, **kw)
+        self.holding.set()
+        self.release.wait()
+        return out
+
+    def batch(self, images, *args, **kw):
+        t0 = time.perf_counter()
+        outs = super().batch(images, *args, **kw)
+        self.batches.append({"images": len(images), "seconds": time.perf_counter() - t0})
+        return outs
+
+
+def burst_reading(ckpt: Path, dt, image: np.ndarray, data_parallel: bool = False,
+                  device: str = "cuda", burst: int = SERVE_BURST,
+                  processing_res: int = 768) -> dict:
+    """``burst`` concurrent identical requests with --max_batch burst, queued
+    while the worker holds a lone request: the batches the worker ran, each
+    response against the lone request's, requests per second from the
+    release to the last response, and the burst's launches."""
+    import threading
+
+    flags = ["--checkpoint", str(ckpt), "--port", "0", "--device", device,
+             "--max_batch", str(burst), "--processing_res", str(processing_res)]
+    flags += ["--bf16"] if dt == torch.bfloat16 else []
+    flags += ["--data_parallel"] if data_parallel else []
+    server, url = start_server(flags)
+    try:
+        worker = server.worker
+        for pipe in worker.pipes:
+            pipe.__class__ = HeldPipeline
+            pipe.holding, pipe.release, pipe.batches = threading.Event(), threading.Event(), []
+        pipe = worker.pipes[0]
+        png = png_bytes(image)
+        results: dict = {}
+
+        def send(key):
+            results[key] = npy_of(http(url + "/v1/infer?format=npy", png))
+
+        lone = threading.Thread(target=send, args=("lone",))
+        lone.start()
+        check(pipe.holding.wait(600), "the lone request never reached the pipeline")
+        senders = [threading.Thread(target=send, args=(i,)) for i in range(burst)]
+        for t in senders:
+            t.start()
+        deadline = time.perf_counter() + 120
+        while worker.q.qsize() < burst:
+            check(time.perf_counter() < deadline, f"only {worker.q.qsize()} requests queued")
+            time.sleep(0.005)
+        reset_counts()
+        t0 = time.perf_counter()
+        pipe.release.set()
+        for t in senders + [lone]:
+            t.join()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+    finally:
+        stop_server(server)
+    errs = [err_stats(results[i], results["lone"]) for i in range(burst)]
+    return {"dtype": str(dt), "data_parallel": data_parallel, "workers": len(worker.threads),
+            "requests": burst, "batches": pipe.batches, "release_to_last_s": wall,
+            "requests_per_s": burst / wall, "launches": launches,
+            "vs_lone": {"max": max(e["max"] for e in errs),
+                        "mean": float(np.mean([e["mean"] for e in errs]))}}
+
+
+def hub_reading(ckpt: Path, image: np.ndarray, device: str = "cuda", **kw) -> dict:
+    """GenPercept_Depth with its defaults (bf16, resolution 512) on a PIL
+    image: the output's shape, against the pipeline on the hub's resize
+    resized back, launches per image, seconds per image."""
+    from PIL import Image
+
+    from genpercept_tpu_torch import hub
+    from genpercept_tpu_torch.ops.resize import resize_linear_halfpixel
+
+    t0 = time.perf_counter()
+    predictor = hub.GenPercept_Depth(str(ckpt), device=device, **kw)
+    load_s = time.perf_counter() - t0
+    pil = Image.fromarray(image)
+    predictor.infer_pil(pil)  # warm-up
+    reset_counts()
+    pred = predictor.infer_pil(pil)
+    launches = launch_counts()
+    x = hub._resize_multiple_of_64(image, predictor.resolution)
+    direct = predictor.pipe(x, color_map=None).pred_np
+    back = resize_linear_halfpixel(torch.from_numpy(direct)[None, ..., None], image.shape[:2])
+    seconds = []
+    for _ in range(HUB_CALLS):
+        t0 = time.perf_counter()
+        predictor.infer_pil(pil)
+        seconds.append(time.perf_counter() - t0)
+    return {"dtype": str(predictor.pipe.cfg.dtype), "resolution": predictor.resolution,
+            "load_s": load_s, "shape": list(pred.shape), "processing_hw": list(x.shape[:2]),
+            "vs_pipeline_max": float(np.abs(pred - back[0, ..., 0].numpy()).max()),
+            "pred_std": float(pred.std()), "launches": launches,
+            "seconds_per_image": spread(seconds)}
+
+
+def write_nyu_layout(root: Path, hw=(480, 640)) -> tuple:
+    """NYU's test layout: the split's first NYU_IMAGES lines as natural-like
+    rgb and synthetic depth PNGs in a tar at the yaml's ``dir``, and a copy
+    of configs/dataset/eval/nyu.yaml pointed at them (dataset cfg, yaml)."""
+    import io
+    import re
+    import tarfile
+
+    repo = Path(__file__).resolve().parent
+    lines = (repo / NYU_SPLIT).read_text().splitlines()[:NYU_IMAGES]
+    text = (repo / NYU_YAML).read_text()
+    rel = re.search(r"^\s*dir:\s*(\S+)", text, re.M).group(1)
+    (root / rel).parent.mkdir(parents=True)
+    rgbs = natural_like_images(SEED + 7, NYU_IMAGES, max(hw))
+    rng = np.random.default_rng(SEED + 7)
+    with tarfile.open(root / rel, "w") as tf:
+        for line, im in zip(lines, rgbs):
+            for k, path in enumerate(line.split()):
+                arr = ((im[:hw[0], :hw[1]] * 255).astype(np.uint8) if k == 0
+                       else rng.integers(500, 9000, hw).astype(np.uint16))
+                data = png_bytes(arr)
+                info = tarfile.TarInfo("./" + path)
+                info.size = len(data)
+                tf.addfile(info, io.BytesIO(data))
+    split = root / "split.txt"
+    split.write_text("\n".join(lines) + "\n")
+    text = re.sub(r"^(\s*filenames:\s*)\S+", lambda m: m.group(1) + str(split), text, flags=re.M)
+    (root / "nyu.yaml").write_text(text)
+    cfg = {"name": "nyu_v2", "dir": rel, "filenames": str(split), "eigen_valid_mask": True}
+    return cfg, root / "nyu.yaml"
+
+
+def write_prompt_checkpoint(root: Path, ckpt: Path, clip: torch.nn.Module) -> Path:
+    """``ckpt``'s unet/, vae/ and embedding linked beside a text_encoder/
+    (``clip``'s weights under the published ``text_model.`` keys) and a
+    tokenizer/ of a toy vocabulary: every byte's symbol, alone and
+    word-final, and a few merges."""
+    from genpercept_tpu_torch.utils import tokenizer as tok
+
+    root.mkdir()
+    for sub in ("unet", "vae", "empty_text_embed.npy"):
+        (root / sub).symlink_to(ckpt / sub)
+    (root / "text_encoder").mkdir()
+    save_safetensors({f"text_model.{k}": v for k, v in clip.state_dict().items()},
+                     str(root / "text_encoder" / "model.safetensors"))
+    syms = sorted(set(tok._byte_encoder().values()))
+    vocab = {s: i for i, s in enumerate(syms)}
+    vocab.update({s + "</w>": len(syms) + i for i, s in enumerate(syms)})
+    merges = [("t", "h"), ("th", "e</w>"), ("a", "n"), ("an", "d</w>"), ("e", "r")]
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    vocab.update({"<|startoftext|>": tok.BOS, "<|endoftext|>": tok.EOS})
+    (root / "tokenizer").mkdir()
+    (root / "tokenizer" / "vocab.json").write_text(json.dumps(vocab))
+    (root / "tokenizer" / "merges.txt").write_text(
+        "#version\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    return root
+
+
+def infer_reading(name: str, ckpt: Path, dt, root: Path, data: tuple, prompt: str = "",
+                  device: str = "cuda", processing_res: int = 768) -> dict:
+    """One in-process run of the dataset inference CLI over the NYU layout:
+    its launches and seconds, its file tree against get_pred_name, and each
+    npy against the pipeline's output on the dataset's decoded rgb (a fresh
+    load of the same checkpoint; the prompt encoded as the CLI encodes it)."""
+    from genpercept_tpu_torch.cli import infer as infer_cli
+    from genpercept_tpu_torch.data import DatasetMode, get_dataset, get_pred_name
+
+    cfg, yaml_path = data
+    out = root / f"infer_{name}"
+    argv = ["--checkpoint", str(ckpt), "--dataset_config", str(yaml_path), "--base_data_dir",
+            str(root), "--output_dir", str(out), "--device", device,
+            "--processing_res", str(processing_res)]
+    argv += ["--half_precision"] if dt == torch.bfloat16 else []
+    argv += ["--prompt", prompt] if prompt else []
+    reset_counts()
+    t0 = time.perf_counter()
+    infer_cli.main(argv)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    models = load_genpercept_checkpoint(str(ckpt), dtype=dt, device=device)
+    if prompt:
+        models.text_embed = models.encode_prompt(prompt)
+    pipe = GenPerceptPipeline(models, PipelineConfig(processing_res=processing_res, dtype=dt),
+                              device=device)
+    ds = get_dataset(cfg, str(root), DatasetMode.RGB_ONLY)
+    want, worst = [], 0.0
+    for i in range(len(ds)):
+        item = ds[i]
+        rel = item["rgb_relative_path"]
+        want.append(str(Path(rel).parent / get_pred_name(Path(rel).name, ds.name_mode, ".npy")))
+        rgb = ((item["rgb_norm"] + 1.0) / 2.0 * 255).astype(np.uint8)
+        npy = np.load(out / want[-1])
+        worst = max(worst, float(np.abs(npy - pipe(rgb, color_map=None).pred_np).max()))
+    files = sorted(str(p.relative_to(out)) for p in out.rglob("*") if p.is_file())
+    return {"run": name, "dtype": str(dt), "prompt": prompt, "seconds": seconds,
+            "seconds_per_image": seconds / len(ds), "images": len(ds), "launches": launches,
+            "files": files, "files_expected": sorted(want), "npy_max_abs_diff_vs_pipeline": worst,
+            "npy": {f: np.load(out / f) for f in files}}
+
+
+def check_served(rec: dict, dt, expect: dict, platform: str, shapes: list) -> None:
+    """serve_reading's record within SERVE_BARS, with the launches ``expect``
+    {"768": ..., "480x640": ...} and the served shapes."""
+    stat = SERVE_BARS[dt]
+    for size, shape in zip(("768", "480x640"), shapes):
+        check(within(stat, rec[f"vs_direct_{size}"]),
+              f"serve {dt} {size}: {stat[0]} {rec[f'vs_direct_{size}'][stat[0]]}")
+        check(rec[f"launches_{size}"] == expect[size],
+              f"serve {dt} {size}: launches {rec[f'launches_{size}']} != {expect[size]}")
+        check(rec[f"shape_{size}"] == list(shape), f"serve {dt} {size}: shape")
+    check(rec["healthz"] == {"status": "ok", "mode": "depth", "platform": platform},
+          f"healthz: {rec['healthz']}")
+    check(all(rec["formats_consistent"].values()), f"formats: {rec['formats_consistent']}")
+    check(rec["bad_payload"]["code"] == 500 and bool(rec["bad_payload"].get("error")),
+          f"bad payload: {rec['bad_payload']}")
+    check(rec["after_error_equal"], "the request after the error differs")
+
+
+def check_burst(rec: dict, dt, expect: dict, burst: int) -> None:
+    """One fused batch of the whole burst, each response within BURST_BARS of
+    the lone request's, one worker, the launches ``expect``."""
+    check([b["images"] for b in rec["batches"]] == [burst], f"burst {dt}: {rec['batches']}")
+    stat = BURST_BARS[dt]
+    check(within(stat, rec["vs_lone"]), f"burst {dt}: {rec['vs_lone']}")
+    check(rec["launches"] == expect, f"burst {dt}: launches {rec['launches']} != {expect}")
+    check(rec["workers"] == 1, f"burst: {rec['workers']} workers on one device")
+
+
+def check_hub(rec: dict, expect: dict, shape: list) -> None:
+    check(rec["shape"] == shape, f"hub shape {rec['shape']}")
+    check(rec["vs_pipeline_max"] <= HUB_BAR, f"hub vs pipeline {rec['vs_pipeline_max']}")
+    check(rec["launches"] == expect, f"hub launches {rec['launches']} != {expect}")
+    check(rec["pred_std"] > 1e-4, "hub: a constant prediction")
+
+
+def check_infer(rec: dict, expect: dict, images: int) -> None:
+    check(rec["files"] == rec["files_expected"] and len(rec["files"]) == images,
+          f"infer CLI {rec['run']}: files {rec['files']}")
+    check(rec["npy_max_abs_diff_vs_pipeline"] == 0.0,
+          f"infer CLI {rec['run']}: an npy differs from the pipeline's output")
+    check(rec["launches"] == expect, f"infer CLI {rec['run']}: launches {rec['launches']}")
+
+
+def phase_serve() -> dict:
+    """The serving path at full width (section (t)): the server through its
+    own start-up in f32 and bf16 (bars, formats, the error reply, latency,
+    launches), a burst of SERVE_BURST in f32 with TF32 off and bf16 and once
+    with --data_parallel, the hub's GenPercept_Depth, and the dataset
+    inference CLI on NYU's layout in f32, bf16 and with a prompt."""
+    t_phase = time.perf_counter()
+    unet_o, vae_o = oracle_modules(SD21_ORACLE)
+    fp = {"unet": fingerprint(unet_o), "vae": fingerprint(vae_o)}
+    check(fingerprint_matches(fp),
+          "the golden's weights differ: this torch's default init is not the golden's")
+    with np.load(GOLDEN) as zf:
+        ctx = zf["ctx"]
+    zero = {k: 0 for k in COUNTERS}
+    images = [(natural_like_images(SEED + 9, 1, 768)[0] * 255).astype(np.uint8),
+              (natural_like_images(SEED + 10, 1, 768)[0][:480, :640] * 255).astype(np.uint8)]
+    summary: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        ckpt = write_oracle_checkpoint(root / "ckpt", unet_o, vae_o, SD21_ORACLE["unet"],
+                                       SD21_ORACLE["vae"], ctx)
+        del unet_o, vae_o
+        expect = {"768": served_launches((768, 768)), "480x640": served_launches((576, 768))}
+        check(expect["768"] == {**zero, "K1": 17, "K2": 5}
+              and expect["480x640"] == {**zero, "K1": 7, "K2": 0},
+              f"routing predicates: {expect}")
+        for dt in DTYPES:
+            with tf32(*DEFAULT_TF32):
+                rec = serve_reading(ckpt, dt, images)
+            emit({"phase": "serve", "step": "server", **rec})
+            check_served(rec, dt, expect, "cuda", [(768, 768), (480, 640)])
+            summary[str(dt)] = {k: rec[k] for k in ("latency_768", "latency_480x640")}
+
+        burst_expect = {**zero, **ddim_launches(96, 96, SERVE_BURST, 1)}
+        for dt, dp in ((torch.float32, False), (torch.bfloat16, False), (torch.bfloat16, True)):
+            with tf32(*((False, False) if dt == torch.float32 else DEFAULT_TF32)):
+                rec = burst_reading(ckpt, dt, images[0], data_parallel=dp)
+            emit({"phase": "serve", "step": "burst", **rec})
+            check_burst(rec, dt, burst_expect, SERVE_BURST)
+            summary[f"burst_{dt}{'_data_parallel' if dp else ''}"] = rec["requests_per_s"]
+
+        with tf32(*DEFAULT_TF32):
+            rec = hub_reading(ckpt, images[1])
+        emit({"phase": "serve", "step": "hub", **rec})
+        check_hub(rec, served_launches(tuple(rec["processing_hw"])), [480, 640])
+        summary["hub_seconds_per_image"] = rec["seconds_per_image"]
+
+        data = write_nyu_layout(root / "nyu")
+        clip = CLIPTextModel()
+        init_params_(clip, torch.Generator().manual_seed(SEED + CLIP_SEED))
+        ckpt_prompt = write_prompt_checkpoint(root / "ckpt_prompt", ckpt, clip)
+        del clip
+        infer_expect = {k: NYU_IMAGES * n for k, n in served_launches((576, 768)).items()}
+        npys = {}
+        for name, ck, dt, prompt in (("f32", ckpt, torch.float32, ""),
+                                     ("bf16", ckpt, torch.bfloat16, ""),
+                                     ("bf16_prompt", ckpt_prompt, torch.bfloat16, SERVE_PROMPT)):
+            with tf32(*DEFAULT_TF32):
+                rec = infer_reading(name, ck, dt, root / "nyu", data, prompt)
+            npys[name] = rec.pop("npy")
+            emit({"phase": "serve", "step": "infer_cli", **rec})
+            check_infer(rec, infer_expect, NYU_IMAGES)
+            summary[f"infer_{name}_seconds_per_image"] = rec["seconds_per_image"]
+        moved = max(float(np.abs(npys["bf16_prompt"][f] - npys["bf16"][f]).max())
+                    for f in npys["bf16"])
+        check(moved > 1e-3, f"the prompt did not reach the UNet ({moved})")
+    torch.cuda.empty_cache()
+    emit({"phase": "serve", "step": "summary", "prompt_vs_empty_max": moved,
+          "seconds": time.perf_counter() - t_phase, **summary})
+    return summary
+
+
 def kernel_record(name, source, replaces, launches, max_abs_err, ms, plain_ms, bd: Bound,
                   library_ms):
     return {"name": name, "route": "cuda", "source": f"genpercept_tpu_torch/csrc/{source}",
@@ -2244,6 +2764,7 @@ def main() -> None:
     paths = phase_scripts()
     phase_checkpoint_cli()
     phase_marigold()
+    phase_serve()
     # per 768^2 image (K1, K2: f32), per recipe micro-step (K3, K4: bf16),
     # per 768^2 forward of batch 2 (K5, K6, K8: bf16), per pass of K7's path
     # over its five shapes at batch 2 (bf16)

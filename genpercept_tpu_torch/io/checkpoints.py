@@ -11,6 +11,7 @@ GenPercept/SD2.1 layout, sniffed as the JAX loader sniffs them:
   text_encoder/model.safetensors
   dpt_head/ | dpt_head_identity/ model.safetensors [config.json]
   vae_decoder/, vae_post_quant_conv/         (decoder-finetuned checkpoints)
+  tokenizer/vocab.json, merges.txt
   empty_text_embed.npy
 
 Training checkpoints (the JAX package writes orbax directories): here
@@ -44,6 +45,7 @@ from genpercept_tpu_torch.models import (
     UNetConfig,
     VAEConfig,
 )
+from genpercept_tpu_torch.utils.tokenizer import load_tokenizer
 
 _FILE = "state.pt"
 _UNET_HEAD_DROP = ("conv_norm_out.", "conv_out.")
@@ -154,10 +156,11 @@ def load_genpercept_checkpoint(
     vae_post_quant_conv/ replace those parts of the VAE.
 
     Each tensor is read from a memory map of its file and copied once, into
-    its module. The JAX loader also attaches a tokenizer, which only
-    encoding a prompt other than the empty one needs; that is not ported
-    (the empty prompt's embedding comes from empty_text_embed.npy or the
-    text encoder)."""
+    its module. The tokenizer (tokenizer/vocab.json and merges.txt, from
+    ``ckpt_dir`` or else the base checkpoint) is attached where there is
+    one: ``GenPerceptModels.encode_prompt`` needs it for any prompt but the
+    empty one, whose embedding comes from empty_text_embed.npy or the text
+    encoder."""
     from genpercept_tpu_torch.pipeline import GenPerceptModels
 
     device = torch.device(device)
@@ -256,8 +259,10 @@ def load_genpercept_checkpoint(
     if osp.isfile(embed_path):
         text_embed = torch.as_tensor(np.load(embed_path), dtype=dtype, device=device)
 
+    tokenizer = load_tokenizer(ckpt_dir) or (load_tokenizer(base_ckpt_dir) if base_ckpt_dir
+                                             else None)
     return GenPerceptModels(unet=unet, vae=vae, text_embed=text_embed, clip=clip,
-                            dpt_head=dpt_head)
+                            dpt_head=dpt_head, tokenizer=tokenizer)
 
 
 def save_train_checkpoint(out_dir: str, state: Dict[str, Any], name: str = "latest") -> str:

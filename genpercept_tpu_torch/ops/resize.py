@@ -110,3 +110,43 @@ def max_res_shape(h: int, w: int, max_edge: int) -> Tuple[int, int]:
     """Long-side resize target, aspect preserving, floored like torchvision."""
     scale = max_edge / max(h, w)
     return max(int(h * scale), 1), max(int(w * scale), 1)
+
+
+def resize_bilinear_antialias(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    return resize(x, out_hw, method="bilinear", antialias=True)
+
+
+def resize_max_res(x: torch.Tensor, max_edge: int, method: str = "bilinear",
+                   antialias: bool = True) -> torch.Tensor:
+    """Resize so the longer spatial side equals max_edge."""
+    h, w = x.shape[1], x.shape[2]
+    return resize(x, max_res_shape(h, w, max_edge), method, antialias)
+
+
+def _linear_taps(n_in: int, n_out: int, device):
+    """cv2 INTER_LINEAR's taps along one axis: half-pixel centres, the left
+    tap floor((i + 0.5) * in/out - 0.5) and its weight (the position in
+    float64, the weight rounded to float32), each clamped to the edge."""
+    scale = 1.0 / (n_out / n_in)  # as cv2 holds it, not n_in / n_out
+    f = (torch.arange(n_out, dtype=torch.float64, device=device) + 0.5) * scale - 0.5
+    lo = torch.floor(f)
+    frac = (f - lo).float()
+    lo = lo.long()
+    frac = torch.where((lo < 0) | (lo >= n_in - 1), torch.zeros_like(frac), frac)
+    lo = lo.clamp(0, n_in - 1)
+    return lo, torch.clamp(lo + 1, max=n_in - 1), frac
+
+
+def resize_linear_halfpixel(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize with ``cv2.resize(..., interpolation=cv2.INTER_LINEAR)``'s
+    semantics on float32: half-pixel centres, no antialias, the edge pixel
+    repeated past the border. x: (N, H, W, C) -> (N, out_h, out_w, C) float32."""
+    h, w = x.shape[1], x.shape[2]
+    oh, ow = out_hw
+    xf = x.float()
+    if (h, w) == (oh, ow):
+        return xf
+    x0, x1, fx = _linear_taps(w, ow, x.device)
+    rows = xf[:, :, x0] * (1.0 - fx)[None, None, :, None] + xf[:, :, x1] * fx[None, None, :, None]
+    y0, y1, fy = _linear_taps(h, oh, x.device)
+    return rows[:, y0] * (1.0 - fy)[None, :, None, None] + rows[:, y1] * fy[None, :, None, None]

@@ -56,6 +56,7 @@ from genpercept_tpu_torch.ops.resize import max_res_shape, resize
 from genpercept_tpu_torch.pipeline.ensemble import ensemble_predictions
 from genpercept_tpu_torch.pipeline.tasks import TASKS, TaskSpec
 from genpercept_tpu_torch.utils.batchsize import find_batch_size
+from genpercept_tpu_torch.utils.tokenizer import CLIPTokenizer
 
 # Fields of the JAX package's PipelineConfig that this port does not
 # implement yet: each accepts only its default.
@@ -124,6 +125,7 @@ class GenPerceptModels:
     text_embed: Optional[torch.Tensor] = None  # precomputed (1, 77, ctx)
     clip: Optional[CLIPTextModel] = None
     dpt_head: Optional[DPTHead] = None  # with it, the UNet has no conv_out
+    tokenizer: Optional[CLIPTokenizer] = None
 
     @property
     def dpt_cfg(self) -> Optional[DPTHeadConfig]:
@@ -139,9 +141,25 @@ class GenPerceptModels:
         if self.text_embed is None:
             if self.clip is None:
                 raise ValueError("need CLIP weights or a precomputed text_embed")
-            self.text_embed = clip_text_apply(
-                self.clip, empty_prompt_ids(self.clip.cfg, device=self.device))
+            self.text_embed = clip_text_apply(self.clip, empty_prompt_ids(
+                self.clip.cfg, device=next(self.clip.parameters()).device))
         return self.text_embed
+
+    @torch.no_grad()
+    def encode_prompt(self, prompt: str) -> torch.Tensor:
+        """CLIP embedding (1, 77, ctx) of a prompt (reference infer.py
+        --prompt), on the CLIP weights' device. The empty prompt is the cached
+        embedding; any other needs the CLIP weights and the checkpoint's
+        tokenizer files."""
+        if not prompt:
+            return self.get_text_embed()
+        if self.clip is None:
+            raise ValueError("custom prompts need CLIP weights")
+        if self.tokenizer is None:
+            raise ValueError("custom prompts need tokenizer files (tokenizer/vocab.json)")
+        device = next(self.clip.parameters()).device
+        ids = torch.as_tensor(self.tokenizer(prompt), dtype=torch.long, device=device)
+        return clip_text_apply(self.clip, ids)
 
 
 def _int8_hooks(cfg: PipelineConfig, quant_mode: Optional[str], vq: Optional[Dict]):

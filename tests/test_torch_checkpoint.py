@@ -290,20 +290,39 @@ def test_writer_takes_numpy_and_refuses_unknown_dtypes(tmp_path):
 
 # ----------------------------------------------------- what the port imports
 
-FORBIDDEN = ("jax", "jaxlib", "genpercept_tpu", "safetensors", "transformers", "diffusers")
+FORBIDDEN = ("jax", "jaxlib", "genpercept_tpu", "safetensors", "transformers", "diffusers",
+             "pandas")
+# cv2 only inside the function that decodes .exr files, as the JAX module
+LAZY_CV2 = {"genpercept_tpu_torch/data/datasets.py": "_read_image"}
+
+
+def imported(node) -> list:
+    return ([a.name.split(".")[0] for a in node.names] if isinstance(node, ast.Import)
+            else [(node.module or "").split(".")[0]] if isinstance(node, ast.ImportFrom) else [])
 
 
 def test_port_imports_no_jax_safetensors_or_reference():
     """No module of the port (nor chip_smoke.py) imports jax, safetensors,
-    transformers, diffusers or the JAX package: statically, and in a fresh
-    interpreter that imports every module of the port."""
+    transformers, diffusers, pandas or the JAX package, and cv2 only lazily
+    where LAZY_CV2 says: statically, and in a fresh interpreter that imports
+    every module of the port (which then holds none of them, nor cv2)."""
     files = [*(REPO / "genpercept_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]
+    cv2_at = set()
     for path in files:
-        for node in ast.walk(ast.parse(path.read_text())):
-            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
-                     else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
-            for n in names:
-                assert n.split(".")[0] not in FORBIDDEN, f"{path}: imports {n}"
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            for n in imported(node):
+                assert n not in FORBIDDEN, f"{path}: imports {n}"
+        for fn in ast.walk(tree):
+            if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)) and any(
+                    "cv2" in imported(n) for n in ast.walk(fn)):
+                cv2_at.add((str(path.relative_to(REPO)), fn.name))
+        top = [n for n in ast.walk(tree) if "cv2" in imported(n)]
+        inside = sum("cv2" in imported(n) for fn in ast.walk(tree)
+                     if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef))
+                     for n in ast.walk(fn))
+        assert len(top) == inside, f"{path}: imports cv2 outside a function"
+    assert cv2_at == set(LAZY_CV2.items()), cv2_at
     modules = sorted(".".join(p.relative_to(REPO).with_suffix("").parts)
                      for p in (REPO / "genpercept_tpu_torch").rglob("*.py"))
     code = ("import importlib, sys\n"
@@ -314,7 +333,7 @@ def test_port_imports_no_jax_safetensors_or_reference():
                          text=True, check=True, timeout=300).stdout
     roots = set(ast.literal_eval(out.strip().splitlines()[-1]))
     assert "genpercept_tpu_torch" in roots
-    assert not roots & set(FORBIDDEN), roots & set(FORBIDDEN)
+    assert not roots & {*FORBIDDEN, "cv2"}, roots & {*FORBIDDEN, "cv2"}
 
 
 # ------------------------------------------- the golden's route, small width
