@@ -2,9 +2,10 @@
 """Drive the PyTorch port's one-step depth inference, its training step, its
 W8A8 int8 inference, its fused-VAE inference, its checkpoint loader and
 folder CLI (depth and the DPT head), its marigold arch (multi-step DDIM,
-the 8-channel UNet input, test-time ensembling) and its serving path (the
-HTTP server, the hub predictor, the dataset inference CLI) once on one
-NVIDIA GPU.
+the 8-channel UNet input, test-time ensembling), its serving path (the
+HTTP server, the hub predictor, the dataset inference CLI) and its
+train -> export -> infer -> eval loop (the training, export and eval CLIs,
+the batched eval harness) once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -165,7 +166,37 @@ Phases, each printed as a JSON line:
       checkpoint): the file tree against get_pred_name, each npy equal to
       the pipeline's output on the dataset's decoded rgb, K1 21 / K2 0,
       seconds per image (checkpoint load included), the prompt's
-      prediction unlike the empty prompt's.
+      prediction unlike the empty prompt's;
+  (u) train_eval: the train -> export -> infer -> eval loop through the
+      port's CLIs on the same weights as the base checkpoint. The recipe
+      configs/train/main_paper/depth.yaml, merged and written with only
+      its datasets' dir and filenames, max_iter and the trainer's periods
+      changed (its 8 x 4 batch, mixture, bf16, losses and bf16 moments
+      kept), over synthetic files in the readers' layouts: 32 Hypersim
+      samples as a jsonl-metadata directory (rgb and depth-in-mm PNGs at
+      480x640), 32 vKITTI in a split file (depth in cm, 375x1242 for the
+      benchmark crop), 4 Hypersim val and 2 vis. Run A: cli/train.py, 2
+      steps, validation and visualization at step 2 (the eval readers keep
+      480x640): its files, finite losses, val metrics, 2 PNGs, exact
+      K1-K4 launches from the routing predicates per step's source
+      (replayed from the sampler) and per val/vis forward. Run R: A's
+      recipe resumed from final with nothing left to train: parameters,
+      Adam state (bf16 mu), count and counters equal to A's trainer (0.0).
+      cli/export.py on A's final: each UNet tensor equal to A's trained
+      one (0.0), and the depth of the export (loaded over the base) on the
+      golden's rgb equal to the base pipeline with that UNet swapped in
+      (f32, 0.0). cli/infer.py on the export over (t)'s NYU layout, then
+      cli/eval.py with least_square and least_square_disparity: files,
+      launches, each metric against a float64 numpy recomputation
+      (TE_EVAL_TOL), the CSV's samples; evaluate_dataset on the same
+      dataset, batch 2, in bf16 and f32 against reference_kernels()
+      (TE_HARNESS_TOL), exact launches. Run B: A resumed to step 3; run C:
+      3 steps straight, validation off (exact launches; A's and C's
+      steps 1-2 losses; B's step-3 loss beside C's, reported: the resumed
+      run restarts the sample stream). Reported: the CLI's ms per step
+      (host wall between steps, loader included, median of C's steps 2-3)
+      beside (g)'s train_run, peak memory, validation s per image, export
+      s, cli/eval.py and evaluate_dataset s per image.
 Every phase's launch counts include K7, K8 and S1-S4 (0 outside their
 paths).
 K1 and K3+K4 are also timed against one PyTorch call computing the same
@@ -186,6 +217,7 @@ import dataclasses
 import importlib.util
 import json
 import math
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2733,6 +2765,489 @@ def phase_serve() -> dict:
     return summary
 
 
+# ---------------------------------------------------------------- train_eval
+# The train -> export -> infer -> eval loop (section (u)) through the port's
+# CLIs, with the golden's weights (section (r)) as the base checkpoint and
+# the main-paper recipe read from files in the real readers' layouts.
+TE_RECIPE = "configs/train/main_paper/depth.yaml"
+TE_VKITTI_HW = (375, 1242)  # vKITTI's raster; kitti_bm_crop takes 352x1216
+TE_SAMPLES = {"hypersim": 32, "vkitti": 32, "val": 4, "vis": 2}
+# the keys of the recipe the phase may change (everything else is the file's)
+TE_CHANGED = ("dir", "filenames", "max_iter", "trainer.save_period",
+              "trainer.validation_period", "trainer.visualization_period")
+# cli/eval.py's metrics against a float64 numpy recomputation, relative; the
+# delta fractions absolute (a prediction clipped to the range's end can sit
+# exactly on a threshold in float64 and either side of it in f32) and silog
+# relative 1e-4 (its mean(d^2) - mean(d)^2 cancels in f32), as
+# tests/test_torch_eval_cli.py reads them on the CPU
+TE_EVAL_TOL = {"rel": 1e-5, "delta_abs": 5e-4, "silog_rel": 1e-4}
+# evaluate_dataset's abs_relative_difference and delta1_acc, kernels against
+# reference_kernels(), absolute
+TE_HARNESS_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
+
+
+def te_depth(rng, hw, lo: float, hi: float, scale: float) -> np.ndarray:
+    """A smooth depth map in [lo, hi] metres as integer PNG units (``scale``
+    per metre), with one invalid (0) block."""
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+    f, ph = rng.uniform(0.5, 2.0, 3), rng.uniform(0, 2 * np.pi, 3)
+    d = np.sin(2 * np.pi * f[0] * xx + ph[0]) + np.sin(2 * np.pi * f[1] * yy + ph[1]) \
+        + 0.5 * np.sin(2 * np.pi * f[2] * (xx + yy) + ph[2])
+    d = lo + (hi - lo) * (d - d.min()) / (d.max() - d.min())
+    out = np.round(d * scale).astype(np.uint16)
+    y0, x0 = rng.integers(0, h // 2), rng.integers(0, w // 2)
+    out[y0:y0 + h // 8, x0:x0 + w // 8] = 0
+    return out
+
+
+def write_train_data(root: Path) -> dict:
+    """The recipe's datasets in their readers' layouts under ``root``:
+    Hypersim as a jsonl-metadata directory per split (train, val, vis; rgb
+    PNG and depth PNG in mm at 480x640) and vKITTI as a split file (rgb and
+    depth PNG in cm at 375x1242; uniform-noise rgb: the first steps do not
+    draw from it). Returns {split: (dir, filenames)}."""
+    from PIL import Image
+
+    meta = root / "meta"
+    meta.mkdir(parents=True)
+    out = {}
+    for k, split in enumerate(("train", "val", "vis")):
+        rows = []
+        n = TE_SAMPLES["hypersim" if split == "train" else split]
+        (root / "hypersim" / split).mkdir(parents=True)
+        rng = np.random.default_rng(SEED + 20 + k)
+        rgbs = natural_like_images(SEED + 20 + k, n, max(TRAIN_HW))[:, :TRAIN_HW[0]]
+        for i in range(n):
+            rgb, depth = f"{split}/rgb_{i:03d}.png", f"{split}/depth_{i:03d}.png"
+            Image.fromarray((rgbs[i] * 255).astype(np.uint8)).save(root / "hypersim" / rgb)
+            Image.fromarray(te_depth(rng, TRAIN_HW, 1.0, 20.0, 1000.0)).save(
+                root / "hypersim" / depth)
+            rows.append(json.dumps({"image": rgb, "depth_conditioning_image": depth}))
+        (meta / f"hypersim_{split}").mkdir()
+        (meta / f"hypersim_{split}" / "metadata.jsonl").write_text("\n".join(rows) + "\n")
+        out[split] = ("hypersim", str(meta / f"hypersim_{split}"))
+    lines = []
+    (root / "vkitti" / "rgb").mkdir(parents=True)
+    (root / "vkitti" / "depth").mkdir()
+    rng = np.random.default_rng(SEED + 23)
+    for i in range(TE_SAMPLES["vkitti"]):
+        rgb = rng.integers(0, 256, TE_VKITTI_HW + (3,), dtype=np.uint8)
+        Image.fromarray(rgb).save(root / "vkitti" / f"rgb/{i:03d}.png")
+        Image.fromarray(te_depth(rng, TE_VKITTI_HW, 2.0, 70.0, 100.0)).save(
+            root / "vkitti" / f"depth/{i:03d}.png")
+        lines.append(f"rgb/{i:03d}.png depth/{i:03d}.png")
+    (meta / "vkitti_train.txt").write_text("\n".join(lines) + "\n")
+    out["vkitti"] = ("vkitti", str(meta / "vkitti_train.txt"))
+    return out
+
+
+def flat_config(tree, prefix: str = "") -> dict:
+    """{dotted key: leaf}, list items keyed by their index."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    out = {}
+    for k, v in items:
+        key = f"{prefix}{k}"
+        if isinstance(v, (dict, list)):
+            out.update(flat_config(v, key + "."))
+        else:
+            out[key] = v
+    return out
+
+
+def write_recipe(path: Path, data: dict, max_iter: int, val_vis_period: int) -> dict:
+    """TE_RECIPE merged as the CLI merges it, with only TE_CHANGED keys set:
+    the datasets' dir and filenames pointed at ``data``, max_iter, no
+    periodic checkpoint, validation and visualization every
+    ``val_vis_period`` steps (0: off). Returns the merged config."""
+    import yaml
+
+    from genpercept_tpu_torch.utils.config import recursive_load_config
+
+    with contextlib.chdir(Path(__file__).resolve().parent):
+        original = json.loads(json.dumps(recursive_load_config(TE_RECIPE)))
+    cfg = copy.deepcopy(original)
+    hs, vk = cfg["dataset"]["train"]["dataset_list"]
+    for entry, key in ((hs, "train"), (vk, "vkitti"), (cfg["dataset"]["val"][0], "val"),
+                       (cfg["dataset"]["vis"][0], "vis")):
+        entry["dir"], entry["filenames"] = data[key]
+    cfg["max_iter"] = max_iter
+    cfg["trainer"].update(save_period=0, validation_period=val_vis_period,
+                          visualization_period=val_vis_period)
+    a, b = flat_config(original), flat_config(cfg)
+    changed = sorted(k for k in a.keys() | b.keys() if a.get(k) != b.get(k))
+    check(a.keys() == b.keys() and all(k.endswith(TE_CHANGED) for k in changed),
+          f"the recipe changed beyond {TE_CHANGED}: {changed}")
+    path.write_text(yaml.safe_dump(cfg))
+    return cfg
+
+
+def te_sources(cfg: dict, steps: int) -> list:
+    """The dataset each of a fresh run's first ``steps`` optimizer steps
+    draws from: the trainer's sampler replayed on indices alone. The phase
+    expects Hypersim's 480x640 micro-steps (STEP_LAUNCHES) throughout."""
+    train = cfg["dataset"]["train"]
+    sizes = [TE_SAMPLES["hypersim"], TE_SAMPLES["vkitti"]]
+    batch = cfg["dataloader"]["max_train_batch_size"] * ACCUM
+    sampler = MixedBatchSampler([range(n) for n in sizes], batch_size=batch,
+                                prob=train["prob_ls"],
+                                generator=np.random.default_rng(cfg["trainer"]["init_seed"]))
+    out = []
+    while len(out) < steps:
+        for b in sampler:
+            out.append(train["dataset_list"][int(b[0] >= sizes[0])]["name"])
+            if len(out) == steps:
+                break
+    return out
+
+
+def metrics_log(run_dir: Path) -> dict:
+    """{tag: [(step, value, host time), ...]} from the run's metrics.jsonl."""
+    out: dict = {}
+    for line in (run_dir / "metrics.jsonl").read_text().splitlines():
+        rec = json.loads(line)
+        for k, v in rec.items():
+            if k not in ("t", "step"):
+                out.setdefault(k, []).append((rec["step"], v, rec["t"]))
+    return out
+
+
+def train_cli_run(recipe: Path, ckpt: Path, data_root: Path, out: Path,
+                  resume: str | None = None):
+    """cli/train.py in-process with the backend's defaults: the Trainer, its
+    launches, wall seconds and peak device memory."""
+    from genpercept_tpu_torch.cli import train as train_cli
+
+    argv = ["--config", str(recipe), "--checkpoint", str(ckpt), "--base_data_dir",
+            str(data_root), "--output_dir", str(out), "--device", "cuda"]
+    argv += ["--resume_run", resume] if resume else []
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with tf32(*DEFAULT_TF32):
+        trainer = train_cli.main(argv)
+    torch.cuda.synchronize()
+    rec = {"seconds": time.perf_counter() - t0, "launches": launch_counts(),
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    return trainer, rec
+
+
+def step_walls_ms(log: dict) -> list:
+    """Host ms between consecutive steps' first scalar (loss synchronised):
+    each step's loader wait, batch upload and step."""
+    t = [x[2] for x in log["train/loss"]]
+    return [(b - a) * 1e3 for a, b in zip(t, t[1:])]
+
+
+def eval_f64(ds, pred_dir: Path, alignment: str) -> dict:
+    """cli/eval.py's protocol with every metric in float64 numpy (the numpy
+    alignment is the CLI's own)."""
+    from genpercept_tpu_torch.data import get_pred_name
+    from genpercept_tpu_torch.eval import align_depth_least_square, depth2disparity
+
+    rows = []
+    for i in range(len(ds)):
+        item = ds[i]
+        rel = item["rgb_relative_path"]
+        pred = np.load(pred_dir / Path(rel).parent / get_pred_name(Path(rel).name, ds.name_mode,
+                                                                   ".npy"))
+        gt = np.asarray(item["depth_raw_linear"], np.float64)
+        valid = np.asarray(item["valid_mask_raw"]).astype(bool)
+        if alignment == "least_square":
+            pred, _, _ = align_depth_least_square(gt, pred, valid)
+        else:
+            gt_disp, nonneg = depth2disparity(gt, return_mask=True)
+            disp, _, _ = align_depth_least_square(gt_disp, pred, valid & nonneg & (pred > 0))
+            pred = depth2disparity(np.clip(disp, 1e-3, None))
+        pred = np.clip(np.clip(pred, ds.min_depth, ds.max_depth), 1e-6, None)
+        p = pred.astype(np.float32)[valid].astype(np.float64)
+        g = gt.astype(np.float32)[valid].astype(np.float64)
+        d = np.log(p) - np.log(g)
+        ratio = np.maximum(p / g, g / p)
+        rows.append({"abs_relative_difference": np.mean(np.abs(p - g) / g),
+                     "squared_relative_difference": np.mean((p - g) ** 2 / g),
+                     "rmse_linear": np.sqrt(np.mean((p - g) ** 2)),
+                     "rmse_log": np.sqrt(np.mean(d**2)),
+                     "log10": np.mean(np.abs(np.log10(p) - np.log10(g))),
+                     "delta1_acc": np.mean(ratio < 1.25), "delta2_acc": np.mean(ratio < 1.25**2),
+                     "delta3_acc": np.mean(ratio < 1.25**3),
+                     "i_rmse": np.sqrt(np.mean((1 / p - 1 / g) ** 2)),
+                     "silog_rmse": np.sqrt(max(np.mean(d**2) - np.mean(d) ** 2, 0.0)) * 100})
+    return {k: float(np.mean([r[k] for r in rows])) for k in rows[0]}
+
+
+def eval_errors(got: dict, want: dict) -> dict:
+    """Each metric's error as TE_EVAL_TOL measures it, and whether it is
+    within its bar."""
+    out = {}
+    for k, v in want.items():
+        if k.startswith("delta"):
+            err, bar = abs(got[k] - v), TE_EVAL_TOL["delta_abs"]
+        else:
+            err = abs(got[k] - v) / abs(v)
+            bar = TE_EVAL_TOL["silog_rel" if k == "silog_rmse" else "rel"]
+        out[k] = {"err": err, "bar": bar, "ok": err <= bar}
+    return out
+
+
+def phase_train_eval(train_run_ms: float | None = None) -> dict:
+    """The loop at full width (section (u)): run A trains 2 steps of the
+    recipe from its files and validates and visualizes at step 2; run R
+    resumes A's final checkpoint with nothing left to train (its state
+    against A's trainer); the export of A's final checkpoint; the dataset
+    inference and eval CLIs on it; evaluate_dataset in bf16 and f32; run B
+    resumes A to step 3; run C trains 3 steps straight."""
+    import csv
+
+    from genpercept_tpu_torch.cli import eval as eval_cli
+    from genpercept_tpu_torch.cli import export as export_cli
+    from genpercept_tpu_torch.cli import infer as infer_cli
+    from genpercept_tpu_torch.data import DatasetMode, get_dataset, get_pred_name
+    from genpercept_tpu_torch.eval.harness import evaluate_dataset
+    from genpercept_tpu_torch.io.weights import load_safetensors
+
+    t_phase = time.perf_counter()
+    dev = "cuda"
+    unet_o, vae_o = oracle_modules(SD21_ORACLE)
+    check(fingerprint_matches({"unet": fingerprint(unet_o), "vae": fingerprint(vae_o)}),
+          "the golden's weights differ: this torch's default init is not the golden's")
+    with np.load(GOLDEN) as zf:
+        golden = {k: zf[k] for k in ("rgb", "ctx")}
+    # the eval-mode readers keep the files' raster (resize_to_hw acts on
+    # training samples), so validation and visualization run at 480x640
+    served = served_launches(TRAIN_HW)
+    summary: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        ckpt = write_oracle_checkpoint(root / "ckpt", unet_o, vae_o, SD21_ORACLE["unet"],
+                                       SD21_ORACLE["vae"], golden["ctx"])
+        del unet_o, vae_o
+        t0 = time.perf_counter()
+        data = write_train_data(root / "data")
+        data_s = time.perf_counter() - t0
+        write_recipe(root / "recipe_a.yaml", data, 2, 2)
+        write_recipe(root / "recipe_b.yaml", data, 3, 2)
+        cfg_c = write_recipe(root / "recipe_c.yaml", data, 3, 0)
+        sources = te_sources(cfg_c, 3)
+        check(sources == ["hypersim"] * 3, f"the recipe's first steps draw {sources}")
+        emit({"phase": "train_eval", "step": "data", "seconds": data_s, "samples": TE_SAMPLES,
+              "step_sources": sources, "recipe": TE_RECIPE, "changed": list(TE_CHANGED)})
+
+        # run A: 2 steps, validation and visualization at step 2
+        run_a = root / "run"
+        trainer, rec = train_cli_run(root / "recipe_a.yaml", ckpt, root / "data", run_a)
+        log = metrics_log(run_a)
+        vis = sorted(p.name for p in (run_a / "visualization" / "iter_000002").iterdir())
+        val_tag = "val/hypersim/abs_relative_difference"
+        val_s = log[val_tag][0][2] - log["train/grad"][-1][2]
+        expect_a = {k: 2 * ACCUM * n + (TE_SAMPLES["val"] + TE_SAMPLES["vis"]) * served[k]
+                    for k, n in STEP_LAUNCHES.items()}
+        rec_a = {"phase": "train_eval", "step": "run_a", **rec,
+                 "losses": [x[1] for x in log["train/loss"]],
+                 "val": {t.split("/")[-1]: v[0][1] for t, v in log.items()
+                         if t.startswith("val/")},
+                 "val_s_per_image": val_s / TE_SAMPLES["val"], "vis_files": vis,
+                 "launches_expected": expect_a,
+                 "files": sorted(p.name for p in run_a.iterdir())}
+        emit(rec_a)
+        for f in ("config.yaml", "code_snapshot.tar.gz", "metrics.jsonl", "logging.log"):
+            check((run_a / f).is_file(), f"run A wrote no {f}")
+        check((run_a / "checkpoint" / "final" / "state.pt").is_file(), "run A: no final")
+        check([x[0] for x in log["train/loss"]] == [1, 2], f"run A steps {log['train/loss']}")
+        check(all(math.isfinite(x) for x in rec_a["losses"]), f"run A losses {rec_a['losses']}")
+        check(log[val_tag][0][0] == 2 and math.isfinite(log[val_tag][0][1]),
+              f"run A validation {log.get(val_tag)}")
+        check(vis == [f"hypersim_{j:03d}.png" for j in range(TE_SAMPLES["vis"])],
+              f"run A visualization {vis}")
+        check(rec["launches"] == expect_a, f"run A launches {rec['launches']} != {expect_a}")
+
+        # run R: A's recipe resumed from its final checkpoint, nothing left
+        # to train: the CLI's restore against A's trainer, bit for bit
+        restored, rec_r0 = train_cli_run(root / "recipe_a.yaml", ckpt, root / "data", run_a,
+                                         resume="final")
+        opt_a, opt_r = trainer.optimizer, restored.optimizer
+        restore_diff = {
+            "trainable": max(float((p.detach().float() - restored.trainable[k].detach().float())
+                                   .abs().max()) for k, p in trainer.trainable.items()),
+            "adam": max(float((opt_a.state[p][m].float() - opt_r.state[q][m].float()).abs().max())
+                        for p, q in zip(trainer.trainable.values(), restored.trainable.values())
+                        for m in ("mu", "nu")),
+            "mu_dtype": str(opt_r.state[next(iter(restored.trainable.values()))]["mu"].dtype),
+            "count": [g["count"] for g in opt_r.param_groups],
+            "counters": restored._counters() == trainer._counters()}
+        del restored
+        emit({"phase": "train_eval", "step": "restore", **rec_r0, **restore_diff})
+        check(restore_diff["trainable"] == 0.0 and restore_diff["adam"] == 0.0
+              and restore_diff["counters"] and restore_diff["mu_dtype"] == "torch.bfloat16"
+              and restore_diff["count"] == [g["count"] for g in opt_a.param_groups],
+              f"the resumed state differs from run A's: {restore_diff}")
+        check(not any(rec_r0["launches"].values()), "run R launched a kernel")
+
+        # the export of A's final checkpoint
+        exp = root / "export"
+        t0 = time.perf_counter()
+        export_cli.main(["--run_dir", str(run_a), "--base_checkpoint", str(ckpt), "--name",
+                         "final", "--output_dir", str(exp), "--device", dev])
+        export_s = time.perf_counter() - t0
+        exported = load_safetensors(str(exp / "unet" / "diffusion_pytorch_model.safetensors"))
+        trained = {k[len("unet."):]: p.detach() for k, p in trainer.trainable.items()}
+        export_err = max(float((exported[k] - p.float().cpu()).abs().max())
+                         for k, p in trained.items())
+        base_unet = load_safetensors(str(ckpt / "unet" / "diffusion_pytorch_model.safetensors"))
+        moved = max(float((exported[k] - base_unet[k]).abs().max()) for k in trained)
+        rgb = torch.from_numpy(golden["rgb"]).to(dev)
+        m_exp = load_genpercept_checkpoint(str(exp), base_ckpt_dir=str(ckpt), device=dev)
+        m_swap = load_genpercept_checkpoint(str(ckpt), device=dev)
+        m_swap.unet.load_state_dict(trained)
+        pred_exp = build_single_infer(m_exp, PipelineConfig())(rgb)
+        pred_swap = build_single_infer(m_swap, PipelineConfig())(rgb)
+        del trainer, trained, m_swap, exported, base_unet
+        torch.cuda.empty_cache()
+        rec_x = {"phase": "train_eval", "step": "export", "seconds": export_s,
+                 "files": sorted(str(p.relative_to(exp)) for p in exp.rglob("*") if p.is_file()),
+                 "unet_vs_trained_max": export_err, "unet_moved_from_base_max": moved,
+                 "depth_vs_swapped_max": float((pred_exp - pred_swap).abs().max())}
+        emit(rec_x)
+        check(export_err == 0.0, f"export: a UNet tensor differs from the trained one ({export_err})")
+        check(moved > 0.0, "export: the trained UNet equals the base")
+        check(rec_x["depth_vs_swapped_max"] == 0.0,
+              f"export: depth {rec_x['depth_vs_swapped_max']} from the swapped-in pipeline")
+
+        # infer -> eval on the export, NYU's layout
+        nyu_cfg, nyu_yaml = write_nyu_layout(root / "nyu")
+        ds = get_dataset(nyu_cfg, str(root / "nyu"), DatasetMode.EVAL)
+        want = sorted(str(Path(p[0]).parent / get_pred_name(Path(p[0]).name, ds.name_mode,
+                                                             ".npy")) for p in ds.filenames)
+        pred_dir = root / "eval_pred"
+        reset_counts()
+        t0 = time.perf_counter()
+        with tf32(*DEFAULT_TF32):
+            infer_cli.main(["--checkpoint", str(exp), "--base_ckpt_dir", str(ckpt),
+                            "--dataset_config", str(nyu_yaml), "--base_data_dir",
+                            str(root / "nyu"), "--output_dir", str(pred_dir), "--device", dev])
+        infer_s = time.perf_counter() - t0
+        infer_launches = launch_counts()
+        infer_expect = {k: NYU_IMAGES * n for k, n in served_launches((576, 768)).items()}
+        got_files = sorted(str(p.relative_to(pred_dir)) for p in pred_dir.rglob("*")
+                           if p.is_file())
+        evals = {}
+        for alignment in ("least_square", "least_square_disparity"):
+            out = root / f"eval_{alignment}"
+            t0 = time.perf_counter()
+            summary_cli = eval_cli.main(["--dataset_config", str(nyu_yaml), "--base_data_dir",
+                                         str(root / "nyu"), "--prediction_dir", str(pred_dir),
+                                         "--output_dir", str(out), "--alignment", alignment,
+                                         "--device", dev])
+            eval_s = time.perf_counter() - t0
+            with open(out / "per_sample_metrics.csv", newline="") as f:
+                rows = list(csv.DictReader(f))
+            errors = eval_errors(summary_cli, eval_f64(ds, pred_dir, alignment))
+            evals[alignment] = {"summary": summary_cli, "errors": errors,
+                                "s_per_image": eval_s / len(ds),
+                                "csv_samples": [r["sample"] for r in rows],
+                                "eval_metrics_txt": (out / "eval_metrics.txt").read_text()}
+        rec_e = {"phase": "train_eval", "step": "infer_eval", "infer_s": infer_s,
+                 "infer_s_per_image": infer_s / len(ds), "infer_launches": infer_launches,
+                 "infer_files": got_files, "eval": evals}
+        emit(rec_e)
+        check(got_files == want, f"infer CLI files {got_files} != {want}")
+        check(infer_launches == infer_expect, f"infer launches {infer_launches}")
+        for alignment, e in evals.items():
+            bad = {k: v for k, v in e["errors"].items() if not v["ok"]}
+            check(not bad, f"eval {alignment}: off the float64 recomputation {bad}")
+            check(sorted(e["csv_samples"]) == want, f"eval {alignment}: csv {e['csv_samples']}")
+            check(e["eval_metrics_txt"].startswith("Eval metrics: dataset nyu_v2"),
+                  f"eval {alignment}: eval_metrics.txt")
+
+        # the batched harness on the same dataset, kernels against plain
+        harness = {}
+        b = 2
+        sizes = [b] * (len(ds) // b) + ([len(ds) % b] if len(ds) % b else [])
+        h_expect = {k: 0 for k in COUNTERS}
+        for n in sizes:
+            for k, v in ddim_launches(60, 80, n, 1).items():
+                h_expect[k] += v
+        for dt in (torch.bfloat16, torch.float32):
+            reset_counts()
+            t0 = time.perf_counter()
+            res = evaluate_dataset(m_exp, ds, batch_size=b, processing_res=768, dtype=dt,
+                                   device=dev)
+            secs = time.perf_counter() - t0
+            counts = launch_counts()
+            reset_counts()
+            with reference_kernels():
+                ref = evaluate_dataset(m_exp, ds, batch_size=b, processing_res=768, dtype=dt,
+                                       device=dev)
+            ref_counts = launch_counts()
+            diff = {k: abs(res[k] - ref[k]) for k in ("abs_relative_difference", "delta1_acc")}
+            harness[str(dt)] = {"metrics": res, "reference": ref, "diff": diff,
+                                "bar": TE_HARNESS_TOL[dt], "s_per_image": secs / len(ds),
+                                "launches": counts, "launches_reference": ref_counts}
+        emit({"phase": "train_eval", "step": "harness", "launches_expected": h_expect,
+              **harness})
+        for dt in (torch.bfloat16, torch.float32):
+            h = harness[str(dt)]
+            check(h["launches"] == h_expect, f"harness {dt}: launches {h['launches']}")
+            check(not any(h["launches_reference"].values()),
+                  f"harness {dt}: kernels under reference_kernels()")
+            check(all(v <= TE_HARNESS_TOL[dt] for v in h["diff"].values()),
+                  f"harness {dt}: {h['diff']}")
+        del m_exp
+        shutil.rmtree(exp)
+
+        # run B: A resumed from its final checkpoint to step 3
+        trainer, rec_b = train_cli_run(root / "recipe_b.yaml", ckpt, root / "data", run_a,
+                                       resume="final")
+        check(trainer.effective_iter == 3, f"run B ended at iter {trainer.effective_iter}")
+        del trainer
+        log_b = metrics_log(run_a)
+        shutil.rmtree(run_a)
+        expect_b = {k: ACCUM * n for k, n in STEP_LAUNCHES.items()}
+        # run C: 3 steps straight, validation off
+        run_c = root / "run_c"
+        trainer, rec_c = train_cli_run(root / "recipe_c.yaml", ckpt, root / "data", run_c)
+        del trainer
+        log_c = metrics_log(run_c)
+        shutil.rmtree(run_c)
+        torch.cuda.empty_cache()
+        loss_b = [x for x in log_b["train/loss"] if x[0] == 3]
+        loss_c = [x[1] for x in log_c["train/loss"]]
+        walls = step_walls_ms(log_c)
+        rec_r = {"phase": "train_eval", "step": "resume", "run_b": rec_b, "run_c": rec_c,
+                 "losses_a": rec_a["losses"], "losses_c": loss_c,
+                 "loss_b_step3": loss_b[0][1] if loss_b else None,
+                 "launches_expected_b": expect_b,
+                 "launches_expected_c": {k: STEPS * ACCUM * n
+                                         for k, n in STEP_LAUNCHES.items()},
+                 "cli_step_wall_ms": walls, "cli_ms_per_step": float(np.median(walls)),
+                 "train_run_ms_per_step": train_run_ms}
+        # reported, not bounded: the resumed run restarts the sample stream
+        # (the trainer saves final after leaving its epoch, as JAX's), so its
+        # step 3 draws the stream's first batch with fresh flips and C's its
+        # third: the same 32 images in another order, other flips
+        rec_r["step3_rel_diff"] = (abs(rec_r["loss_b_step3"] - loss_c[2]) / abs(loss_c[2])
+                                   if loss_b else None)
+        rec_r["steps12_rel_diff_a_c"] = [abs(a - c) / abs(c)
+                                         for a, c in zip(rec_a["losses"], loss_c)]
+        emit(rec_r)
+        check(len(loss_b) == 1 and [x[0] for x in log_b["train/loss"]] == [1, 2, 3],
+              f"run B did not continue at iter 3: {log_b['train/loss']}")
+        check(rec_b["launches"] == expect_b, f"run B launches {rec_b['launches']}")
+        check(rec_c["launches"] == rec_r["launches_expected_c"],
+              f"run C launches {rec_c['launches']}")
+        check(len(loss_c) == 3 and all(math.isfinite(x) for x in loss_c), f"run C {loss_c}")
+        check(math.isfinite(rec_r["loss_b_step3"]), f"run B's step 3 loss {rec_r['loss_b_step3']}")
+    summary = {"cli_ms_per_step": rec_r["cli_ms_per_step"], "train_run_ms_per_step": train_run_ms,
+               "peak_bytes": rec_c["peak_bytes"], "val_s_per_image": rec_a["val_s_per_image"],
+               "export_s": export_s,
+               "eval_s_per_image": {a: e["s_per_image"] for a, e in evals.items()},
+               "infer_s_per_image": rec_e["infer_s_per_image"],
+               "harness_s_per_image": {k: h["s_per_image"] for k, h in harness.items()},
+               "seconds": time.perf_counter() - t_phase}
+    emit({"phase": "train_eval", "step": "summary", **summary})
+    return summary
+
+
 def kernel_record(name, source, replaces, launches, max_abs_err, ms, plain_ms, bd: Bound,
                   library_ms):
     return {"name": name, "route": "cuda", "source": f"genpercept_tpu_torch/csrc/{source}",
@@ -2765,6 +3280,7 @@ def main() -> None:
     phase_checkpoint_cli()
     phase_marigold()
     phase_serve()
+    phase_train_eval(tr["run"]["ms_per_step"])
     # per 768^2 image (K1, K2: f32), per recipe micro-step (K3, K4: bf16),
     # per 768^2 forward of batch 2 (K5, K6, K8: bf16), per pass of K7's path
     # over its five shapes at batch 2 (bf16)

@@ -1,15 +1,29 @@
-"""Training configuration from a recipe file.
+"""Training driver CLI on PyTorch (rebuild of reference `accelerate_train.py`).
 
-Counterpart of ``genpercept_tpu/cli/train.py::resolve_train_config``: maps a
-merged recipe config (``utils.config.recursive_load_config``) to a
-``TrainConfig``. The CLI entry point itself waits for the checkpoint loader
-and the dataset readers, which are not ported yet.
+    python -m genpercept_tpu_torch.cli.train --config configs/train/main_paper/depth.yaml \
+        --base_data_dir $BASE_DATA_DIR --checkpoint /path/to/sd21 \
+        --output_dir out/ [--resume_run latest] [--bf16_masters] [--device cuda]
+
+Counterpart of ``genpercept_tpu/cli/train.py`` on one device, with its flags
+and ``--device``: the merged recipe (``resolve_train_config``), config.yaml
+and a code snapshot in the run directory, the optional wandb run, the
+effective batch as grad accumulation, the mixed train loader and the
+val/vis loaders over the dataset readers, the model-surgery ablation axes
+(``apply_model_overrides``), the Trainer and its resume. Runs on the card
+unless ``--device cpu`` is given. More than one device is not ported
+(ROADMAP Queue 1 item 11): ``--data_parallel`` takes -1 or 1, and
+``--model_parallel`` > 1, ``--zero1``, ``--coordinator_address`` and
+``--multihost`` raise.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import logging
+import os
 import re
+import time
 
 import torch
 
@@ -28,6 +42,54 @@ _LATENT_LOSSES = {
     "l1_loss": "latent_l1", "l1_loss_with_mask": "latent_l1",
     "mean_abs_rel": "latent_mean_abs_rel",
 }
+
+
+def build_parser():
+    p = argparse.ArgumentParser(description="GenPercept training (PyTorch)")
+    p.add_argument("--config", required=True)
+    p.add_argument("--checkpoint", required=True, help="base SD2.1 checkpoint dir")
+    p.add_argument("--base_data_dir", default=os.environ.get("BASE_DATA_DIR", ""))
+    p.add_argument("--output_dir", required=True)
+    p.add_argument("--resume_run", default=None, help="resume from checkpoint name")
+    p.add_argument("--exit_after", type=int, default=-1, help="minutes; save+exit")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--no_wandb", action="store_true",
+                   help="accepted for reference-CLI parity (wandb is already off by "
+                        "default, matching the reference's forced disable)")
+    p.add_argument("--wandb", action="store_true",
+                   help="mirror metrics to wandb (requires the wandb package; "
+                        "tensorboard scalars sync via sync_tensorboard)")
+    p.add_argument("--data_parallel", type=int, default=-1,
+                   help="data-parallel devices (-1: all; only one device is ported)")
+    p.add_argument("--model_parallel", type=int, default=1, help="only 1 is ported")
+    p.add_argument("--zero1", action="store_true",
+                   help="shard optimizer state across data-parallel ranks (not ported)")
+    p.add_argument("--coordinator_address", default=None,
+                   help="host:port of process 0 of a multi-host run (not ported)")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--multihost", action="store_true",
+                   help="multi-host run with auto-detection (not ported)")
+    p.add_argument("--bf16_masters", action="store_true",
+                   help="keep the TRAINABLE master weights (and Adam's second moment, "
+                        "which takes their dtype) in bf16")
+    p.add_argument("--device", default="cuda", help="torch device (default: the card)")
+    return p
+
+
+def _refuse_unported(args) -> None:
+    """More than one device (ROADMAP Queue 1 item 11)."""
+    unported = []
+    if args.data_parallel not in (-1, 1):
+        unported.append(f"--data_parallel {args.data_parallel}")
+    if args.model_parallel != 1:
+        unported.append(f"--model_parallel {args.model_parallel}")
+    unported += [flag for flag, on in (("--zero1", args.zero1),
+                                       ("--coordinator_address", args.coordinator_address),
+                                       ("--multihost", args.multihost)) if on]
+    if unported:
+        raise NotImplementedError(f"{', '.join(unported)}: more than one device is not "
+                                  "ported (ROADMAP Queue 1 item 11)")
 
 
 def resolve_train_config(cfg, grad_accum_steps: int = 1, mode: str = None) -> TrainConfig:
@@ -109,3 +171,140 @@ def resolve_train_config(cfg, grad_accum_steps: int = 1, mode: str = None) -> Tr
         compute_dtype=(torch.bfloat16 if cfg.get_path("mixed_precision") == "bf16"
                        else torch.float32),
     )
+
+
+def apply_model_overrides(cfg, models, seed) -> None:
+    """The model-surgery ablation axes (reference config/ablation/):
+    from-scratch UNet or VAE decoder, re-initialised in place with the JAX
+    package's scheme (``models.init_params_``) from generators seeded
+    ``seed`` and ``seed + 1``, as JAX seeds its keys (equal in distribution,
+    not in value); a fixed text prompt. A fresh DPT head is not ported."""
+    from genpercept_tpu_torch.models import init_params_
+
+    def generator(offset: int) -> torch.Generator:
+        return torch.Generator(device=models.device).manual_seed((seed or 0) + offset)
+
+    if cfg.get_path("model.unet_from_scratch"):
+        init_params_(models.unet, generator(0))
+    if cfg.get_path("model.vae_decoder_from_scratch"):
+        gen = generator(1)
+        init_params_(models.vae.decoder, gen)
+        init_params_(models.vae.post_quant_conv, gen)
+    if cfg.get_path("model.customized_head") and models.dpt_head is None:
+        raise NotImplementedError("training a fresh DPT head is not ported yet "
+                                  "(ROADMAP Queue 1 item 9)")
+    text_input = cfg.get_path("model.text_input")
+    if text_input:
+        models.text_embed = models.encode_prompt(text_input)
+
+
+def main(argv=None):
+    """Train as the recipe says; returns the Trainer after its last step."""
+    import tarfile
+
+    import numpy as np
+    import yaml
+
+    from genpercept_tpu_torch.data import DatasetMode, MixedBatchSampler, get_dataset
+    from genpercept_tpu_torch.data.sampler import ConcatDataset, DataLoader
+    from genpercept_tpu_torch.data.transforms import get_depth_normalizer
+    from genpercept_tpu_torch.io.checkpoints import load_genpercept_checkpoint
+    from genpercept_tpu_torch.train.trainer import Trainer
+    from genpercept_tpu_torch.utils.config import recursive_load_config
+    from genpercept_tpu_torch.utils.logging_util import (
+        config_logging,
+        init_wandb,
+        load_wandb_job_id,
+        save_wandb_job_id,
+    )
+    from genpercept_tpu_torch.utils.seeding import seed_all
+
+    args = build_parser().parse_args(argv)
+    _refuse_unported(args)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("cli/train.py trains on the card by default and no CUDA device is "
+                           "available; pass --device cpu")
+    cfg = recursive_load_config(args.config)
+    config_logging(cfg.get("logging"), out_dir=args.output_dir)
+    logging.info(f"config: {args.config}")
+
+    # the merged config for resume, and a snapshot of the code tree
+    # (accelerate_train.py:268-282)
+    os.makedirs(args.output_dir, exist_ok=True)
+    with open(os.path.join(args.output_dir, "config.yaml"), "w") as f:
+        yaml.safe_dump(dict(cfg), f)
+    if not args.resume_run:
+        pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        with tarfile.open(os.path.join(args.output_dir, "code_snapshot.tar.gz"), "w:gz") as tar:
+            tar.add(pkg_root, arcname="genpercept_tpu_torch")
+    # wandb stays off unless asked for (the reference forces it off,
+    # accelerate_train.py:139-140); metrics.jsonl is the primary stream
+    wandb_run = init_wandb(
+        args.wandb, project="genpercept_tpu", dir=args.output_dir,
+        id=load_wandb_job_id(args.output_dir) if args.resume_run else None,
+        resume="allow" if args.resume_run else None)
+    if wandb_run is not None and args.wandb:
+        save_wandb_job_id(wandb_run, args.output_dir)
+
+    seed = args.seed if args.seed is not None else cfg.get("trainer", {}).get("init_seed", 0)
+    seed_all(seed)
+
+    # effective batch -> grad accumulation on one device
+    # (accelerate_train.py:180-184)
+    eff_bs = cfg.get_path("dataloader.effective_batch_size", 32)
+    max_bs = cfg.get_path("dataloader.max_train_batch_size", 2)
+    accum = max(int(eff_bs / max_bs), 1)
+    logging.info(f"device={device} eff_bs={eff_bs} per_step_bs={max_bs} grad_accum={accum}")
+
+    mode = cfg.get_path("pipeline.kwargs.mode", cfg.get("mode", "depth"))
+    # each dataset's own resize_to_hw reaches its reader through get_dataset
+    datasets = get_dataset(
+        cfg.get_path("dataset.train"), args.base_data_dir, DatasetMode.TRAIN,
+        depth_transform=get_depth_normalizer(cfg.get_path("depth_normalization")),
+        augmentation_args=cfg.get("augmentation"))
+    if not isinstance(datasets, list):
+        datasets = [datasets]
+    sampler = MixedBatchSampler(datasets, batch_size=max_bs * accum,
+                                prob=cfg.get_path("dataset.train.prob_ls"),
+                                generator=np.random.default_rng(seed))
+    train_loader = DataLoader(ConcatDataset(datasets), sampler)
+
+    def eval_loaders(key):
+        out = {}
+        for ds_cfg in cfg.get_path(key, []) or []:
+            ds = get_dataset(ds_cfg, args.base_data_dir, DatasetMode.EVAL)
+            one = MixedBatchSampler([ds], batch_size=1, shuffle=False,
+                                    generator=np.random.default_rng(0))
+            out[ds_cfg["name"]] = DataLoader(ConcatDataset([ds]), one)
+        return out
+
+    models = load_genpercept_checkpoint(args.checkpoint, device=device)
+    apply_model_overrides(cfg, models, seed)
+    train_cfg = resolve_train_config(cfg, grad_accum_steps=accum, mode=mode)
+    if args.bf16_masters:
+        train_cfg = dataclasses.replace(train_cfg, master_dtype=torch.bfloat16)
+
+    trainer = Trainer(
+        cfg=train_cfg,
+        models=models,
+        train_loader=train_loader,
+        val_loaders=eval_loaders("dataset.val"),
+        out_dir=args.output_dir,
+        max_iter=cfg.get_path("max_iter", 30000),
+        save_period=cfg.get_path("trainer.save_period", 50),
+        val_period=cfg.get_path("trainer.validation_period", 0),
+        vis_period=cfg.get_path("trainer.visualization_period", 0),
+        vis_loaders=eval_loaders("dataset.vis"),
+        main_seed=seed,
+    )
+    if args.resume_run:
+        trainer.load_checkpoint(args.resume_run)
+
+    t_end = time.time() + args.exit_after * 60 if args.exit_after > 0 else None
+    trainer.train(t_end=t_end)
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

@@ -284,6 +284,7 @@ def save_train_checkpoint(out_dir: str, state: Dict[str, Any], name: str = "late
 
 def load_train_checkpoint(out_dir: str, name: str = "latest", map_location=None):
     """The state dict saved by ``save_train_checkpoint`` (tensors only, so
-    it loads with ``weights_only=True``)."""
+    it loads with ``weights_only=True``), from a memory map of the file: a
+    tensor is read when it is used."""
     return torch.load(osp.join(out_dir, name, _FILE), map_location=map_location,
-                      weights_only=True)
+                      weights_only=True, mmap=True)

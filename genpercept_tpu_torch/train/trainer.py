@@ -3,14 +3,18 @@
 Counterpart of ``genpercept_tpu/train/trainer.py``: epoch and batch
 bookkeeping with batch-exact resume (``skip_first_batches`` plus the
 per-iteration seed-sequence replay of the timestep draws), an exit-after
-time budget, checkpoint save and resume, and metrics in ``metrics.jsonl``.
-Validation and visualization run the inference pipeline and the eval
-metrics, which are not ported yet: their periods must stay 0.
+time budget, checkpoint save and resume, metrics in ``metrics.jsonl``, and
+periodic validation and visualization. Both run the inference pipeline on
+the trainer's own modules, whose parameters the step trains in place (and
+stores in bf16 where the config says so): validation scores least-squares
+aligned depth (masked L1 in the other modes), visualization writes colorized
+PNGs. A multi-process run is not ported (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import os.path as osp
 import time
 from typing import Dict, Optional
@@ -19,18 +23,32 @@ import numpy as np
 import torch
 
 from genpercept_tpu_torch.data.sampler import skip_first_batches
+from genpercept_tpu_torch.eval import MetricTracker, align_depth_least_square, compute_metrics
 from genpercept_tpu_torch.io.checkpoints import load_train_checkpoint, save_train_checkpoint
 from genpercept_tpu_torch.train.train_step import (
     TrainConfig,
     build_train_step,
     init_train_state,
 )
-from genpercept_tpu_torch.utils.logging_util import MetricsLogger
+from genpercept_tpu_torch.utils.logging_util import MetricsLogger, eval_dic_to_text
 from genpercept_tpu_torch.utils.seeding import generate_seed_sequence
 
 logger = logging.getLogger(__name__)
 
-GT_KEY, MASK_KEY = "depth_raw_norm", "valid_mask_raw"  # depth mode's
+GT_KEYS = {
+    "depth": ("depth_raw_norm", "valid_mask_raw"),
+    "normal": ("normal_raw_norm", "valid_mask_raw_normal"),
+    "matting": ("matting_raw_norm", "valid_mask_raw_matting"),
+    "dis": ("dis_raw_norm", "valid_mask_raw_dis"),
+    "seg": ("seg_raw_norm", "valid_mask_raw_seg"),
+    "disparity": ("depth_raw_norm", "valid_mask_raw"),
+    "disparity_dpt_head": ("depth_raw_norm", "valid_mask_raw"),
+}
+
+
+def _world_size() -> int:
+    dist = torch.distributed
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
 class Trainer:
@@ -40,21 +58,28 @@ class Trainer:
         models,  # pipeline.GenPerceptModels, on the training device
         train_loader,
         out_dir: str,
+        val_loaders: Optional[Dict[str, object]] = None,
         max_iter: int = 30000,
         save_period: int = 50,
         val_period: int = 0,
         vis_period: int = 0,
+        vis_loaders: Optional[Dict[str, object]] = None,
         main_seed: Optional[int] = 0,
     ):
-        if val_period or vis_period:
-            raise NotImplementedError(
-                "validation and visualization need the eval package, not ported yet")
+        if (val_period or vis_period) and _world_size() > 1:
+            # the JAX trainer gathers the parameters to process 0 for these
+            raise NotImplementedError("validation and visualization in a multi-process run "
+                                      "are not ported (ROADMAP Queue 1 item 11)")
         self.cfg = cfg
         self.models = models
         self.train_loader = train_loader
+        self.val_loaders = val_loaders or {}
         self.out_dir = out_dir
         self.max_iter = max_iter
         self.save_period = save_period
+        self.val_period = val_period
+        self.vis_period = vis_period
+        self.vis_loaders = vis_loaders or {}
         self.device = models.device
 
         self.trainable, self.frozen, self.optimizer = init_train_state(models, cfg)
@@ -76,10 +101,11 @@ class Trainer:
     # ------------------------------------------------------------- batching
 
     def _device_batch(self, raw: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        gt = raw[GT_KEY]
+        gt_key, mask_key = GT_KEYS[self.cfg.mode]
+        gt = raw[gt_key]
         if gt.ndim == 3:  # (B, H, W) single channel -> 3 channels
             gt = np.repeat(gt[..., None], 3, axis=-1)
-        mask = raw[MASK_KEY]
+        mask = raw[mask_key]
         if mask.ndim == 4:
             mask = mask[..., 0]
 
@@ -117,8 +143,7 @@ class Trainer:
                 self.metrics_logger.log_dict(values, self.effective_iter, prefix="train/")
                 if self.effective_iter % 50 == 0:
                     logger.info(f"iter {self.effective_iter}: loss={values['loss']:.4f}")
-                if self.save_period and self.effective_iter % self.save_period == 0:
-                    self.save_checkpoint("latest")
+                self._periodic_callbacks()
                 if self.effective_iter >= self.max_iter:
                     break
                 if t_end is not None and time.time() > t_end:
@@ -128,6 +153,93 @@ class Trainer:
             self.n_batch_in_epoch = 0
         self.save_checkpoint("final")
         logger.info(f"Training finished in {time.time() - start:.0f}s")
+
+    def _periodic_callbacks(self) -> None:
+        if self.save_period and self.effective_iter % self.save_period == 0:
+            self.save_checkpoint("latest")
+        if self.val_period and self.effective_iter % self.val_period == 0:
+            self.validate()
+        if self.vis_period and self.effective_iter % self.vis_period == 0:
+            self.visualize()
+
+    # ------------------------------------------------- validate, visualize
+
+    def _infer(self):
+        """The inference pipeline's forward on the live modules, in
+        PipelineConfig's default dtype: each op casts the weights, stored in
+        f32 or bf16, to the activations' dtype, as the JAX ops do. Nothing is
+        copied or recast in place."""
+        from genpercept_tpu_torch.pipeline import PipelineConfig, build_single_infer
+
+        infer = build_single_infer(self.models, PipelineConfig(mode=self.cfg.mode))
+
+        def run(raw) -> torch.Tensor:
+            rgb01 = (np.asarray(raw["rgb_norm"]) + 1.0) / 2.0
+            return infer(torch.as_tensor(rgb01, dtype=torch.float32, device=self.device))
+
+        return run
+
+    @torch.no_grad()
+    def visualize(self) -> None:
+        """Colorized predictions on the vis splits, at most 4 a split, as
+        visualization/iter_NNNNNN/<split>_NNN.png."""
+        from PIL import Image
+
+        from genpercept_tpu_torch.ops.colorize import colorize_depth
+
+        infer = self._infer()
+        vis_dir = osp.join(self.out_dir, "visualization", f"iter_{self.effective_iter:06d}")
+        os.makedirs(vis_dir, exist_ok=True)
+        for name, loader in self.vis_loaders.items():
+            for j, raw in enumerate(loader):
+                pred = infer(raw)
+                img = colorize_depth(pred[0]) if pred.ndim == 3 else pred[0]  # (H, W, 3)
+                img = (img * 255).to(torch.uint8).cpu().numpy()
+                Image.fromarray(img).save(osp.join(vis_dir, f"{name}_{j:03d}.png"))
+                if j >= 3:
+                    break
+
+    @torch.no_grad()
+    def validate(self) -> Dict[str, Dict[str, float]]:
+        """The inference pipeline over each val split. Depth mode: the
+        least-squares aligned (numpy lstsq per image) abs_relative_difference
+        and delta1_acc; other modes: masked L1 against the normalized GT.
+        Logged under val/<split>/."""
+        infer = self._infer()
+        gt_key, mask_key = GT_KEYS[self.cfg.mode]
+        results = {}
+        for name, loader in self.val_loaders.items():
+            tracker = MetricTracker()
+            for raw in loader:
+                pred = infer(raw).cpu().numpy()
+                if self.cfg.mode != "depth":
+                    gt01 = (np.asarray(raw[gt_key]) + 1.0) / 2.0
+                    mask = np.asarray(raw[mask_key]).astype(bool)
+                    if pred.ndim == 4 and gt01.ndim == 3:
+                        gt01 = gt01[..., None]
+                    diff = np.abs(pred - gt01)
+                    if diff.ndim == 4:
+                        diff = diff.mean(-1)
+                    tracker.update("masked_l1", float(diff[mask].mean()) if mask.any() else 0.0)
+                    continue
+                gt = np.asarray(raw["depth_raw_linear"])
+                valid = np.asarray(raw["valid_mask_raw"]).astype(bool)
+                for i in range(pred.shape[0]):
+                    if not valid[i].any():
+                        continue
+                    aligned, _, _ = align_depth_least_square(gt[i], pred[i], valid[i])
+                    aligned = np.clip(aligned, 1e-6, None)
+                    m = compute_metrics(
+                        *(torch.as_tensor(a, device=self.device)[None]
+                          for a in (aligned, gt[i], valid[i])),
+                        names=["abs_relative_difference", "delta1_acc"])
+                    for k, v in m.items():
+                        tracker.update(k, float(v))
+            results[name] = tracker.result()
+            self.metrics_logger.log_dict(results[name], self.effective_iter,
+                                         prefix=f"val/{name}/")
+            logger.info("\n" + eval_dic_to_text(results[name], name, "val"))
+        return results
 
     # ----------------------------------------------------------- checkpoint
 

@@ -625,9 +625,16 @@ def test_trainer_resume_is_bitwise(tiny, tmp_path, monkeypatch):
     assert len(lines) == 4 * 4  # loss, mse, ssi, grad per step
 
 
-def test_trainer_refuses_validation_periods(tiny, tmp_path):
-    with pytest.raises(NotImplementedError):
-        Trainer(TT.TrainConfig(), port_models(tiny), [], str(tmp_path), val_period=10)
+def test_trainer_refuses_validation_periods(tiny, tmp_path, monkeypatch):
+    """Validation and visualization periods in a multi-process run (where the
+    JAX trainer gathers the parameters to process 0) are not ported and
+    raise; one process takes them (tests/test_torch_trainer_val.py)."""
+    monkeypatch.setattr(trainer_mod, "_world_size", lambda: 2)
+    for periods in (dict(val_period=10), dict(vis_period=5)):
+        with pytest.raises(NotImplementedError, match="item 11"):
+            Trainer(TT.TrainConfig(), port_models(tiny), [], str(tmp_path), **periods)
+    monkeypatch.undo()
+    Trainer(TT.TrainConfig(), port_models(tiny), [], str(tmp_path), val_period=10)
 
 
 # ------------------------------------------------ kernel launches per step
