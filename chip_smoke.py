@@ -5,7 +5,9 @@ folder CLI (depth and the DPT head), its marigold arch (multi-step DDIM,
 the 8-channel UNet input, test-time ensembling), its serving path (the
 HTTP server, the hub predictor, the dataset inference CLI) and its
 train -> export -> infer -> eval loop (the training, export and eval CLIs,
-the batched eval harness) once on one NVIDIA GPU.
+the batched eval harness) and every other training recipe family (the
+non-depth modes, a DPT head, LoRA, marigold and rgb_blending, the metric3d
+losses) once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -196,7 +198,32 @@ Phases, each printed as a JSON line:
       run restarts the sample stream). Reported: the CLI's ms per step
       (host wall between steps, loader included, median of C's steps 2-3)
       beside (g)'s train_run, peak memory, validation s per image, export
-      s, cli/eval.py and evaluate_dataset s per image.
+      s, cli/eval.py and evaluate_dataset s per image;
+  (v) train_extras: the other recipe families through cli/train.py from
+      (u)'s base checkpoint and files (the Hypersim split also with normal
+      and DIS maps, and a DIS5K listing), each recipe merged with only its
+      datasets' paths, max_iter and the periods set (TE_CHANGED), at the
+      recipe's own micro-batch, 2 optimizer steps of its accumulation (TX_RUNS): main_paper/normal.yaml
+      (angular, 768^2), others/dis_mse_with_latent_loss.yaml (DIS5K,
+      768^2), ablation/components/dpt_head_identity_mse_loss.yaml (a fresh
+      DPT-identity head, disparity_dpt_head, 768^2), depth_lora.yaml (rank
+      128), depth_marigold.yaml (f32, the 8-channel conv_in, multi-res
+      noise) and ablation/beta_values/rgb_blending_0p00085_0p012.yaml. Each:
+      the step's host wall (step 2), peak memory, K1-K4 launches exactly as
+      train_step_launches derives them from the routing predicates, and one
+      micro-batch's loss and gradients with the kernels against
+      reference_kernels() (tx_fidelity_checks: in the run's dtype and in
+      f32, GRAD_TOL's bars, TX_SMOOTH, the bf16 gradients also against the
+      f32 plain path's). The DPT head's and
+      LoRA's runs are exported (cli/export.py) and served by cli/run.py on
+      three images, each npy equal to the trained weights' pipeline in
+      memory (0.0; LoRA merged on the host as the export merges); LoRA's
+      base UNet stored in bf16 as JAX's Trainer stores it and bit for bit
+      after the steps, its adapters moved. Then the
+      main-paper recipe with losses (mse, vnl, hdnr, hdsnr) in
+      build_train_step from Hypersim's reader (its K scaled to 480x640): 2
+      steps (CUDA events), launches, each metric3d loss's forward and
+      backward ms, the fidelity as the runs' above.
 Every phase's launch counts include K7, K8 and S1-S4 (0 outside their
 paths).
 K1 and K3+K4 are also timed against one PyTorch call computing the same
@@ -2806,7 +2833,12 @@ def write_train_data(root: Path) -> dict:
     Hypersim as a jsonl-metadata directory per split (train, val, vis; rgb
     PNG and depth PNG in mm at 480x640) and vKITTI as a split file (rgb and
     depth PNG in cm at 375x1242; uniform-noise rgb: the first steps do not
-    draw from it). Returns {split: (dir, filenames)}."""
+    draw from it). The train split also has a smooth normal map (RGB PNG,
+    channels in [30, 225], one invalid 0 block) and a DIS map (grey PNG)
+    per sample, listed
+    by a second metadata directory with all four (train_gt, train_extras'
+    normal recipe) and a third with rgb and DIS only (dis5k, its DIS
+    recipe). Returns {split: (dir, filenames)}."""
     from PIL import Image
 
     meta = root / "meta"
@@ -2818,15 +2850,34 @@ def write_train_data(root: Path) -> dict:
         (root / "hypersim" / split).mkdir(parents=True)
         rng = np.random.default_rng(SEED + 20 + k)
         rgbs = natural_like_images(SEED + 20 + k, n, max(TRAIN_HW))[:, :TRAIN_HW[0]]
+        gt_rows, dis_rows = [], []
+        rng_gt = np.random.default_rng(SEED + 24)  # apart: the depth maps stay as they were
         for i in range(n):
             rgb, depth = f"{split}/rgb_{i:03d}.png", f"{split}/depth_{i:03d}.png"
             Image.fromarray((rgbs[i] * 255).astype(np.uint8)).save(root / "hypersim" / rgb)
             Image.fromarray(te_depth(rng, TRAIN_HW, 1.0, 20.0, 1000.0)).save(
                 root / "hypersim" / depth)
             rows.append(json.dumps({"image": rgb, "depth_conditioning_image": depth}))
-        (meta / f"hypersim_{split}").mkdir()
-        (meta / f"hypersim_{split}" / "metadata.jsonl").write_text("\n".join(rows) + "\n")
+            if split != "train":
+                continue
+            normal, dis = f"{split}/normal_{i:03d}.png", f"{split}/dis_{i:03d}.png"
+            nmap = np.stack([te_depth(rng_gt, TRAIN_HW, 30.0, 225.0, 1.0) for _ in range(3)], -1)
+            Image.fromarray(nmap.astype(np.uint8)).save(root / "hypersim" / normal)
+            Image.fromarray(te_depth(rng_gt, TRAIN_HW, 0.0, 255.0, 1.0).astype(np.uint8)).save(
+                root / "hypersim" / dis)
+            gt_rows.append(json.dumps({"image": rgb, "depth_conditioning_image": depth,
+                                       "normal_conditioning_image": normal,
+                                       "dis_conditioning_image": dis}))
+            dis_rows.append(json.dumps({"image": rgb, "dis_conditioning_image": dis}))
+        for name, lines_ in ((f"hypersim_{split}", rows), ("hypersim_train_gt", gt_rows),
+                             ("dis5k_train", dis_rows)):
+            if lines_:
+                (meta / name).mkdir()
+                (meta / name / "metadata.jsonl").write_text("\n".join(lines_) + "\n")
         out[split] = ("hypersim", str(meta / f"hypersim_{split}"))
+        if split == "train":
+            out["train_gt"] = ("hypersim", str(meta / "hypersim_train_gt"))
+            out["dis5k"] = ("hypersim", str(meta / "dis5k_train"))
     lines = []
     (root / "vkitti" / "rgb").mkdir(parents=True)
     (root / "vkitti" / "depth").mkdir()
@@ -2990,13 +3041,33 @@ def eval_errors(got: dict, want: dict) -> dict:
     return out
 
 
-def phase_train_eval(train_run_ms: float | None = None) -> dict:
+def te_workspace(root: Path) -> dict:
+    """The golden's weights as a published-layout base checkpoint and the
+    recipes' data files under ``root``: what train_eval and train_extras
+    train from."""
+    unet_o, vae_o = oracle_modules(SD21_ORACLE)
+    check(fingerprint_matches({"unet": fingerprint(unet_o), "vae": fingerprint(vae_o)}),
+          "the golden's weights differ: this torch's default init is not the golden's")
+    with np.load(GOLDEN) as zf:
+        golden = {k: zf[k] for k in ("rgb", "ctx")}
+    ckpt = write_oracle_checkpoint(root / "ckpt", unet_o, vae_o, SD21_ORACLE["unet"],
+                                   SD21_ORACLE["vae"], golden["ctx"])
+    del unet_o, vae_o
+    t0 = time.perf_counter()
+    data = write_train_data(root / "data")
+    return {"root": root, "ckpt": ckpt, "golden": golden, "data": data,
+            "data_s": time.perf_counter() - t0}
+
+
+def phase_train_eval(train_run_ms: float | None = None, ws: dict | None = None) -> dict:
     """The loop at full width (section (u)): run A trains 2 steps of the
     recipe from its files and validates and visualizes at step 2; run R
     resumes A's final checkpoint with nothing left to train (its state
     against A's trainer); the export of A's final checkpoint; the dataset
     inference and eval CLIs on it; evaluate_dataset in bf16 and f32; run B
-    resumes A to step 3; run C trains 3 steps straight."""
+    resumes A to step 3; run C trains 3 steps straight. ``ws``: the base
+    checkpoint and data of ``te_workspace`` (made in a temporary directory
+    when not given)."""
     import csv
 
     from genpercept_tpu_torch.cli import eval as eval_cli
@@ -3006,237 +3077,228 @@ def phase_train_eval(train_run_ms: float | None = None) -> dict:
     from genpercept_tpu_torch.eval.harness import evaluate_dataset
     from genpercept_tpu_torch.io.weights import load_safetensors
 
+    if ws is None:
+        with tempfile.TemporaryDirectory() as tmp:
+            return phase_train_eval(train_run_ms, te_workspace(Path(tmp)))
     t_phase = time.perf_counter()
     dev = "cuda"
-    unet_o, vae_o = oracle_modules(SD21_ORACLE)
-    check(fingerprint_matches({"unet": fingerprint(unet_o), "vae": fingerprint(vae_o)}),
-          "the golden's weights differ: this torch's default init is not the golden's")
-    with np.load(GOLDEN) as zf:
-        golden = {k: zf[k] for k in ("rgb", "ctx")}
+    root, ckpt, golden, data, data_s = (ws[k] for k in ("root", "ckpt", "golden", "data",
+                                                         "data_s"))
     # the eval-mode readers keep the files' raster (resize_to_hw acts on
     # training samples), so validation and visualization run at 480x640
     served = served_launches(TRAIN_HW)
-    summary: dict = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
-        ckpt = write_oracle_checkpoint(root / "ckpt", unet_o, vae_o, SD21_ORACLE["unet"],
-                                       SD21_ORACLE["vae"], golden["ctx"])
-        del unet_o, vae_o
+    write_recipe(root / "recipe_a.yaml", data, 2, 2)
+    write_recipe(root / "recipe_b.yaml", data, 3, 2)
+    cfg_c = write_recipe(root / "recipe_c.yaml", data, 3, 0)
+    sources = te_sources(cfg_c, 3)
+    check(sources == ["hypersim"] * 3, f"the recipe's first steps draw {sources}")
+    emit({"phase": "train_eval", "step": "data", "seconds": data_s, "samples": TE_SAMPLES,
+          "step_sources": sources, "recipe": TE_RECIPE, "changed": list(TE_CHANGED)})
+
+    # run A: 2 steps, validation and visualization at step 2
+    run_a = root / "run"
+    trainer, rec = train_cli_run(root / "recipe_a.yaml", ckpt, root / "data", run_a)
+    log = metrics_log(run_a)
+    vis = sorted(p.name for p in (run_a / "visualization" / "iter_000002").iterdir())
+    val_tag = "val/hypersim/abs_relative_difference"
+    val_s = log[val_tag][0][2] - log["train/grad"][-1][2]
+    expect_a = {k: 2 * ACCUM * n + (TE_SAMPLES["val"] + TE_SAMPLES["vis"]) * served[k]
+                for k, n in STEP_LAUNCHES.items()}
+    rec_a = {"phase": "train_eval", "step": "run_a", **rec,
+             "losses": [x[1] for x in log["train/loss"]],
+             "val": {t.split("/")[-1]: v[0][1] for t, v in log.items()
+                     if t.startswith("val/")},
+             "val_s_per_image": val_s / TE_SAMPLES["val"], "vis_files": vis,
+             "launches_expected": expect_a,
+             "files": sorted(p.name for p in run_a.iterdir())}
+    emit(rec_a)
+    for f in ("config.yaml", "code_snapshot.tar.gz", "metrics.jsonl", "logging.log"):
+        check((run_a / f).is_file(), f"run A wrote no {f}")
+    check((run_a / "checkpoint" / "final" / "state.pt").is_file(), "run A: no final")
+    check([x[0] for x in log["train/loss"]] == [1, 2], f"run A steps {log['train/loss']}")
+    check(all(math.isfinite(x) for x in rec_a["losses"]), f"run A losses {rec_a['losses']}")
+    check(log[val_tag][0][0] == 2 and math.isfinite(log[val_tag][0][1]),
+          f"run A validation {log.get(val_tag)}")
+    check(vis == [f"hypersim_{j:03d}.png" for j in range(TE_SAMPLES["vis"])],
+          f"run A visualization {vis}")
+    check(rec["launches"] == expect_a, f"run A launches {rec['launches']} != {expect_a}")
+
+    # run R: A's recipe resumed from its final checkpoint, nothing left
+    # to train: the CLI's restore against A's trainer, bit for bit
+    restored, rec_r0 = train_cli_run(root / "recipe_a.yaml", ckpt, root / "data", run_a,
+                                     resume="final")
+    opt_a, opt_r = trainer.optimizer, restored.optimizer
+    restore_diff = {
+        "trainable": max(float((p.detach().float() - restored.trainable[k].detach().float())
+                               .abs().max()) for k, p in trainer.trainable.items()),
+        "adam": max(float((opt_a.state[p][m].float() - opt_r.state[q][m].float()).abs().max())
+                    for p, q in zip(trainer.trainable.values(), restored.trainable.values())
+                    for m in ("mu", "nu")),
+        "mu_dtype": str(opt_r.state[next(iter(restored.trainable.values()))]["mu"].dtype),
+        "count": [g["count"] for g in opt_r.param_groups],
+        "counters": restored._counters() == trainer._counters()}
+    del restored
+    emit({"phase": "train_eval", "step": "restore", **rec_r0, **restore_diff})
+    check(restore_diff["trainable"] == 0.0 and restore_diff["adam"] == 0.0
+          and restore_diff["counters"] and restore_diff["mu_dtype"] == "torch.bfloat16"
+          and restore_diff["count"] == [g["count"] for g in opt_a.param_groups],
+          f"the resumed state differs from run A's: {restore_diff}")
+    check(not any(rec_r0["launches"].values()), "run R launched a kernel")
+
+    # the export of A's final checkpoint
+    exp = root / "export"
+    t0 = time.perf_counter()
+    export_cli.main(["--run_dir", str(run_a), "--base_checkpoint", str(ckpt), "--name",
+                     "final", "--output_dir", str(exp), "--device", dev])
+    export_s = time.perf_counter() - t0
+    exported = load_safetensors(str(exp / "unet" / "diffusion_pytorch_model.safetensors"))
+    trained = {k[len("unet."):]: p.detach() for k, p in trainer.trainable.items()}
+    export_err = max(float((exported[k] - p.float().cpu()).abs().max())
+                     for k, p in trained.items())
+    base_unet = load_safetensors(str(ckpt / "unet" / "diffusion_pytorch_model.safetensors"))
+    moved = max(float((exported[k] - base_unet[k]).abs().max()) for k in trained)
+    rgb = torch.from_numpy(golden["rgb"]).to(dev)
+    m_exp = load_genpercept_checkpoint(str(exp), base_ckpt_dir=str(ckpt), device=dev)
+    m_swap = load_genpercept_checkpoint(str(ckpt), device=dev)
+    m_swap.unet.load_state_dict(trained)
+    pred_exp = build_single_infer(m_exp, PipelineConfig())(rgb)
+    pred_swap = build_single_infer(m_swap, PipelineConfig())(rgb)
+    del trainer, trained, m_swap, exported, base_unet
+    torch.cuda.empty_cache()
+    rec_x = {"phase": "train_eval", "step": "export", "seconds": export_s,
+             "files": sorted(str(p.relative_to(exp)) for p in exp.rglob("*") if p.is_file()),
+             "unet_vs_trained_max": export_err, "unet_moved_from_base_max": moved,
+             "depth_vs_swapped_max": float((pred_exp - pred_swap).abs().max())}
+    emit(rec_x)
+    check(export_err == 0.0, f"export: a UNet tensor differs from the trained one ({export_err})")
+    check(moved > 0.0, "export: the trained UNet equals the base")
+    check(rec_x["depth_vs_swapped_max"] == 0.0,
+          f"export: depth {rec_x['depth_vs_swapped_max']} from the swapped-in pipeline")
+
+    # infer -> eval on the export, NYU's layout
+    nyu_cfg, nyu_yaml = write_nyu_layout(root / "nyu")
+    ds = get_dataset(nyu_cfg, str(root / "nyu"), DatasetMode.EVAL)
+    want = sorted(str(Path(p[0]).parent / get_pred_name(Path(p[0]).name, ds.name_mode,
+                                                         ".npy")) for p in ds.filenames)
+    pred_dir = root / "eval_pred"
+    reset_counts()
+    t0 = time.perf_counter()
+    with tf32(*DEFAULT_TF32):
+        infer_cli.main(["--checkpoint", str(exp), "--base_ckpt_dir", str(ckpt),
+                        "--dataset_config", str(nyu_yaml), "--base_data_dir",
+                        str(root / "nyu"), "--output_dir", str(pred_dir), "--device", dev])
+    infer_s = time.perf_counter() - t0
+    infer_launches = launch_counts()
+    infer_expect = {k: NYU_IMAGES * n for k, n in served_launches((576, 768)).items()}
+    got_files = sorted(str(p.relative_to(pred_dir)) for p in pred_dir.rglob("*")
+                       if p.is_file())
+    evals = {}
+    for alignment in ("least_square", "least_square_disparity"):
+        out = root / f"eval_{alignment}"
         t0 = time.perf_counter()
-        data = write_train_data(root / "data")
-        data_s = time.perf_counter() - t0
-        write_recipe(root / "recipe_a.yaml", data, 2, 2)
-        write_recipe(root / "recipe_b.yaml", data, 3, 2)
-        cfg_c = write_recipe(root / "recipe_c.yaml", data, 3, 0)
-        sources = te_sources(cfg_c, 3)
-        check(sources == ["hypersim"] * 3, f"the recipe's first steps draw {sources}")
-        emit({"phase": "train_eval", "step": "data", "seconds": data_s, "samples": TE_SAMPLES,
-              "step_sources": sources, "recipe": TE_RECIPE, "changed": list(TE_CHANGED)})
+        summary_cli = eval_cli.main(["--dataset_config", str(nyu_yaml), "--base_data_dir",
+                                     str(root / "nyu"), "--prediction_dir", str(pred_dir),
+                                     "--output_dir", str(out), "--alignment", alignment,
+                                     "--device", dev])
+        eval_s = time.perf_counter() - t0
+        with open(out / "per_sample_metrics.csv", newline="") as f:
+            rows = list(csv.DictReader(f))
+        errors = eval_errors(summary_cli, eval_f64(ds, pred_dir, alignment))
+        evals[alignment] = {"summary": summary_cli, "errors": errors,
+                            "s_per_image": eval_s / len(ds),
+                            "csv_samples": [r["sample"] for r in rows],
+                            "eval_metrics_txt": (out / "eval_metrics.txt").read_text()}
+    rec_e = {"phase": "train_eval", "step": "infer_eval", "infer_s": infer_s,
+             "infer_s_per_image": infer_s / len(ds), "infer_launches": infer_launches,
+             "infer_files": got_files, "eval": evals}
+    emit(rec_e)
+    check(got_files == want, f"infer CLI files {got_files} != {want}")
+    check(infer_launches == infer_expect, f"infer launches {infer_launches}")
+    for alignment, e in evals.items():
+        bad = {k: v for k, v in e["errors"].items() if not v["ok"]}
+        check(not bad, f"eval {alignment}: off the float64 recomputation {bad}")
+        check(sorted(e["csv_samples"]) == want, f"eval {alignment}: csv {e['csv_samples']}")
+        check(e["eval_metrics_txt"].startswith("Eval metrics: dataset nyu_v2"),
+              f"eval {alignment}: eval_metrics.txt")
 
-        # run A: 2 steps, validation and visualization at step 2
-        run_a = root / "run"
-        trainer, rec = train_cli_run(root / "recipe_a.yaml", ckpt, root / "data", run_a)
-        log = metrics_log(run_a)
-        vis = sorted(p.name for p in (run_a / "visualization" / "iter_000002").iterdir())
-        val_tag = "val/hypersim/abs_relative_difference"
-        val_s = log[val_tag][0][2] - log["train/grad"][-1][2]
-        expect_a = {k: 2 * ACCUM * n + (TE_SAMPLES["val"] + TE_SAMPLES["vis"]) * served[k]
-                    for k, n in STEP_LAUNCHES.items()}
-        rec_a = {"phase": "train_eval", "step": "run_a", **rec,
-                 "losses": [x[1] for x in log["train/loss"]],
-                 "val": {t.split("/")[-1]: v[0][1] for t, v in log.items()
-                         if t.startswith("val/")},
-                 "val_s_per_image": val_s / TE_SAMPLES["val"], "vis_files": vis,
-                 "launches_expected": expect_a,
-                 "files": sorted(p.name for p in run_a.iterdir())}
-        emit(rec_a)
-        for f in ("config.yaml", "code_snapshot.tar.gz", "metrics.jsonl", "logging.log"):
-            check((run_a / f).is_file(), f"run A wrote no {f}")
-        check((run_a / "checkpoint" / "final" / "state.pt").is_file(), "run A: no final")
-        check([x[0] for x in log["train/loss"]] == [1, 2], f"run A steps {log['train/loss']}")
-        check(all(math.isfinite(x) for x in rec_a["losses"]), f"run A losses {rec_a['losses']}")
-        check(log[val_tag][0][0] == 2 and math.isfinite(log[val_tag][0][1]),
-              f"run A validation {log.get(val_tag)}")
-        check(vis == [f"hypersim_{j:03d}.png" for j in range(TE_SAMPLES["vis"])],
-              f"run A visualization {vis}")
-        check(rec["launches"] == expect_a, f"run A launches {rec['launches']} != {expect_a}")
-
-        # run R: A's recipe resumed from its final checkpoint, nothing left
-        # to train: the CLI's restore against A's trainer, bit for bit
-        restored, rec_r0 = train_cli_run(root / "recipe_a.yaml", ckpt, root / "data", run_a,
-                                         resume="final")
-        opt_a, opt_r = trainer.optimizer, restored.optimizer
-        restore_diff = {
-            "trainable": max(float((p.detach().float() - restored.trainable[k].detach().float())
-                                   .abs().max()) for k, p in trainer.trainable.items()),
-            "adam": max(float((opt_a.state[p][m].float() - opt_r.state[q][m].float()).abs().max())
-                        for p, q in zip(trainer.trainable.values(), restored.trainable.values())
-                        for m in ("mu", "nu")),
-            "mu_dtype": str(opt_r.state[next(iter(restored.trainable.values()))]["mu"].dtype),
-            "count": [g["count"] for g in opt_r.param_groups],
-            "counters": restored._counters() == trainer._counters()}
-        del restored
-        emit({"phase": "train_eval", "step": "restore", **rec_r0, **restore_diff})
-        check(restore_diff["trainable"] == 0.0 and restore_diff["adam"] == 0.0
-              and restore_diff["counters"] and restore_diff["mu_dtype"] == "torch.bfloat16"
-              and restore_diff["count"] == [g["count"] for g in opt_a.param_groups],
-              f"the resumed state differs from run A's: {restore_diff}")
-        check(not any(rec_r0["launches"].values()), "run R launched a kernel")
-
-        # the export of A's final checkpoint
-        exp = root / "export"
-        t0 = time.perf_counter()
-        export_cli.main(["--run_dir", str(run_a), "--base_checkpoint", str(ckpt), "--name",
-                         "final", "--output_dir", str(exp), "--device", dev])
-        export_s = time.perf_counter() - t0
-        exported = load_safetensors(str(exp / "unet" / "diffusion_pytorch_model.safetensors"))
-        trained = {k[len("unet."):]: p.detach() for k, p in trainer.trainable.items()}
-        export_err = max(float((exported[k] - p.float().cpu()).abs().max())
-                         for k, p in trained.items())
-        base_unet = load_safetensors(str(ckpt / "unet" / "diffusion_pytorch_model.safetensors"))
-        moved = max(float((exported[k] - base_unet[k]).abs().max()) for k in trained)
-        rgb = torch.from_numpy(golden["rgb"]).to(dev)
-        m_exp = load_genpercept_checkpoint(str(exp), base_ckpt_dir=str(ckpt), device=dev)
-        m_swap = load_genpercept_checkpoint(str(ckpt), device=dev)
-        m_swap.unet.load_state_dict(trained)
-        pred_exp = build_single_infer(m_exp, PipelineConfig())(rgb)
-        pred_swap = build_single_infer(m_swap, PipelineConfig())(rgb)
-        del trainer, trained, m_swap, exported, base_unet
-        torch.cuda.empty_cache()
-        rec_x = {"phase": "train_eval", "step": "export", "seconds": export_s,
-                 "files": sorted(str(p.relative_to(exp)) for p in exp.rglob("*") if p.is_file()),
-                 "unet_vs_trained_max": export_err, "unet_moved_from_base_max": moved,
-                 "depth_vs_swapped_max": float((pred_exp - pred_swap).abs().max())}
-        emit(rec_x)
-        check(export_err == 0.0, f"export: a UNet tensor differs from the trained one ({export_err})")
-        check(moved > 0.0, "export: the trained UNet equals the base")
-        check(rec_x["depth_vs_swapped_max"] == 0.0,
-              f"export: depth {rec_x['depth_vs_swapped_max']} from the swapped-in pipeline")
-
-        # infer -> eval on the export, NYU's layout
-        nyu_cfg, nyu_yaml = write_nyu_layout(root / "nyu")
-        ds = get_dataset(nyu_cfg, str(root / "nyu"), DatasetMode.EVAL)
-        want = sorted(str(Path(p[0]).parent / get_pred_name(Path(p[0]).name, ds.name_mode,
-                                                             ".npy")) for p in ds.filenames)
-        pred_dir = root / "eval_pred"
+    # the batched harness on the same dataset, kernels against plain
+    harness = {}
+    b = 2
+    sizes = [b] * (len(ds) // b) + ([len(ds) % b] if len(ds) % b else [])
+    h_expect = {k: 0 for k in COUNTERS}
+    for n in sizes:
+        for k, v in ddim_launches(60, 80, n, 1).items():
+            h_expect[k] += v
+    for dt in (torch.bfloat16, torch.float32):
         reset_counts()
         t0 = time.perf_counter()
-        with tf32(*DEFAULT_TF32):
-            infer_cli.main(["--checkpoint", str(exp), "--base_ckpt_dir", str(ckpt),
-                            "--dataset_config", str(nyu_yaml), "--base_data_dir",
-                            str(root / "nyu"), "--output_dir", str(pred_dir), "--device", dev])
-        infer_s = time.perf_counter() - t0
-        infer_launches = launch_counts()
-        infer_expect = {k: NYU_IMAGES * n for k, n in served_launches((576, 768)).items()}
-        got_files = sorted(str(p.relative_to(pred_dir)) for p in pred_dir.rglob("*")
-                           if p.is_file())
-        evals = {}
-        for alignment in ("least_square", "least_square_disparity"):
-            out = root / f"eval_{alignment}"
-            t0 = time.perf_counter()
-            summary_cli = eval_cli.main(["--dataset_config", str(nyu_yaml), "--base_data_dir",
-                                         str(root / "nyu"), "--prediction_dir", str(pred_dir),
-                                         "--output_dir", str(out), "--alignment", alignment,
-                                         "--device", dev])
-            eval_s = time.perf_counter() - t0
-            with open(out / "per_sample_metrics.csv", newline="") as f:
-                rows = list(csv.DictReader(f))
-            errors = eval_errors(summary_cli, eval_f64(ds, pred_dir, alignment))
-            evals[alignment] = {"summary": summary_cli, "errors": errors,
-                                "s_per_image": eval_s / len(ds),
-                                "csv_samples": [r["sample"] for r in rows],
-                                "eval_metrics_txt": (out / "eval_metrics.txt").read_text()}
-        rec_e = {"phase": "train_eval", "step": "infer_eval", "infer_s": infer_s,
-                 "infer_s_per_image": infer_s / len(ds), "infer_launches": infer_launches,
-                 "infer_files": got_files, "eval": evals}
-        emit(rec_e)
-        check(got_files == want, f"infer CLI files {got_files} != {want}")
-        check(infer_launches == infer_expect, f"infer launches {infer_launches}")
-        for alignment, e in evals.items():
-            bad = {k: v for k, v in e["errors"].items() if not v["ok"]}
-            check(not bad, f"eval {alignment}: off the float64 recomputation {bad}")
-            check(sorted(e["csv_samples"]) == want, f"eval {alignment}: csv {e['csv_samples']}")
-            check(e["eval_metrics_txt"].startswith("Eval metrics: dataset nyu_v2"),
-                  f"eval {alignment}: eval_metrics.txt")
-
-        # the batched harness on the same dataset, kernels against plain
-        harness = {}
-        b = 2
-        sizes = [b] * (len(ds) // b) + ([len(ds) % b] if len(ds) % b else [])
-        h_expect = {k: 0 for k in COUNTERS}
-        for n in sizes:
-            for k, v in ddim_launches(60, 80, n, 1).items():
-                h_expect[k] += v
-        for dt in (torch.bfloat16, torch.float32):
-            reset_counts()
-            t0 = time.perf_counter()
-            res = evaluate_dataset(m_exp, ds, batch_size=b, processing_res=768, dtype=dt,
+        res = evaluate_dataset(m_exp, ds, batch_size=b, processing_res=768, dtype=dt,
+                               device=dev)
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        reset_counts()
+        with reference_kernels():
+            ref = evaluate_dataset(m_exp, ds, batch_size=b, processing_res=768, dtype=dt,
                                    device=dev)
-            secs = time.perf_counter() - t0
-            counts = launch_counts()
-            reset_counts()
-            with reference_kernels():
-                ref = evaluate_dataset(m_exp, ds, batch_size=b, processing_res=768, dtype=dt,
-                                       device=dev)
-            ref_counts = launch_counts()
-            diff = {k: abs(res[k] - ref[k]) for k in ("abs_relative_difference", "delta1_acc")}
-            harness[str(dt)] = {"metrics": res, "reference": ref, "diff": diff,
-                                "bar": TE_HARNESS_TOL[dt], "s_per_image": secs / len(ds),
-                                "launches": counts, "launches_reference": ref_counts}
-        emit({"phase": "train_eval", "step": "harness", "launches_expected": h_expect,
-              **harness})
-        for dt in (torch.bfloat16, torch.float32):
-            h = harness[str(dt)]
-            check(h["launches"] == h_expect, f"harness {dt}: launches {h['launches']}")
-            check(not any(h["launches_reference"].values()),
-                  f"harness {dt}: kernels under reference_kernels()")
-            check(all(v <= TE_HARNESS_TOL[dt] for v in h["diff"].values()),
-                  f"harness {dt}: {h['diff']}")
-        del m_exp
-        shutil.rmtree(exp)
+        ref_counts = launch_counts()
+        diff = {k: abs(res[k] - ref[k]) for k in ("abs_relative_difference", "delta1_acc")}
+        harness[str(dt)] = {"metrics": res, "reference": ref, "diff": diff,
+                            "bar": TE_HARNESS_TOL[dt], "s_per_image": secs / len(ds),
+                            "launches": counts, "launches_reference": ref_counts}
+    emit({"phase": "train_eval", "step": "harness", "launches_expected": h_expect,
+          **harness})
+    for dt in (torch.bfloat16, torch.float32):
+        h = harness[str(dt)]
+        check(h["launches"] == h_expect, f"harness {dt}: launches {h['launches']}")
+        check(not any(h["launches_reference"].values()),
+              f"harness {dt}: kernels under reference_kernels()")
+        check(all(v <= TE_HARNESS_TOL[dt] for v in h["diff"].values()),
+              f"harness {dt}: {h['diff']}")
+    del m_exp
+    shutil.rmtree(exp)
 
-        # run B: A resumed from its final checkpoint to step 3
-        trainer, rec_b = train_cli_run(root / "recipe_b.yaml", ckpt, root / "data", run_a,
-                                       resume="final")
-        check(trainer.effective_iter == 3, f"run B ended at iter {trainer.effective_iter}")
-        del trainer
-        log_b = metrics_log(run_a)
-        shutil.rmtree(run_a)
-        expect_b = {k: ACCUM * n for k, n in STEP_LAUNCHES.items()}
-        # run C: 3 steps straight, validation off
-        run_c = root / "run_c"
-        trainer, rec_c = train_cli_run(root / "recipe_c.yaml", ckpt, root / "data", run_c)
-        del trainer
-        log_c = metrics_log(run_c)
-        shutil.rmtree(run_c)
-        torch.cuda.empty_cache()
-        loss_b = [x for x in log_b["train/loss"] if x[0] == 3]
-        loss_c = [x[1] for x in log_c["train/loss"]]
-        walls = step_walls_ms(log_c)
-        rec_r = {"phase": "train_eval", "step": "resume", "run_b": rec_b, "run_c": rec_c,
-                 "losses_a": rec_a["losses"], "losses_c": loss_c,
-                 "loss_b_step3": loss_b[0][1] if loss_b else None,
-                 "launches_expected_b": expect_b,
-                 "launches_expected_c": {k: STEPS * ACCUM * n
-                                         for k, n in STEP_LAUNCHES.items()},
-                 "cli_step_wall_ms": walls, "cli_ms_per_step": float(np.median(walls)),
-                 "train_run_ms_per_step": train_run_ms}
-        # reported, not bounded: the resumed run restarts the sample stream
-        # (the trainer saves final after leaving its epoch, as JAX's), so its
-        # step 3 draws the stream's first batch with fresh flips and C's its
-        # third: the same 32 images in another order, other flips
-        rec_r["step3_rel_diff"] = (abs(rec_r["loss_b_step3"] - loss_c[2]) / abs(loss_c[2])
-                                   if loss_b else None)
-        rec_r["steps12_rel_diff_a_c"] = [abs(a - c) / abs(c)
-                                         for a, c in zip(rec_a["losses"], loss_c)]
-        emit(rec_r)
-        check(len(loss_b) == 1 and [x[0] for x in log_b["train/loss"]] == [1, 2, 3],
-              f"run B did not continue at iter 3: {log_b['train/loss']}")
-        check(rec_b["launches"] == expect_b, f"run B launches {rec_b['launches']}")
-        check(rec_c["launches"] == rec_r["launches_expected_c"],
-              f"run C launches {rec_c['launches']}")
-        check(len(loss_c) == 3 and all(math.isfinite(x) for x in loss_c), f"run C {loss_c}")
-        check(math.isfinite(rec_r["loss_b_step3"]), f"run B's step 3 loss {rec_r['loss_b_step3']}")
+    # run B: A resumed from its final checkpoint to step 3
+    trainer, rec_b = train_cli_run(root / "recipe_b.yaml", ckpt, root / "data", run_a,
+                                   resume="final")
+    check(trainer.effective_iter == 3, f"run B ended at iter {trainer.effective_iter}")
+    del trainer
+    log_b = metrics_log(run_a)
+    shutil.rmtree(run_a)
+    expect_b = {k: ACCUM * n for k, n in STEP_LAUNCHES.items()}
+    # run C: 3 steps straight, validation off
+    run_c = root / "run_c"
+    trainer, rec_c = train_cli_run(root / "recipe_c.yaml", ckpt, root / "data", run_c)
+    del trainer
+    log_c = metrics_log(run_c)
+    shutil.rmtree(run_c)
+    torch.cuda.empty_cache()
+    loss_b = [x for x in log_b["train/loss"] if x[0] == 3]
+    loss_c = [x[1] for x in log_c["train/loss"]]
+    walls = step_walls_ms(log_c)
+    rec_r = {"phase": "train_eval", "step": "resume", "run_b": rec_b, "run_c": rec_c,
+             "losses_a": rec_a["losses"], "losses_c": loss_c,
+             "loss_b_step3": loss_b[0][1] if loss_b else None,
+             "launches_expected_b": expect_b,
+             "launches_expected_c": {k: STEPS * ACCUM * n
+                                     for k, n in STEP_LAUNCHES.items()},
+             "cli_step_wall_ms": walls, "cli_ms_per_step": float(np.median(walls)),
+             "train_run_ms_per_step": train_run_ms}
+    # reported, not bounded: the resumed run restarts the sample stream
+    # (the trainer saves final after leaving its epoch, as JAX's), so its
+    # step 3 draws the stream's first batch with fresh flips and C's its
+    # third: the same 32 images in another order, other flips
+    rec_r["step3_rel_diff"] = (abs(rec_r["loss_b_step3"] - loss_c[2]) / abs(loss_c[2])
+                               if loss_b else None)
+    rec_r["steps12_rel_diff_a_c"] = [abs(a - c) / abs(c)
+                                     for a, c in zip(rec_a["losses"], loss_c)]
+    emit(rec_r)
+    check(len(loss_b) == 1 and [x[0] for x in log_b["train/loss"]] == [1, 2, 3],
+          f"run B did not continue at iter 3: {log_b['train/loss']}")
+    check(rec_b["launches"] == expect_b, f"run B launches {rec_b['launches']}")
+    check(rec_c["launches"] == rec_r["launches_expected_c"],
+          f"run C launches {rec_c['launches']}")
+    check(len(loss_c) == 3 and all(math.isfinite(x) for x in loss_c), f"run C {loss_c}")
+    check(math.isfinite(rec_r["loss_b_step3"]), f"run B's step 3 loss {rec_r['loss_b_step3']}")
     summary = {"cli_ms_per_step": rec_r["cli_ms_per_step"], "train_run_ms_per_step": train_run_ms,
                "peak_bytes": rec_c["peak_bytes"], "val_s_per_image": rec_a["val_s_per_image"],
                "export_s": export_s,
@@ -3245,6 +3307,518 @@ def phase_train_eval(train_run_ms: float | None = None) -> dict:
                "harness_s_per_image": {k: h["s_per_image"] for k, h in harness.items()},
                "seconds": time.perf_counter() - t_phase}
     emit({"phase": "train_eval", "step": "summary", **summary})
+    return summary
+
+
+# train_extras: the other recipe families through cli/train.py, from
+# te_workspace's checkpoint and files, each for TX_STEPS optimizer steps of
+# its accumulation (recipe files merged with only TE_CHANGED keys set)
+TX_RUNS = {
+    "normal": "configs/train/main_paper/normal.yaml",
+    "dis_latent": "configs/train/others/dis_mse_with_latent_loss.yaml",
+    "dpt_head": "configs/train/ablation/components/dpt_head_identity_mse_loss.yaml",
+    "lora": "configs/train/depth_lora.yaml",
+    "marigold": "configs/train/depth_marigold.yaml",
+    "rgb_blending": "configs/train/ablation/beta_values/rgb_blending_0p00085_0p012.yaml",
+}
+TX_STEPS = 2
+# each run's fidelity check (kernels against reference_kernels(), one
+# micro-batch's first images: the plain attention at 768^2 holds its
+# scores in memory), in the run's dtype and, for a bf16 run, in f32 too, on
+# f32 copies of the same weights: the loss to GRAD_TOL's bars in both. The
+# f32 pair is free of bf16's conditioning, so it is the kernels' witness:
+# its gradients meet GRAD_TOL's f32 bar (1e-4) wherever the loss is smooth
+# (TX_SMOOTH) and on TX_F32_BOUNDED (normal's angular: 1.63e-5 in two
+# runs). A recipe with another loss runs a second check with mse alone in
+# its mode (their conditioning: SSI's median branch, see GRAD_TOL; grad's
+# and l1's signs; angular's arccos, a derivative of 1 / sqrt(1 - cos^2),
+# up to ~70 at the 1 - 1e-4 clip; the metric3d losses' sorted medians and
+# thresholds, whose f32 pair reads 0.166). Every bf16 check meets "to_f32":
+# the kernels' gradients no farther from the f32 plain path's than 1.2x
+# the bf16 plain path's. The two bf16 paths' own distance is reported, not
+# bounded: it is set by the weights' bf16 conditioning, which the plain
+# path's distance to f32 measures (the checkpoint's weights, mse alone, 8
+# images at 480x640: 0.067 between the paths, each ~0.10 from f32, where
+# the training phase's seed weights read 1.36e-2 against 0.0212 and
+# GRAD_TOL's 2.5e-2 was set; NVIDIA H100 80GB HBM3, 700.00 W)
+TX_FIDELITY_IMAGES = {480 * 640: 8, 768 * 768: 2}
+TX_SMOOTH = {"mse", "latent_mse"}
+TX_F32_BOUNDED = ("normal",)
+TX_METRIC3D = ("mse", "vnl", "hdnr", "hdsnr")
+TX_METRIC3D_REPS = 3
+
+
+def train_step_launches(hw: tuple, micro: int, decode: bool) -> dict:
+    """K1-K4 launches of one training micro-step with the recipes' remat
+    (the UNet and the VAE decode recomputed in the backward), derived from
+    the routing predicates: K1 at the two encoder passes' mid blocks, each
+    flash-routed UNet self-attention forward and recomputed, and the
+    decoder's mid block (forward and recomputed) when the pixel losses
+    decode; K2 at each routed feed-forward, twice; K3 and K4 once per
+    flash-routed attention in the backward. A DPT head or latent losses
+    alone leave the decoder out."""
+    from genpercept_tpu_torch.ops.attention import routes_to_flash
+
+    lh, lw = hw[0] // 8, hw[1] // 8
+    u = f = 0
+    h, w = lh, lw
+    for level, n in UNET_TRANSFORMERS.items():
+        u += n * routes_to_flash(h * w, h * w, 64)
+        f += n * ff.supported(micro, h * w, UNET_WIDTHS[level])
+        h, w = (h + 1) // 2, (w + 1) // 2
+    e = int(routes_to_flash(lh * lw, lh * lw, 512))
+    d = e if decode else 0
+    return {**{k: 0 for k in COUNTERS}, "K1": 2 * e + 2 * u + 2 * d, "K2": 2 * f,
+            "K3": u + d, "K4": u + d}
+
+
+def write_extra_recipe(path: Path, recipe: str, data: dict) -> dict:
+    """``recipe`` merged as the CLI merges it, pointed at te_workspace's
+    files by dataset name (Hypersim with normals in normal mode), TX_STEPS
+    steps, no checkpoint, validation or visualization periods. Returns the
+    merged config."""
+    import yaml
+
+    from genpercept_tpu_torch.utils.config import recursive_load_config
+
+    with contextlib.chdir(Path(__file__).resolve().parent):
+        original = json.loads(json.dumps(recursive_load_config(recipe)))
+    cfg = copy.deepcopy(original)
+    mode = cfg.get("pipeline", {}).get("kwargs", {}).get("mode", cfg.get("mode", "depth"))
+    train = cfg["dataset"]["train"]
+    for entry in tx_entries(train):
+        key = {"hypersim": "train_gt" if mode == "normal" else "train", "vkitti": "vkitti",
+               "dis5k": "dis5k"}[entry["name"]]
+        entry["dir"], entry["filenames"] = data[key]
+    for split in ("val", "vis"):
+        for entry in cfg["dataset"].get(split) or []:
+            entry["dir"], entry["filenames"] = data[split]
+    cfg["max_iter"] = TX_STEPS
+    cfg.setdefault("trainer", {}).update(save_period=0, validation_period=0,
+                                         visualization_period=0)
+    a, b = flat_config(original), flat_config(cfg)
+    changed = sorted(k for k in a.keys() | b.keys() if a.get(k) != b.get(k))
+    check(a.keys() <= b.keys() and all(k.endswith(TE_CHANGED) for k in changed),
+          f"{recipe} changed beyond {TE_CHANGED}: {changed}")
+    path.write_text(yaml.safe_dump(cfg))
+    return cfg
+
+
+def tx_entries(train: dict) -> list:
+    """The datasets get_dataset builds from a recipe's dataset.train: the
+    list of a mixture, else the entry itself (a recipe that merges a single
+    dataset over a mixture keeps the mixture's unused list)."""
+    return train["dataset_list"] if train.get("name") == "mixed" else [train]
+
+
+def tx_geometry(cfg: dict) -> tuple:
+    """(train raster, micro-batch, accumulation, per-step sources of the
+    first TX_STEPS steps replayed from the sampler)."""
+    train = cfg["dataset"]["train"]
+    entries = tx_entries(train)
+    micro = cfg["dataloader"].get("max_train_batch_size", 2)
+    accum = max(int(cfg["dataloader"].get("effective_batch_size", 32) / micro), 1)
+    sizes = [TE_SAMPLES["hypersim" if e["name"] != "vkitti" else "vkitti"] for e in entries]
+    sampler = MixedBatchSampler([range(n) for n in sizes], batch_size=micro * accum,
+                                prob=train.get("prob_ls") if train.get("name") == "mixed"
+                                else None,
+                                generator=np.random.default_rng(
+                                    cfg["trainer"].get("init_seed", 0)))
+    sources = []
+    while len(sources) < TX_STEPS:  # an epoch of a single 32-sample source is one step
+        for b in sampler:
+            sources.append(entries[int(b[0] >= sizes[0])]["name"])
+            if len(sources) == TX_STEPS:
+                break
+    return tuple(entries[0].get("resize_to_hw") or TRAIN_HW), micro, accum, sources
+
+
+def tx_batch(trainer, hw: tuple, images: int) -> dict:
+    """The first ``images`` of a micro-batch from the trainer's loader: the
+    first of its batches drawn from a source at the recipe's raster (the
+    mixture's other source, vKITTI, has its own and no normals)."""
+    for raw in trainer.train_loader:
+        if tuple(raw["rgb_norm"].shape[1:3]) == tuple(hw):
+            break
+    batch = trainer._device_batch(raw)
+    if trainer.cfg.grad_accum_steps > 1:
+        batch = {k: v[0] for k, v in batch.items()}
+    return {k: v[:images] for k, v in batch.items()}
+
+
+@contextlib.contextmanager
+def frozen_f32(trainer):
+    """The trainer's frozen bf16 tensors (its storage cast under bf16
+    compute) widened to f32 inside the block and narrowed back after, both
+    exactly: an f32 pass then rounds no gradient to bf16 on its way to a
+    trainable tensor (LoRA's adapters sit behind the bf16 base weights)."""
+    cast = [x for x in trainer.frozen.values() if x.dtype == torch.bfloat16]
+    for x in cast:
+        x.data = x.data.float()
+    try:
+        yield
+    finally:
+        for x in cast:
+            x.data = x.data.to(torch.bfloat16)
+
+
+def tx_fidelity(trainer, cfg, batch: dict) -> dict:
+    """One micro-batch through build_loss_fn and backward on the trainer's
+    live modules, with the kernels and under reference_kernels(), draws
+    from a generator seeded SEED in each: loss, gradients' global relative
+    L2 and launches. A bf16 run repeats the pair in f32 on f32 copies of its
+    weights ("f32": the kernels against the plain path without bf16's
+    conditioning) and records both bf16 gradients' distances to the f32
+    plain path's ("to_f32")."""
+    names = list(trainer.trainable)
+    params = [trainer.trainable[k] for k in names]
+
+    def one(c, plain: bool):
+        reset_counts()
+        with reference_kernels() if plain else contextlib.nullcontext():
+            loss, aux = build_loss_fn(c, trainer.models)(batch,
+                                                         torch.Generator().manual_seed(SEED))
+            grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
+        torch.cuda.synchronize()
+        return loss.item(), {k: v.item() for k, v in aux.items()}, dict(zip(names, grads)), \
+            launch_counts()
+
+    def compare(got, ref) -> dict:
+        (loss, aux, grads, counts), (r_loss, r_aux, r_grads, r_counts) = got, ref
+        return {"loss": loss, "aux": aux, "loss_reference": r_loss, "aux_reference": r_aux,
+                "loss_rel_diff": abs(loss - r_loss) / abs(r_loss),
+                "grad_rel_l2_global": rel_l2(grads, r_grads),
+                "grads_finite": all(bool(torch.isfinite(g).all()) for g in grads.values()),
+                "grads_nonzero": sum(bool(g.abs().max() > 0) for g in grads.values()),
+                "launches": counts, "launches_reference": r_counts}
+
+    got, ref = one(cfg, False), one(cfg, True)
+    rec = {"images": batch["rgb_norm"].shape[0], "losses": list(cfg.loss_names),
+           **compare(got, ref)}
+    if cfg.compute_dtype == torch.bfloat16:
+        f32_cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
+        with frozen_f32(trainer):
+            f32_ref = one(f32_cfg, True)
+            rec["grad_rel_l2_to_f32"] = rel_l2(got[2], f32_ref[2])
+            rec["grad_rel_l2_to_f32_reference"] = rel_l2(ref[2], f32_ref[2])
+            del got, ref
+            rec["f32"] = compare(one(f32_cfg, False), f32_ref)
+        del f32_ref
+    else:
+        del got, ref
+    torch.cuda.empty_cache()
+    return rec
+
+
+def tx_fidelity_checks(name: str, trainer, hw: tuple, micro: int, decode: bool) -> dict:
+    """The fidelity of one of train_extras' runs: tx_fidelity on the first
+    images of a micro-batch with the run's losses and, where one of them is
+    not smooth, again with mse alone in the run's mode; each held to
+    GRAD_TOL as the comment above TX_FIDELITY_IMAGES sets out."""
+    tcfg = trainer.cfg
+    images = min(micro, TX_FIDELITY_IMAGES[hw[0] * hw[1]])
+    batch = tx_batch(trainer, hw, images)
+    fids = {"recipe": tx_fidelity(trainer, tcfg, batch)}
+    if not set(tcfg.loss_names) <= TX_SMOOTH:
+        fids["mse"] = tx_fidelity(trainer, dataclasses.replace(tcfg, loss_names=("mse",)), batch)
+    del batch
+    emit({"phase": "train_extras", "run": name, "step": "fidelity", **fids})
+    f32_tol = GRAD_TOL[torch.float32]
+    for kind, fid in fids.items():
+        smooth = set(fid["losses"]) <= TX_SMOOTH
+        want = train_step_launches(hw, images, decode if kind == "recipe"
+                                   else trainer.models.dpt_head is None)
+        pairs = [(str(tcfg.compute_dtype), fid)] + ([("f32", fid["f32"])] if "f32" in fid else [])
+        for dt, f in pairs:
+            tol = GRAD_TOL[torch.float32 if dt == "f32" else tcfg.compute_dtype]
+            check(f["grads_finite"] and f["grads_nonzero"] > 0, f"{name} {kind} {dt}: gradients")
+            check(f["launches"] == want, f"{name} {kind} {dt}: launches {f['launches']} != {want}")
+            check(not any(f["launches_reference"].values()),
+                  f"{name} {kind} {dt}: kernels under reference_kernels()")
+            check(f["loss_rel_diff"] <= tol["loss"],
+                  f"{name} {kind} {dt}: loss {f['loss_rel_diff']} > {tol['loss']}")
+        f32 = fid.get("f32", fid)
+        if smooth or name in TX_F32_BOUNDED:
+            check(f32["grad_rel_l2_global"] <= f32_tol["grads"],
+                  f"{name} {kind}: f32 gradients {f32['grad_rel_l2_global']} > {f32_tol['grads']}")
+        if "f32" in fid:
+            tol = GRAD_TOL[torch.bfloat16]
+            check(fid["grad_rel_l2_to_f32"] <= tol["to_f32"] * fid["grad_rel_l2_to_f32_reference"],
+                  f"{name} {kind}: gradients {fid['grad_rel_l2_to_f32']} from f32, the plain "
+                  f"path's {fid['grad_rel_l2_to_f32_reference']}")
+    return fids
+
+
+def tx_run(name: str, ws: dict) -> tuple:
+    """One recipe through cli/train.py at its own micro-batch, then its
+    fidelity check. Returns the Trainer, the run's directory, its record and
+    its merged config."""
+    from genpercept_tpu_torch.cli.train import resolve_train_config
+    from genpercept_tpu_torch.utils.config import Config
+
+    root = ws["root"]
+    recipe = TX_RUNS[name]
+    cfg = write_extra_recipe(root / f"x_{name}.yaml", recipe, ws["data"])
+    hw, micro, accum, sources = tx_geometry(cfg)
+    check(sources == [("dis5k" if "dis5k" in sources else "hypersim")] * TX_STEPS,
+          f"{name}: the first steps draw {sources}")
+    run_dir = root / f"x_{name}"
+    trainer, rec = train_cli_run(root / f"x_{name}.yaml", ws["ckpt"], root / "data", run_dir)
+    tcfg = trainer.cfg
+    check(tcfg == resolve_train_config(Config(cfg), grad_accum_steps=accum,
+                                       mode=tcfg.mode), f"{name}: the CLI's config")
+    check(tcfg.remat_unet and tcfg.remat_granularity == "unet" and tcfg.remat_vae_decode,
+          f"{name}: the launch counts assume the recipes' remat")
+    decode = trainer.models.dpt_head is None and any(
+        not n.startswith("latent") for n in tcfg.loss_names)
+    per_micro = train_step_launches(hw, micro, decode)
+    log = metrics_log(run_dir)
+    walls = step_walls_ms(log)
+    rec = {"phase": "train_extras", "run": name, "recipe": recipe, "mode": tcfg.mode,
+           "arch": tcfg.arch, "losses": list(tcfg.loss_names),
+           "compute_dtype": str(tcfg.compute_dtype), "hw": list(hw), "micro": micro,
+           "accum": accum, "steps": [x[0] for x in log["train/loss"]],
+           "step_losses": [x[1] for x in log["train/loss"]],
+           "ms_per_step": walls[-1] if walls else None, "step_walls_ms": walls,
+           "peak_bytes": rec["peak_bytes"], "seconds": rec["seconds"],
+           "launches": rec["launches"],
+           "launches_expected": {k: TX_STEPS * accum * n for k, n in per_micro.items()}}
+    check(rec["steps"] == list(range(1, TX_STEPS + 1))
+          and all(math.isfinite(x) for x in rec["step_losses"]), f"{name}: losses {rec}")
+    check(rec["launches"] == rec["launches_expected"],
+          f"{name}: launches {rec['launches']} != {rec['launches_expected']}")
+    rec["fidelity"] = tx_fidelity_checks(name, trainer, hw, micro, decode)
+    return trainer, run_dir, rec, cfg
+
+
+def gc_cuda() -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tx_serve_check(name: str, ws: dict, export_dir: Path, mode: str, models) -> dict:
+    """cli/run.py on the exported directory (over the base for the VAE) with
+    the backend's defaults, each npy against ``models`` (the trained
+    weights in memory) through the pipeline on the decoded images (0.0)."""
+    from PIL import Image
+
+    from genpercept_tpu_torch.cli import run as run_cli
+
+    img_dir = ws["root"] / f"x_{name}_images"
+    if not img_dir.exists():
+        write_cli_images(img_dir)
+    paths = sorted(img_dir.glob("*.png"))
+    decoded = []
+    for p in paths:
+        with Image.open(p) as im:
+            decoded.append(np.asarray(im.convert("RGB")))
+    out_dir = ws["root"] / f"x_{name}_pred"
+    with tf32(*DEFAULT_TF32):
+        reset_counts()
+        t0 = time.perf_counter()
+        run_cli.main(["--checkpoint", str(export_dir), "--base_ckpt_dir", str(ws["ckpt"]),
+                      "--input_rgb_dir", str(img_dir), "--output_dir", str(out_dir),
+                      "--mode", mode])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        pipe = GenPerceptPipeline(models, PipelineConfig(mode=mode))
+        direct = [pipe(im) for im in decoded]
+    rec = {"mode": mode, "images": len(paths), "seconds": secs, "launches": counts,
+           "npy_max_abs_diff_vs_memory": check_cli_outputs(paths, out_dir, mode, direct),
+           "pred_std": [float(np.std(o.pred_np)) for o in direct]}
+    shutil.rmtree(out_dir)
+    check(rec["npy_max_abs_diff_vs_memory"] == 0.0,
+          f"{name}: the exported checkpoint's CLI output differs from the trained models'")
+    check(min(rec["pred_std"]) > 1e-6, f"{name}: a constant prediction")
+    return rec
+
+
+def tx_export(run_dir: Path, ws: dict, name: str) -> tuple:
+    from genpercept_tpu_torch.cli import export as export_cli
+
+    exp = ws["root"] / f"x_{name}_export"
+    t0 = time.perf_counter()
+    export_cli.main(["--run_dir", str(run_dir), "--base_checkpoint", str(ws["ckpt"]), "--name",
+                     "final", "--output_dir", str(exp), "--device", "cuda"])
+    return exp, {"export_s": time.perf_counter() - t0,
+                 "files": sorted(str(p.relative_to(exp)) for p in exp.rglob("*") if p.is_file())}
+
+
+def tx_metric3d(ws: dict) -> dict:
+    """(g): build_train_step with TX_METRIC3D on the main-paper recipe's
+    config (bf16, 8 x 4 at 480x640) over Hypersim's reader, whose samples
+    carry its K scaled to 480x640 (mirrored on flips): TX_STEPS steps
+    (CUDA events), launches, peak memory; each metric3d loss's forward and
+    backward on a step's prediction (CUDA events, mean of TX_METRIC3D_REPS
+    after a warm-up); the fidelity as every run's (tx_fidelity_checks: the
+    losses, and mse alone at PR 2's 8 images)."""
+    from genpercept_tpu_torch.data import DatasetMode, get_dataset
+    from genpercept_tpu_torch.data.transforms import get_depth_normalizer
+    from genpercept_tpu_torch.train import metric3d_losses as m3d
+
+    cfg = dataclasses.replace(TRAIN_CFG, loss_names=TX_METRIC3D, grad_accum_steps=ACCUM)
+    ds = get_dataset({"name": "hypersim", "dir": ws["data"]["train"][0],
+                      "filenames": ws["data"]["train"][1], "resize_to_hw": list(TRAIN_HW)},
+                     str(ws["root"] / "data"), DatasetMode.TRAIN,
+                     depth_transform=get_depth_normalizer(
+                         {"type": "scale_shift_depth", "clip": True, "norm_min": -1.0,
+                          "norm_max": 1.0, "min_max_quantile": 0.02}),
+                     augmentation_args={"lr_flip_p": 0.5})
+    loader = DataLoader(ds, MixedBatchSampler([ds], batch_size=ACCUM * MICRO,
+                                              generator=np.random.default_rng(SEED)))
+    models = load_genpercept_checkpoint(str(ws["ckpt"]), device="cuda")
+    trainer = Trainer(cfg, models, loader, str(ws["root"] / "x_metric3d"), max_iter=TX_STEPS,
+                      save_period=0, main_seed=SEED)
+    step = trainer.step_fn  # build_train_step's
+    raws = []
+    while len(raws) < TX_STEPS:  # an epoch of the 32 samples is one step
+        for raw in loader:
+            raws.append(raw)
+            if len(raws) == TX_STEPS:
+                break
+    k_hs = ws["data"]["train"]
+    check(all("intrinsic" in r for r in raws), "Hypersim's training samples carry no K")
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics = [], []
+    for i, raw in enumerate(raws):
+        batch = trainer._device_batch(raw)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = step(batch, torch.Generator().manual_seed(SEED + i))
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        metrics.append({k: float(v) for k, v in m.items()})
+    counts = launch_counts()
+    expect = {k: TX_STEPS * ACCUM * n for k, n in train_step_launches(TRAIN_HW, MICRO, True).items()}
+    peak = torch.cuda.max_memory_allocated()
+    # each metric3d loss alone on a prediction of the step's shape
+    batch = {k: v[0] for k, v in trainer._device_batch(raws[0]).items()}
+    pred = (torch.rand(batch["valid_mask"].shape, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(SEED)) * 2 + 1).requires_grad_()
+    targ = batch["gt_norm"][..., 0] + 2.0
+    mask, k = batch["valid_mask"], batch["intrinsic"]
+    gen = torch.Generator().manual_seed(SEED)
+    fns = {"vnl": lambda: m3d.vnl_loss(pred, targ, mask, k, gen),
+           "hdnr": lambda: m3d.hdnl_random_loss(pred, targ, mask, gen),
+           "hdsnr": lambda: m3d.hdsnl_random_loss(pred, targ, mask, gen)}
+    loss_ms = {}
+    for name, fn in fns.items():
+        torch.autograd.grad(fn(), pred)
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(TX_METRIC3D_REPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            torch.autograd.grad(fn(), pred)
+            end.record()
+            torch.cuda.synchronize()
+            ts.append(start.elapsed_time(end))
+        loss_ms[name] = float(np.mean(ts))
+    fid = tx_fidelity_checks("metric3d", trainer, TRAIN_HW, MICRO, True)
+    rec = {"phase": "train_extras", "run": "metric3d", "losses": list(TX_METRIC3D),
+           "intrinsic_first": raws[0]["intrinsic"][0].tolist(), "step_ms": times,
+           "step_metrics": metrics, "peak_bytes": peak, "launches": counts,
+           "launches_expected": expect, "loss_ms": loss_ms, "loss_ms_batch": list(pred.shape),
+           "fidelity": fid, "data": list(k_hs)}
+    del trainer, models, step, pred
+    gc_cuda()
+    shutil.rmtree(ws["root"] / "x_metric3d", ignore_errors=True)
+    check(counts == expect, f"metric3d: launches {counts} != {expect}")
+    check(all(math.isfinite(v) for m in metrics for v in m.values()), f"metric3d: {metrics}")
+    return rec
+
+
+def phase_train_extras(ws: dict | None = None) -> dict:
+    """(v) every other recipe family on the card through the entry points
+    (te_workspace's base checkpoint and files): (a) normal (angular), (b)
+    dis with the latent loss, (c) a fresh DPT-identity head in
+    disparity_dpt_head mode, exported and served by cli/run.py, (d) LoRA
+    rank 128 (the base UNet stored in bf16 and bit for bit after the
+    steps, the adapters moved), exported merged and served, (e) marigold in f32 (8-channel
+    conv_in, multi-resolution noise), (f) rgb_blending under its betas,
+    (g) the metric3d losses in build_train_step. Each run: ms per step,
+    peak memory, exact launches, a micro-batch's fidelity."""
+    from genpercept_tpu_torch.io.weights import load_safetensors
+    from genpercept_tpu_torch.train.lora import merge_lora
+
+    if ws is None:
+        with tempfile.TemporaryDirectory() as tmp:
+            return phase_train_extras(te_workspace(Path(tmp)))
+    t_phase = time.perf_counter()
+    check(train_step_launches(TRAIN_HW, MICRO, True) == STEP_LAUNCHES,
+          "the derived launches differ from the main recipe's")
+    out = {}
+    for name in TX_RUNS:
+        trainer, run_dir, rec, cfg = tx_run(name, ws)
+        if name == "dpt_head":
+            check(trainer.models.dpt_head is not None
+                  and trainer.models.dpt_head.cfg.final_act == "identity", "no fresh identity head")
+            exp, rec["export"] = tx_export(run_dir, ws, name)
+            check("dpt_head_identity/model.safetensors" in rec["export"]["files"],
+                  f"DPT export files {rec['export']['files']}")
+            models = load_genpercept_checkpoint(str(ws["ckpt"]), device="cuda")
+            models.unet.load_state_dict({k[5:]: v for k, v in trainer.trainable.items()
+                                         if k.startswith("unet.")})
+            models.dpt_head = trainer.models.dpt_head
+            rec["serve"] = tx_serve_check(name, ws, exp, "disparity_dpt_head", models)
+            del models
+            shutil.rmtree(exp)
+        if name == "lora":
+            base = load_safetensors(str(ws["ckpt"] / "unet" / "diffusion_pytorch_model.safetensors"))
+            live = trainer.models.unet.state_dict()
+            # the frozen base is stored in the compute dtype, as JAX's Trainer does
+            store = next(iter(live.values())).dtype
+            rec["base_unet_dtype"] = str(store)
+            rec["base_unet_max_abs_change"] = max(float((live[k].float().cpu() - v.to(store)
+                                                         .float()).abs().max())
+                                                  for k, v in base.items())
+            check(store == trainer.cfg.compute_dtype, f"LoRA: the base UNet is stored in {store}")
+            lora = {k: v.detach() for k, v in trainer.models.unet_lora.items()}
+            rec["lora_b_max_abs"] = max(float(v.abs().max()) for k, v in lora.items()
+                                        if k.endswith("lora_B"))
+            rec["lora_params"] = sum(v.numel() for v in lora.values())
+            check(rec["base_unet_max_abs_change"] == 0.0, "LoRA: the base UNet moved")
+            check(rec["lora_b_max_abs"] > 0.0, "LoRA: no adapter moved")
+            check(all(k.startswith("unet_lora.") for k in trainer.trainable), "LoRA: trainable")
+            exp, rec["export"] = tx_export(run_dir, ws, name)
+            models = load_genpercept_checkpoint(str(ws["ckpt"]), device="cpu")
+            merged = merge_lora(models.unet, {k: v.cpu() for k, v in lora.items()})
+            # the step's merge on the card against the host's on the same stored base
+            host = merge_lora(models.unet.to(store), {k: v.cpu() for k, v in lora.items()})
+            gpu_merged = merge_lora(trainer.models.unet, lora)
+            rec["merge_cpu_vs_card_max"] = max(float((gpu_merged[k].cpu().float()
+                                                      - host[k].float()).abs().max())
+                                               for k in host)
+            del gpu_merged, host
+            models = load_genpercept_checkpoint(str(ws["ckpt"]), device="cuda")
+            models.unet.load_state_dict(merged)
+            rec["serve"] = tx_serve_check(name, ws, exp, "depth", models)
+            del models, merged
+            shutil.rmtree(exp)
+        if name == "marigold":
+            check(trainer.models.unet.cfg.in_channels == 8
+                  and tuple(trainer.models.unet.conv_in.weight.shape[1:]) == (8, 3, 3),
+                  "marigold: conv_in not widened")
+            check(trainer.cfg.multi_res_noise_strength == 0.9, "marigold: no multi-res noise")
+        emit(rec)
+        out[name] = rec
+        del trainer
+        shutil.rmtree(run_dir)
+        gc_cuda()
+    out["metric3d"] = tx_metric3d(ws)
+    emit(out["metric3d"])
+    summary = {"phase": "train_extras", "step": "summary",
+               "ms_per_step": {k: r.get("ms_per_step") for k, r in out.items()},
+               "peak_gb": {k: r["peak_bytes"] / 1e9 for k, r in out.items()},
+               "micro": {k: r.get("micro") for k, r in out.items()},
+               "loss_ms": out["metric3d"]["loss_ms"],
+               "seconds": time.perf_counter() - t_phase}
+    emit(summary)
     return summary
 
 
@@ -3280,7 +3854,10 @@ def main() -> None:
     phase_checkpoint_cli()
     phase_marigold()
     phase_serve()
-    phase_train_eval(tr["run"]["ms_per_step"])
+    with tempfile.TemporaryDirectory() as tmp:
+        ws = te_workspace(Path(tmp))
+        phase_train_eval(tr["run"]["ms_per_step"], ws)
+        phase_train_extras(ws)
     # per 768^2 image (K1, K2: f32), per recipe micro-step (K3, K4: bf16),
     # per 768^2 forward of batch 2 (K5, K6, K8: bf16), per pass of K7's path
     # over its five shapes at batch 2 (bf16)

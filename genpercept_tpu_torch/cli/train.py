@@ -9,7 +9,8 @@ and ``--device``: the merged recipe (``resolve_train_config``), config.yaml
 and a code snapshot in the run directory, the optional wandb run, the
 effective batch as grad accumulation, the mixed train loader and the
 val/vis loaders over the dataset readers, the model-surgery ablation axes
-(``apply_model_overrides``), the Trainer and its resume. Runs on the card
+(``apply_model_overrides``: from-scratch parts, a fresh DPT head, a text
+prompt), marigold's 8-channel conv_in, the Trainer and its resume. Runs on the card
 unless ``--device cpu`` is given. More than one device is not ported
 (ROADMAP Queue 1 item 11): ``--data_parallel`` takes -1 or 1, and
 ``--model_parallel`` > 1, ``--zero1``, ``--coordinator_address`` and
@@ -28,7 +29,7 @@ import time
 import torch
 
 from genpercept_tpu_torch.diffusion import GENPERCEPT_SCHEDULER, SchedulerConfig
-from genpercept_tpu_torch.train import TrainConfig
+from genpercept_tpu_torch.train import TrainConfig, replace_unet_conv_in
 
 # reference loss names (config ``loss.name``) -> the training step's names
 _PIXEL_LOSSES = {
@@ -173,13 +174,25 @@ def resolve_train_config(cfg, grad_accum_steps: int = 1, mode: str = None) -> Tr
     )
 
 
+def sampler_prob(cfg):
+    """The train mixture's probabilities, for a ``mixed`` dataset only: a
+    single-dataset recipe (dis, matting, seg) merged over the depth recipe
+    inherits the depth mixture's prob_ls, which the JAX CLI hands to the
+    sampler with one dataset, and numpy's choice raises."""
+    if cfg.get_path("dataset.train.name") != "mixed":
+        return None
+    return cfg.get_path("dataset.train.prob_ls")
+
+
 def apply_model_overrides(cfg, models, seed) -> None:
     """The model-surgery ablation axes (reference config/ablation/):
     from-scratch UNet or VAE decoder, re-initialised in place with the JAX
     package's scheme (``models.init_params_``) from generators seeded
-    ``seed`` and ``seed + 1``, as JAX seeds its keys (equal in distribution,
-    not in value); a fixed text prompt. A fresh DPT head is not ported."""
-    from genpercept_tpu_torch.models import init_params_
+    ``seed`` and ``seed + 1``, and a fresh DPT head (``model.customized_head``
+    on a checkpoint without one; DPT_IDENTITY when the name holds
+    "identity") from ``seed + 2``, as JAX seeds its keys (equal in
+    distribution, not in value); a fixed text prompt."""
+    from genpercept_tpu_torch.models import DPT_GENERAL, DPT_IDENTITY, init_dpt_head, init_params_
 
     def generator(offset: int) -> torch.Generator:
         return torch.Generator(device=models.device).manual_seed((seed or 0) + offset)
@@ -190,9 +203,10 @@ def apply_model_overrides(cfg, models, seed) -> None:
         gen = generator(1)
         init_params_(models.vae.decoder, gen)
         init_params_(models.vae.post_quant_conv, gen)
-    if cfg.get_path("model.customized_head") and models.dpt_head is None:
-        raise NotImplementedError("training a fresh DPT head is not ported yet "
-                                  "(ROADMAP Queue 1 item 9)")
+    head_name = cfg.get_path("model.customized_head")
+    if head_name and models.dpt_head is None:
+        head_cfg = DPT_IDENTITY if "identity" in head_name else DPT_GENERAL
+        models.dpt_head = init_dpt_head(generator(2), head_cfg, device=models.device)
     text_input = cfg.get_path("model.text_input")
     if text_input:
         models.text_embed = models.encode_prompt(text_input)
@@ -265,8 +279,7 @@ def main(argv=None):
         augmentation_args=cfg.get("augmentation"))
     if not isinstance(datasets, list):
         datasets = [datasets]
-    sampler = MixedBatchSampler(datasets, batch_size=max_bs * accum,
-                                prob=cfg.get_path("dataset.train.prob_ls"),
+    sampler = MixedBatchSampler(datasets, batch_size=max_bs * accum, prob=sampler_prob(cfg),
                                 generator=np.random.default_rng(seed))
     train_loader = DataLoader(ConcatDataset(datasets), sampler)
 
@@ -284,6 +297,9 @@ def main(argv=None):
     train_cfg = resolve_train_config(cfg, grad_accum_steps=accum, mode=mode)
     if args.bf16_masters:
         train_cfg = dataclasses.replace(train_cfg, master_dtype=torch.bfloat16)
+    if train_cfg.arch == "marigold" and models.unet.cfg.in_channels == 4:
+        # marigold concatenates [rgb_latent, noisy]: the 8-channel conv_in
+        replace_unet_conv_in(models.unet)
 
     trainer = Trainer(
         cfg=train_cfg,

@@ -5,7 +5,8 @@ from genpercept_tpu_torch.models.unet import (
 from genpercept_tpu_torch.models.clip_text import (
     SD21_CLIP_TEXT, CLIPTextConfig, CLIPTextModel, clip_text_apply, empty_prompt_ids)
 from genpercept_tpu_torch.models.dpt_head import (
-    DPT_ELU, DPT_GENERAL, DPT_IDENTITY, DPTHead, DPTHeadConfig, dpt_head_apply)
+    DPT_ELU, DPT_GENERAL, DPT_IDENTITY, DPTHead, DPTHeadConfig, dpt_head_apply,
+    init_dpt_head)
 from genpercept_tpu_torch.models.layers import init_params_
 
 __all__ = [
@@ -14,4 +15,5 @@ __all__ = [
     "SD21_CLIP_TEXT", "CLIPTextConfig", "CLIPTextModel", "clip_text_apply",
     "empty_prompt_ids", "init_params_",
     "DPT_ELU", "DPT_GENERAL", "DPT_IDENTITY", "DPTHead", "DPTHeadConfig", "dpt_head_apply",
+    "init_dpt_head",
 ]

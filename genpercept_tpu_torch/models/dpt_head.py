@@ -31,7 +31,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from genpercept_tpu_torch.models.layers import conv
+from genpercept_tpu_torch.models.layers import conv, init_params_
 from genpercept_tpu_torch.ops.conv import conv1x1, nearest_up2_conv3x3
 from genpercept_tpu_torch.ops.resize import resize_bilinear_align_corners
 
@@ -110,6 +110,17 @@ class DPTHead(nn.Module):
         if cfg.upsample_first_feature:
             self.feature_upsample_0 = _ConvHolder(sizes[0], sizes[0])
         self.head = _Head(f, cfg.add_projection)
+
+
+def init_dpt_head(generator: torch.Generator | None, cfg: DPTHeadConfig = DPT_GENERAL,
+                  device=None, dtype=torch.float32) -> DPTHead:
+    """A fresh head with the JAX package's scheme (``init_dpt_head``,
+    ``conv_init``): every weight uniform in +-1/sqrt(fan_in), biases zero,
+    drawn from ``generator`` (on ``device``); equal to JAX's in
+    distribution, not in value."""
+    with torch.device("meta"):
+        head = DPTHead(cfg)
+    return init_params_(head.to(dtype).to_empty(device=device or "cpu"), generator)
 
 
 def _up2_align_corners(x: torch.Tensor) -> torch.Tensor:

@@ -10,9 +10,10 @@ Geometry (SD2.1): 4-channel latent, block_out_channels (320, 640, 1280,
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -120,24 +121,58 @@ class UNet2DConditionModel(nn.Module):
             self.conv_out = nn.Conv2d(chans[0], cfg.out_channels, 3)
 
 
+@contextlib.contextmanager
+def swapped_parameters(module: nn.Module, tensors: Dict[str, torch.Tensor]):
+    """Within the block, ``module``'s parameters named in ``tensors``
+    (dotted names relative to it) read as those tensors; the module's own
+    parameters are put back on exit, untouched (the parameter swap of
+    ``torch.func.functional_call``)."""
+    saved = []
+    try:
+        for name, value in tensors.items():
+            owner_name, _, leaf = name.rpartition(".")
+            owner = module.get_submodule(owner_name)
+            saved.append((owner, leaf, owner._parameters[leaf]))
+            owner._parameters[leaf] = value
+        yield
+    finally:
+        for owner, leaf, param in reversed(saved):
+            owner._parameters[leaf] = param
+
+
 def _unit(rb, attn, h: torch.Tensor, skip: Optional[torch.Tensor],
           temb: torch.Tensor, ctx: torch.Tensor, heads: int, eps: float,
-          conv_fn=None, dense_fn=None, name: str = "") -> torch.Tensor:
+          conv_fn=None, dense_fn=None, name: str = "",
+          attn_weights: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
     """One (resnet [+ transformer]) unit, the skip concatenated first on the
     up path: what ``remat="block"`` checkpoints. ``name`` is the block's
-    path and the unit's index, e.g. "down_blocks.0.{}.1"."""
+    path and the unit's index, e.g. "down_blocks.0.{}.1"; ``attn_weights``
+    stand in for the transformer's parameters of those names (relative to
+    it) inside the unit, so a recompute in the backward reads them too."""
     if skip is not None:
         h = torch.cat([h, skip], dim=1)
     h = resnet_block(rb, h, temb, eps, conv_fn=conv_fn, name=name.format("resnets"))
     if attn is not None:
-        h = spatial_transformer(attn, h, ctx, heads, dense_fn, name.format("attentions"))
+        with swapped_parameters(attn, attn_weights or {}):
+            h = spatial_transformer(attn, h, ctx, heads, dense_fn, name.format("attentions"))
     return h
+
+
+def _with_attn_weights(unit, attn_weights: Dict[str, torch.Tensor]):
+    """``unit`` handed the weights of its own transformer, renamed relative
+    to it ("down_blocks.0.attentions.1.x" -> "x")."""
+    def call(*args, name: str = "", **kwargs):
+        prefix = name.format("attentions") + "."
+        own = {k[len(prefix):]: v for k, v in attn_weights.items() if k.startswith(prefix)}
+        return unit(*args, name=name, attn_weights=own, **kwargs)
+    return call
 
 
 def unet_apply(unet: UNet2DConditionModel, sample: torch.Tensor,
                timesteps: torch.Tensor, encoder_hidden_states: torch.Tensor,
                remat: Optional[str] = None, conv_fn=None, dense_fn=None,
-               return_features: bool = False
+               return_features: bool = False,
+               attn_weights: Optional[Dict[str, torch.Tensor]] = None
                ) -> torch.Tensor | Tuple[Optional[torch.Tensor], List[torch.Tensor]]:
     """sample: (N, 4, h, w); timesteps: (N,) or scalar; text states
     (N, 77, ctx). Returns the v-prediction (N, 4, h, w), or with
@@ -153,13 +188,19 @@ def unet_apply(unet: UNet2DConditionModel, sample: torch.Tensor,
     conv_fn / dense_fn (ops/quant.py, inference only) hook every resnet,
     down- and upsampler conv and every transformer projection and
     feed-forward matmul; conv_in/conv_out, the time embedding,
-    cross-attention k/v and the attention itself stay full precision."""
+    cross-attention k/v and the attention itself stay full precision.
+
+    attn_weights: {UNet parameter name: tensor} in place of the
+    transformers' parameters of those names for this call (LoRA training:
+    the merged projections, functions of the adapters); the module is not
+    written. They are swapped in per unit, inside any checkpoint, so the
+    backward's recompute sees them."""
     hooked = conv_fn is not None or dense_fn is not None
     if remat is not None and hooked:
         raise ValueError("remat is a training feature; the int8 hooks are inference")
     if remat == "unet":
         return checkpointed(unet_apply, unet, sample, timesteps, encoder_hidden_states,
-                            return_features=return_features)
+                            return_features=return_features, attn_weights=attn_weights)
     if remat not in (None, "block"):
         raise ValueError(f"remat={remat!r}")
     if remat == "block":
@@ -170,6 +211,8 @@ def unet_apply(unet: UNet2DConditionModel, sample: torch.Tensor,
     chans = cfg.block_out_channels
     ctx = encoder_hidden_states
     eps = cfg.norm_eps
+    if attn_weights:
+        unit = _with_attn_weights(unit, attn_weights)
     if timesteps.ndim == 0:
         timesteps = timesteps.expand(sample.shape[0])
     temb = timestep_embedding(timesteps, chans[0])

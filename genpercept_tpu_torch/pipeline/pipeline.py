@@ -126,6 +126,10 @@ class GenPerceptModels:
     clip: Optional[CLIPTextModel] = None
     dpt_head: Optional[DPTHead] = None  # with it, the UNet has no conv_out
     tokenizer: Optional[CLIPTokenizer] = None
+    # LoRA adapters of the UNet's attention projections while training them
+    # (train/lora.py); the pipeline runs the base UNet, as the JAX trainer's
+    # validation does, and cli/export.py merges them
+    unet_lora: Optional[Dict[str, torch.Tensor]] = None
 
     @property
     def dpt_cfg(self) -> Optional[DPTHeadConfig]:

@@ -1,22 +1,31 @@
 """The GenPercept training step in PyTorch.
 
-Counterpart of ``genpercept_tpu/train/train_step.py`` for the genpercept arch
-in depth mode without a DPT head:
+Counterpart of ``genpercept_tpu/train/train_step.py``, every arch, mode and
+loss of the JAX step:
 
   1. valid-mask downscale to the latent grid (max-pool 8 of the invalid mask)
   2. the frozen VAE encodes rgb and gt under ``torch.no_grad()``
-  3. t ~ U[0, 1000) from a ``torch.Generator``, or fixed; noise = rgb_latent
-  4. noisy = add_noise(gt_latent, noise, t) (== noise at beta == 1), cast to
-     the compute dtype; target = velocity (== -gt_latent), f32
-  5. UNet forward (optionally rematerialized); masked latent losses and/or
-     pixel losses on the decoded prediction (mse x1 + ssi x0.5 + grad x2 on
-     depth shifted +2), gradients flowing through the frozen decoder
+  3. t ~ U[0, 1000) from a ``torch.Generator``, or fixed; the noise is the
+     rgb latent (genpercept, rgb_blending) or, for marigold, a gaussian or
+     multi-resolution draw (``train/noise.py``) after t, as JAX draws them
+  4. noisy = add_noise(gt_latent, noise, t), cast to the compute dtype;
+     target = velocity, f32; marigold's UNet input is [rgb_latent, noisy]
+     (the 8-channel conv_in of ``replace_unet_conv_in``)
+  5. UNet forward (optionally rematerialized), with LoRA the adapted
+     attention projections handed in as tensors (``train/lora.py``);
+     masked latent losses and/or pixel losses on the decoded prediction
+     (depth: mse x1 + ssi x0.5 + grad x2 and the metric3d losses on depth
+     shifted +2; other modes: mse, l1 or angular on 3 channels), gradients
+     flowing through the frozen decoder; or, with a DPT head, the head on
+     the UNet's up-block features, its raw output the prediction
   6. gradients accumulated in f32 over micro-batches, then the optax-Adam
      update (``make_optimizer``)
 
 The models are ``nn.Module``s holding their parameters, so where the JAX
 step threads (trainable, frozen) trees, this one marks parameters trainable
-with ``requires_grad`` and returns them keyed by their dotted names.
+with ``requires_grad`` and returns them keyed by their dotted names. Every
+random number comes from the ``generator`` a call is handed; a test can hand
+the loss another generator's numbers instead (``draws``).
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 import torch.nn.functional as F
 
 from genpercept_tpu_torch.diffusion import (
@@ -35,16 +45,20 @@ from genpercept_tpu_torch.diffusion import (
     get_velocity,
     make_scheduler,
 )
-from genpercept_tpu_torch.models import unet_apply, vae_decode, vae_encode
+from genpercept_tpu_torch.models import dpt_head_apply, unet_apply, vae_decode, vae_encode
 from genpercept_tpu_torch.train import losses as L
+from genpercept_tpu_torch.train import metric3d_losses as M3D
+from genpercept_tpu_torch.train.lora import apply_lora, init_lora
+from genpercept_tpu_torch.train.noise import multi_res_noise_like
 from genpercept_tpu_torch.train.lr import iter_exponential_schedule
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Every field of the JAX package's TrainConfig; dtypes are torch dtypes.
-    Fields the port does not implement yet raise NotImplementedError when a
-    loss function or train state is built (``check_ported``)."""
+    loss_names: a subset of {latent_mse, latent_l1, latent_mean_abs_rel,
+    mse, ssi, ssi_medium, grad, angular, l1, vnl, hdnr, hdsnr} (vnl needs
+    batch["intrinsic"])."""
 
     mode: str = "depth"
     arch: str = "genpercept"  # genpercept | rgb_blending | marigold
@@ -75,24 +89,23 @@ class TrainConfig:
     scheduler: SchedulerConfig = GENPERCEPT_SCHEDULER
 
 
-_UNPORTED_LOSSES = ("vnl", "hdnr", "hdsnr")
-
-
-def check_ported(cfg: TrainConfig, models) -> None:
-    """Raise NotImplementedError for what the port does not train yet."""
-    defaults = {f.name: f.default for f in dataclasses.fields(TrainConfig)}
-    unported = [name for name in ("unet_lora_rank", "multi_res_noise_strength",
-                                  "multi_res_noise_strategy", "multi_res_noise_annealed")
-                if getattr(cfg, name) != defaults[name]]
-    if cfg.arch != "genpercept":
-        unported.append(f"arch={cfg.arch!r}")
-    if cfg.mode != "depth":
-        unported.append(f"mode={cfg.mode!r}")
-    unported += [f"loss {n!r}" for n in cfg.loss_names if n in _UNPORTED_LOSSES]
-    if getattr(models, "dpt_head", None) is not None:
-        unported.append("a DPT head")
-    if unported:
-        raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
+@torch.no_grad()
+def replace_unet_conv_in(unet: nn.Module) -> nn.Module:
+    """Marigold's conv_in surgery, in place: the (C, 4, 3, 3) kernel
+    concatenated with itself along the input channels and halved, so the
+    output at [rgb_latent, noisy] is SD2.1's at their mean; the UNet's
+    config gets in_channels 8."""
+    old = unet.conv_in
+    if old.weight.shape[1] != 4:
+        raise ValueError(f"conv_in already has {old.weight.shape[1]} input channels")
+    with torch.device("meta"):
+        new = nn.Conv2d(8, old.out_channels, old.kernel_size)
+    new = new.to(old.weight.dtype).to_empty(device=old.weight.device)
+    new.weight.copy_(torch.cat([old.weight, old.weight], dim=1) * 0.5)
+    new.bias.copy_(old.bias)
+    unet.conv_in = new
+    unet.cfg = dataclasses.replace(unet.cfg, in_channels=8)
+    return unet
 
 
 def downscale_valid_mask(valid_mask: torch.Tensor, factor: int = 8) -> torch.Tensor:
@@ -108,17 +121,63 @@ def _unet_remat(cfg: TrainConfig) -> Optional[str]:
     return "block" if cfg.remat_granularity == "block" else "unet"
 
 
+def _depth_loss(name: str, pred, targ, m, batch, draw):
+    """(loss, weight) of a depth-mode pixel loss on depth shifted to [1, 3]."""
+    if name == "mse":
+        return L.masked_mse(pred, targ, m), 1.0
+    if name == "ssi":
+        return L.ssi_loss(pred, targ, m, "least_square"), 0.5
+    if name == "ssi_medium":
+        return L.ssi_loss(pred, targ, m, "medium"), 0.5
+    if name == "grad":
+        return L.gradient_loss(pred, targ, m), 2.0
+    if name == "l1":
+        return L.masked_l1(pred, targ, m), 1.0
+    if name == "vnl":
+        return M3D.vnl_core(pred, targ, m, batch["intrinsic"].float(),
+                            draw(name, lambda g: M3D.vnl_draw(g, m))), 1.0
+    if name == "hdnr":
+        return M3D.hdnl_core(pred, targ, m,
+                             draw(name, lambda g: M3D.hdnl_draw(g, pred.shape[0]))), 1.0
+    if name == "hdsnr":
+        h, w = pred.shape[1:]
+        return M3D.hdsnl_core(pred, targ, m, draw(name, lambda g: M3D.hdsnl_draw(g, h, w))), 1.0
+    raise ValueError(name)
+
+
+def _other_loss(name: str, pred, targ, m):
+    """(loss, weight) of a pixel loss outside depth mode, on (B, H, W, 3)."""
+    if name == "mse":
+        return L.masked_mse(pred, targ, m[..., None].expand(pred.shape)), 1.0
+    if name == "l1":
+        return L.masked_l1(pred, targ, m[..., None].expand(pred.shape)), 1.0
+    if name == "angular":
+        return L.angular_loss(pred, targ, m), 1.0
+    raise ValueError(name)
+
+
 def build_loss_fn(cfg: TrainConfig, models):
-    """models: ``pipeline.GenPerceptModels``. Returns
-    loss_fn(batch, generator=None) -> (loss, aux) on the models' current
-    parameters. batch: "rgb_norm" and "gt_norm" (B, H, W, 3) in [-1, 1],
-    "valid_mask" (B, H, W) bool; ``generator`` draws the timesteps."""
-    check_ported(cfg, models)
+    """models: ``pipeline.GenPerceptModels`` (with ``unet_lora`` set when
+    cfg.unet_lora_rank is, see ``split_trainable``). Returns
+    loss_fn(batch, generator=None, draws=None) -> (loss, aux) on the models'
+    current parameters. batch: "rgb_norm" and "gt_norm" (B, H, W, 3) in
+    [-1, 1], "valid_mask" (B, H, W) bool, "intrinsic" (B, 3, 3) for vnl.
+    ``generator`` draws, in the JAX step's order, the timesteps, marigold's
+    noise and each metric3d loss's samples; ``draws`` may give any of them
+    instead: "t" (B,), "noise" (B, 4, h, w), and the loss names' draws
+    (``train/metric3d_losses.py``)."""
     sched = make_scheduler(cfg.scheduler)
     remat = _unet_remat(cfg)
+    lora_mode = cfg.unet_lora_rank is not None
 
     def loss_fn(batch: Dict[str, torch.Tensor],
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[Dict[str, Any]] = None):
+        draws = draws or {}
+
+        def draw(name, fn):
+            return draws[name] if name in draws else fn(generator)
+
         cd = cfg.compute_dtype
         rgb = batch["rgb_norm"].to(cd).permute(0, 3, 1, 2)
         gt = batch["gt_norm"].to(cd).permute(0, 3, 1, 2)
@@ -131,54 +190,73 @@ def build_loss_fn(cfg: TrainConfig, models):
         if cfg.fix_timesteps is not None:
             t = torch.full((bsz,), cfg.fix_timesteps, dtype=torch.long, device=dev)
         else:
-            t = torch.randint(0, cfg.num_train_timesteps, (bsz,),
-                              generator=generator).to(dev)
-        noise = rgb_latent
+            t = draw("t", lambda g: torch.randint(0, cfg.num_train_timesteps, (bsz,),
+                                                  generator=g)).to(dev)
+        if cfg.arch in ("genpercept", "rgb_blending"):
+            noise = rgb_latent
+        elif cfg.multi_res_noise_strength is not None:
+            strength = cfg.multi_res_noise_strength
+            if cfg.multi_res_noise_annealed:
+                strength = strength * (t.float() / cfg.num_train_timesteps).reshape(-1, 1, 1, 1)
+            noise = draw("noise", lambda g: multi_res_noise_like(
+                g, gt_latent.shape, strength, cfg.multi_res_noise_strategy, cd, dev))
+        else:
+            noise = draw("noise", lambda g: torch.randn(
+                gt_latent.shape, generator=g, dtype=cd,
+                device=None if g is None else g.device))
+        noise = noise.to(dev)
         noisy = add_noise(sched, gt_latent, noise, t).to(cd)
         target = get_velocity(sched, gt_latent, noise, t)
+        unet_in = torch.cat([rgb_latent, noisy], dim=1) if cfg.arch == "marigold" else noisy
         embed = models.get_text_embed()
         text = embed.to(cd).expand((bsz,) + tuple(embed.shape[-2:]))
+        attn_weights = apply_lora(models.unet, models.unet_lora) if lora_mode else None
 
         aux: Dict[str, torch.Tensor] = {}
         total = torch.zeros((), dtype=torch.float32, device=dev)
-        mask_latent = downscale_valid_mask(valid)[:, None]  # (B, 1, h, w)
+        pixel = [n for n in cfg.loss_names if not n.startswith("latent")]
 
-        v = unet_apply(models.unet, noisy, t, text, remat=remat)
-        for name in cfg.loss_names:
-            if not name.startswith("latent"):
-                continue
-            vm = mask_latent.expand(v.shape)
-            v32, t32 = v.float(), target.float()
-            if name in ("latent_mse", "latent_mse_loss"):
-                l = L.masked_mse(v32, t32, vm)
-            elif name in ("latent_l1", "latent_l1_loss", "latent_l1_loss_with_mask"):
-                l = L.masked_l1(v32, t32, vm)
-            elif name == "latent_mean_abs_rel":
-                mm = vm.float()
-                rel = torch.abs(v32 - t32) / torch.clamp(torch.abs(t32), min=1e-6)
-                l = torch.sum(rel * mm) / (torch.sum(mm) + 1e-6)
-            else:
-                raise ValueError(name)
-            aux[name] = l
-            total = total + l
-        if all(n.startswith("latent") for n in cfg.loss_names):
-            return total, aux
-        decoded = vae_decode(models.vae, -v, remat=cfg.remat_vae_decode)
+        if models.dpt_head is not None:
+            _, feats = unet_apply(models.unet, unet_in, t, text, remat=remat,
+                                  return_features=True, attn_weights=attn_weights)
+            pred_px = dpt_head_apply(models.dpt_head, feats[::-1])  # (B, H, W), raw
+        else:
+            v = unet_apply(models.unet, unet_in, t, text, remat=remat,
+                           attn_weights=attn_weights)
+            mask_latent = downscale_valid_mask(valid)[:, None]  # (B, 1, h, w)
+            for name in cfg.loss_names:
+                if not name.startswith("latent"):
+                    continue
+                vm = mask_latent.expand(v.shape)
+                v32, t32 = v.float(), target.float()
+                if name in ("latent_mse", "latent_mse_loss"):
+                    l = L.masked_mse(v32, t32, vm)
+                elif name in ("latent_l1", "latent_l1_loss", "latent_l1_loss_with_mask"):
+                    l = L.masked_l1(v32, t32, vm)
+                elif name == "latent_mean_abs_rel":
+                    mm = vm.float()
+                    rel = torch.abs(v32 - t32) / torch.clamp(torch.abs(t32), min=1e-6)
+                    l = torch.sum(rel * mm) / (torch.sum(mm) + 1e-6)
+                else:
+                    raise ValueError(name)
+                aux[name] = l
+                total = total + l
+            if not pixel:
+                return total, aux
+            decoded = vae_decode(models.vae, -v, remat=cfg.remat_vae_decode)
+            pred_px = decoded.mean(dim=1) if cfg.mode == "depth" else decoded.permute(0, 2, 3, 1)
 
-        pred = decoded.mean(dim=1).float() + 2.0  # depth: [-1, 1] -> [1, 3]
-        targ = gt[:, 0].float() + 2.0
-        table = {"mse": (L.masked_mse, 1.0),
-                 "ssi": (lambda p, t_, m_: L.ssi_loss(p, t_, m_, "least_square"), 0.5),
-                 "ssi_medium": (lambda p, t_, m_: L.ssi_loss(p, t_, m_, "medium"), 0.5),
-                 "grad": (L.gradient_loss, 2.0),
-                 "l1": (L.masked_l1, 1.0)}
-        for name in cfg.loss_names:
-            if name.startswith("latent"):
-                continue
-            if name not in table:
-                raise ValueError(name)
-            fn, w = table[name]
-            l = fn(pred, targ, valid)
+        if cfg.mode == "depth":
+            pred = pred_px.float() + 2.0  # [-1, 1] -> [1, 3]
+            targ = gt[:, 0].float() + 2.0
+            losses = {n: _depth_loss(n, pred, targ, valid, batch, draw) for n in pixel}
+        else:
+            pred = pred_px.float()
+            if pred.ndim == 3:
+                pred = pred[..., None].expand(pred.shape + (3,))
+            targ = gt.permute(0, 2, 3, 1).float()
+            losses = {n: _other_loss(n, pred, targ, valid) for n in pixel}
+        for name, (l, w) in losses.items():
             aux[name] = l
             total = total + w * l
         return total, aux
@@ -186,23 +264,38 @@ def build_loss_fn(cfg: TrainConfig, models):
     return loss_fn
 
 
-def split_trainable(models, cfg: TrainConfig
+def split_trainable(models, cfg: TrainConfig, generator: Optional[torch.Generator] = None
                     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """(trainable, frozen), keyed by dotted parameter names ("unet.conv_in.
     weight", ...), per the reference's trainability matrix: the UNet when
-    train_unet; the VAE decoder and post_quant_conv when train_vae_decoder;
-    the rest and the text embedding frozen. Sets ``requires_grad`` to match."""
+    train_unet and no LoRA; the DPT head when train_dpt_head; the VAE decoder
+    and post_quant_conv when train_vae_decoder; the rest and the text
+    embedding frozen. With cfg.unet_lora_rank the base UNet is frozen and
+    the adapters (``models.unet_lora``, drawn from ``generator`` by
+    ``init_lora`` when not set yet) are trainable as "unet_lora.<name>".
+    Sets ``requires_grad`` to match."""
+    lora_mode = cfg.unet_lora_rank is not None
     trainable: Dict[str, torch.Tensor] = {}
     frozen: Dict[str, torch.Tensor] = {}
-    for prefix, module in (("unet", models.unet), ("vae", models.vae)):
+    parts = [("unet", models.unet), ("vae", models.vae)]
+    if models.dpt_head is not None:
+        parts.append(("dpt_head", models.dpt_head))
+    for prefix, module in parts:
         for name, p in module.named_parameters():
             if prefix == "unet":
-                train = cfg.train_unet and cfg.unet_lora_rank is None
+                train = cfg.train_unet and not lora_mode
+            elif prefix == "dpt_head":
+                train = cfg.train_dpt_head
             else:
                 train = cfg.train_vae_decoder and name.split(".")[0] in (
                     "decoder", "post_quant_conv")
             p.requires_grad_(train)
             (trainable if train else frozen)[f"{prefix}.{name}"] = p
+    if lora_mode:
+        if models.unet_lora is None:
+            models.unet_lora = init_lora(generator, models.unet, cfg.unet_lora_rank)
+        for name, x in models.unet_lora.items():
+            trainable[f"unet_lora.{name}"] = x.requires_grad_(True)
     frozen["text_embed"] = models.get_text_embed()
     return trainable, frozen
 
@@ -284,11 +377,10 @@ def make_optimizer(cfg: TrainConfig, trainable: Dict[str, torch.Tensor]) -> Opta
                      mu_dtype=cfg.adam_mu_dtype)
 
 
-def init_train_state(models, cfg: TrainConfig):
+def init_train_state(models, cfg: TrainConfig, generator: Optional[torch.Generator] = None):
     """-> (trainable, frozen, optimizer); trainable parameters cast to
-    master_dtype when it is set."""
-    check_ported(cfg, models)
-    trainable, frozen = split_trainable(models, cfg)
+    master_dtype when it is set; ``generator`` draws fresh LoRA adapters."""
+    trainable, frozen = split_trainable(models, cfg, generator)
     if cfg.master_dtype is not None:
         for p in trainable.values():
             p.data = p.data.to(cfg.master_dtype)

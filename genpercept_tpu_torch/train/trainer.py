@@ -13,6 +13,7 @@ PNGs. A multi-process run is not ported (ROADMAP Queue 1 item 11).
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import os.path as osp
@@ -82,10 +83,13 @@ class Trainer:
         self.vis_loaders = vis_loaders or {}
         self.device = models.device
 
-        self.trainable, self.frozen, self.optimizer = init_train_state(models, cfg)
+        self.trainable, self.frozen, self.optimizer = init_train_state(
+            models, cfg, torch.Generator().manual_seed(main_seed or 0))
         if cfg.compute_dtype == torch.bfloat16:
             # frozen parts carry no optimizer state and every op casts weights
-            # to the activation dtype anyway: store them in bf16
+            # to the activation dtype anyway: store them in bf16, as JAX does.
+            # That includes a LoRA run's base UNet, so each merge is
+            # W_bf16 + delta rounded to bf16, JAX's rounding
             for x in self.frozen.values():
                 if x.dtype == torch.float32:
                     x.data = x.data.to(torch.bfloat16)
@@ -114,6 +118,8 @@ class Trainer:
 
         batch = {"rgb_norm": put(raw["rgb_norm"]), "gt_norm": put(gt),
                  "valid_mask": put(mask, bool)}
+        if "intrinsic" in raw:  # camera K for the vnl loss
+            batch["intrinsic"] = put(raw["intrinsic"])
         a = self.cfg.grad_accum_steps
         if a > 1:  # the loader yields (accum * micro, ...)
             batch = {k: v.reshape((a, v.shape[0] // a) + v.shape[1:])
@@ -251,6 +257,8 @@ class Trainer:
         state = {"trainable": {k: p.detach() for k, p in self.trainable.items()},
                  "opt_state": self.optimizer.state_dict(),
                  "counters": self._counters()}
+        if self.models.dpt_head is not None:  # which head cli/export.py writes
+            state["dpt_head_cfg"] = dataclasses.asdict(self.models.dpt_head.cfg)
         path = save_train_checkpoint(osp.join(self.out_dir, "checkpoint"), state, name)
         logger.info(f"checkpoint saved: {path}")
         return path

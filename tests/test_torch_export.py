@@ -8,6 +8,8 @@ the published layout over the tiny base checkpoint of
 tests/test_torch_checkpoint.py. The port runs with ``--device cpu``.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -46,10 +48,10 @@ def export_argv(run, base, out, *extra):
             "--output_dir", str(out), *extra]
 
 
-def port_run(root, trainable):
+def port_run(root, trainable, **extra):
     save_train_checkpoint(str(root / "checkpoint"),
-                          {"trainable": trainable, "opt_state": {}, "counters": COUNTERS},
-                          "final")
+                          {"trainable": trainable, "opt_state": {}, "counters": COUNTERS,
+                           **extra}, "final")
     return root
 
 
@@ -120,11 +122,69 @@ def test_export_of_bf16_masters_is_in_the_base_dtype(ckpts, trained, tmp_path): 
 
 @pytest.mark.parametrize("key", ["unet_lora.down_blocks.0.lora_A", "dpt_head.neck.x.weight"])
 def test_export_refuses_lora_and_dpt_head_runs(ckpts, trained, tmp_path, key):  # noqa: F811
+    """LoRA and DPT-head runs export (tests/test_torch_lora.py and below);
+    an adapter without its pair or a tensor no head holds is refused before
+    anything is written; so is a head run that records no head config."""
+    from genpercept_tpu_torch.models import DPTHeadConfig
+    from test_torch_checkpoint import TINY_DPT
+
     _, state = trained
-    run = port_run(tmp_path / "run", {**state, key: torch.zeros(2)})
-    with pytest.raises(NotImplementedError, match="item 9"):
+    head_cfg = dataclasses.asdict(DPTHeadConfig(final_act="identity", **TINY_DPT))
+    run = port_run(tmp_path / "run", {**state, key: torch.zeros(2)}, dpt_head_cfg=head_cfg)
+    with pytest.raises(KeyError, match="does not match" if key.startswith("dpt") else None):
         port_export.main(export_argv(run, ckpts["plain"][0], tmp_path / "out", "--device", "cpu"))
     assert not (tmp_path / "out").exists()
+    run = port_run(tmp_path / "bare", {**state, "dpt_head.neck.x.weight": torch.zeros(2)})
+    with pytest.raises(KeyError, match="dpt_head_cfg"):
+        port_export.main(export_argv(run, ckpts["plain"][0], tmp_path / "out", "--device", "cpu"))
+    assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("final_act", ["identity", "relu"])
+def test_export_of_a_dpt_head_run(ckpts, trained, tmp_path, final_act):  # noqa: F811
+    """A fresh head trained on the base: the port writes dpt_head_identity/
+    for an identity head (the run records the head's config) and dpt_head/
+    for a ReLU one, each with a config.json of the head's widths, and the
+    JAX export's UNet; the export loads back with that head, bit for bit.
+    JAX writes dpt_head/ whatever the head (its export takes the head's
+    config from the base checkpoint, which has none), so an identity head
+    reloads with a ReLU, and no config.json."""
+    from genpercept_tpu.models import dpt_head as j_dpt
+    from genpercept_tpu_torch.models import DPTHeadConfig
+    from test_torch_checkpoint import TINY_DPT
+
+    base = ckpts["plain"][0]
+    tree, state = trained
+    head = numpy_params(j_dpt.init_dpt_head,
+                        j_dpt.DPTHeadConfig(final_act=final_act, **TINY_DPT), seed=42)
+    jax_save_state(str(tmp_path / "jax_run" / "checkpoint"),
+                   {"trainable": {"unet": tree["unet"], "dpt_head": head},
+                    "opt_state": {"count": np.int32(7)},
+                    "counters": {k: np.int32(v) for k, v in COUNTERS.items()}}, "final")
+    jax_export.main(export_argv(tmp_path / "jax_run", base, tmp_path / "jax"))
+    head_state = {f"dpt_head.{k}": v for k, v in state_dict_from_jax(head).items()}
+    cfg = DPTHeadConfig(final_act=final_act, **TINY_DPT)
+    unet_state = {k: v for k, v in state.items() if k.startswith("unet.")}
+    save_train_checkpoint(str(tmp_path / "run" / "checkpoint"),
+                          {"trainable": {**unet_state, **head_state}, "opt_state": {},
+                           "counters": COUNTERS, "dpt_head_cfg": dataclasses.asdict(cfg)},
+                          "final")
+    port_export.main(export_argv(tmp_path / "run", base, tmp_path / "port", "--device", "cpu"))
+    sub = "dpt_head_identity" if final_act == "identity" else "dpt_head"
+    assert sorted(files(tmp_path / "jax")) == sorted(
+        n.replace("dpt_head_identity/", "dpt_head/") for n in files(tmp_path / "port")
+        if not n.endswith("dpt_head/config.json") and not n.endswith("identity/config.json"))
+    assert (tmp_path / "port" / sub / "model.safetensors").is_file()
+    assert (tmp_path / "port" / sub / "config.json").is_file()
+    assert (tmp_path / "jax" / "dpt_head" / "model.safetensors").is_file()
+    name = "unet/diffusion_pytorch_model.safetensors"
+    a, b = (load_safetensors(str(tmp_path / d / name)) for d in ("port", "jax"))
+    assert set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in b)
+    models = load_genpercept_checkpoint(str(tmp_path / "port"), base_ckpt_dir=str(base),
+                                        device="cpu")
+    assert models.dpt_cfg.final_act == final_act
+    for k, v in models.dpt_head.state_dict().items():
+        assert torch.equal(v, head_state[f"dpt_head.{k}"]), k
 
 
 def test_export_flags_mirror_jax_and_default_to_the_card(ckpts, trained, tmp_path,  # noqa: F811

@@ -511,10 +511,17 @@ def test_split_trainable_matches_jax(tiny):
 
 
 def test_unported_fields_raise(tiny):
+    """The non-depth modes, the marigold arch, LoRA, multi-resolution noise
+    and the metric3d losses are ported: their train states build (the
+    CLIs' multi-device refusals, ROADMAP Queue 1 item 11, are
+    tests/test_torch_train_cli.py's)."""
     for kw in (dict(arch="marigold"), dict(unet_lora_rank=4), dict(mode="normal"),
                dict(multi_res_noise_strength=0.9), dict(loss_names=("mse", "vnl"))):
-        with pytest.raises(NotImplementedError):
-            TT.init_train_state(port_models(tiny), TT.TrainConfig(**kw))
+        models = port_models(tiny)
+        trainable, _, _ = TT.init_train_state(models, TT.TrainConfig(**kw))
+        TT.build_loss_fn(TT.TrainConfig(**kw), models)
+        assert trainable
+    assert not hasattr(TT, "check_ported")
 
 
 # ---------------------------------------------------------------- recipes

@@ -301,10 +301,45 @@ def test_from_scratch_overrides(ckpts):  # noqa: F811
 
 
 def test_dpt_head_override_is_refused(ckpts):  # noqa: F811
-    models = load_genpercept_checkpoint(str(ckpts["plain"][0]), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        port_train.apply_model_overrides(Config({"model": {"customized_head": "dpt_head"}}),
+    """model.customized_head on a checkpoint without a head is no longer
+    refused: a fresh head (DPT_IDENTITY when the name holds "identity"), on
+    the models' device, the JAX scheme (weights within +-1/sqrt(fan_in),
+    std within 5% of bound/sqrt(3) for tensors of at least 1000 elements,
+    biases 0), seeded seed + 2; a checkpoint's own head is kept."""
+    from genpercept_tpu.cli import train as j_train
+    from genpercept_tpu.io.checkpoints import load_genpercept_checkpoint as j_load
+
+    heads = {}
+    for name, act in (("dpt_head_identity", "identity"), ("dpt_head", "relu")):
+        models = load_genpercept_checkpoint(str(ckpts["plain"][0]), device="cpu")
+        port_train.apply_model_overrides(Config({"model": {"customized_head": name}}),
                                          models, seed=0)
+        jm = j_load(str(ckpts["plain"][0]))
+        j_train.apply_model_overrides(JConfig({"model": {"customized_head": name}}), jm, seed=0)
+        assert models.dpt_head.cfg.final_act == jm.dpt_cfg.final_act == act
+        want = state_dict_from_jax(jm.dpt_head)
+        got = models.dpt_head.state_dict()
+        assert set(got) == set(want)
+        for k, v in got.items():
+            assert v.shape == want[k].shape and v.dtype == torch.float32, k
+            if k.endswith("bias"):
+                assert not v.any(), k
+            else:
+                bound = 1 / v[0].numel() ** 0.5
+                assert float(v.abs().max()) <= bound * (1 + 1e-6), k  # the bound in f32
+                if v.numel() >= 1000:
+                    assert abs(float(v.std()) / (bound / 3**0.5) - 1) <= 0.05, k
+        heads[name] = got
+    again = load_genpercept_checkpoint(str(ckpts["plain"][0]), device="cpu")
+    port_train.apply_model_overrides(Config({"model": {"customized_head": "dpt_head_identity"}}),
+                                     again, seed=0)
+    assert all(torch.equal(v, heads["dpt_head_identity"][k])
+               for k, v in again.dpt_head.state_dict().items())
+    own = load_genpercept_checkpoint(str(ckpts["dpt_identity"][0]), device="cpu")
+    kept = {k: v.clone() for k, v in own.dpt_head.state_dict().items()}
+    port_train.apply_model_overrides(Config({"model": {"customized_head": "dpt_head"}}), own,
+                                     seed=0)
+    assert all(torch.equal(v, kept[k]) for k, v in own.dpt_head.state_dict().items())
 
 
 def test_text_input_matches_jax_encode_prompt(ckpts, tmp_path, monkeypatch):  # noqa: F811
