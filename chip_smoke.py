@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's one-step depth inference, its training step, its
-W8A8 int8 inference, its fused-VAE inference, its checkpoint loader and
+W8A8 int8 inference (round-to-nearest and GPTQ, the fake-quant attribution
+modes, a DPT head), its fused-VAE inference, its checkpoint loader and
 folder CLI (depth and the DPT head), its marigold arch (multi-step DDIM,
 the 8-channel UNet input, test-time ensembling), its serving path (the
 HTTP server, the hub predictor, the dataset inference CLI) and its
 train -> export -> infer -> eval loop (the training, export and eval CLIs,
 the batched eval harness) and every other training recipe family (the
 non-depth modes, a DPT head, LoRA, marigold and rgb_blending, the metric3d
-losses) once on one NVIDIA GPU.
+losses) and data-parallel training across processes once on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
@@ -56,10 +58,9 @@ Phases, each printed as a JSON line:
       against the f32 gradients of the same losses), with launch counts and
       the SSI loss's least-square scale per image; the fault check (finite
       gradients, non-zero ones on the flash-routed level-0 attention and
-      feed-forward); then Trainer.train for 3 optimizer steps of 4
-      micro-batches, with the kernels and again from the same start under
-      reference_kernels(): loss per step, ms per step, img/s, peak device
-      memory;
+      feed-forward); then Trainer.train for 2 optimizer steps of 4
+      micro-batches with the kernels: loss per step, ms per step, img/s,
+      peak device memory;
   (h) K5 int8 fused GEGLU FF and (i) K6 int8 flash attention against their
       plain versions at the 768^2 path's shapes (and K6 at 480x640's), f32
       and bf16, both bit for bit (error 0.0, and a second call equal to the
@@ -214,7 +215,8 @@ Phases, each printed as a JSON line:
       micro-batch's loss and gradients with the kernels against
       reference_kernels() (tx_fidelity_checks: in the run's dtype and in
       f32, GRAD_TOL's bars, TX_SMOOTH, the bf16 gradients also against the
-      f32 plain path's). The DPT head's and
+      f32 plain path's; with mse alone too where the recipe's loss is not
+      smooth, but TX_MSE_MADE). The DPT head's and
       LoRA's runs are exported (cli/export.py) and served by cli/run.py on
       three images, each npy equal to the trained weights' pipeline in
       memory (0.0; LoRA merged on the host as the export merges); LoRA's
@@ -223,9 +225,46 @@ Phases, each printed as a JSON line:
       main-paper recipe with losses (mse, vnl, hdnr, hdsnr) in
       build_train_step from Hypersim's reader (its K scaled to 480x640): 2
       steps (CUDA events), launches, each metric3d loss's forward and
-      backward ms, the fidelity as the runs' above.
+      backward ms, the fidelity as the runs' above;
+  (w) int8_extras, on (u)'s base checkpoint (the golden's weights) in bf16
+      with INT8_CFG and the int8 slice's four natural-like 768^2 images
+      (the first batch of two calibrates): round-to-nearest and GPTQ
+      (int8_gptq) on the same images, each with its calibration seconds,
+      peak device memory over the weights, int8_mean_dev (<= 1e-2), exact
+      launches on the calibrating and the quantized batches, and GPTQ's
+      gptq_round seconds summed over the layers; GPTQ moves the VAE's
+      codes only; its tree through save/load gives equal depth (0.0); the
+      fake:w, fake:a and fake:wa modes on that tree against full precision
+      and the int8 path, in bf16 and f32 with TF32 off (fake:wa's deviation
+      within FAKE_WA_REL of the int8 path's, fake:w's and fake:a's below
+      it), launches K1 17 / K2 5; a
+      DPT-identity checkpoint in int8: the decoder's group empty,
+      int8_mean_dev <= 1e-2, launches K1 15 / K5 10 / K6 1 a forward, and
+      cli/run.py --int8_vae --int8_unet --batch_size 2 --data_parallel on
+      it (one device) with each npy equal to the pipeline's (0.0);
+  (x) data_parallel: first the batch split's own rounding in this
+      process (dp_split_witness: two images' f32 gradient image by image
+      against batched); then cli/train.py as two gloo ranks on the one
+      card under torchrun (--multihost, each rank's gloo group started
+      before the CLI, which uses it; NCCL refuses two ranks on one GPU),
+      one image a rank, against one process on the same global
+      micro-batch of 2, one optimizer step of the main-paper recipe
+      (DP_CHANGED keys set; its flips kept): in f32 with TF32 off the loss
+      within DP_LOSS_TOL, the gradient (Adam's first moment) within
+      DP_GRAD_TOL and DP_GRAD_WITNESS_X times the witness's, the update
+      within DP_UPDATE_WITNESS_X times the witness's (its gradients
+      through Adam's first step); in the recipe's bf16 reported; rank 0's run directory,
+      logging and validation; --zero1 the same step (moments within
+      DP_ZERO1_MU_REL, the update within DP_ZERO1_UPDATE_REL of plain's,
+      the ranks' parameters equal) with the whole Adam state gathered into
+      its checkpoint; both ranks resumed from its `final` (one save fewer
+      than `latest` would take: tests/test_torch_parallel.py resumes from
+      `latest`); exact launches per rank.
+      (u)'s run C runs as one NCCL rank (--coordinator_address), its steps
+      1-2 within DP_LOSS_TOL of run A's.
 Every phase's launch counts include K7, K8 and S1-S4 (0 outside their
-paths).
+paths). Each phase's wall seconds print on a line of their own, and all of
+them before the kernels' line.
 K1 and K3+K4 are also timed against one PyTorch call computing the same
 function (scaled_dot_product_attention and its autograd backward), which the
 port never calls; every kernel's bound is computed from its shapes (PEAK).
@@ -325,7 +364,7 @@ K2_BF16_MEAN_REL_TOL = 1e-5
 K2_RAGGED = [(1, 96, 320), (1, 1000, 320)]
 DTYPES = (torch.float32, torch.bfloat16)
 # img/s: back-to-back .batch passes over at least this window and count
-WINDOW_S, MIN_PASSES = 3.0, 5
+WINDOW_S, MIN_PASSES = 1.5, 3
 
 # K3/K4 shapes (bh, s, d): the recipe's (480x640, micro-batch 8: level-0 UNet
 # self-attention, 5 per micro-step, and the decoder's mid-block attention, 1)
@@ -358,6 +397,7 @@ TRAIN_CFG = TrainConfig(
     adam_mu_dtype=torch.bfloat16, compute_dtype=torch.bfloat16, remat_unet=True,
     remat_granularity="unet", scheduler=GENPERCEPT_SCHEDULER)
 TRAIN_HW, MICRO, ACCUM, STEPS = (480, 640), 8, 4, 3  # the recipe on one card
+RUN_STEPS = 2  # phase (g)'s Trainer runs: a warm-up step and a timed one
 # launches per micro-step with remat (tests/test_torch_train.py pins them)
 NO_S = {"S1": 0, "S2": 0, "S3": 0, "S4": 0}  # the profiling scripts' kernels
 STEP_LAUNCHES = {"K1": 14, "K2": 10, "K3": 6, "K4": 6, "K5": 0, "K6": 0, "K7": 0, "K8": 0,
@@ -1021,7 +1061,7 @@ def grad_check(unet, vae, embed, batch, dt, losses, bounded: bool, f32_grads=Non
 
 
 def run_trainer(unet, vae, embed, samples) -> dict:
-    """Trainer.train for STEPS optimizer steps of ACCUM micro-batches, bf16:
+    """Trainer.train for RUN_STEPS optimizer steps of ACCUM micro-batches, bf16:
     losses, CUDA-event time of each step, peak memory, launches."""
     cfg = dataclasses.replace(TRAIN_CFG, grad_accum_steps=ACCUM)
     loader = DataLoader(samples, MixedBatchSampler([samples], batch_size=ACCUM * MICRO,
@@ -1029,7 +1069,7 @@ def run_trainer(unet, vae, embed, samples) -> dict:
     models = GenPerceptModels(unet=copy.deepcopy(unet), vae=copy.deepcopy(vae),
                               text_embed=embed.clone())
     with tempfile.TemporaryDirectory() as out_dir:
-        trainer = Trainer(cfg, models, loader, out_dir, max_iter=STEPS, save_period=0,
+        trainer = Trainer(cfg, models, loader, out_dir, max_iter=RUN_STEPS, save_period=0,
                           main_seed=SEED)
         losses, step_ms = [], []
         step = trainer.step_fn
@@ -1079,19 +1119,17 @@ def phase_train(unet, vae, clip) -> dict:
                                                losses, bounded, f32_grads)
         del f32_grads
         torch.cuda.empty_cache()
+    # the Trainer with the kernels only: their plain versions are held
+    # against them per micro-batch above (the plain Trainer's ms per step,
+    # ~6140, is in PERF.md)
     run = run_trainer(unet, vae, embed, samples)
-    with reference_kernels():
-        ref = run_trainer(unet, vae, embed, samples)
-    expect = {k: n * ACCUM * STEPS for k, n in STEP_LAUNCHES.items()}
-    rec = {"phase": "train_run", "dtype": str(torch.bfloat16), "steps": STEPS,
-           "micro_batch": MICRO, "accum": ACCUM, "image_hw": list(TRAIN_HW), **run,
-           "reference": ref,
-           "loss_abs_diff": [abs(a - b) for a, b in zip(run["losses"], ref["losses"])]}
+    expect = {k: n * ACCUM * RUN_STEPS for k, n in STEP_LAUNCHES.items()}
+    rec = {"phase": "train_run", "dtype": str(torch.bfloat16), "steps": RUN_STEPS,
+           "micro_batch": MICRO, "accum": ACCUM, "image_hw": list(TRAIN_HW), **run}
     emit(rec)
-    check(len(run["losses"]) == STEPS and all(math.isfinite(x) for x in run["losses"]),
+    check(len(run["losses"]) == RUN_STEPS and all(math.isfinite(x) for x in run["losses"]),
           f"trainer losses {run['losses']}")
     check(run["launches"] == expect, f"trainer launches {run['launches']} != {expect}")
-    check(all(v == 0 for v in ref["launches"].values()), "kernels under reference_kernels()")
     return {"checks": checks, "run": run}
 
 
@@ -1749,6 +1787,20 @@ def oracle_modules(widths: dict | None = None):
     return unet, vae
 
 
+_GOLDEN_ORACLES: dict = {}
+
+
+def golden_oracles() -> tuple:
+    """(unet, vae, fingerprint) of oracle_modules(SD21_ORACLE), built once
+    and shared by every phase that writes the golden's weights (read only:
+    a phase that changes them works on a copy)."""
+    if not _GOLDEN_ORACLES:
+        unet, vae = oracle_modules(SD21_ORACLE)
+        _GOLDEN_ORACLES.update(unet=unet, vae=vae,
+                               fp={"unet": fingerprint(unet), "vae": fingerprint(vae)})
+    return _GOLDEN_ORACLES["unet"], _GOLDEN_ORACLES["vae"], _GOLDEN_ORACLES["fp"]
+
+
 def fingerprint(module: torch.nn.Module) -> dict:
     """Per child: the sum of its parameters, and their sum weighted by the
     cosine of each element's index (which tells seeds apart where the
@@ -1971,8 +2023,7 @@ def phase_checkpoint_cli() -> None:
     from PIL import Image
 
     t0 = time.perf_counter()
-    unet_o, vae_o = oracle_modules(SD21_ORACLE)
-    fp = {"unet": fingerprint(unet_o), "vae": fingerprint(vae_o)}
+    unet_o, vae_o, fp = golden_oracles()
     emit({"phase": "checkpoint_cli", "step": "golden_weights",
           "fingerprint_matched": fingerprint_matches(fp),
           "seconds": time.perf_counter() - t0, "fingerprint": fp})
@@ -2132,11 +2183,10 @@ def phase_marigold() -> dict:
     from genpercept_tpu_torch.diffusion import SchedulerConfig, leading_timesteps
 
     t0 = time.perf_counter()
-    unet_o, vae_o = oracle_modules(SD21_ORACLE)
-    fp = {"unet": fingerprint(unet_o), "vae": fingerprint(vae_o)}
+    unet_o, vae_o, fp = golden_oracles()
     check(fingerprint_matches(fp),
           "the golden's weights differ: this torch's default init is not the golden's")
-    unet_o = golden_script_function("_conv_in_8ch")(unet_o)
+    unet_o = golden_script_function("_conv_in_8ch")(copy.deepcopy(unet_o))
     with np.load(GOLDEN_MARIGOLD) as zf:
         golden = {k: zf[k] for k in zf.files}
     meta = json.loads(str(golden["meta"]))
@@ -2727,8 +2777,7 @@ def phase_serve() -> dict:
     with --data_parallel, the hub's GenPercept_Depth, and the dataset
     inference CLI on NYU's layout in f32, bf16 and with a prompt."""
     t_phase = time.perf_counter()
-    unet_o, vae_o = oracle_modules(SD21_ORACLE)
-    fp = {"unet": fingerprint(unet_o), "vae": fingerprint(vae_o)}
+    unet_o, vae_o, fp = golden_oracles()
     check(fingerprint_matches(fp),
           "the golden's weights differ: this torch's default init is not the golden's")
     with np.load(GOLDEN) as zf:
@@ -2963,19 +3012,28 @@ def metrics_log(run_dir: Path) -> dict:
     return out
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
 def train_cli_run(recipe: Path, ckpt: Path, data_root: Path, out: Path,
-                  resume: str | None = None):
-    """cli/train.py in-process with the backend's defaults: the Trainer, its
-    launches, wall seconds and peak device memory."""
+                  resume: str | None = None, extra: tuple = (), switches=DEFAULT_TF32):
+    """cli/train.py in-process with the TF32 ``switches`` (the backend's
+    defaults): the Trainer, its launches, wall seconds and peak device
+    memory."""
     from genpercept_tpu_torch.cli import train as train_cli
 
     argv = ["--config", str(recipe), "--checkpoint", str(ckpt), "--base_data_dir",
-            str(data_root), "--output_dir", str(out), "--device", "cuda"]
+            str(data_root), "--output_dir", str(out), "--device", "cuda", *extra]
     argv += ["--resume_run", resume] if resume else []
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with tf32(*DEFAULT_TF32):
+    with tf32(*switches):
         trainer = train_cli.main(argv)
     torch.cuda.synchronize()
     rec = {"seconds": time.perf_counter() - t0, "launches": launch_counts(),
@@ -3045,8 +3103,8 @@ def te_workspace(root: Path) -> dict:
     """The golden's weights as a published-layout base checkpoint and the
     recipes' data files under ``root``: what train_eval and train_extras
     train from."""
-    unet_o, vae_o = oracle_modules(SD21_ORACLE)
-    check(fingerprint_matches({"unet": fingerprint(unet_o), "vae": fingerprint(vae_o)}),
+    unet_o, vae_o, fp = golden_oracles()
+    check(fingerprint_matches(fp),
           "the golden's weights differ: this torch's default init is not the golden's")
     with np.load(GOLDEN) as zf:
         golden = {k: zf[k] for k in ("rgb", "ctx")}
@@ -3265,9 +3323,14 @@ def phase_train_eval(train_run_ms: float | None = None, ws: dict | None = None) 
     log_b = metrics_log(run_a)
     shutil.rmtree(run_a)
     expect_b = {k: ACCUM * n for k, n in STEP_LAUNCHES.items()}
-    # run C: 3 steps straight, validation off
+    # run C: 3 steps straight, validation off, as one NCCL rank (a process
+    # group of one, started by the CLI's --coordinator_address): its steps
+    # 1-2 against A's, which ran without torch.distributed
     run_c = root / "run_c"
-    trainer, rec_c = train_cli_run(root / "recipe_c.yaml", ckpt, root / "data", run_c)
+    trainer, rec_c = train_cli_run(
+        root / "recipe_c.yaml", ckpt, root / "data", run_c,
+        extra=("--coordinator_address", f"localhost:{free_port()}", "--num_processes", "1",
+               "--process_id", "0"))
     del trainer
     log_c = metrics_log(run_c)
     shutil.rmtree(run_c)
@@ -3281,6 +3344,7 @@ def phase_train_eval(train_run_ms: float | None = None, ws: dict | None = None) 
              "launches_expected_b": expect_b,
              "launches_expected_c": {k: STEPS * ACCUM * n
                                      for k, n in STEP_LAUNCHES.items()},
+             "run_c_process_group": "nccl, world 1 (--coordinator_address)",
              "cli_step_wall_ms": walls, "cli_ms_per_step": float(np.median(walls)),
              "train_run_ms_per_step": train_run_ms}
     # reported, not bounded: the resumed run restarts the sample stream
@@ -3299,6 +3363,8 @@ def phase_train_eval(train_run_ms: float | None = None, ws: dict | None = None) 
           f"run C launches {rec_c['launches']}")
     check(len(loss_c) == 3 and all(math.isfinite(x) for x in loss_c), f"run C {loss_c}")
     check(math.isfinite(rec_r["loss_b_step3"]), f"run B's step 3 loss {rec_r['loss_b_step3']}")
+    check(max(rec_r["steps12_rel_diff_a_c"]) <= DP_LOSS_TOL,
+          f"run C (one NCCL rank) against run A: {rec_r['steps12_rel_diff_a_c']}")
     summary = {"cli_ms_per_step": rec_r["cli_ms_per_step"], "train_run_ms_per_step": train_run_ms,
                "peak_bytes": rec_c["peak_bytes"], "val_s_per_image": rec_a["val_s_per_image"],
                "export_s": export_s,
@@ -3333,7 +3399,10 @@ TX_STEPS = 2
 # its mode (their conditioning: SSI's median branch, see GRAD_TOL; grad's
 # and l1's signs; angular's arccos, a derivative of 1 / sqrt(1 - cos^2),
 # up to ~70 at the 1 - 1e-4 clip; the metric3d losses' sorted medians and
-# thresholds, whose f32 pair reads 0.166). Every bf16 check meets "to_f32":
+# thresholds, whose f32 pair reads 0.166), but where it would repeat a
+# check already made (TX_MSE_MADE: normal's f32 recipe gradients are
+# bounded; metric3d's config with mse alone is phase (g)'s bounded
+# grad_check, on other weights). Every bf16 check meets "to_f32":
 # the kernels' gradients no farther from the f32 plain path's than 1.2x
 # the bf16 plain path's. The two bf16 paths' own distance is reported, not
 # bounded: it is set by the weights' bf16 conditioning, which the plain
@@ -3344,6 +3413,7 @@ TX_STEPS = 2
 TX_FIDELITY_IMAGES = {480 * 640: 8, 768 * 768: 2}
 TX_SMOOTH = {"mse", "latent_mse"}
 TX_F32_BOUNDED = ("normal",)
+TX_MSE_MADE = ("normal", "metric3d")
 TX_METRIC3D = ("mse", "vnl", "hdnr", "hdsnr")
 TX_METRIC3D_REPS = 3
 
@@ -3519,7 +3589,7 @@ def tx_fidelity_checks(name: str, trainer, hw: tuple, micro: int, decode: bool) 
     images = min(micro, TX_FIDELITY_IMAGES[hw[0] * hw[1]])
     batch = tx_batch(trainer, hw, images)
     fids = {"recipe": tx_fidelity(trainer, tcfg, batch)}
-    if not set(tcfg.loss_names) <= TX_SMOOTH:
+    if not set(tcfg.loss_names) <= TX_SMOOTH and name not in TX_MSE_MADE:
         fids["mse"] = tx_fidelity(trainer, dataclasses.replace(tcfg, loss_names=("mse",)), batch)
     del batch
     emit({"phase": "train_extras", "run": name, "step": "fidelity", **fids})
@@ -3822,6 +3892,704 @@ def phase_train_extras(ws: dict | None = None) -> dict:
     return summary
 
 
+# int8_extras: GPTQ rounding against round-to-nearest, the fake-quant
+# attribution modes and int8 on a DPT-identity checkpoint, on the golden's
+# weights (te_workspace's checkpoint) in bf16 with INT8_CFG
+FAKE_PER_FORWARD = {"K1": K1_PER_FORWARD, "K2": K2_PER_FORWARD, "K5": 0, "K6": 0, "K7": 0,
+                    "K8": 0, **NO_S}  # only the conv hooks change: 17 / 5 at 768^2, batch 2
+DPT_INT8_PER_FORWARD = {**INT8_PER_FORWARD, "K6": 1}  # no decoder, so no decoder attention
+DPT_CALIB_PER_FORWARD = {**CALIB_PER_FORWARD, "K1": CALIB_PER_FORWARD["K1"] - 1}
+INT8_DEV_BAR = 1e-2  # int8_mean_dev, as the pipeline's own self-check warns
+# fake:wa's deviation from full precision against the int8 path's, relative:
+# the attribution's use (w alone, a alone, both against the real error). The
+# two paths agree per layer (tests/test_torch_quant_gptq.py: 1e-4), but an
+# activation code that float rounding moves across .5 in one of them changes
+# the next layer's input by a step, so at full width their depth maps differ
+# from each other about as much as each differs from full precision
+# (reported as mean_dev_vs_int8)
+FAKE_WA_REL = 0.15
+
+
+def gptq_timer():
+    """Patches quant.gptq_round to add its synchronised seconds into the
+    returned list's one entry; returns (list, undo)."""
+    spent = [0.0]
+    real = tq.gptq_round
+
+    def timed_round(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    tq.gptq_round = timed_round
+    return spent, lambda: setattr(tq, "gptq_round", real)
+
+
+def int8_calibration(models, cfg, images) -> tuple:
+    """A pipeline calibrated on images[:2] (the first .batch): the pipeline,
+    its record (seconds, peak device memory, launches, int8_mean_dev)."""
+    pipe = GenPerceptPipeline(models, cfg, device="cuda")
+    gc_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.perf_counter()
+    first = pipe.batch(images[:2], batch_size=2)
+    torch.cuda.synchronize()
+    rec = {"calibration_batch_s": time.perf_counter() - t0,
+           "calibration_s": pipe.calibration_seconds,
+           "peak_bytes_over_weights": torch.cuda.max_memory_allocated() - base,
+           "launches_calibration_batch": fwd_counts(launch_counts()),
+           "int8_mean_dev": pipe.int8_mean_dev,
+           "quantized_layers": {g: len(t) for g, t in pipe.vae_quant.items()}}
+    return pipe, first, rec
+
+
+def phase_int8_extras(ws: dict) -> dict:
+    """(w) GPTQ int8 against round-to-nearest on the same images, the fake
+    modes, a save/load round trip, and int8 on a DPT-identity checkpoint
+    through the pipeline and cli/run.py (--data_parallel at one device)."""
+    from PIL import Image
+
+    from genpercept_tpu_torch.cli import run as cli
+
+    dt = torch.bfloat16
+    t_phase = time.perf_counter()
+    images = list(natural_like_images(SEED, 4, 768))
+    forwards = len(images) // 2
+    models = load_genpercept_checkpoint(str(ws["ckpt"]), dtype=dt, device="cuda")
+    expect_calib = {k: CALIB_PER_FORWARD[k] + INT8_PER_FORWARD[k] for k in INT8_PER_FORWARD}
+    expect_batch = {k: n * forwards for k, n in INT8_PER_FORWARD.items()}
+    recs, pipes = {}, {}
+    for name, gptq in (("rtn", False), ("gptq", True)):
+        cfg = PipelineConfig(dtype=dt, int8_gptq=gptq, **INT8_CFG)
+        spent, undo = gptq_timer()
+        try:
+            pipe, _, rec = int8_calibration(models, cfg, images)
+        finally:
+            undo()
+        rec["gptq_round_s"] = spent[0]
+        reset_counts()
+        outs = [o.pred_np for o in pipe.batch(images, batch_size=2)]
+        torch.cuda.synchronize()
+        rec["launches_batch"] = fwd_counts(launch_counts())
+        recs[name], pipes[name] = rec, (pipe, outs)
+        check(rec["launches_calibration_batch"] == expect_calib,
+              f"{name}: calibration launches {rec['launches_calibration_batch']}")
+        check(rec["launches_batch"] == expect_batch, f"{name}: .batch launches "
+              f"{rec['launches_batch']}")
+        check(rec["int8_mean_dev"] is not None and rec["int8_mean_dev"] <= INT8_DEV_BAR,
+              f"{name}: int8_mean_dev {rec['int8_mean_dev']}")
+        check(all(np.isfinite(o).all() and o.min() >= 0.0 and o.max() <= 1.0 for o in outs),
+              f"{name}: depth not finite or outside [0, 1]")
+    check(recs["gptq"]["gptq_round_s"] > 0.0 and recs["rtn"]["gptq_round_s"] == 0.0,
+          "GPTQ rounding ran where it should not, or not where it should")
+    gptq, g_outs = pipes["gptq"]
+    rtn_codes = pipes["rtn"][0].vae_quant
+    moved = {g: sum(int((q.w_int8 != rtn_codes[g][k].w_int8).sum()) for k, q in t.items())
+             for g, t in gptq.vae_quant.items()}
+    check(moved["enc"] > 0 and moved["dec"] > 0 and moved["unet"] == 0,
+          f"GPTQ codes moved {moved}: the VAE's only")
+    # the round trip of the GPTQ tree
+    with tempfile.TemporaryDirectory() as tmp:
+        gptq.save_calibration(f"{tmp}/gptq.npz")
+        fresh = GenPerceptPipeline(models, gptq.cfg, device="cuda")
+        fresh.load_calibration(f"{tmp}/gptq.npz")
+    round_trip = max(float(np.abs(o.pred_np - g).max())
+                     for o, g in zip(fresh.batch(images, batch_size=2), g_outs))
+    del fresh
+    check(round_trip == 0.0, f"GPTQ calibration round trip changed depth by {round_trip}")
+
+    # the fake modes on the GPTQ tree, against full precision and int8, in
+    # bf16 (reported) and in f32 with TF32 off (held)
+    x = torch.as_tensor(np.stack(images[:2]), device="cuda")
+    fake, int8_vs_fp = {}, {}
+    for fdt in (dt, torch.float32):
+        key = "bf16" if fdt == dt else "f32"
+        m = models if fdt == dt else load_genpercept_checkpoint(str(ws["ckpt"]), device="cuda")
+        cfg = dataclasses.replace(gptq.cfg, dtype=fdt)
+        fp = build_single_infer(m, PipelineConfig(dtype=fdt))(x)
+        real = build_single_infer(m, cfg, "quant")(x, gptq.vae_quant)
+        int8_vs_fp[key] = float((real - fp).abs().mean())
+        fake[key] = {}
+        for side in ("w", "a", "wa"):
+            reset_counts()
+            y = build_single_infer(m, cfg, f"fake:{side}")(x, gptq.vae_quant)
+            torch.cuda.synchronize()
+            counts = fwd_counts(launch_counts())
+            fake[key][side] = {"mean_dev_vs_fp": float((y - fp).abs().mean()),
+                               "mean_dev_vs_int8": float((y - real).abs().mean()),
+                               "launches": counts}
+            check(bool(torch.isfinite(y).all()), f"fake:{side} {key} not finite")
+            check(counts == FAKE_PER_FORWARD, f"fake:{side} {key} launches {counts}")
+        del fp, real, y, m
+        gc_cuda()
+    for key, f in fake.items():
+        ratio = f["wa"]["mean_dev_vs_fp"] / int8_vs_fp[key]
+        check(abs(ratio - 1.0) <= FAKE_WA_REL,
+              f"fake:wa {key}: {ratio} of the int8 path's deviation from full precision")
+        check(max(f["w"]["mean_dev_vs_fp"], f["a"]["mean_dev_vs_fp"]) < int8_vs_fp[key],
+              f"fake:w / fake:a {key} deviate more than int8: {f}")
+    del x
+    rec = {"phase": "int8_extras", "step": "gptq", "dtype": str(dt), "config": INT8_CFG,
+           "round_to_nearest": recs["rtn"], "gptq": recs["gptq"], "gptq_codes_moved": moved,
+           "gptq_vs_rtn_mean_dev": float(np.mean([np.abs(a - b).mean() for a, b in
+                                                   zip(g_outs, pipes["rtn"][1])])),
+           "round_trip_max_abs_diff": round_trip, "fake": fake, "int8_vs_fp": int8_vs_fp,
+           "bars": {"int8_mean_dev": INT8_DEV_BAR, "fake_wa_over_int8_dev": FAKE_WA_REL}}
+    emit(rec)
+    del pipes, gptq, rtn_codes, models
+    gc_cuda()
+
+    # int8 on a DPT-identity checkpoint: the pipeline, then cli/run.py
+    root = ws["root"]
+    head = init_params_(DPTHead(DPT_IDENTITY), torch.Generator().manual_seed(SEED + DPT_SEED))
+    dpt = write_dpt_checkpoint(root / "ckpt_dpt_int8", ws["ckpt"], head.state_dict(),
+                               DPT_IDENTITY)
+    m_dpt = load_genpercept_checkpoint(str(dpt), dtype=dt, device="cuda")
+    cfg_dpt = PipelineConfig(mode="disparity_dpt_head", dtype=dt, **INT8_CFG)
+    pipe, _, rec_dpt = int8_calibration(m_dpt, cfg_dpt, images)
+    reset_counts()
+    d_outs = [o.pred_np for o in pipe.batch(images, batch_size=2)]
+    rec_dpt["launches_batch"] = fwd_counts(launch_counts())
+    rec_dpt["groups"] = {g: len(t) for g, t in pipe.vae_quant.items()}
+    expect_dpt_calib = {k: DPT_CALIB_PER_FORWARD[k] + DPT_INT8_PER_FORWARD[k]
+                        for k in DPT_INT8_PER_FORWARD}
+    check(rec_dpt["groups"]["dec"] == 0 and rec_dpt["groups"]["enc"] > 0
+          and rec_dpt["groups"]["unet"] > 0, f"DPT int8 groups {rec_dpt['groups']}")
+    check(rec_dpt["launches_calibration_batch"] == expect_dpt_calib,
+          f"DPT int8 calibration launches {rec_dpt['launches_calibration_batch']}")
+    check(rec_dpt["launches_batch"] == {k: n * forwards for k, n in DPT_INT8_PER_FORWARD.items()},
+          f"DPT int8 .batch launches {rec_dpt['launches_batch']}")
+    check(rec_dpt["int8_mean_dev"] is not None and rec_dpt["int8_mean_dev"] <= INT8_DEV_BAR,
+          f"DPT int8_mean_dev {rec_dpt['int8_mean_dev']}")
+    check(all(np.isfinite(o).all() for o in d_outs), "DPT int8 depth not finite")
+    del pipe, m_dpt
+    gc_cuda()
+    paths = write_cli_images(root / "images_int8")
+    decoded = []
+    for p in paths:
+        with Image.open(p) as im:
+            decoded.append(np.asarray(im.convert("RGB")))
+    out_dir = root / "out_dpt_int8"
+    argv = ["--checkpoint", str(dpt), "--input_rgb_dir", str(root / "images_int8"),
+            "--output_dir", str(out_dir), "--mode", "disparity_dpt_head", "--bf16",
+            "--int8_vae", "--int8_unet", "--batch_size", "2", "--data_parallel"]
+    # one 768^2 batch of two (the calibration forward and the self-check, the
+    # UNet's convs hooked and its feed-forward full precision) and one
+    # 576x768 forward, the decoder's attention absent from each
+    f768, f576 = ddim_launches(96, 96, 2, 1), ddim_launches(72, 96, 1, 1)
+    expect_cli = {**{k: 0 for k in COUNTERS}, "K1": 2 * (f768["K1"] - 1) + f576["K1"] - 1,
+                  "K2": 2 * f768["K2"] + f576["K2"]}
+    reset_counts()
+    t0 = time.perf_counter()
+    cli.main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cli_counts = launch_counts()
+    direct = GenPerceptPipeline(
+        load_genpercept_checkpoint(str(dpt), dtype=dt, device="cuda"),
+        PipelineConfig(mode="disparity_dpt_head", dtype=dt, int8_vae=True, int8_unet=True),
+        device="cuda").batch(decoded, batch_size=2)
+    cli_diff = check_cli_outputs(paths, out_dir, "disparity_dpt_head", direct)
+    rec_cli = {"seconds": cli_s, "launches": cli_counts, "launches_expected": expect_cli,
+               "npy_max_abs_diff_vs_pipeline": cli_diff, "argv_flags": argv[6:]}
+    emit({"phase": "int8_extras", "step": "dpt_head", "pipeline": rec_dpt, "cli": rec_cli,
+          "seconds": time.perf_counter() - t_phase})
+    check(cli_diff == 0.0, f"DPT int8 CLI: an npy differs from the pipeline's by {cli_diff}")
+    check(cli_counts == expect_cli, f"DPT int8 CLI launches {cli_counts} != {expect_cli}")
+    del direct
+    shutil.rmtree(out_dir)
+    gc_cuda()
+    return {"rtn": recs["rtn"], "gptq": recs["gptq"], "fake": fake, "dpt": rec_dpt}
+
+
+# data_parallel: cli/train.py with two gloo ranks on the one card (NCCL
+# refuses two ranks on one GPU) against one process on the same global
+# micro-batch of 2 (one image a rank), an effective batch of 2, one
+# optimizer step; the main-paper recipe with the
+# keys below changed as well: f32 (and f32 Adam moments) for the bounded
+# reading, the recipe's bf16 for the reported one; no warmup (the first
+# update moves). The recipe's flip augmentation stays: a rank draws the
+# whole global batch's flips and keeps its own (DataLoader(shard=))
+DP_WORLD, DP_EFF = 2, 2
+DP_CHANGED = TE_CHANGED + ("max_train_batch_size", "effective_batch_size", "mixed_precision",
+                           "mu_dtype", "warmup_steps")
+# the f32 runs' losses: the recipe's without least-squares SSI, whose
+# gradients at random weights are ill-conditioned (section (g): its median
+# branch; the training phase reports them unbounded); the bf16 runs keep
+# the recipe's three, reported
+DP_F32_LOSSES = ("mse_loss", "grad_loss")
+DP_LOSS_TOL = 1e-6  # f32 with TF32 off, relative: the reduction over the global batch
+# the gradient (Adam's first moment), global relative L2: a rank's call on
+# one image rounds otherwise than one process's on two, which the backward
+# amplifies (the CPU test holds 1e-4 on a tiny UNet with unequal masks).
+# Its witness (dp_split_witness): the one-process step rebuilt in this
+# process, its gradient taken image by image against batched. The two
+# ranks' gradient is held to DP_GRAD_TOL and to DP_GRAD_WITNESS_X times the
+# witness read in the same run (on an H100: 7.0743e-4 against the
+# witness's 7.0732e-4; two runs of the backward differ by ~1e-6), and
+# their update to DP_UPDATE_WITNESS_X times Adam's first update of the
+# witness's two gradients (the gaps' signs flip lr g / (|g| + eps) where
+# |g| is below them; the parameters' own rounding adds ~1e-3 of it)
+DP_GRAD_TOL, DP_GRAD_WITNESS_X, DP_UPDATE_WITNESS_X = 1e-3, 1.1, 1.5
+# --zero1 against plain data parallelism: two runs of the card's backward
+# are not bit for bit (its atomics: the first moments read 6.9e-7 and
+# 9.3e-7 of their largest apart in two runs on an H100), so the first
+# moments within 1e-5 of their largest, and the update (final - base, over
+# dp_compare's parameters) within 1e-2 global relative L2 of plain's: the
+# noise flips Adam's first step (lr g / (|g| + eps)) only where |g| is
+# below it, where a share that one rank failed to take from the other
+# would leave half the update out (~0.7). The ranks' parameters are equal
+DP_ZERO1_MU_REL, DP_ZERO1_UPDATE_REL = 1e-5, 1e-2
+DP_TIMEOUT_S = 420
+
+
+def write_dp_recipe(path: Path, data: dict, micro: int, f32: bool, max_iter: int,
+                    save_period: int = 0, val_period: int = 0) -> dict:
+    """TE_RECIPE merged as the CLI merges it, with only DP_CHANGED keys set:
+    te_workspace's files, ``micro`` images a process in micro-steps of an
+    effective batch of DP_EFF, the periods, no warmup, and
+    with ``f32`` f32 compute and moments and DP_F32_LOSSES. Returns the
+    merged config."""
+    import yaml
+
+    from genpercept_tpu_torch.utils.config import recursive_load_config
+
+    with contextlib.chdir(Path(__file__).resolve().parent):
+        original = json.loads(json.dumps(recursive_load_config(TE_RECIPE)))
+    cfg = copy.deepcopy(original)
+    hs, vk = cfg["dataset"]["train"]["dataset_list"]
+    for entry, key in ((hs, "train"), (vk, "vkitti"), (cfg["dataset"]["val"][0], "val"),
+                       (cfg["dataset"]["vis"][0], "vis")):
+        entry["dir"], entry["filenames"] = data[key]
+    cfg["max_iter"] = max_iter
+    cfg["trainer"].update(save_period=save_period, validation_period=val_period,
+                          visualization_period=0)
+    cfg["dataloader"].update(max_train_batch_size=micro, effective_batch_size=DP_EFF)
+    cfg["lr_scheduler"]["kwargs"]["warmup_steps"] = 0
+    if f32:
+        cfg["mixed_precision"] = "no"
+        cfg["optimizer"]["mu_dtype"] = "f32"
+        cfg["loss"]["name"] = list(DP_F32_LOSSES)
+    a, b = flat_config(original), flat_config(cfg)
+    changed = sorted(k for k in a.keys() | b.keys() if a.get(k) != b.get(k))
+    free = ("loss.name.",)
+    check({k for k in a if not k.startswith(free)} == {k for k in b if not k.startswith(free)}
+          and all(k.endswith(DP_CHANGED) or k.startswith(free) for k in changed),
+          f"the recipe changed beyond {DP_CHANGED}: {changed}")
+    path.write_text(yaml.safe_dump(cfg))
+    return cfg
+
+
+def dp_trained_state(trainer, keep: bool) -> dict | None:
+    """The trainer's parameters and Adam first moments by name, f32 copies
+    on the card (rank 0 holds at most three at once), where ``keep`` (rank 0); a ZeRO-1 optimizer gathers its
+    ranks' shares, so every rank calls this."""
+    sd = trainer.optimizer.state_dict()
+    if not keep:
+        return None
+    names, dev = list(trainer.trainable), trainer.device
+    return {"params": {k: p.detach().float().clone() for k, p in trainer.trainable.items()},
+            "mu": {names[i]: st["mu"].to(dev, torch.float32) for i, st in sd["state"].items()}}
+
+
+def dp_rel_l2(a: dict, b: dict, keys, device, base: dict | None = None) -> float:
+    """Global relative L2 of a against b (of a - base against b - base) over
+    ``keys``, each pair summed on ``device``."""
+    num = den = 0.0
+    for k in keys:
+        x, y = a[k].to(device), b[k].to(device)
+        if base is not None:
+            z = base[k].to(device)
+            x, y = x - z, y - z
+        num += float((x - y).double().square().sum())
+        den += float(y.double().square().sum())
+    return math.sqrt(num / den)
+
+
+def dp_compare(ranks: dict, one: dict, base: dict, device) -> dict:
+    """Two ranks' step against one process's: the gradient as Adam's first
+    moment (0.1 g) and the update (final - base), global relative L2 over
+    the parameters whose first moment reaches 1e-6 of the largest (a bias
+    before a GroupNorm has a gradient of rounding noise alone, and Adam's
+    first step moves any parameter by ~lr whatever its gradient's size)."""
+    top = max(float(v.abs().max()) for v in one["mu"].values())
+    keep = [k for k in one["mu"] if float(one["mu"][k].abs().max()) >= 1e-6 * top]
+    return {"grad_rel_l2": dp_rel_l2(ranks["mu"], one["mu"], keep, device),
+            "update_rel_l2": dp_rel_l2(ranks["params"], one["params"], keep, device, base),
+            "params_compared": len(keep), "params": len(one["mu"])}
+
+
+def dp_split_witness(ws: dict, recipe_cfg: dict, device: str = "cuda") -> dict:
+    """The batch split's own rounding, in one process on the card: the
+    one-process reference's first step rebuilt from its recipe (the CLI's
+    reader, sampler and flips over te_workspace's files, the step's
+    timesteps from the Trainer's first seed, the checkpoint's weights), its
+    f32 (TF32 off) loss gradient taken batched and image by image, each
+    image's losses over the batch's counts (replayed), the images'
+    gradients summed: what two ranks compute, without a process group.
+    Global relative L2 over the parameters whose gradient reaches 1e-6 of
+    the largest, as dp_compare; the losses as a relative difference."""
+    from genpercept_tpu_torch import parallel
+    from genpercept_tpu_torch.cli.train import resolve_train_config, sampler_prob
+    from genpercept_tpu_torch.data import DatasetMode, get_dataset
+    from genpercept_tpu_torch.data.sampler import ConcatDataset
+    from genpercept_tpu_torch.data.transforms import get_depth_normalizer
+    from genpercept_tpu_torch.utils.config import Config
+    from genpercept_tpu_torch.utils.seeding import generate_seed_sequence
+
+    t0 = time.perf_counter()
+    rc = Config(recipe_cfg)
+    cfg = resolve_train_config(rc, grad_accum_steps=1, mode="depth")
+    check(cfg.compute_dtype == torch.float32 and cfg.arch == "genpercept",
+          f"dp witness: {cfg.compute_dtype}, {cfg.arch}")
+    datasets = get_dataset(rc.get_path("dataset.train"), str(ws["root"] / "data"),
+                           DatasetMode.TRAIN,
+                           depth_transform=get_depth_normalizer(
+                               rc.get_path("depth_normalization")),
+                           augmentation_args=rc.get("augmentation"))
+    seed = rc["trainer"]["init_seed"]
+    sampler = MixedBatchSampler(datasets, batch_size=DP_EFF, prob=sampler_prob(rc),
+                                generator=np.random.default_rng(seed))
+    raw = next(iter(DataLoader(ConcatDataset(datasets), sampler)))
+    batch = {"rgb_norm": raw["rgb_norm"],
+             "gt_norm": np.repeat(raw["depth_raw_norm"][..., None], 3, -1),
+             "valid_mask": raw["valid_mask_raw"]}
+    batch = {k: torch.as_tensor(np.asarray(v, bool if k == "valid_mask" else np.float32),
+                                device=device) for k, v in batch.items()}
+    gen = torch.Generator().manual_seed(
+        generate_seed_sequence(seed, rc["max_iter"] + 1)[0] % (2**63))
+    t = torch.randint(0, cfg.num_train_timesteps, (DP_EFF,), generator=gen).to(device)
+    models = load_genpercept_checkpoint(str(ws["ckpt"]), device=device)
+    trainable, _, _ = init_train_state(models, cfg)
+    params = list(trainable.values())
+    loss_fn = build_loss_fn(cfg, models)
+    counts: list = []
+
+    def grads(rows, replay: bool):
+        """The loss and gradient of batch[rows]; the counts its losses
+        divide by recorded (batched) or replayed (an image)."""
+        sums = (train_losses.global_sum, parallel.global_sum)
+        it = iter(list(counts))
+
+        def count(x):
+            if replay:
+                return next(it)
+            counts.append(x.detach().clone())
+            return x
+
+        train_losses.global_sum = parallel.global_sum = count
+        try:
+            loss, _ = loss_fn({k: v[rows] for k, v in batch.items()}, draws={"t": t[rows]})
+            g = torch.autograd.grad(loss, params)
+        finally:
+            train_losses.global_sum, parallel.global_sum = sums
+        return loss.item(), dict(zip(trainable, g))
+
+    with tf32(False, False):
+        loss_b, g_b = grads(slice(0, DP_EFF), False)
+        split = [grads(slice(i, i + 1), True) for i in range(DP_EFF)]
+    top = max(float(v.abs().max()) for v in g_b.values())
+    keep = [k for k in g_b if float(g_b[k].abs().max()) >= 1e-6 * top]
+    g_s = {k: sum(g[k] for _, g in split) for k in keep}
+    loss_s = sum(x for x, _ in split)
+
+    def adam_first(g):  # OptaxAdam's first update over lr, in f32
+        b1, b2, eps = 0.9, 0.999, 1e-8
+        mu, nu = (1 - b1) * g, (1 - b2) * g * g
+        return (mu / (1 - b1)) / (torch.sqrt(nu / (1 - b2)) + eps)
+
+    rec = {"loss_batched": loss_b, "loss_split": loss_s,
+           "loss_rel_diff": abs(loss_s - loss_b) / abs(loss_b),
+           "grad_rel_l2": dp_rel_l2(g_s, g_b, keep, device),
+           "update_rel_l2": dp_rel_l2({k: adam_first(g_s[k]) for k in keep},
+                                      {k: adam_first(g_b[k]) for k in keep}, keep, device),
+           "params_compared": len(keep),
+           "params": len(g_b), "losses": list(cfg.loss_names), "t": t.tolist(),
+           "valid_fraction": [float(m.float().mean()) for m in batch["valid_mask"]],
+           "seconds": time.perf_counter() - t0}
+    del models, trainable, params, g_b, g_s, split, loss_fn, counts
+    gc_cuda()
+    return rec
+
+
+def dp_rank_main(args: list) -> None:
+    """One rank under torchrun (``python3 chip_smoke.py dp_rank JOBS``): the
+    jobs of the JSON file JOBS ({"ckpt", "jobs"}) in order, each {"name",
+    "kind", "precision", "argv", ...} through cli/train.py on cuda:0. A "solo" job is a one-process
+    reference: rank 0 runs it with no process group while the others wait;
+    the solo jobs come first. The "ranks" jobs run on every rank in one
+    gloo group from torchrun's environment, started once (the CLI uses the
+    group it finds). Rank 0 keeps
+    each run's parameters and first moments on the card, compares them
+    ("compare": a solo run; "equal": an earlier run; each dropped once
+    compared), deletes the run's
+    checkpoints as soon as it has read them (but the one "keep" names; the
+    machine's disk takes a few checkpoints, not all of them), and
+    writes <out>.rank<r>.json per job."""
+    import os
+
+    from genpercept_tpu_torch import parallel
+    from genpercept_tpu_torch.cli import train as train_cli
+    from genpercept_tpu_torch.io.weights import load_safetensors
+
+    rank = int(os.environ["RANK"])
+    spec = json.loads(Path(args[0]).read_text())
+    device = "cuda:0"
+    torch.cuda.set_device(0)
+    base, states = None, {}
+    for job in spec["jobs"]:
+        out, run = Path(job["out"]), Path(job["run"])
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = job["precision"] != "f32"
+        rec = {"rank": rank, "name": job["name"]}
+        if job["kind"] == "solo":
+            # before the group starts: a second group in one process hung
+            check(not parallel.is_distributed(), "dp: a solo job after the ranks' jobs")
+            if rank == 0:
+                reset_counts()
+                t0 = time.perf_counter()
+                trainer = train_cli.main([*job["argv"], "--device", device])
+                torch.cuda.synchronize()
+                rec.update(seconds=time.perf_counter() - t0, launches=launch_counts())
+                states[job["name"]] = dp_trained_state(trainer, True)
+                del trainer
+                shutil.rmtree(run / "checkpoint")
+                Path(f"{out}.rank0.json").write_text(json.dumps(rec))
+            else:
+                while not Path(f"{out}.rank0.json").is_file():
+                    time.sleep(1.0)
+            continue
+        parallel.init_distributed(multihost=True, backend="gloo")
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = train_cli.main([*job["argv"], "--multihost", "--device", device])
+        torch.cuda.synchronize()
+        rec.update(seconds=time.perf_counter() - t0, launches=launch_counts(),
+                   peak_bytes=torch.cuda.max_memory_allocated(),
+                   effective_iter=trainer.effective_iter,
+                   param_sum=sum(float(p.detach().double().sum())
+                                 for p in trainer.trainable.values()))
+        state = dp_trained_state(trainer, rank == 0)  # a collective under ZeRO-1
+        del trainer
+        gc_cuda()
+        if rank == 0:
+            states[job["name"]] = state
+            log = metrics_log(run)
+            rec["loss"] = log["train/loss"][-1][1] if "train/loss" in log else None
+            rec["terms"] = {t: v[-1][1] for t, v in log.items() if t.startswith("train/")}
+            if (job.get("compare") or job.get("equal")) and base is None:
+                base = {f"unet.{k}": v.to(device, torch.float32) for k, v in load_safetensors(
+                    str(Path(spec["ckpt"]) / "unet" /
+                        "diffusion_pytorch_model.safetensors")).items()}
+            if job.get("compare"):
+                rec.update(dp_compare(state, states.pop(job["compare"]), base, device))
+            if job.get("equal"):
+                other = states.pop(job["equal"])
+                rec["vs_equal"] = dp_compare(state, other, base, device)
+                rec["params_max_abs_diff"] = max(
+                    float((state["params"][k].to(device) - other["params"][k].to(device))
+                          .abs().max()) for k in other["params"])
+                rec["mu_max_abs_diff"] = max(
+                    float((state["mu"][k].to(device) - other["mu"][k].to(device)).abs().max())
+                    for k in other["mu"])
+                rec["mu_max"] = max(float(v.abs().max()) for v in other["mu"].values())
+                del other
+            rec["files"] = sorted(p.name for p in run.iterdir())
+            for name in ("final", "_old_final", "latest"):
+                if name != job.get("keep") and (run / "checkpoint" / name).exists():
+                    shutil.rmtree(run / "checkpoint" / name)
+        Path(f"{out}.rank{rank}.json").write_text(json.dumps(rec))
+        parallel.barrier()
+    parallel.shutdown()
+
+
+def dp_launch(ws: dict, jobs: list) -> tuple:
+    """The jobs (dp_rank_main's) under one torchrun of DP_WORLD ranks
+    (--standalone: a rendezvous on this host); returns {name: [the records
+    of the ranks that ran it]}, the ranks' output and the wall."""
+    root = ws["root"]
+    for job in jobs:
+        job["out"] = str(root / f"dp_{job['name']}")
+        job["argv"] = ["--config", str(job.pop("recipe")), "--checkpoint", str(ws["ckpt"]),
+                       "--base_data_dir", str(root / "data"), "--output_dir", job["run"],
+                       *job.get("argv", ())]
+    (root / "dp_jobs.json").write_text(json.dumps({"ckpt": str(ws["ckpt"]), "jobs": jobs}))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(DP_WORLD), str(Path(__file__).resolve()), "dp_rank", str(root / "dp_jobs.json")]
+    t0 = time.perf_counter()
+    log_path = root / "dp_ranks.log"
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen(cmd, stdout=log_file, stderr=subprocess.STDOUT,
+                                cwd=Path(__file__).resolve().parent)
+        try:
+            proc.wait(timeout=DP_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.terminate()  # torchrun stops its workers on SIGTERM
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    log = log_path.read_text()
+    print(log[-20000:], file=sys.stderr, flush=True)
+    check(proc.returncode == 0, f"dp: torchrun exited {proc.returncode}:\n{log[-3000:]}")
+    out = {}
+    for job in jobs:
+        ranks = [0] if job["kind"] == "solo" else range(DP_WORLD)
+        out[job["name"]] = [json.loads(Path(f"{job['out']}.rank{r}.json").read_text())
+                            for r in ranks]
+    return out, log, time.perf_counter() - t0
+
+
+def phase_data_parallel(ws: dict) -> dict:
+    """(x) cli/train.py data-parallel on the one card, under one torchrun:
+    the one-process reference (rank 0 alone, no process group) then two
+    gloo ranks on the same global micro-batch, in f32 with TF32 off (loss
+    and gradient held, the update reported) and in the recipe's bf16
+    (reported); --zero1 (the same step, the whole Adam state gathered for
+    its checkpoint); rank 0's run directory and validation; both ranks
+    resumed from the ZeRO-1 run's checkpoint. Exact launches a rank. The
+    batch split's own rounding is read first in this process
+    (dp_split_witness)."""
+    t_phase = time.perf_counter()
+    root, data = ws["root"], ws["data"]
+    accum = DP_EFF // DP_WORLD
+    recipes, cfgs = {}, {}
+    for name, micro, f32, save, val in (("one_f32", DP_WORLD, True, 0, 0),
+                                        ("two_f32", 1, True, 0, 1),
+                                        ("zero1", 1, True, 0, 0),
+                                        ("one_bf16", DP_WORLD, False, 0, 0),
+                                        ("two_bf16", 1, False, 0, 0)):
+        recipes[name] = root / f"dp_{name}.yaml"
+        cfgs[name] = cfg = write_dp_recipe(recipes[name], data, micro, f32, 1, save, val)
+    witness = dp_split_witness(ws, cfgs["one_f32"])
+    emit({"phase": "data_parallel", "step": "split_witness", **witness})
+    check(witness["loss_rel_diff"] <= DP_LOSS_TOL, f"dp witness: loss {witness}")
+    gc_cuda()  # the ranks share the card with this process
+    train = cfg["dataset"]["train"]
+    sizes = [TE_SAMPLES["hypersim"], TE_SAMPLES["vkitti"]]
+    first = next(iter(MixedBatchSampler(
+        [range(n) for n in sizes], batch_size=DP_EFF, prob=train["prob_ls"],
+        generator=np.random.default_rng(cfg["trainer"]["init_seed"]))))
+    check(all(i < sizes[0] for i in first), "the first step does not draw Hypersim")
+    served = served_launches(TRAIN_HW)
+    per_rank = {k: accum * n for k, n in train_step_launches(TRAIN_HW, 1, True).items()}
+    with_val = {k: n + TE_SAMPLES["val"] * served[k] for k, n in per_rank.items()}
+    one_expect = {k: accum * n for k, n in train_step_launches(TRAIN_HW, DP_WORLD, True).items()}
+    run = {n: str(root / n) for n in ("one_f32", "two_f32", "zero1", "one_bf16", "two_bf16")}
+    recs, log, wall = dp_launch(ws, [
+        {"name": "one_f32", "kind": "solo", "precision": "f32", "recipe": recipes["one_f32"],
+         "run": run["one_f32"]},
+        {"name": "one_bf16", "kind": "solo", "precision": "bf16", "recipe": recipes["one_bf16"],
+         "run": run["one_bf16"]},
+        {"name": "two_f32", "kind": "ranks", "precision": "f32", "recipe": recipes["two_f32"],
+         "run": run["two_f32"], "compare": "one_f32"},
+        {"name": "zero1", "kind": "ranks", "precision": "f32", "recipe": recipes["zero1"],
+         "run": run["zero1"], "argv": ["--zero1"], "equal": "two_f32", "keep": "final"},
+        {"name": "resumed", "kind": "ranks", "precision": "f32", "recipe": recipes["zero1"],
+         "run": run["zero1"], "argv": ["--zero1", "--resume_run", "final"], "equal": "zero1"},
+        {"name": "two_bf16", "kind": "ranks", "precision": "bf16", "recipe": recipes["two_bf16"],
+         "run": run["two_bf16"], "compare": "one_bf16"}])
+    out: dict = {"torchrun_wall_s": wall}
+    for precision in ("f32", "bf16"):
+        one, two = recs[f"one_{precision}"][0], recs[f"two_{precision}"]
+        log_one = metrics_log(Path(run[f"one_{precision}"]))
+        loss_one = log_one["train/loss"][0][1]
+        loss_two = two[0]["loss"]
+        terms = {t: {"one": v[0][1], "two": two[0]["terms"].get(t)} for t, v in log_one.items()
+                 if t.startswith("train/")}
+        rec = {"phase": "data_parallel", "step": precision, "world": DP_WORLD,
+               "micro_per_rank": 1, "global_micro": DP_WORLD, "accum": accum,
+               "loss_one": loss_one, "loss_two": loss_two,
+               "loss_rel_diff": abs(loss_two - loss_one) / abs(loss_one), "terms": terms,
+               **{k: two[0][k] for k in ("grad_rel_l2", "update_rel_l2", "params_compared",
+                                         "params")},
+               "one_process": one, "ranks": two}
+        out[precision] = rec
+        emit(rec)
+        check(one["launches"] == one_expect, f"dp one {precision}: launches {one['launches']}")
+        want = [with_val if precision == "f32" else per_rank, per_rank]
+        check([r["launches"] for r in two] == want,
+              f"dp two {precision}: launches {[r['launches'] for r in two]} != {want}")
+        check(two[0]["param_sum"] == two[1]["param_sum"],
+              f"dp two {precision}: the ranks' parameters differ")
+        check(math.isfinite(loss_two) and all(r["effective_iter"] == 1 for r in two),
+              f"dp two {precision}: {loss_two}, {two}")
+    check(out["f32"]["loss_rel_diff"] <= DP_LOSS_TOL,
+          f"dp f32: loss {out['f32']['loss_two']} against one process's "
+          f"{out['f32']['loss_one']}")
+    out["f32"]["grad_witness_rel_l2"] = witness["grad_rel_l2"]
+    # the witness rebuilt the one-process step: the same loss
+    wl = abs(witness["loss_batched"] - out["f32"]["loss_one"]) / abs(out["f32"]["loss_one"])
+    out["f32"]["witness_loss_rel_diff"] = wl
+    check(wl <= DP_LOSS_TOL, f"dp witness: loss {witness['loss_batched']} against the one "
+          f"process's {out['f32']['loss_one']}")
+    check(out["f32"]["grad_rel_l2"] <= min(DP_GRAD_TOL, DP_GRAD_WITNESS_X * witness["grad_rel_l2"]),
+          f"dp f32: gradient {out['f32']['grad_rel_l2']} from one process's (the batch "
+          f"split's witness {witness['grad_rel_l2']})")
+    out["f32"]["update_witness_rel_l2"] = witness["update_rel_l2"]
+    check(out["f32"]["update_rel_l2"] <= DP_UPDATE_WITNESS_X * witness["update_rel_l2"],
+          f"dp f32: update {out['f32']['update_rel_l2']} from one process's (the batch "
+          f"split's witness {witness['update_rel_l2']})")
+    # rank 0's run directory: one writer, validation at step 1
+    two_dir = Path(run["two_f32"])
+    files = recs["two_f32"][0]["files"]
+    log_text = (two_dir / "logging.log").read_text()
+    val = metrics_log(two_dir).get("val/hypersim/abs_relative_difference", [])
+    z, r = recs["zero1"], recs["resumed"]
+    rec_z = {"phase": "data_parallel", "step": "zero1_files_resume",
+             "zero1_update_rel_l2_vs_plain": z[0]["vs_equal"]["update_rel_l2"],
+             "plain_update_rel_l2_vs_one": out["f32"]["update_rel_l2"],
+             "zero1_params_max_abs_diff_vs_plain": z[0]["params_max_abs_diff"],
+             "zero1_mu_max_abs_diff_vs_plain": z[0]["mu_max_abs_diff"],
+             "zero1_mu_max": z[0]["mu_max"], "zero1_ranks": z,
+             "resumed_ranks": r, "resumed_lines": log.count("resumed at iter 1"),
+             "rank0_files": files, "val_steps": [v[0] for v in val],
+             "logging_ranks": [f"rank={i}/{DP_WORLD}" in log_text for i in range(DP_WORLD)]}
+    emit(rec_z)
+    for f in ("config.yaml", "code_snapshot.tar.gz", "metrics.jsonl", "logging.log",
+              "checkpoint"):
+        check(f in files, f"dp: rank 0 wrote no {f}")
+    check(rec_z["val_steps"] == [1], f"dp: validation at {rec_z['val_steps']}")
+    check(rec_z["logging_ranks"] == [True] + [False] * (DP_WORLD - 1),
+          f"dp: logging.log holds other ranks' lines {rec_z['logging_ranks']}")
+    check(z[0]["mu_max_abs_diff"] <= DP_ZERO1_MU_REL * z[0]["mu_max"]
+          and rec_z["zero1_update_rel_l2_vs_plain"] <= DP_ZERO1_UPDATE_REL,
+          f"dp --zero1: update {rec_z['zero1_update_rel_l2_vs_plain']} (global relative L2), "
+          f"moments {z[0]['mu_max_abs_diff']} of {z[0]['mu_max']} from plain data parallel")
+    check(z[0]["param_sum"] == z[1]["param_sum"], f"dp --zero1: the ranks' parameters differ {z}")
+    check([x["launches"] for x in z] == [per_rank, per_rank],
+          f"dp --zero1 launches {[x['launches'] for x in z]}")
+    check(all(x["effective_iter"] == 1 and x["param_sum"] == z[0]["param_sum"]
+              and not any(x["launches"].values()) for x in r)
+          and r[0]["params_max_abs_diff"] == 0.0 and r[0]["mu_max_abs_diff"] == 0.0
+          and rec_z["resumed_lines"] == DP_WORLD,
+          f"dp resume: {r}, {rec_z['resumed_lines']} ranks resumed")
+    for d in run.values():
+        shutil.rmtree(d, ignore_errors=True)
+    summary = {"phase": "data_parallel", "step": "summary",
+               **{p: {k: out[p][k] for k in ("loss_rel_diff", "grad_rel_l2", "update_rel_l2")}
+                  for p in ("f32", "bf16")},
+               "split_witness": {k: witness[k] for k in ("loss_rel_diff", "grad_rel_l2",
+                                                           "update_rel_l2")},
+               "witness_loss_vs_one": out["f32"]["witness_loss_rel_diff"],
+               "zero1_update_rel_l2_vs_plain": rec_z["zero1_update_rel_l2_vs_plain"],
+               "bars": {"loss": DP_LOSS_TOL, "grad": DP_GRAD_TOL,
+                        "grad_witness_x": DP_GRAD_WITNESS_X,
+                        "update_witness_x": DP_UPDATE_WITNESS_X,
+                        "zero1_update": DP_ZERO1_UPDATE_REL, "zero1_mu": DP_ZERO1_MU_REL},
+               "rank_peak_gb": [x["peak_bytes"] / 1e9 for x in recs["two_f32"]],
+               "torchrun_wall_s": wall, "seconds": time.perf_counter() - t_phase}
+    emit(summary)
+    return summary
+
+
 def kernel_record(name, source, replaces, launches, max_abs_err, ms, plain_ms, bd: Bound,
                   library_ms):
     return {"name": name, "route": "cuda", "source": f"genpercept_tpu_torch/csrc/{source}",
@@ -3830,34 +4598,51 @@ def kernel_record(name, source, replaces, launches, max_abs_err, ms, plain_ms, b
             "library_ms": library_ms}
 
 
+WALLS: dict = {}  # phase -> wall seconds
+
+
+def timed(name: str, fn, *args, **kwargs):
+    """fn(*args, **kwargs), its wall seconds printed on a line of their own
+    and kept in WALLS."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    WALLS[name] = time.perf_counter() - t0
+    emit({"phase_wall": name, "seconds": WALLS[name]})
+    return out
+
+
 def main() -> None:
-    name = phase_device()
-    phase_build()
+    t_start = time.perf_counter()
+    name = timed("device", phase_device)
+    timed("build", phase_build)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    k1 = phase_k1(gen)
-    k2 = phase_k2(gen)
-    unet, vae, clip = build_models(gen)
-    sl = phase_slice(unet, vae, clip)
-    k34 = phase_k34(gen)
-    tr = phase_train(unet, vae, clip)
+    k1 = timed("k1", phase_k1, gen)
+    k2 = timed("k2", phase_k2, gen)
+    unet, vae, clip = timed("build_models", build_models, gen)
+    sl = timed("slice", phase_slice, unet, vae, clip)
+    k34 = timed("k34", phase_k34, gen)
+    tr = timed("train", phase_train, unet, vae, clip)
     f32, bf16 = torch.float32, torch.bfloat16
-    k5 = phase_k5()
-    k6 = phase_k6()
-    i8 = phase_int8_slice(unet, vae, clip, sl[bf16]["img_per_s"])
-    k8 = phase_k8()
-    k7 = phase_k7()
-    fv = phase_fused_slice(unet, vae, clip, sl)
-    phase_k2_wide()
-    phase_k6_d64()
-    s14 = phase_s14()
-    paths = phase_scripts()
-    phase_checkpoint_cli()
-    phase_marigold()
-    phase_serve()
+    k5 = timed("k5", phase_k5)
+    k6 = timed("k6", phase_k6)
+    i8 = timed("int8_slice", phase_int8_slice, unet, vae, clip, sl[bf16]["img_per_s"])
+    k8 = timed("k8", phase_k8)
+    k7 = timed("k7", phase_k7)
+    fv = timed("fused_slice", phase_fused_slice, unet, vae, clip, sl)
+    timed("k2_wide", phase_k2_wide)
+    timed("k6_d64", phase_k6_d64)
+    s14 = timed("s14", phase_s14)
+    paths = timed("scripts", phase_scripts)
+    timed("checkpoint_cli", phase_checkpoint_cli)
+    timed("marigold", phase_marigold)
+    timed("serve", phase_serve)
     with tempfile.TemporaryDirectory() as tmp:
-        ws = te_workspace(Path(tmp))
-        phase_train_eval(tr["run"]["ms_per_step"], ws)
-        phase_train_extras(ws)
+        ws = timed("te_workspace", te_workspace, Path(tmp))
+        timed("train_eval", phase_train_eval, tr["run"]["ms_per_step"], ws)
+        timed("train_extras", phase_train_extras, ws)
+        timed("int8_extras", phase_int8_extras, ws)
+        timed("data_parallel", phase_data_parallel, ws)
+    emit({"phase_walls": WALLS, "total_seconds": time.perf_counter() - t_start})
     # per 768^2 image (K1, K2: f32), per recipe micro-step (K3, K4: bf16),
     # per 768^2 forward of batch 2 (K5, K6, K8: bf16), per pass of K7's path
     # over its five shapes at batch 2 (bf16)
@@ -3907,4 +4692,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["dp_rank"]:  # one rank of phase_data_parallel, under torchrun
+        dp_rank_main(sys.argv[2:])
+    else:
+        main()

@@ -10,7 +10,9 @@ depth, 8-bit otherwise), <name>_pred_colored.png where the task has a
 color map and <name>_pred_uncert.npy when an ensemble ran. The marigold
 arch draws each image's initial noise from a generator seeded with
 ``--seed`` (0 by default), the same draw for every image. Runs on the card
-unless ``--device cpu`` is given.
+unless ``--device cpu`` is given; ``--data_parallel`` (batched mode only,
+as in the JAX package) splits every batch between all visible GPUs, one
+replica of the models on each.
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="0 = single-image loop; >0 = batches of that size; -1 = "
                         "the largest measured to fit one H100 80GB")
     p.add_argument("--data_parallel", action="store_true",
-                   help="one batch over all local GPUs (not ported)")
+                   help="every batch split between all visible GPUs (needs --batch_size != 0)")
     p.add_argument("--int8_vae", action="store_true",
                    help="W8A8 int8 VAE convs, calibrated on the first batch")
     p.add_argument("--int8_unet", action="store_true",
@@ -73,9 +75,20 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args) -> None:
-    if args.data_parallel:
-        raise NotImplementedError("--data_parallel is not ported (ROADMAP Queue 1 item 11)")
+def _devices(args) -> list:
+    """Every visible GPU with --data_parallel on the card (an unindexed
+    --device cuda), else --device alone."""
+    import torch
+
+    device = torch.device(args.device)
+    if args.data_parallel and args.batch_size == 0:
+        raise ValueError("--data_parallel needs batched mode (--batch_size != 0)")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("cli/run.py runs on the card by default and no CUDA device is "
+                           "available; pass --device cpu")
+    if args.data_parallel and device.type == "cuda" and device.index is None:
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [device]
 
 
 def main(argv=None):
@@ -87,7 +100,7 @@ def main(argv=None):
 
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    _refuse_unported(args)
+    devices = _devices(args)
     if args.archs == "genpercept":
         # genpercept forces one step, no ensemble (reference run.py:209-211)
         args.denoise_steps, args.ensemble_size = 1, 1
@@ -95,7 +108,7 @@ def main(argv=None):
     dtype = torch.bfloat16 if args.half_precision else torch.float32
     models = load_genpercept_checkpoint(args.checkpoint, dtype=dtype,
                                         base_ckpt_dir=args.base_ckpt_dir,
-                                        device=args.device)
+                                        device=devices[0])
     cfg = PipelineConfig(
         mode=args.mode,
         arch=args.archs,
@@ -113,7 +126,8 @@ def main(argv=None):
             "int8_exclude": () if args.int8_exclude == "none"
             else tuple(s for s in args.int8_exclude.split(",") if s)}),
     )
-    pipe = GenPerceptPipeline(models, cfg, device=args.device)
+    pipe = (GenPerceptPipeline(models, cfg, devices=devices) if args.data_parallel
+            else GenPerceptPipeline(models, cfg, device=devices[0]))
     if args.int8_calibration and osp.exists(args.int8_calibration):
         pipe.load_calibration(args.int8_calibration)
         logging.info(f"loaded int8 calibration from {args.int8_calibration}")

@@ -4,17 +4,30 @@
         --base_data_dir $BASE_DATA_DIR --checkpoint /path/to/sd21 \
         --output_dir out/ [--resume_run latest] [--bf16_masters] [--device cuda]
 
-Counterpart of ``genpercept_tpu/cli/train.py`` on one device, with its flags
-and ``--device``: the merged recipe (``resolve_train_config``), config.yaml
+Counterpart of ``genpercept_tpu/cli/train.py``, with its flags and
+``--device``: the merged recipe (``resolve_train_config``), config.yaml
 and a code snapshot in the run directory, the optional wandb run, the
 effective batch as grad accumulation, the mixed train loader and the
 val/vis loaders over the dataset readers, the model-surgery ablation axes
 (``apply_model_overrides``: from-scratch parts, a fresh DPT head, a text
-prompt), marigold's 8-channel conv_in, the Trainer and its resume. Runs on the card
-unless ``--device cpu`` is given. More than one device is not ported
-(ROADMAP Queue 1 item 11): ``--data_parallel`` takes -1 or 1, and
-``--model_parallel`` > 1, ``--zero1``, ``--coordinator_address`` and
-``--multihost`` raise.
+prompt), marigold's 8-channel conv_in, the Trainer and its resume. Runs on
+the card unless ``--device cpu`` is given.
+
+Data parallel across processes (``parallel/``), one process a device:
+
+    torchrun --nproc_per_node N -m genpercept_tpu_torch.cli.train ... --multihost
+    python -m genpercept_tpu_torch.cli.train ... --coordinator_address HOST:PORT \
+        --num_processes N --process_id I
+
+Each rank runs on cuda:<local rank> (or the device ``--device`` names
+with an index), iterates the same seeded sampler stream over global
+batches of max_train_batch_size x N x accum and loads its slice; the
+effective batch sets accum = effective_batch_size / (max_train_batch_size
+x N). ``--data_parallel`` -1 takes every rank; another value must equal
+their count. NCCL on the card, gloo on the CPU. ``--zero1`` shards the
+Adam moments.
+Tensor parallelism, ``--model_parallel`` > 1, raises (ROADMAP Queue 1
+item 12).
 """
 
 from __future__ import annotations
@@ -61,16 +74,20 @@ def build_parser():
                    help="mirror metrics to wandb (requires the wandb package; "
                         "tensorboard scalars sync via sync_tensorboard)")
     p.add_argument("--data_parallel", type=int, default=-1,
-                   help="data-parallel devices (-1: all; only one device is ported)")
-    p.add_argument("--model_parallel", type=int, default=1, help="only 1 is ported")
+                   help="data-parallel ranks (-1: every process; another value must equal "
+                        "their count)")
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="tensor parallelism: only 1 is ported")
     p.add_argument("--zero1", action="store_true",
-                   help="shard optimizer state across data-parallel ranks (not ported)")
+                   help="shard the optimizer state across the data-parallel ranks (ZeRO-1; "
+                        "the reference's DeepSpeed hook, accelerate_train.py:198-202)")
     p.add_argument("--coordinator_address", default=None,
-                   help="host:port of process 0 of a multi-host run (not ported)")
+                   help="host:port of process 0: start the process group with "
+                        "--num_processes and --process_id")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host run with auto-detection (not ported)")
+                   help="start the process group from torchrun's or SLURM's environment")
     p.add_argument("--bf16_masters", action="store_true",
                    help="keep the TRAINABLE master weights (and Adam's second moment, "
                         "which takes their dtype) in bf16")
@@ -79,18 +96,33 @@ def build_parser():
 
 
 def _refuse_unported(args) -> None:
-    """More than one device (ROADMAP Queue 1 item 11)."""
-    unported = []
-    if args.data_parallel not in (-1, 1):
-        unported.append(f"--data_parallel {args.data_parallel}")
+    """Tensor parallelism (ROADMAP Queue 1 item 12)."""
     if args.model_parallel != 1:
-        unported.append(f"--model_parallel {args.model_parallel}")
-    unported += [flag for flag, on in (("--zero1", args.zero1),
-                                       ("--coordinator_address", args.coordinator_address),
-                                       ("--multihost", args.multihost)) if on]
-    if unported:
-        raise NotImplementedError(f"{', '.join(unported)}: more than one device is not "
-                                  "ported (ROADMAP Queue 1 item 11)")
+        raise NotImplementedError(f"--model_parallel {args.model_parallel}: tensor parallelism "
+                                  "is not ported (ROADMAP Queue 1 item 12)")
+
+
+def _rank_device(args, world: int) -> torch.device:
+    """This rank's device: --device, or with more than one rank and no
+    index on a cuda --device, cuda:<local rank>. Refuses a card that is
+    not there, and a --data_parallel other than the rank count."""
+    from genpercept_tpu_torch import parallel
+
+    if args.data_parallel not in (-1, world):
+        raise ValueError(f"--data_parallel {args.data_parallel} with {world} process(es): "
+                         "start one process per data-parallel rank")
+    device = torch.device(args.device)
+    if device.type != "cuda":
+        return device
+    if not torch.cuda.is_available():
+        raise RuntimeError("cli/train.py trains on the card by default and no CUDA device is "
+                           "available; pass --device cpu")
+    if device.index is None and world > 1:
+        device = torch.device("cuda", parallel.local_rank())
+    if (device.index or 0) >= torch.cuda.device_count():
+        raise RuntimeError(f"{device} is not there: {torch.cuda.device_count()} visible "
+                           "card(s)")
+    return device
 
 
 def resolve_train_config(cfg, grad_accum_steps: int = 1, mode: str = None) -> TrainConfig:
@@ -219,6 +251,7 @@ def main(argv=None):
     import numpy as np
     import yaml
 
+    from genpercept_tpu_torch import parallel
     from genpercept_tpu_torch.data import DatasetMode, MixedBatchSampler, get_dataset
     from genpercept_tpu_torch.data.sampler import ConcatDataset, DataLoader
     from genpercept_tpu_torch.data.transforms import get_depth_normalizer
@@ -235,41 +268,50 @@ def main(argv=None):
 
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("cli/train.py trains on the card by default and no CUDA device is "
-                           "available; pass --device cpu")
+    # the process group before any CUDA work
+    started = parallel.init_distributed(
+        args.coordinator_address, args.num_processes, args.process_id, args.multihost,
+        device_type=torch.device(args.device).type)
+    world, rank = parallel.world(), parallel.rank()
+    device = _rank_device(args, world)
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)
     cfg = recursive_load_config(args.config)
-    config_logging(cfg.get("logging"), out_dir=args.output_dir)
+    # run artifacts are rank 0's: the others would write the same files
+    main_rank = rank == 0
+    config_logging(cfg.get("logging"), out_dir=args.output_dir if main_rank else None)
     logging.info(f"config: {args.config}")
 
     # the merged config for resume, and a snapshot of the code tree
     # (accelerate_train.py:268-282)
     os.makedirs(args.output_dir, exist_ok=True)
-    with open(os.path.join(args.output_dir, "config.yaml"), "w") as f:
-        yaml.safe_dump(dict(cfg), f)
-    if not args.resume_run:
-        pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-        with tarfile.open(os.path.join(args.output_dir, "code_snapshot.tar.gz"), "w:gz") as tar:
-            tar.add(pkg_root, arcname="genpercept_tpu_torch")
-    # wandb stays off unless asked for (the reference forces it off,
-    # accelerate_train.py:139-140); metrics.jsonl is the primary stream
-    wandb_run = init_wandb(
-        args.wandb, project="genpercept_tpu", dir=args.output_dir,
-        id=load_wandb_job_id(args.output_dir) if args.resume_run else None,
-        resume="allow" if args.resume_run else None)
-    if wandb_run is not None and args.wandb:
-        save_wandb_job_id(wandb_run, args.output_dir)
+    if main_rank:
+        with open(os.path.join(args.output_dir, "config.yaml"), "w") as f:
+            yaml.safe_dump(dict(cfg), f)
+        if not args.resume_run:
+            pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+            with tarfile.open(os.path.join(args.output_dir, "code_snapshot.tar.gz"),
+                              "w:gz") as tar:
+                tar.add(pkg_root, arcname="genpercept_tpu_torch")
+        # wandb stays off unless asked for (the reference forces it off,
+        # accelerate_train.py:139-140); metrics.jsonl is the primary stream
+        wandb_run = init_wandb(
+            args.wandb, project="genpercept_tpu", dir=args.output_dir,
+            id=load_wandb_job_id(args.output_dir) if args.resume_run else None,
+            resume="allow" if args.resume_run else None)
+        if wandb_run is not None and args.wandb:
+            save_wandb_job_id(wandb_run, args.output_dir)
 
     seed = args.seed if args.seed is not None else cfg.get("trainer", {}).get("init_seed", 0)
     seed_all(seed)
 
-    # effective batch -> grad accumulation on one device
+    # effective batch -> grad accumulation over the ranks
     # (accelerate_train.py:180-184)
     eff_bs = cfg.get_path("dataloader.effective_batch_size", 32)
     max_bs = cfg.get_path("dataloader.max_train_batch_size", 2)
-    accum = max(int(eff_bs / max_bs), 1)
-    logging.info(f"device={device} eff_bs={eff_bs} per_step_bs={max_bs} grad_accum={accum}")
+    accum = max(int(eff_bs / (max_bs * world)), 1)
+    logging.info(f"device={device} rank={rank}/{world} eff_bs={eff_bs} "
+                 f"per_step_bs={max_bs * world} grad_accum={accum}")
 
     mode = cfg.get_path("pipeline.kwargs.mode", cfg.get("mode", "depth"))
     # each dataset's own resize_to_hw reaches its reader through get_dataset
@@ -279,9 +321,12 @@ def main(argv=None):
         augmentation_args=cfg.get("augmentation"))
     if not isinstance(datasets, list):
         datasets = [datasets]
-    sampler = MixedBatchSampler(datasets, batch_size=max_bs * accum, prob=sampler_prob(cfg),
-                                generator=np.random.default_rng(seed))
-    train_loader = DataLoader(ConcatDataset(datasets), sampler)
+    # every rank iterates the same seeded stream of global batches and
+    # loads its slice of each
+    sampler = MixedBatchSampler(datasets, batch_size=max_bs * world * accum,
+                                prob=sampler_prob(cfg), generator=np.random.default_rng(seed))
+    train_loader = DataLoader(ConcatDataset(datasets), sampler,
+                              shard=(rank, world, accum) if world > 1 else None)
 
     def eval_loaders(key):
         out = {}
@@ -313,12 +358,15 @@ def main(argv=None):
         vis_period=cfg.get_path("trainer.visualization_period", 0),
         vis_loaders=eval_loaders("dataset.vis"),
         main_seed=seed,
+        zero1=args.zero1,
     )
     if args.resume_run:
         trainer.load_checkpoint(args.resume_run)
 
     t_end = time.time() + args.exit_after * 60 if args.exit_after > 0 else None
     trainer.train(t_end=t_end)
+    if started:
+        parallel.shutdown()
     return trainer
 
 

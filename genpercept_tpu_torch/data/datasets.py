@@ -164,6 +164,14 @@ class BaseDataset:
         rasters.update(other)
         return rasters
 
+    def skip(self, index) -> None:
+        """Draw what __getitem__(index) draws from self.rng, and load
+        nothing: a data-parallel rank passes over the samples of a global
+        batch that the other ranks load, so that its own samples get the
+        flips one process gives them."""
+        if self.mode == DatasetMode.TRAIN and self.augm_args is not None:
+            self.rng.random()
+
     # --------------------------------------------------------------- loading
 
     def _get_data_path(self, index):

@@ -1,11 +1,12 @@
 """Mixed-probability batch sampling and host data loading (numpy only).
 
-Copy of ``genpercept_tpu/data/sampler.py`` without the multi-host shard
-option (multi-device training is not ported). ``MixedBatchSampler``: every
+Copy of ``genpercept_tpu/data/sampler.py``. ``MixedBatchSampler``: every
 batch is drawn from one source dataset, the source chosen by multinomial
 probabilities (e.g. hypersim 0.9 / vkitti 0.1); exhausted sources regenerate
 their shuffled batch lists. ``DataLoader`` is a prefetching iterator that
-collates dict samples into stacked numpy batches.
+collates dict samples into stacked numpy batches; with ``shard`` it loads
+only a data-parallel rank's slice of each global batch
+(``shard_batch_indices``).
 """
 
 from __future__ import annotations
@@ -25,9 +26,18 @@ class ConcatDataset:
     def __len__(self):
         return int(self.offsets[-1])
 
-    def __getitem__(self, idx):
+    def _locate(self, idx):
         src = int(np.searchsorted(self.offsets, idx, side="right") - 1)
-        return self.datasets[src][idx - int(self.offsets[src])]
+        return self.datasets[src], idx - int(self.offsets[src])
+
+    def __getitem__(self, idx):
+        ds, i = self._locate(idx)
+        return ds[i]
+
+    def skip(self, idx) -> None:
+        """The source dataset's skip (its random draws for idx, no load)."""
+        ds, i = self._locate(idx)
+        ds.skip(i)
 
 
 class MixedBatchSampler:
@@ -100,13 +110,46 @@ def collate(samples: List[Dict]) -> Dict[str, np.ndarray]:
     return out
 
 
-class DataLoader:
-    """Background-thread prefetching loader over (dataset, batch_sampler)."""
+def _shard_positions(n: int, accum: int, world: int, rank: int) -> List[int]:
+    """The positions in a global flat batch of n that shard_batch_indices
+    keeps for ``rank``."""
+    micro_g = n // accum
+    assert micro_g * accum == n and micro_g % world == 0, (n, accum, world)
+    per = micro_g // world
+    return [a * micro_g + rank * per + j for a in range(accum) for j in range(per)]
 
-    def __init__(self, dataset, batch_sampler, prefetch: int = 2):
+
+def shard_batch_indices(
+    idx: List[int], accum: int, world: int, rank: int
+) -> List[int]:
+    """Per-process slice of one GLOBAL flat batch (data parallelism). The
+    flat batch has length accum * micro_global and is read as (accum,
+    micro_global, ...), so each process holds, within every accum chunk,
+    its contiguous micro-slice. All processes iterate the SAME seeded
+    sampler stream, so the global index sequence is identical everywhere
+    and slicing is deterministic."""
+    return [idx[p] for p in _shard_positions(len(idx), accum, world, rank)]
+
+
+class DataLoader:
+    """Background-thread prefetching loader over (dataset, batch_sampler).
+
+    ``shard=(rank, world, accum)`` makes this a data-parallel loader: the
+    sampler yields GLOBAL batches (the same stream on every process), and
+    only this process's slice is loaded, decoded and collated (see
+    shard_batch_indices). The dataset's ``skip`` is called for every other
+    sample of the global batch, in the batch's order, so that a dataset
+    which draws a random flip per sample gives each rank's samples the
+    flips one process draws for them. The reference's equivalent is
+    Accelerate's per-rank DataLoader sharding
+    (accelerate_train.py:186-196)."""
+
+    def __init__(self, dataset, batch_sampler, prefetch: int = 2,
+                 shard: Optional[tuple] = None):
         self.dataset = dataset
         self.batch_sampler = batch_sampler
         self.prefetch = prefetch
+        self.shard = shard
 
     def __len__(self):
         return len(self.batch_sampler)
@@ -124,15 +167,26 @@ class DataLoader:
         stop = object()
 
         def worker():
-            # exceptions (decode errors, collate shape mismatches) must
-            # reach the CONSUMER — a silently dead worker
+            # exceptions (decode errors, collate shape mismatches, shard
+            # asserts) must reach the CONSUMER — a silently dead worker
             # would end iteration cleanly and turn a data bug into an
             # infinite zero-batch training loop
             try:
                 for bi, batch_idx in enumerate(self.batch_sampler):
                     if bi < skip_n:
                         continue
-                    q.put(collate([self.dataset[i] for i in batch_idx]))
+                    if self.shard is None:
+                        q.put(collate([self.dataset[i] for i in batch_idx]))
+                        continue
+                    rank, world, accum = self.shard
+                    mine = set(_shard_positions(len(batch_idx), accum, world, rank))
+                    samples = []
+                    for p, i in enumerate(batch_idx):
+                        if p in mine:
+                            samples.append(self.dataset[i])
+                        else:
+                            self.dataset.skip(i)
+                    q.put(collate(samples))
             except BaseException as e:  # noqa: BLE001 — re-raised in consumer
                 q.put(e)
             finally:

@@ -1,16 +1,18 @@
 """Batched evaluation harness.
 
-Counterpart of ``genpercept_tpu/eval/harness.py`` on one device. Eval
-datasets have fixed raster sizes (NYU 480x640, the KITTI crop 352x1216,
-...), so whole batches go through the pipeline step at the dataset's
-raster, then the closed-form least-squares alignment, the clips and all 10
-metrics on the models' device; the reference evaluates one sample at a time
-with numpy lstsq (``cli/eval.py``).
+Counterpart of ``genpercept_tpu/eval/harness.py``. Eval datasets have
+fixed raster sizes (NYU 480x640, the KITTI crop 352x1216, ...), so whole
+batches go through the pipeline step at the dataset's raster, then the
+closed-form least-squares alignment, the clips and all 10 metrics on the
+models' device; the reference evaluates one sample at a time with numpy
+lstsq (``cli/eval.py``). With ``devices`` (the counterpart of JAX's
+``mesh=``) each batch's forward is split between a replica of the models
+on each device, and the metrics run on the first over the whole batch.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -18,15 +20,21 @@ import torch
 from genpercept_tpu_torch.eval.alignment import align_depth_least_square_torch
 from genpercept_tpu_torch.eval.metrics import METRIC_FUNCS
 from genpercept_tpu_torch.ops.resize import resize
-from genpercept_tpu_torch.pipeline import PipelineConfig, build_single_infer
+from genpercept_tpu_torch.pipeline import GenPerceptPipeline, PipelineConfig, build_single_infer
 
 
 def build_eval_step(models, pipe_cfg: PipelineConfig, min_depth: float,
-                    max_depth: float, alignment: str = "least_square"):
+                    max_depth: float, alignment: str = "least_square",
+                    devices: Optional[List] = None):
     """Returns eval_step(rgb01, gt, valid) -> {metric: 0-dim tensor, the
     batch's mean}; rgb01 (B, H, W, 3) in [0, 1], gt (B, H', W') metric depth
-    and valid (B, H', W') bool, all on the models' device."""
-    infer = build_single_infer(models, pipe_cfg)
+    and valid (B, H', W') bool, all on the models' device. ``devices``: the
+    forward runs data-parallel over them (GenPerceptPipeline's split), the
+    models on the first."""
+    if devices and len(devices) > 1:
+        infer = GenPerceptPipeline(models, pipe_cfg, devices=devices)._forward
+    else:
+        infer = build_single_infer(models, pipe_cfg)
     max_d = float(min(max_depth, 1e8))
 
     @torch.no_grad()
@@ -60,12 +68,16 @@ def evaluate_dataset(
     dtype: torch.dtype = torch.bfloat16,
     limit: Optional[int] = None,
     device: torch.device | str = "cuda",
+    devices: Optional[List] = None,
 ) -> Dict[str, float]:
     """The eval protocol over ``dataset`` (EVAL mode items) in batches of
     ``batch_size``, each batch weighted by its sample count. ``models`` must
     already be on ``device``, the card unless the caller asks for the CPU.
     ``processing_res`` is recorded in the pipeline config as the JAX harness
-    does; the step runs at the dataset's raster."""
+    does; the step runs at the dataset's raster. ``devices`` (the first one
+    the models' device) splits each batch's forward between them."""
+    if devices:
+        device = devices[0]
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("evaluate_dataset runs on the card by default and no CUDA device "
@@ -75,7 +87,8 @@ def evaluate_dataset(
                          f"for {device}")
     pipe_cfg = PipelineConfig(mode=mode, processing_res=processing_res,
                               match_input_res=False, dtype=dtype)
-    step = build_eval_step(models, pipe_cfg, dataset.min_depth, dataset.max_depth, alignment)
+    step = build_eval_step(models, pipe_cfg, dataset.min_depth, dataset.max_depth, alignment,
+                           devices=devices)
 
     totals: Dict[str, float] = {k: 0.0 for k in METRIC_FUNCS}
     n_samples = 0

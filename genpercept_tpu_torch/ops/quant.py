@@ -23,16 +23,24 @@ im2col matrix times the weight matrix, taken in row chunks. The int32 sums
 are exact, so they equal the JAX package's s8 convolution's. These are
 library products, as the JAX package left them to XLA; the kernels of the
 int8 path are K5 (``ops/fused_ff.py``) and K6 (``ops/flash_attention.py``).
+
+GPTQ (``gptq_round``) rounds the weights with error compensation against
+the calibrated code-domain input Gram of each layer (``conv_input_hessian``,
+``dense_input_hessian``), calibration-time work in PyTorch; the
+``make_fakequant_conv_fn`` hooks simulate one side of the quantization in
+full precision, to attribute the int8 error to weights or activations.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Callable, Dict, Optional, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from genpercept_tpu_torch.ops.attention import attention_projection
 from genpercept_tpu_torch.ops.conv import conv2d, nearest_up2_conv3x3
@@ -170,12 +178,33 @@ def merge_stats(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]) -> Dict[
     return out
 
 
-def calibrate_chunked(calib_fn: Callable, rgb: torch.Tensor, *extra, chunk: int = 4):
+# the calibration record's entries that average over chunks
+SIDE_CHANNELS = ("corr", "hess")
+
+
+def _moved(tree, device: torch.device):
+    """A tensor, or nested dicts of them, on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _moved(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def calibrate_chunked(calib_fn: Callable | Sequence[Callable], rgb: torch.Tensor, *extra,
+                      chunk: int = 4):
     """Run calib_fn(rgb[lo:hi], *extra[lo:hi]) -> (pred, stats) over batch
     chunks and merge, as the JAX package does: range stats union across
-    chunks, the bias-correction residuals ("corr") average weighted by chunk
-    size, predictions concatenate. The merged stats depend on the chunking.
-    extra tensors are sliced in step with rgb; None passes through."""
+    chunks; the side channels, bias-correction residuals ("corr") and GPTQ
+    input Grams ("hess"), {group: {path: tensor}} each, average weighted by
+    chunk size apart from the range merge; predictions concatenate. The
+    merged stats depend on the chunking. extra tensors are sliced in step
+    with rgb; None passes through.
+
+    ``calib_fn`` may be a list, one function a device (data parallelism):
+    the chunks then run in rounds, one a function, each round's functions
+    at once in threads, and their results are moved to rgb's device and
+    merged one at a time in the chunks' order, so the merged record is the
+    one a single function gives over the same chunks."""
+    fns = list(calib_fn) if isinstance(calib_fn, (list, tuple)) else [calib_fn]
     b = rgb.shape[0]
     chunk = max(1, min(chunk, b))
 
@@ -184,27 +213,135 @@ def calibrate_chunked(calib_fn: Callable, rgb: torch.Tensor, *extra, chunk: int 
             return merge_stats(x, y)
         return merge_stats({"_": x}, {"_": y})["_"]
 
-    preds, merged, corr_sum, n_images = [], None, None, 0
-    for lo in range(0, b, chunk):
+    def run(i, lo):
         hi = min(lo + chunk, b)
         sliced = tuple(e[lo:hi] if isinstance(e, torch.Tensor) and e.ndim > 0 else e
                        for e in extra)
-        pred, stats = calib_fn(rgb[lo:hi], *sliced)
+        return fns[i](rgb[lo:hi], *sliced)
+
+    def results():
+        """(lo, (pred, stats)) of every chunk, in order, on rgb's device."""
+        starts = list(range(0, b, chunk))
+        if len(fns) == 1:
+            for lo in starts:
+                yield lo, run(0, lo)
+            return
+        with ThreadPoolExecutor(max_workers=len(fns)) as pool:
+            for r in range(0, len(starts), len(fns)):
+                futures = [(lo, pool.submit(run, i, lo))
+                           for i, lo in enumerate(starts[r:r + len(fns)])]
+                for lo, fut in futures:
+                    pred, stats = fut.result()
+                    yield lo, (pred.to(rgb.device), _moved(stats, rgb.device))
+                del futures
+
+    preds, merged, n_images = [], None, 0
+    sums: Dict[str, Dict] = {}
+    for lo, (pred, stats) in results():
+        hi = min(lo + chunk, b)
         preds.append(pred)
         sz = hi - lo
         n_images += sz
-        corr = stats.pop("corr", None)
-        if corr is not None:
-            corr = {g: {k: v * sz for k, v in d.items()} for g, d in corr.items()}
-            corr_sum = corr if corr_sum is None else {
-                g: {k: corr_sum[g][k] + corr[g][k] for k in corr[g]} for g in corr}
+        for key in SIDE_CHANNELS:
+            side = stats.pop(key, None)
+            if side is None:
+                continue
+            side = {g: {k: v * sz for k, v in d.items()} for g, d in side.items()}
+            sums[key] = side if key not in sums else {
+                g: {k: sums[key][g][k] + side[g][k] for k in side[g]} for g in side}
         merged = stats if merged is None else {k: merge_val(merged[k], stats[k])
                                                for k in stats}
     out = dict(merged)
-    if corr_sum is not None:
-        out["corr"] = {g: {k: v / n_images for k, v in d.items()} for g, d in corr_sum.items()}
+    for key, total in sums.items():
+        out[key] = {g: {k: v / n_images for k, v in d.items()} for g, d in total.items()}
     pred = preds[0] if len(preds) == 1 else torch.cat(preds, dim=0)
     return pred, out
+
+
+# ------------------------------------------------------------------- GPTQ
+
+
+def _code_rows_bf16(xf: torch.Tensor, zp: Optional[torch.Tensor],
+                    a: torch.Tensor) -> torch.Tensor:
+    """Channels-last f32 activations -> their int8-domain codes (x - zp) *
+    127/a, unclipped and unrounded, rounded to bf16 as the JAX package
+    feeds its Gram products."""
+    if zp is not None:
+        xf = xf - zp
+    return (xf * (127.0 / a)).to(torch.bfloat16)
+
+
+def _gram(cols: torch.Tensor) -> torch.Tensor:
+    """cols (n, d) bf16 -> cols^T cols in f32. Products of bf16 values are
+    exact in f32 (and in TF32), so this is JAX's dot_general(bf16, bf16,
+    preferred_element_type=f32) up to the order of the sums."""
+    c = cols.float()
+    return c.t() @ c
+
+
+def conv_input_hessian(x: torch.Tensor, a_stat: torch.Tensor, *, stride=(1, 1),
+                       padding=((1, 1), (1, 1))) -> torch.Tensor:
+    """The GPTQ Hessian proxy H = sum c c^T of a 3x3 convolution's im2col'd
+    input in the int8 code domain -> (9 Ci, 9 Ci) f32; x NCHW. Rows and
+    columns run (kh * 3 + kw) * Ci + ci, the JAX package's order. The input
+    is padded first, so that after the zero-point shift a pad position
+    carries the code of real 0, as qconv_apply's padding does. Taken in row
+    chunks of _IM2COL_BYTES."""
+    zp, a = _split_stat(a_stat, 1.0)
+    (pt, pb), (pl, pr) = padding
+    xf = F.pad(x.float().permute(0, 2, 3, 1), (0, 0, pl, pr, pt, pb))
+    xb = _code_rows_bf16(xf, zp, a)
+    sh, sw = stride
+    n, hp, wp, ci = xb.shape
+    ho, wo = (hp - 3) // sh + 1, (wp - 3) // sw + 1
+    d = 9 * ci
+    h = torch.zeros((d, d), dtype=torch.float32, device=x.device)
+    rows = max(1, min(ho, _IM2COL_BYTES // max(1, wo * d * 4)))
+    for b in range(n):
+        for h0 in range(0, ho, rows):
+            h1 = min(ho, h0 + rows)
+            cols = torch.stack(
+                [xb[b, dh + h0 * sh:dh + (h1 - 1) * sh + 1:sh, dw:dw + (wo - 1) * sw + 1:sw]
+                 for dh in range(3) for dw in range(3)], dim=2)  # (h, wo, 9, Ci)
+            h += _gram(cols.reshape(-1, d))
+    return h
+
+
+def dense_input_hessian(x: torch.Tensor, a_stat: torch.Tensor) -> torch.Tensor:
+    """Dense counterpart of conv_input_hessian: x (..., din) -> (din, din)."""
+    zp, a = _split_stat(a_stat, 1.0)
+    return _gram(_code_rows_bf16(_rows(x), zp, a))
+
+
+@torch.no_grad()
+def gptq_round(wf: torch.Tensor, o_scale: torch.Tensor, H: torch.Tensor,
+               damp: float = 0.01) -> torch.Tensor:
+    """GPTQ error-compensated rounding (Frantar et al. 2022) of the
+    activation-folded weight wf (d, Co), rows the input dims, onto the
+    per-output-channel grid o_scale -> int8 (d, Co). The JAX package's
+    sequence in f32: H damped by damp * mean(diag H) + 1e-12, U the upper
+    Cholesky factor of its inverse (H^-1 = U^T U), then row by row the
+    nearest code q_i, the error (w_i - q_i o_scale) / u_ii folded into the
+    rows not yet rounded, all in f32 but the inverse and its Cholesky
+    factor, taken in float64. With H = I it is round-to-nearest."""
+    d = wf.shape[0]
+    w = wf.float().clone()
+    s = o_scale.float()
+    hf = H.float()
+    hd = hf + (damp * hf.diagonal().mean() + 1e-12) * torch.eye(d, dtype=torch.float32,
+                                                                 device=hf.device)
+    # the inverse and its factor in float64: in f32 the card's inverse of
+    # a 4608-row Gram is not positive-definite to working precision
+    u = torch.linalg.cholesky(torch.linalg.inv(hd.double())).t().float()
+    q = torch.empty_like(w)
+    u_diag = torch.clamp(u.diagonal(), min=1e-12)
+    for i in range(d):
+        qi = torch.clamp(torch.round(w[i] / s), -127.0, 127.0)
+        err = (w[i] - qi * s) / u_diag[i]
+        # u[i, :i] is zero: the rows already rounded stay as they are
+        w[i:] -= torch.outer(u[i, i:], err)
+        q[i] = qi
+    return q.to(torch.int8)
 
 
 # ------------------------------------------------------------- quantizing
@@ -261,10 +398,14 @@ def _round_codes(wf: torch.Tensor, o_scale: torch.Tensor) -> torch.Tensor:
 
 def quantize_conv(weight: torch.Tensor, bias: Optional[torch.Tensor], a_stat: torch.Tensor, *,
                   kind: str = "3x3", stride=1, padding=1, margin: float = 1.1,
-                  weight_clip: bool = False) -> QConv:
+                  weight_clip: bool = False, hess: Optional[torch.Tensor] = None) -> QConv:
     """QConv from an OIHW weight and a calibrated input stat ((C,) symmetric
     or (2, C) [zp, a]). up4x4 takes the covering symmetric range (the
-    lhs-dilation zeros are algebraic zeros, so no zero-point folds there)."""
+    lhs-dilation zeros are algebraic zeros, so no zero-point folds there).
+    hess (9 Ci, 9 Ci), the layer's code-domain input Gram: the weight
+    rounds by gptq_round instead of to nearest (not for up4x4, whose
+    collapsed kernel meets the dilation's zeros, which the Gram does not
+    model)."""
     w = weight.float()
     if kind == "up4x4":
         w = _collapse_up_kernel(w)
@@ -278,7 +419,14 @@ def quantize_conv(weight: torch.Tensor, bias: Optional[torch.Tensor], a_stat: to
         o_scale = (clip / 127.0).clamp_min(1e-12)
     else:
         o_scale = (wf.abs().amax(dim=(1, 2, 3)) / 127.0).clamp_min(1e-12)
-    wq = _round_codes(wf, o_scale)
+    if hess is not None and kind != "up4x4":
+        # the (9 Ci, Co) matrix in conv_input_hessian's row order
+        co, ci, kh, kw = wf.shape
+        rows = wf.permute(2, 3, 1, 0).reshape(-1, co)
+        wq = gptq_round(rows, o_scale, hess.to(wf.device)).reshape(kh, kw, ci, co)
+        wq = wq.permute(3, 2, 0, 1).contiguous()
+    else:
+        wq = _round_codes(wf, o_scale)
     stride, padding = _norm_geometry(stride, padding)
     bias = None if bias is None else bias.float()
     if zp is not None:
@@ -290,8 +438,10 @@ def quantize_conv(weight: torch.Tensor, bias: Optional[torch.Tensor], a_stat: to
 
 
 def quantize_dense(weight: torch.Tensor, bias: Optional[torch.Tensor], a_stat: torch.Tensor, *,
-                   margin: float = 1.1, weight_clip: bool = False) -> QDense:
-    """QDense from an (out, in) weight and a calibrated input stat."""
+                   margin: float = 1.1, weight_clip: bool = False,
+                   hess: Optional[torch.Tensor] = None) -> QDense:
+    """QDense from an (out, in) weight and a calibrated input stat; hess
+    (din, din), the code-domain input Gram, rounds it by gptq_round."""
     w = weight.float()
     zp, a = _split_stat(a_stat, margin)
     wf = w * (a / 127.0)[None, :]
@@ -299,7 +449,10 @@ def quantize_dense(weight: torch.Tensor, bias: Optional[torch.Tensor], a_stat: t
         o_scale = (_mse_optimal_clip_cols(wf.t()) / 127.0).clamp_min(1e-12)
     else:
         o_scale = (wf.abs().amax(dim=1) / 127.0).clamp_min(1e-12)
-    wq = _round_codes(wf, o_scale)
+    if hess is not None:
+        wq = gptq_round(wf.t(), o_scale, hess.to(wf.device)).t().contiguous()
+    else:
+        wq = _round_codes(wf, o_scale)
     bias = None if bias is None else bias.float()
     if zp is not None:
         z_o = (wq.float() @ (zp * (127.0 / a))) * o_scale
@@ -435,15 +588,21 @@ def _fp_conv(weight, bias, x, kind, stride, padding):
 
 def make_calib_conv_fn(stats: Dict[str, torch.Tensor], corr: Optional[Dict] = None,
                        clip_search: bool = False, margin: float = 1.1,
-                       weight_clip: bool = False, asymmetric: bool = False):
+                       weight_clip: bool = False, asymmetric: bool = False,
+                       hess: Optional[Dict] = None):
     """Records each conv input's stat into ``stats`` and runs the conv in full
     precision. With ``corr``, also quantizes the layer in place and records
-    the per-output-channel mean of (y_fp - y_int8) for bias correction."""
+    the per-output-channel mean of (y_fp - y_int8) for bias correction. With
+    ``hess``, also records the input's code-domain Gram for GPTQ (not for
+    up4x4): (9 Ci)^2 f32, 85 MB at the VAE's 512 channels."""
 
     def conv_fn(name, weight, bias, x, *, kind="3x3", stride=1, padding=1):
         a = _calib_stat(x.movedim(1, -1), clip_search, asymmetric)
         stats[name] = a
         y = _fp_conv(weight, bias, x, kind, stride, padding)
+        if hess is not None and kind != "up4x4":
+            st, pd = _norm_geometry(stride, padding)
+            hess[name] = conv_input_hessian(x, a, stride=st, padding=pd)
         if corr is not None:
             q = quantize_conv(weight, bias, a, kind=kind, stride=stride, padding=padding,
                               margin=margin, weight_clip=weight_clip)
@@ -467,13 +626,16 @@ def make_quant_conv_fn(qtree: Dict[str, QConv]):
 
 def make_calib_dense_fn(stats: Dict[str, torch.Tensor], corr: Optional[Dict] = None,
                         clip_search: bool = False, margin: float = 1.1,
-                        weight_clip: bool = False, asymmetric: bool = False):
+                        weight_clip: bool = False, asymmetric: bool = False,
+                        hess: Optional[Dict] = None):
     """Dense counterpart of make_calib_conv_fn."""
 
     def dense_fn(name, weight, bias, x):
         a = _calib_stat(x, clip_search, asymmetric)
         stats[name] = a
         y = attention_projection(x, weight, bias)
+        if hess is not None:
+            hess[name] = dense_input_hessian(x, a)
         if corr is not None:
             q = quantize_dense(weight, bias, a, margin=margin, weight_clip=weight_clip)
             y_q = qdense_apply(q, x)
@@ -515,34 +677,91 @@ def apply_bias_correction(qtree: Dict, corr: Dict) -> Dict:
 @torch.no_grad()
 def quantize_from_stats(model: torch.nn.Module, stats: Dict[str, torch.Tensor],
                         margin: float = 1.1, asymmetric_downsample: bool = True,
-                        weight_clip: bool = False) -> Dict:
+                        weight_clip: bool = False, hess: Optional[Dict] = None) -> Dict:
     """The {path: QConv | QDense} tree of every calibrated layer of ``model``.
     A path resolves with ``get_submodule``; a 2-D weight quantizes as a dense
     layer, and a ':h' / ':g' suffix picks the hidden / gate half of a GEGLU
     projection. Downsamplers are stride 2 (padding ((0,1),(0,1)) with
     ``asymmetric_downsample``, else 1), upsamplers the collapsed 4x4 kernel,
-    everything else a stride-1, pad-1 3x3."""
+    everything else a stride-1, pad-1 3x3. ``hess`` {path: Gram}: those
+    layers round by GPTQ, the rest to nearest."""
+    hess = hess or {}
     qtree: Dict = {}
     for path, stat in stats.items():
         base, _, tag = path.partition(":")
         node = model.get_submodule(base)
         w, b = node.weight, node.bias
+        kw = dict(margin=margin, weight_clip=weight_clip)
         if w.ndim == 2:
             if tag:
                 inner = w.shape[0] // 2
                 sl = slice(0, inner) if tag == "h" else slice(inner, None)
                 w, b = w[sl], None if b is None else b[sl]
-            qtree[path] = quantize_dense(w, b, stat, margin=margin, weight_clip=weight_clip)
+            qtree[path] = quantize_dense(w, b, stat, hess=hess.get(path), **kw)
         elif "downsamplers" in path:
             pad = ((0, 1), (0, 1)) if asymmetric_downsample else 1
-            qtree[path] = quantize_conv(w, b, stat, stride=2, padding=pad, margin=margin,
-                                        weight_clip=weight_clip)
+            qtree[path] = quantize_conv(w, b, stat, stride=2, padding=pad, hess=hess.get(path),
+                                        **kw)
         elif "upsamplers" in path:
-            qtree[path] = quantize_conv(w, b, stat, kind="up4x4", margin=margin,
-                                        weight_clip=weight_clip)
+            qtree[path] = quantize_conv(w, b, stat, kind="up4x4", **kw)
         else:
-            qtree[path] = quantize_conv(w, b, stat, margin=margin, weight_clip=weight_clip)
+            qtree[path] = quantize_conv(w, b, stat, hess=hess.get(path), **kw)
     return qtree
+
+
+# ------------------------------------------------- error-attribution hooks
+
+
+def make_fakequant_conv_fn(qtree: Dict[str, QConv], side: str):
+    """Full-precision convolutions with one side of the quantization
+    simulated, to attribute the int8 error (a diagnostic, never the
+    production path): side "w" runs the dequantized int8 weight, wq *
+    o_scale * 127/a, on exact activations, its bias without the folded
+    zero-point constant; "a" quantizes and dequantizes the activation per
+    channel (shifted by zp) before the original weight; "wa" both, equal
+    to qconv_apply up to the order of the sums. up4x4 runs the collapsed
+    4x4 kernel over the 2x lhs-dilated input. Layers absent from qtree run
+    untouched."""
+    if side not in ("w", "a", "wa"):
+        raise ValueError(f"side must be w, a or wa, not {side!r}")
+
+    def conv_fn(name, weight, bias, x, *, kind="3x3", stride=1, padding=1):
+        q = qtree.get(name)
+        if q is None:
+            return _fp_conv(weight, bias, x, kind, stride, padding)
+        ch = (1, -1, 1, 1)
+        if "a" in side:
+            xf = x.float()
+            if q.zp is not None:
+                xf = xf - q.zp.reshape(ch)
+            xf = torch.clamp(torch.round(xf * q.inv_a.reshape(ch)), -127.0, 127.0) \
+                / q.inv_a.reshape(ch)
+            if q.zp is not None:
+                # zp is snapped so that real 0 round-trips: the float conv's
+                # zero padding stays the int8 path's
+                xf = xf + q.zp.reshape(ch)
+            x = xf.to(x.dtype)
+        if "w" in side:
+            wq = q.w_int8.float()
+            w = (wq * q.o_scale[:, None, None, None] * q.inv_a[None, :, None, None]).to(x.dtype)
+            b = q.bias
+            if q.zp is not None and b is not None:
+                # q.bias holds sum(zp * w_hat); real activations go in here
+                b = b - torch.einsum("oihw,i->o", wq, q.zp * q.inv_a) * q.o_scale
+        else:
+            w = weight if kind != "up4x4" else _collapse_up_kernel(weight.float()).to(x.dtype)
+            b = bias
+        b = None if b is None else b.to(x.dtype)
+        if kind == "up4x4":
+            # the 4x4 kernel over the input dilated by 2 and padded by 2 is
+            # the transposed convolution of stride 2 and padding 1 with the
+            # kernel flipped
+            y = F.conv_transpose2d(x, w.to(x.dtype).flip(2, 3).transpose(0, 1),
+                                   stride=2, padding=1)
+            return y if b is None else y + b.reshape(ch)
+        return conv2d(x, w, b, stride=q.stride, padding=q.padding)
+
+    return conv_fn
 
 
 # -------------------------------------------------------- calibration file

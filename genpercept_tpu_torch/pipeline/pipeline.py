@@ -13,17 +13,24 @@ rgb_blending and marigold archs run DDIM over the SD2.1 betas from z_rgb
 input (marigold, 8 channels), and decode the last step's pred_x0.
 ``GenPerceptPipeline`` adds the resize to the processing resolution, the
 noise draw and test-time ensembling (``pipeline/ensemble.py``), the resize
-back and the Spectral colorizing, and W8A8 int8 inference: the first batch
-calibrates, every later one runs int8 (``ops/quant.py``), and the fused VAE
-resblocks (``fused_vae``, ``ops/fused_conv.py``). Its public API keeps the
-JAX package's layouts: images (H, W, 3) in, depth (H, W) out, noise
-(B, h/8, w/8, 4). It runs on the card unless the caller asks for the CPU.
+back and the Spectral colorizing, W8A8 int8 inference: the first batch
+calibrates, every later one runs int8 (``ops/quant.py``; GPTQ rounding with
+``int8_gptq``), the fused VAE resblocks (``fused_vae``,
+``ops/fused_conv.py``), and data parallelism over several devices (a
+replica of the models on each, every batch split between them). Its public
+API keeps the JAX package's layouts: images (H, W, 3) in, depth (H, W) out,
+noise (B, h/8, w/8, 4). It runs on the card unless the caller asks for the
+CPU.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import logging
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -58,16 +65,13 @@ from genpercept_tpu_torch.pipeline.tasks import TASKS, TaskSpec
 from genpercept_tpu_torch.utils.batchsize import find_batch_size
 from genpercept_tpu_torch.utils.tokenizer import CLIPTokenizer
 
-# Fields of the JAX package's PipelineConfig that this port does not
-# implement yet: each accepts only its default.
-_UNPORTED = ("int8_gptq",)
-
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """The JAX package's PipelineConfig fields. Fields this port does not
-    implement yet raise NotImplementedError when set to another value than
-    their default."""
+    """The JAX package's PipelineConfig fields. int8_gptq rounds the VAE's
+    int8 weights by GPTQ error compensation against each layer's calibrated
+    input Gram (``ops/quant.py::gptq_round``): the same int8 tree format,
+    work at calibration time only."""
 
     mode: str = "depth"
     arch: str = "genpercept"  # genpercept | rgb_blending | marigold
@@ -94,11 +98,6 @@ class PipelineConfig:
                            "decoder.up_blocks.3.")
 
     def __post_init__(self):
-        for f in dataclasses.fields(self):
-            if f.name in _UNPORTED and getattr(self, f.name) != f.default:
-                raise NotImplementedError(
-                    f"PipelineConfig.{f.name}={getattr(self, f.name)!r} is not "
-                    f"ported yet (only {f.default!r})")
         if self.arch == "genpercept" and (self.denoising_steps, self.ensemble_size) != (1, 1):
             # one step, no ensemble (reference run.py:209-211)
             raise AssertionError("the genpercept arch runs one step and no ensemble")
@@ -178,11 +177,14 @@ def _int8_hooks(cfg: PipelineConfig, quant_mode: Optional[str], vq: Optional[Dic
         refine = cfg.int8_refine
         stats = {"enc": {}, "dec": {}, "unet": {}}
         corr = {"enc": {}, "dec": {}, "unet": {}} if refine else None
+        # GPTQ Grams for the VAE's groups only, as the JAX package
+        hess = {"enc": {}, "dec": {}} if cfg.int8_gptq else None
         kw = dict(clip_search=refine, margin=1.0 if refine else cfg.int8_margin,
                   weight_clip=cfg.int8_weight_clip, asymmetric=cfg.int8_asymmetric)
 
         def calib(group, make):
-            return make(stats[group], corr=corr[group] if refine else None, **kw)
+            return make(stats[group], corr=corr[group] if refine else None,
+                        hess=hess.get(group) if hess else None, **kw)
 
         hooks.update(enc=calib("enc", quant.make_calib_conv_fn),
                      dec=calib("dec", quant.make_calib_conv_fn))
@@ -204,22 +206,36 @@ def _int8_hooks(cfg: PipelineConfig, quant_mode: Optional[str], vq: Optional[Dic
                     return attention_projection(x, weight, bias)
 
                 hooks["u_dense"] = u_dense
-        hooks["stats"] = dict(stats, **({"corr": corr} if refine else {}))
+        hooks["stats"] = dict(stats, **({"corr": corr} if refine else {}),
+                              **({"hess": hess} if hess else {}))
         return hooks
+    # a group the calibration left empty (the decoder, with a DPT head) may
+    # be missing from a tree loaded from a file
+    def tree(group):
+        return vq.get(group, {})
+
     if quant_mode == "quant":
-        hooks.update(enc=quant.make_quant_conv_fn(vq["enc"]),
-                     dec=quant.make_quant_conv_fn(vq["dec"]))
+        hooks.update(enc=quant.make_quant_conv_fn(tree("enc")),
+                     dec=quant.make_quant_conv_fn(tree("dec")))
         if cfg.int8_vae_attn:
-            hooks.update(vattn=True, enc_dense=quant.make_quant_dense_fn(vq["enc"]),
-                         dec_dense=quant.make_quant_dense_fn(vq["dec"]))
+            hooks.update(vattn=True, enc_dense=quant.make_quant_dense_fn(tree("enc")),
+                         dec_dense=quant.make_quant_dense_fn(tree("dec")))
         if cfg.int8_unet:
-            hooks["u_conv"] = quant.make_quant_conv_fn(vq["unet"])
+            hooks["u_conv"] = quant.make_quant_conv_fn(tree("unet"))
             if cfg.int8_unet_dense or cfg.int8_unet_ff:
                 # with int8_unet_ff the tree holds only .ff.net. paths; the
                 # feed-forward fuses a fully quantized FF through .qtree
-                hooks["u_dense"] = quant.make_quant_dense_fn(vq["unet"])
+                hooks["u_dense"] = quant.make_quant_dense_fn(tree("unet"))
         return hooks
-    raise NotImplementedError(f"quant_mode {quant_mode!r} is not ported")
+    if quant_mode.startswith("fake:"):
+        # the conv hooks only: no dense hook, no int8 attention
+        side = quant_mode.split(":", 1)[1]
+        hooks.update(enc=quant.make_fakequant_conv_fn(tree("enc"), side),
+                     dec=quant.make_fakequant_conv_fn(tree("dec"), side))
+        if cfg.int8_unet:
+            hooks["u_conv"] = quant.make_fakequant_conv_fn(tree("unet"), side)
+        return hooks
+    raise ValueError(f"unknown quant_mode {quant_mode!r}")
 
 
 def build_single_infer(models: GenPerceptModels, cfg: PipelineConfig,
@@ -240,19 +256,21 @@ def build_single_infer(models: GenPerceptModels, cfg: PipelineConfig,
       None        full precision;
       "calibrate" full precision, returning (pred, stats) with stats
                   {"enc"|"dec"|"unet": {path: stat}} and, with int8_refine,
-                  "corr" (the bias-correction residuals);
+                  "corr" (the bias-correction residuals), with int8_gptq
+                  "hess" ({"enc"|"dec": {path: Gram}});
       "quant"     the calibrated layers in int8, from ``vae_quant`` =
-                  {"enc"|"dec"[|"unet"]: {path: QConv|QDense}}.
-    The JAX package's diagnostic "fake:" modes are not ported.
+                  {"enc"|"dec"[|"unet"]: {path: QConv|QDense}};
+      "fake:w" | "fake:a" | "fake:wa"
+                  error attribution on the same ``vae_quant``: full-precision
+                  convolutions with the weight side, the activation side or
+                  both of the quantization simulated (dense layers and the
+                  attention full precision).
 
     With ``models.dpt_head`` (as the JAX package chooses the branch, by the
     checkpoint and not the mode) the UNet's features go through the head
-    and each image is min-max normalized; int8 on that branch is not
-    ported."""
+    and each image is min-max normalized; the UNet's hooks apply there too,
+    and no decoder runs, so the "dec" group stays empty."""
     task = cfg.task
-    if models.dpt_head is not None and quant_mode is not None:
-        raise NotImplementedError("int8 inference with a DPT head is not ported "
-                                  "(ROADMAP Queue 1, int8 extras)")
     sched_cfg = cfg.scheduler
     sched = make_scheduler(sched_cfg, device=models.device)
     if cfg.fix_timesteps:
@@ -281,12 +299,14 @@ def build_single_infer(models: GenPerceptModels, cfg: PipelineConfig,
 
         if models.dpt_head is not None:
             _, feats = unet_apply(models.unet, rgb_latent, timestep(ts[0]), text,
-                                  return_features=True)
+                                  return_features=True, conv_fn=hk["u_conv"],
+                                  dense_fn=hk["u_dense"])
             pred = dpt_head_apply(models.dpt_head, feats[::-1])
             # per-image min-max in the compute dtype, as the JAX package
             lo = pred.amin(dim=(1, 2), keepdim=True)
             hi = pred.amax(dim=(1, 2), keepdim=True)
-            return ((pred - lo) / torch.clamp(hi - lo, min=1e-6)).float()
+            pred = ((pred - lo) / torch.clamp(hi - lo, min=1e-6)).float()
+            return pred if hk["stats"] is None else (pred, hk["stats"])
         if cfg.arch in ("genpercept", "rgb_blending"):
             pred_latent = rgb_latent
         elif noise is None:
@@ -335,6 +355,33 @@ class GenPerceptOutput:
     uncertainty: Optional[np.ndarray] = None
 
 
+def replicate_models(models: GenPerceptModels, device: torch.device | str) -> GenPerceptModels:
+    """A copy of ``models`` on ``device`` (modules deep-copied, the text
+    embedding and the tokenizer shared or moved)."""
+    device = torch.device(device)
+
+    def moved(m):
+        return None if m is None else copy.deepcopy(m).to(device)
+
+    return dataclasses.replace(
+        models, unet=moved(models.unet), vae=moved(models.vae), clip=moved(models.clip),
+        dpt_head=moved(models.dpt_head),
+        text_embed=None if models.text_embed is None else models.text_embed.to(device),
+        unet_lora=None if models.unet_lora is None else {
+            k: v.detach().to(device) for k, v in models.unet_lora.items()})
+
+
+def _tree_to(vq: Dict[str, Dict], device: torch.device) -> Dict[str, Dict]:
+    def moved(t):
+        return None if t is None else t.to(device)
+
+    return {g: {k: dataclasses.replace(q, w_int8=moved(q.w_int8), inv_a=moved(q.inv_a),
+                                       o_scale=moved(q.o_scale), bias=moved(q.bias),
+                                       zp=moved(q.zp))
+                for k, q in tree.items()}
+            for g, tree in vq.items()}
+
+
 class GenPerceptPipeline:
     """Host-side orchestration: numpy images in, predictions out.
 
@@ -342,15 +389,31 @@ class GenPerceptPipeline:
     another); they are moved there once. Without a card, the default raises:
     the pipeline never falls back to the CPU unasked.
 
+    ``devices`` (a list, the counterpart of the JAX package's ``mesh=``)
+    runs the pipeline data-parallel: the models move to the first device
+    and a replica goes to each other one; every device batch is padded to a
+    multiple of the device count (the padded rows repeat the last image and
+    are dropped), split in equal parts, and each part runs on its replica,
+    one thread each; the predictions come back on the first device.
+
     With ``cfg.int8_vae`` the first batch runs the full-precision
     calibration pass in chunks (returning its prediction) and builds the
     int8 tree that every later batch runs; ``save_calibration`` /
-    ``load_calibration`` keep that tree in the JAX package's file format."""
+    ``load_calibration`` keep that tree in the JAX package's file format.
+    Data-parallel, the calibration keeps the one-device chunk: each replica
+    calibrates a chunk at a time, the replicas at once, and the records
+    merge on the first device in the chunks' order, so that N devices
+    build the tree one device builds from the same images (where the JAX
+    package's sharded program takes one chunk of N times the images over
+    its mesh), with a device's memory at the one-device size; the tree is
+    copied to every device."""
 
     def __init__(self, models: GenPerceptModels, cfg: PipelineConfig,
-                 device: torch.device | str = "cuda"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+                 device: torch.device | str = "cuda",
+                 devices: Optional[List[torch.device | str]] = None):
+        devices = [torch.device(d) for d in devices] if devices else [torch.device(device)]
+        self.device = devices[0]
+        if any(d.type == "cuda" for d in devices) and not torch.cuda.is_available():
             raise RuntimeError("GenPerceptPipeline runs on the card by default and no CUDA "
                                "device is available; pass device=\"cpu\" to run on the CPU")
         models.unet.to(self.device)
@@ -363,50 +426,114 @@ class GenPerceptPipeline:
             models.text_embed = models.text_embed.to(self.device)
         self.models = models
         self.cfg = cfg
-        self._infer = build_single_infer(models, cfg, "quant" if cfg.int8_vae else None)
+        self.devices = devices
+        self.replicas = [models] + [replicate_models(models, d) for d in devices[1:]]
+        quant_mode = "quant" if cfg.int8_vae else None
+        self._infers = [build_single_infer(m, cfg, quant_mode) for m in self.replicas]
+        self._infer = self._infers[0]
         self._calib_infer = build_single_infer(models, cfg, "calibrate") if cfg.int8_vae \
             else None
+        self._replica_calib_infers = [build_single_infer(m, cfg, "calibrate")
+                                      for m in self.replicas[1:]] if cfg.int8_vae else []
         self.vae_quant: Optional[Dict[str, Dict]] = None
+        self._vq_copies: List[Optional[Dict[str, Dict]]] = [None] * len(devices)
         self.int8_mean_dev: Optional[float] = None  # set by the post-calibration check
+        self.calibration_seconds: Optional[float] = None
 
     @property
     def calibrated(self) -> bool:
         return not self.cfg.int8_vae or self.vae_quant is not None
 
+    @property
+    def n_devices(self) -> int:
+        return len(self.devices)
+
+    def _set_quant(self, vq: Dict[str, Dict]) -> None:
+        self.vae_quant = vq
+        self._vq_copies = [vq] + [_tree_to(vq, d) for d in self.devices[1:]]
+
+    def _on_replica(self, i: int, fn):
+        """fn(x, *extra) run on device i: its tensors moved there, under
+        that device's CUDA context."""
+        dev = self.devices[i]
+
+        def run(x, *extra):
+            ctx = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+            with ctx:
+                return fn(x.to(dev), *(e.to(dev) if isinstance(e, torch.Tensor) else e
+                                       for e in extra))
+
+        return run
+
+    def _forward(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The (quantized) forward of one device batch, split between the
+        replicas."""
+        n = self.n_devices
+        if n == 1:
+            return self._infer(x, self.vae_quant, noise)
+        b = x.shape[0]
+        pad = -b % n
+
+        def padded(t):
+            if t is None or not pad:
+                return t
+            return torch.cat([t, t[-1:].expand((pad,) + tuple(t.shape[1:]))])
+
+        xs = padded(x).chunk(n)
+        ns = [None] * n if noise is None else padded(noise).chunk(n)
+
+        def part(i):
+            return self._on_replica(i, self._infers[i])(xs[i], self._vq_copies[i], ns[i])
+
+        with ThreadPoolExecutor(max_workers=n) as pool:
+            outs = list(pool.map(part, range(n)))
+        return torch.cat([o.to(self.device) for o in outs])[:b]
+
     @torch.no_grad()
     def _calibrate(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The calibration pass over x (JAX GenPerceptPipeline._run :507-568):
-        stats in chunks of 2 images with asymmetric stats, else 4; the int8
-        trees of the kept layers, bias-corrected; the self-check. Returns
-        the full-precision prediction."""
+        stats in chunks of 2 images with asymmetric stats or GPTQ, else 4
+        (a chunk a replica at once when data-parallel); the int8 trees of the kept layers (GPTQ-rounded where the
+        calibration recorded Grams), bias-corrected; the self-check.
+        Returns the full-precision prediction."""
         cfg = self.cfg
-        chunk = 2 if cfg.int8_asymmetric else 4
-        pred, stats = quant.calibrate_chunked(self._calib_infer, x, None, noise, chunk=chunk)
+        t0 = time.perf_counter()
+        chunk = 2 if (cfg.int8_gptq or cfg.int8_asymmetric) else 4
+        fns = self._calib_infer if self.n_devices == 1 else [
+            self._on_replica(i, f)
+            for i, f in enumerate([self._calib_infer, *self._replica_calib_infers])]
+        pred, stats = quant.calibrate_chunked(fns, x, None, noise, chunk=chunk)
         m = 1.0 if cfg.int8_refine else cfg.int8_margin
 
         def keep(st):
             return {k: v for k, v in st.items() if not any(e in k for e in cfg.int8_exclude)}
 
         wc = cfg.int8_weight_clip
-        vq = {g: quant.quantize_from_stats(self.models.vae, keep(stats[g]), m, weight_clip=wc)
+        hess = stats.get("hess", {})
+        vq = {g: quant.quantize_from_stats(self.models.vae, keep(stats[g]), m, weight_clip=wc,
+                                           hess=hess.get(g))
               for g in ("enc", "dec")}
         if cfg.int8_unet:
             vq["unet"] = quant.quantize_from_stats(self.models.unet, keep(stats["unet"]), m,
                                                    asymmetric_downsample=False, weight_clip=wc)
         if cfg.int8_refine:
             vq = {k: quant.apply_bias_correction(v, stats["corr"][k]) for k, v in vq.items()}
-        self.vae_quant = vq
+        del stats, hess
+        self._set_quant(vq)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.calibration_seconds = time.perf_counter() - t0
         if cfg.int8_selfcheck:
             # one quantized forward on the calibration batch against the
             # full-precision prediction in hand
-            q_pred = self._infer(x, vq, noise)
+            q_pred = self._forward(x, noise)
             self.int8_mean_dev = float((q_pred.float() - pred.float()).abs().mean())
             if self.int8_mean_dev > 1e-2:
                 logging.getLogger(__name__).warning(
                     "int8 self-check: mean deviation %.3e vs full precision on the "
                     "calibration batch exceeds the 1e-2 bar; consider a shallower "
                     "int8_exclude placement (max fidelity: ('encoder.', "
-                    "'decoder.up_blocks.3.'))", self.int8_mean_dev)
+                    "'decoder.up_blocks.3.')) or int8_gptq", self.int8_mean_dev)
         return pred
 
     def _run(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -415,7 +542,7 @@ class GenPerceptPipeline:
         the (quantized) forward."""
         if not self.calibrated:
             return self._calibrate(x, noise)
-        return self._infer(x, self.vae_quant, noise)
+        return self._forward(x, noise)
 
     def save_calibration(self, path) -> None:
         """Write the int8 tree built by the first batch (JAX's .npz layout)."""
@@ -427,7 +554,7 @@ class GenPerceptPipeline:
         """Load an int8 tree (written by either package); skips calibration."""
         if not self.cfg.int8_vae:
             raise RuntimeError("calibration needs int8_vae=True")
-        self.vae_quant = quant.load_calibration(path, self.device)
+        self._set_quant(quant.load_calibration(path, self.device))
 
     def _to_tensor(self, image: np.ndarray) -> torch.Tensor:
         if image.dtype == np.uint8:
@@ -498,7 +625,8 @@ class GenPerceptPipeline:
         the processing resolution, grouped by that shape into batches of
         ``batch_size``, run, then resized back one by one. ``batch_size`` 0
         (or less) takes the largest batch measured to fit one H100 80GB at
-        the processing resolution and dtype (``utils/batchsize.py``). It
+        the processing resolution and dtype (``utils/batchsize.py``), times
+        the device count. It
         runs each image once: no ensemble, and no noise, so the marigold
         arch raises here as in the JAX package."""
         cfg = self.cfg
@@ -507,7 +635,7 @@ class GenPerceptPipeline:
         if batch_size <= 0:
             batch_size = find_batch_size(
                 cfg.ensemble_size, cfg.processing_res,
-                "bfloat16" if cfg.dtype == torch.bfloat16 else "float32")
+                "bfloat16" if cfg.dtype == torch.bfloat16 else "float32") * self.n_devices
         groups: Dict[tuple, list] = {}
         for idx, image in enumerate(images):
             h, w = image.shape[:2]

@@ -3,7 +3,10 @@
 Counterpart of ``genpercept_tpu/train/losses.py``, function for function.
 All functions take (B, H, W) tensors (or (B, H, W, 3) for normals) and
 boolean masks, and reduce as the reference does (batch-wise sum over the
-total valid count), with masked arithmetic in place of NaN tricks.
+total valid count), with masked arithmetic in place of NaN tricks. In a
+data-parallel run the training losses' counts are the global batch's
+(``parallel.global_sum``): each rank's loss is its share of the global
+loss, and the shares add up to it.
 
 Canonical depth recipe weights: mse x1.0, least-square SSI x0.5, grad x2.0,
 on predictions shifted from [-1, 1] to [1, 3].
@@ -16,11 +19,14 @@ import math
 import torch
 import torch.nn.functional as F
 
+from genpercept_tpu_torch.parallel import global_sum
+
 _EPS = 1e-6
 
 
 def _masked_sum_mean(value: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    return torch.sum(value * mask) / (torch.sum(mask) + _EPS)
+    """sum(value * mask) over the global batch's count of mask."""
+    return torch.sum(value * mask) / (global_sum(torch.sum(mask)) + _EPS)
 
 
 # ------------------------------------------------------------ simple losses
@@ -193,7 +199,7 @@ def _gradient_term(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor)
     gx = torch.abs(diff[:, :, 1:] - diff[:, :, :-1]) * (m[:, :, 1:] * m[:, :, :-1])
     gy = torch.abs(diff[:, 1:, :] - diff[:, :-1, :]) * (m[:, 1:, :] * m[:, :-1, :])
     image_loss = torch.sum(gx, dim=(1, 2)) + torch.sum(gy, dim=(1, 2))
-    total_m = torch.sum(m)
+    total_m = global_sum(torch.sum(m))
     return torch.where(total_m > 0, torch.sum(image_loss) / torch.clamp(total_m, min=1.0),
                        torch.zeros_like(total_m))
 

@@ -16,7 +16,9 @@ selections.
 
 Each loss is a draw (``*_draw``: a ``torch.Generator`` -> indices, windows
 or uniforms) and a core (``*_core``: the loss of those draws); ``vnl_loss``,
-``hdnl_random_loss`` and ``hdsnl_random_loss`` chain the two.
+``hdnl_random_loss`` and ``hdsnl_random_loss`` chain the two. Each core
+divides by the global batch's count (``parallel.global_sum``), as the
+losses of ``train/losses.py``.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from genpercept_tpu_torch.parallel import global_sum
 
 _EPS = 1e-6
 _BIG = 3.0e38
@@ -104,7 +108,7 @@ def hdsnl_core(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor, win
     valid_pix = masks.sum()
     loss = loss + ssi_mae_sum(pred, target, mask, mad_masked_gt=False).sum()
     valid_pix = valid_pix + mask.sum()
-    return loss / (valid_pix + _EPS) * loss_weight
+    return loss / (global_sum(valid_pix) + _EPS) * loss_weight
 
 
 def hdsnl_random_loss(pred, target, mask, generator=None, random_num: int = 32,
@@ -143,7 +147,7 @@ def hdnl_core(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor, unif
     t = target[:, None]
     bands = (t >= lo[..., None, None]) & (t < hi[..., None, None] + 1e-30) & mask[:, None]
     loss = ssi_mae_sum(pred[:, None], t, bands, mad_masked_gt=True).sum()
-    return loss / (bands.sum() + _EPS) * loss_weight
+    return loss / (global_sum(bands.sum()) + _EPS) * loss_weight
 
 
 def hdnl_random_loss(pred, target, mask, generator=None, random_num: int = 32,
@@ -242,7 +246,7 @@ def vnl_core(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
         count = keep.sum()
     else:
         count = group_ok.sum()
-    return torch.sum(g_loss) / (count + _EPS) * loss_weight
+    return torch.sum(g_loss) / (global_sum(count) + _EPS) * loss_weight
 
 
 def vnl_loss(pred, target, mask, intrinsic, generator=None, sample_ratio: float = 0.15,

@@ -21,6 +21,12 @@ loss of the JAX step:
   6. gradients accumulated in f32 over micro-batches, then the optax-Adam
      update (``make_optimizer``)
 
+Data-parallel (``parallel/``), each rank runs the step on its slice of the
+global micro-batch: it draws the global micro-batch's random numbers and
+keeps its rows, its losses divide by the global batch's counts, and the
+gradients and metrics are summed over the ranks, so N ranks compute what
+one process computes on the global batch.
+
 The models are ``nn.Module``s holding their parameters, so where the JAX
 step threads (trainable, frozen) trees, this one marks parameters trainable
 with ``requires_grad`` and returns them keyed by their dotted names. Every
@@ -45,6 +51,7 @@ from genpercept_tpu_torch.diffusion import (
     get_velocity,
     make_scheduler,
 )
+from genpercept_tpu_torch import parallel
 from genpercept_tpu_torch.models import dpt_head_apply, unet_apply, vae_decode, vae_encode
 from genpercept_tpu_torch.train import losses as L
 from genpercept_tpu_torch.train import metric3d_losses as M3D
@@ -122,7 +129,9 @@ def _unet_remat(cfg: TrainConfig) -> Optional[str]:
 
 
 def _depth_loss(name: str, pred, targ, m, batch, draw):
-    """(loss, weight) of a depth-mode pixel loss on depth shifted to [1, 3]."""
+    """(loss, weight) of a depth-mode pixel loss on depth shifted to [1, 3].
+    draw(name, fn, per_image) draws fn(generator) for the global batch and
+    keeps this rank's rows when per_image."""
     if name == "mse":
         return L.masked_mse(pred, targ, m), 1.0
     if name == "ssi":
@@ -134,14 +143,17 @@ def _depth_loss(name: str, pred, targ, m, batch, draw):
     if name == "l1":
         return L.masked_l1(pred, targ, m), 1.0
     if name == "vnl":
-        return M3D.vnl_core(pred, targ, m, batch["intrinsic"].float(),
-                            draw(name, lambda g: M3D.vnl_draw(g, m))), 1.0
+        # the draw follows each image's mask: the global batch's masks
+        return M3D.vnl_core(pred, targ, m, batch["intrinsic"].float(), draw(
+            name, lambda g: M3D.vnl_draw(g, parallel.all_gather_batch(m)))), 1.0
     if name == "hdnr":
-        return M3D.hdnl_core(pred, targ, m,
-                             draw(name, lambda g: M3D.hdnl_draw(g, pred.shape[0]))), 1.0
+        n = pred.shape[0] * parallel.world()
+        return M3D.hdnl_core(pred, targ, m, draw(name, lambda g: M3D.hdnl_draw(g, n))), 1.0
     if name == "hdsnr":
         h, w = pred.shape[1:]
-        return M3D.hdsnl_core(pred, targ, m, draw(name, lambda g: M3D.hdsnl_draw(g, h, w))), 1.0
+        # one set of windows for the whole batch
+        return M3D.hdsnl_core(pred, targ, m, draw(name, lambda g: M3D.hdsnl_draw(g, h, w),
+                                                  per_image=False)), 1.0
     raise ValueError(name)
 
 
@@ -174,36 +186,52 @@ def build_loss_fn(cfg: TrainConfig, models):
                 generator: Optional[torch.Generator] = None,
                 draws: Optional[Dict[str, Any]] = None):
         draws = draws or {}
-
-        def draw(name, fn):
-            return draws[name] if name in draws else fn(generator)
-
         cd = cfg.compute_dtype
         rgb = batch["rgb_norm"].to(cd).permute(0, 3, 1, 2)
         gt = batch["gt_norm"].to(cd).permute(0, 3, 1, 2)
         valid = batch["valid_mask"]
         bsz, dev = rgb.shape[0], rgb.device
+        rows = parallel.batch_slice(bsz)  # this rank's rows of the global batch
+
+        def draw(name, fn, per_image=True):
+            """draws[name], or fn(generator) drawn for the global batch with
+            this rank's rows kept."""
+            if name in draws:
+                return draws[name]
+            x = fn(generator)
+            if not per_image or parallel.world() == 1:
+                return x
+            return tuple(v[rows] for v in x) if isinstance(x, tuple) else x[rows]
 
         with torch.no_grad():  # the frozen encoder: stop_gradient
             rgb_latent = vae_encode(models.vae, rgb)
             gt_latent = vae_encode(models.vae, gt)
+        n_global = bsz * parallel.world()
         if cfg.fix_timesteps is not None:
-            t = torch.full((bsz,), cfg.fix_timesteps, dtype=torch.long, device=dev)
+            t_global = torch.full((n_global,), cfg.fix_timesteps, dtype=torch.long, device=dev)
+        elif "t" in draws:
+            t_global = None
         else:
-            t = draw("t", lambda g: torch.randint(0, cfg.num_train_timesteps, (bsz,),
-                                                  generator=g)).to(dev)
+            t_global = torch.randint(0, cfg.num_train_timesteps, (n_global,),
+                                     generator=generator).to(dev)
+        t = draws["t"].to(dev) if t_global is None else t_global[rows]
+        latent_global = (n_global,) + tuple(gt_latent.shape[1:])
         if cfg.arch in ("genpercept", "rgb_blending"):
             noise = rgb_latent
         elif cfg.multi_res_noise_strength is not None:
-            strength = cfg.multi_res_noise_strength
-            if cfg.multi_res_noise_annealed:
-                strength = strength * (t.float() / cfg.num_train_timesteps).reshape(-1, 1, 1, 1)
-            noise = draw("noise", lambda g: multi_res_noise_like(
-                g, gt_latent.shape, strength, cfg.multi_res_noise_strategy, cd, dev))
+            def mrn(g):
+                strength = cfg.multi_res_noise_strength
+                if cfg.multi_res_noise_annealed:
+                    tg = t if t_global is None else t_global
+                    strength = strength * (tg.float() / cfg.num_train_timesteps).reshape(
+                        -1, 1, 1, 1)
+                return multi_res_noise_like(g, latent_global, strength,
+                                            cfg.multi_res_noise_strategy, cd, dev)
+
+            noise = draw("noise", mrn)
         else:
             noise = draw("noise", lambda g: torch.randn(
-                gt_latent.shape, generator=g, dtype=cd,
-                device=None if g is None else g.device))
+                latent_global, generator=g, dtype=cd, device=None if g is None else g.device))
         noise = noise.to(dev)
         noisy = add_noise(sched, gt_latent, noise, t).to(cd)
         target = get_velocity(sched, gt_latent, noise, t)
@@ -236,7 +264,7 @@ def build_loss_fn(cfg: TrainConfig, models):
                 elif name == "latent_mean_abs_rel":
                     mm = vm.float()
                     rel = torch.abs(v32 - t32) / torch.clamp(torch.abs(t32), min=1e-6)
-                    l = torch.sum(rel * mm) / (torch.sum(mm) + 1e-6)
+                    l = torch.sum(rel * mm) / (parallel.global_sum(torch.sum(mm)) + 1e-6)
                 else:
                     raise ValueError(name)
                 aux[name] = l
@@ -387,11 +415,14 @@ def init_train_state(models, cfg: TrainConfig, generator: Optional[torch.Generat
     return trainable, frozen, make_optimizer(cfg, trainable)
 
 
-def build_train_step(cfg: TrainConfig, models, optimizer: OptaxAdam):
+def build_train_step(cfg: TrainConfig, models, optimizer):
     """Returns step(batch, generator=None) -> metrics ({"loss", **aux}, 0-dim
     f32 tensors). With grad_accum_steps > 1 every batch entry has a leading
     accumulation axis; gradients and the per-loss aux are summed in f32 over
-    it, in order, and divided by its length, as the JAX step's lax.scan."""
+    it, in order, and divided by its length, as the JAX step's lax.scan.
+    ``optimizer``: an ``OptaxAdam``, or its ZeRO-1 form (``parallel.zero1``).
+    In a data-parallel run the batch is this rank's slice; the gradients
+    and the metrics are summed over the ranks before the update."""
     loss_fn = build_loss_fn(cfg, models)
     params = [p for group in optimizer.param_groups for p in group["params"]]
 
@@ -418,7 +449,8 @@ def build_train_step(cfg: TrainConfig, models, optimizer: OptaxAdam):
             loss, aux = loss_fn(batch, generator)
             grads = grads_of(loss)
             loss, aux = loss.detach(), {k: v.detach() for k, v in aux.items()}
+        parallel.all_reduce_sum_(grads)
         optimizer.step(grads)
-        return {"loss": loss, **aux}
+        return parallel.sum_metrics({"loss": loss, **aux})
 
     return step

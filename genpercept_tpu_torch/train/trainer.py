@@ -8,7 +8,14 @@ periodic validation and visualization. Both run the inference pipeline on
 the trainer's own modules, whose parameters the step trains in place (and
 stores in bf16 where the config says so): validation scores least-squares
 aligned depth (masked L1 in the other modes), visualization writes colorized
-PNGs. A multi-process run is not ported (ROADMAP Queue 1 item 11).
+PNGs.
+
+In a data-parallel run (``parallel/``; the loader yields this rank's slice
+of each global batch) every rank starts from the same trainable parameters
+(checked), the step sums the gradients over the ranks, ``zero1`` shards
+the Adam moments, and rank 0 alone writes the metrics and the checkpoints
+(every rank reads them on resume) and validates and visualizes while the
+others wait: the parameters are replicated, so nothing is gathered.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from genpercept_tpu_torch import parallel
 from genpercept_tpu_torch.data.sampler import skip_first_batches
 from genpercept_tpu_torch.eval import MetricTracker, align_depth_least_square, compute_metrics
 from genpercept_tpu_torch.io.checkpoints import load_train_checkpoint, save_train_checkpoint
@@ -47,9 +55,17 @@ GT_KEYS = {
 }
 
 
-def _world_size() -> int:
-    dist = torch.distributed
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+class _NullMetricsLogger:
+    """The metrics logger of the ranks other than 0."""
+
+    def log_scalar(self, tag, value, step):
+        pass
+
+    def log_dict(self, d, step, prefix=""):
+        pass
+
+    def close(self):
+        pass
 
 
 class Trainer:
@@ -66,11 +82,8 @@ class Trainer:
         vis_period: int = 0,
         vis_loaders: Optional[Dict[str, object]] = None,
         main_seed: Optional[int] = 0,
+        zero1: bool = False,
     ):
-        if (val_period or vis_period) and _world_size() > 1:
-            # the JAX trainer gathers the parameters to process 0 for these
-            raise NotImplementedError("validation and visualization in a multi-process run "
-                                      "are not ported (ROADMAP Queue 1 item 11)")
         self.cfg = cfg
         self.models = models
         self.train_loader = train_loader
@@ -93,6 +106,12 @@ class Trainer:
             for x in self.frozen.values():
                 if x.dtype == torch.float32:
                     x.data = x.data.to(torch.bfloat16)
+        # every rank starts from the same parameters (each loaded or drew
+        # them from the same seed)
+        parallel.check_replicated(self.trainable.values(), "trainable parameters")
+        self.zero1 = zero1 and parallel.world() > 1  # one rank: nothing to shard
+        if self.zero1:
+            self.optimizer = parallel.Zero1(self.optimizer)
         self.step_fn = build_train_step(cfg, models, self.optimizer)
 
         self.effective_iter = 0
@@ -100,7 +119,8 @@ class Trainer:
         self.n_batch_in_epoch = 0
         # one seed per iteration, replayed on resume
         self.seed_sequence = generate_seed_sequence(main_seed, max_iter + 1)
-        self.metrics_logger = MetricsLogger(out_dir)
+        self.is_main = parallel.rank() == 0
+        self.metrics_logger = MetricsLogger(out_dir) if self.is_main else _NullMetricsLogger()
 
     # ------------------------------------------------------------- batching
 
@@ -152,7 +172,8 @@ class Trainer:
                 self._periodic_callbacks()
                 if self.effective_iter >= self.max_iter:
                     break
-                if t_end is not None and time.time() > t_end:
+                # the ranks stop together: rank 0's clock decides
+                if t_end is not None and parallel.from_rank0(time.time() > t_end):
                     logger.info("time budget reached; saving and exiting")
                     self.save_checkpoint("latest")
                     return
@@ -163,10 +184,16 @@ class Trainer:
     def _periodic_callbacks(self) -> None:
         if self.save_period and self.effective_iter % self.save_period == 0:
             self.save_checkpoint("latest")
-        if self.val_period and self.effective_iter % self.val_period == 0:
+        do_val = self.val_period and self.effective_iter % self.val_period == 0
+        do_vis = self.vis_period and self.effective_iter % self.vis_period == 0
+        # rank 0 alone validates and visualizes (reference
+        # genpercept_trainer.py:1001-1063) while the others wait
+        if self.is_main and do_val:
             self.validate()
-        if self.vis_period and self.effective_iter % self.vis_period == 0:
+        if self.is_main and do_vis:
             self.visualize()
+        if do_val or do_vis:
+            parallel.barrier()
 
     # ------------------------------------------------- validate, visualize
 
@@ -254,13 +281,18 @@ class Trainer:
                 "n_batch_in_epoch": self.n_batch_in_epoch}
 
     def save_checkpoint(self, name: str = "latest") -> str:
-        state = {"trainable": {k: p.detach() for k, p in self.trainable.items()},
-                 "opt_state": self.optimizer.state_dict(),
-                 "counters": self._counters()}
-        if self.models.dpt_head is not None:  # which head cli/export.py writes
-            state["dpt_head_cfg"] = dataclasses.asdict(self.models.dpt_head.cfg)
-        path = save_train_checkpoint(osp.join(self.out_dir, "checkpoint"), state, name)
-        logger.info(f"checkpoint saved: {path}")
+        """Rank 0 writes; every rank returns the path once it is written."""
+        # ZeRO-1's state_dict gathers each rank's share: every rank calls it
+        opt_state = self.optimizer.state_dict() if self.zero1 or self.is_main else None
+        path = osp.abspath(osp.join(self.out_dir, "checkpoint", name))
+        if self.is_main:
+            state = {"trainable": {k: p.detach() for k, p in self.trainable.items()},
+                     "opt_state": opt_state, "counters": self._counters()}
+            if self.models.dpt_head is not None:  # which head cli/export.py writes
+                state["dpt_head_cfg"] = dataclasses.asdict(self.models.dpt_head.cfg)
+            path = save_train_checkpoint(osp.join(self.out_dir, "checkpoint"), state, name)
+            logger.info(f"checkpoint saved: {path}")
+        parallel.barrier()
         return path
 
     def load_checkpoint(self, name: str = "latest") -> None:

@@ -379,12 +379,20 @@ def test_oracle_checkpoint_matches_oracle_forward(tmp_path):
     assert reading["z"]["max"] <= 5e-4 and reading["v"]["max"] <= 5e-4, reading
 
 
-def test_int8_on_a_dpt_checkpoint_is_refused(ckpts):
-    """The JAX pipeline's int8 on a DPT head is not ported: it raises rather
-    than run something else (ROADMAP Queue 1, int8 extras)."""
+def test_int8_on_a_dpt_checkpoint_runs(ckpts):
+    """int8 on a DPT-head checkpoint, as the JAX pipeline runs it: the first
+    batch calibrates the encoder and the UNet, no decoder runs so its group
+    stays empty, and the next batch runs int8 (held to JAX by
+    tests/test_torch_quant_gptq.py::test_dpt_int8_pipeline_matches_jax)."""
     from genpercept_tpu_torch.pipeline import GenPerceptPipeline, PipelineConfig
 
     models = load_genpercept_checkpoint(str(ckpts["dpt_identity"][0]), device="cpu")
-    with pytest.raises(NotImplementedError, match="DPT head"):
-        GenPerceptPipeline(models, PipelineConfig(mode="disparity_dpt_head", int8_vae=True),
-                           device="cpu")
+    pipe = GenPerceptPipeline(models, PipelineConfig(mode="disparity_dpt_head", processing_res=64,
+                                                     int8_vae=True, int8_unet=True),
+                              device="cpu")
+    images = [np.random.default_rng(i).uniform(size=(64, 64, 3)).astype(np.float32)
+              for i in range(2)]
+    first = pipe.batch(images, batch_size=2)
+    assert pipe.vae_quant["dec"] == {} and pipe.vae_quant["enc"] and pipe.vae_quant["unet"]
+    for out in first + pipe.batch(images, batch_size=2):
+        assert out.pred_np.shape == (64, 64) and np.isfinite(out.pred_np).all()

@@ -129,8 +129,18 @@ def test_cli_outputs_are_the_pipelines(ckpts, image_dir, tmp_path, mode):  # noq
 
 @pytest.mark.parametrize("extra", [["--data_parallel", "--batch_size", "2"]])
 def test_cli_refuses_unported(ckpts, image_dir, tmp_path, extra):  # noqa: F811
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_run.main(argv(ckpts, image_dir, tmp_path, "depth", "--device", "cpu", *extra))
+    """--data_parallel runs: over the one CPU device each npy equals the run
+    without it (0.0); without batched mode it is refused, as in the JAX
+    package."""
+    torch_run.main(argv(ckpts, image_dir, tmp_path / "dp", "depth", "--device", "cpu", *extra))
+    torch_run.main(argv(ckpts, image_dir, tmp_path / "one", "depth", "--device", "cpu",
+                        *extra[1:]))
+    for rel in ("a_pred.npy", "sub/b_pred.npy"):
+        np.testing.assert_array_equal(np.load(tmp_path / "dp" / rel),
+                                      np.load(tmp_path / "one" / rel))
+    with pytest.raises(ValueError, match="batched mode"):
+        torch_run.main(argv(ckpts, image_dir, tmp_path / "no", "depth", "--device", "cpu",
+                            "--data_parallel"))
 
 
 class _Stop(Exception):

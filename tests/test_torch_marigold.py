@@ -368,8 +368,7 @@ def test_config_accepts_the_ddim_fields_as_jax():
     assert cfg.scheduler == SchedulerConfig()
     assert JConfig(**fields).scheduler.__dict__ == cfg.scheduler.__dict__
     assert PipelineConfig().scheduler.beta_start == 1.0
-    with pytest.raises(NotImplementedError):
-        PipelineConfig(int8_gptq=True)
+    assert PipelineConfig(int8_gptq=True).int8_gptq  # as JAX takes it
 
 
 @pytest.mark.parametrize("fields", [dict(denoising_steps=2), dict(ensemble_size=3)])

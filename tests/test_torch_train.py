@@ -513,7 +513,7 @@ def test_split_trainable_matches_jax(tiny):
 def test_unported_fields_raise(tiny):
     """The non-depth modes, the marigold arch, LoRA, multi-resolution noise
     and the metric3d losses are ported: their train states build (the
-    CLIs' multi-device refusals, ROADMAP Queue 1 item 11, are
+    CLI's one refusal, tensor parallelism, ROADMAP Queue 1 item 12, is
     tests/test_torch_train_cli.py's)."""
     for kw in (dict(arch="marigold"), dict(unet_lora_rank=4), dict(mode="normal"),
                dict(multi_res_noise_strength=0.9), dict(loss_names=("mse", "vnl"))):
@@ -632,16 +632,26 @@ def test_trainer_resume_is_bitwise(tiny, tmp_path, monkeypatch):
     assert len(lines) == 4 * 4  # loss, mse, ssi, grad per step
 
 
-def test_trainer_refuses_validation_periods(tiny, tmp_path, monkeypatch):
-    """Validation and visualization periods in a multi-process run (where the
-    JAX trainer gathers the parameters to process 0) are not ported and
-    raise; one process takes them (tests/test_torch_trainer_val.py)."""
-    monkeypatch.setattr(trainer_mod, "_world_size", lambda: 2)
-    for periods in (dict(val_period=10), dict(vis_period=5)):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            Trainer(TT.TrainConfig(), port_models(tiny), [], str(tmp_path), **periods)
-    monkeypatch.undo()
-    Trainer(TT.TrainConfig(), port_models(tiny), [], str(tmp_path), val_period=10)
+def test_trainer_validates_on_rank0_only(tiny, tmp_path, monkeypatch):
+    """In a data-parallel run rank 0 alone validates and visualizes, then
+    every rank meets at a barrier, as the JAX trainer's processes do; the
+    others write no metrics (tests/test_torch_parallel.py runs two ranks)."""
+    from genpercept_tpu_torch import parallel
+
+    met = []
+    monkeypatch.setattr(parallel, "check_replicated", lambda tensors, what="": None)
+    monkeypatch.setattr(parallel, "barrier", lambda: met.append(parallel.rank()))
+    for rank in (1, 0):
+        monkeypatch.setattr(parallel, "rank", lambda r=rank: r)
+        trainer = Trainer(TT.TrainConfig(), port_models(tiny), [], str(tmp_path / str(rank)),
+                          val_period=10, vis_period=5)
+        ran = []
+        monkeypatch.setattr(trainer, "validate", lambda: ran.append("val"))
+        monkeypatch.setattr(trainer, "visualize", lambda: ran.append("vis"))
+        trainer.effective_iter = 10
+        trainer._periodic_callbacks()
+        assert ran == ([] if rank else ["val", "vis"]) and met[-1] == rank
+        assert (tmp_path / str(rank) / "metrics.jsonl").exists() == (rank == 0)
 
 
 # ------------------------------------------------ kernel launches per step

@@ -244,14 +244,26 @@ def test_train_cli_flags_mirror_jax():
     assert {k: ours[k] for k in ref} == ref
 
 
-@pytest.mark.parametrize("flags", [["--data_parallel", "2"], ["--data_parallel", "0"],
-                                   ["--model_parallel", "2"], ["--zero1"],
-                                   ["--coordinator_address", "localhost:1234"],
-                                   ["--multihost"]])
-def test_train_cli_refuses_more_than_one_device(flags, tmp_path):
+@pytest.mark.parametrize("flags,error,match", [
+    (["--data_parallel", "2"], ValueError, "one process per data-parallel rank"),
+    (["--data_parallel", "0"], ValueError, "one process per data-parallel rank"),
+    (["--model_parallel", "2"], NotImplementedError, "item 12"),
+    (["--coordinator_address", "localhost:1234", "--num_processes", "2"], ValueError,
+     "--process_id"),
+    (["--coordinator_address", "localhost:1234"], ValueError, "--num_processes"),
+    (["--multihost"], RuntimeError, "torchrun"),
+])
+def test_train_cli_refuses_more_than_one_device(flags, error, match, tmp_path, monkeypatch):
+    """What one process cannot run is refused before anything is written:
+    more data-parallel ranks than processes, tensor parallelism (ROADMAP
+    Queue 1 item 12), a coordinator without the rank count or this rank,
+    --multihost without a launcher's environment. (Several processes run in
+    tests/test_torch_parallel.py.)"""
+    for key in ("RANK", "WORLD_SIZE", "SLURM_PROCID", "SLURM_NTASKS"):
+        monkeypatch.delenv(key, raising=False)
     args = ["--config", "unused.yaml", "--checkpoint", "unused", "--output_dir",
             str(tmp_path / "out"), *flags]
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(error, match=match):
         port_train.main(args)
     assert not (tmp_path / "out").exists()
 
