@@ -32,10 +32,7 @@ Phases, each printed as a JSON line:
       K1 with the names of the f32 body the library holds (split TF32) and
       of the bf16 bodies at d=64 and d=512 (wgmma); K1 and K2 with the f32
       bound at the split-TF32 rate beside the FFMA rate of the body it
-      replaced; K1 at bf16 with
-      parent_ms: the mma.sync body K1 ran before its wgmma one, at its tile
-      (K1_TILES) through S1's entry at d=64 (which sums l in the PV product
-      where K1 summed it apart) and S3's at d=512 (l summed apart, as K1);
+      replaced;
   (e) the slice at full SD2.1 width (seeded random weights, JAX init scheme):
       a GenPerceptPipeline answers .batch over four 768x768 images
       (batch_size 2) and one __call__ on a 480x640 image, in f32 and bf16,
@@ -99,13 +96,16 @@ Phases, each printed as a JSON line:
       profiling script's shapes, beside the unfused composition;
   (o) K6 at d=64 (the UNet's heads) against its plain version, f32 and
       bf16 (error 0.0), beside K1's bf16 time at the same shape;
-  (p) S1-S4, the attention profiling scripts' kernels, against their plain
-      versions at batch 2, bf16: S1 (K1's function at every CTA tile of
-      D64_TILES / D512_TILES) at the four UNet/VAE shapes, S3 (d=512, both
-      row-sum folds), S2 (the bf16 softmax chain, plain version over the
-      tile's key blocks) and S4 (no running max) at (10, 9216, 64); errors,
-      kernel, plain and SDPA ms (SDPA computes S1's and S3's function, and
-      S2's and S4's up to their rounding and clamp), K1 beside them;
+  (p) S1-S4, the attention profiling scripts' kernels, on K1's wgmma
+      bodies, against their plain versions at batch 2, bf16: S1 (K1's
+      function at every CTA tile of D64_TILES / D512_TILES) at the four
+      UNet/VAE shapes, S3 (d=512, both row-sum folds), S2 (the bf16 softmax
+      chain, plain version over the tile's key blocks) and S4 (no running
+      max) at (10, 9216, 64); errors, kernel, plain and SDPA ms (SDPA
+      computes S1's and S3's function, and S2's and S4's up to their
+      rounding and clamp), K1 beside them; at d=64 the exponent floor (one
+      MUFU ex2 a logit) beside the bound, and for S2 also its conversion
+      floor (S_CVT_PER_LOGIT);
   (q) the two profiling scripts' paths: scripts/profile_unet_torch.py and
       scripts/profile_attn_boundary_torch.py, profile() once per part that
       reaches a kernel (batch 2, fusedff 8), exact launch counts per part
@@ -476,6 +476,13 @@ S24_SHAPE = (10, 9216, 64)
 # abs error 1e-4 (tests/test_torch_cuda.py states why)
 S_TOL = {"S1": 2e-2, "S3": 2e-2, "S4": 2e-2, "S2": 2.0 ** -7}
 S2_MEAN_TOL = 1e-4
+# the d=64 bodies' floors beside the bound: the MUFU unit takes 16 ex2 a
+# clock an SM, one a logit, and conversions (cvt) run at 16 a clock an SM
+# too (the CUDA C++ Programming Guide's throughput table, compute
+# capability 9.0). Conversion instructions a logit: S1/S4 pack p in pairs
+# (0.5); S2 packs the logits and p in pairs (1.0)
+MUFU_PER_CLK_SM = 16
+S_CVT_PER_LOGIT = {"S1": 0.5, "S2": 1.0, "S4": 0.5}
 K6_D64 = [((10, 9216, 64), 1536), ((20, 2304, 64), 2304)]  # the TPU's k blocks
 K2_WIDE = [(2, 2304, 640), (8, 576, 1280)]  # 8 x 576: rows a multiple of 512
 K2_WIDE_TOL = 6e-2  # absolute, as K2 in bf16
@@ -627,16 +634,13 @@ def phase_k1(gen: torch.Generator) -> dict:
             plain_ms = cuda_ms(lambda: fa._flash_bhsd_ref(q, k, v, scale), 3)
             library_ms = cuda_ms(lambda: sdpa(q, k, v), 10)
             f32 = dt == torch.float32
-            parent_ms = None if f32 else cuda_ms(
-                (lambda: fa.flash_with_blocks(q, k, v, scale, *fa.K1_TILES[64])) if d == 64 else
-                (lambda: fa.flash_d512_blocks(q, k, v, scale, *fa.K1_TILES[512], False)), 10)
             nbytes = attn_bytes(bh, s, d, dt, 3, 1, 1)
             bd = bound(4.0 * bh * s * s * d, "tf32x3" if f32 else "bf16", nbytes)
             emit({"phase": "K1", "dtype": str(dt), "shape": [bh, s, d],
                   "max_abs_err_out": err_o, "max_abs_err_lse2": err_l,
                   "output_max_abs": top, "rel_err_out": err_o / top,
                   "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                  "bound_ms": bd.ms, "bound_by": bd.by, "parent_ms": parent_ms,
+                  "bound_ms": bd.ms, "bound_by": bd.by,
                   # f32: the bound at the FFMA rate of the f32 body this one replaced
                   "bound_ffma_ms": bound(4.0 * bh * s * s * d, "f32", nbytes).ms if f32 else None})
             check(k1_within(dt, err_o, err_l, top, s),
@@ -1593,6 +1597,14 @@ def phase_k6_d64() -> None:
             torch.cuda.empty_cache()
 
 
+def sm_clock_hz() -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0]
+    return float(mhz) * 1e6
+
+
 def phase_s14() -> dict:
     """S1-S4 against their plain versions at the scripts' shapes, batch 2,
     bf16; per kernel the sums over its configurations of the kernel, plain
@@ -1601,6 +1613,9 @@ def phase_s14() -> dict:
     dt = torch.bfloat16
     total = {n: {"worst": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound": Bound()}
              for n in ("S1", "S2", "S3", "S4")}
+    # ms a logit takes at 16 a clock on every SM: the exponent floor per logit
+    unit_ms = 1e3 / (MUFU_PER_CLK_SM * torch.cuda.get_device_properties(0).multi_processor_count
+                     * sm_clock_hz())
 
     def run(name, shape, tile, fn, ref, plain_ms, library_ms, bd, extra=None):
         out = fn()
@@ -1610,10 +1625,14 @@ def phase_s14() -> dict:
         top = ref.float().abs().max().item()
         bar = S_TOL[name] * top
         ms = cuda_ms(fn, 5)
+        bh, s, d = shape
+        floors = {} if d != 64 else {
+            "exp_floor_ms": bh * s * s * unit_ms,
+            "cvt_floor_ms": S_CVT_PER_LOGIT[name] * bh * s * s * unit_ms}
         emit({"phase": name, "dtype": str(dt), "shape": list(shape), "tile": list(tile),
               **(extra or {}), "max_abs_err": err, "rel_err": err / top,
               "mean_rel_err": mean / top, "bar": bar, "ms": ms, "plain_ms": plain_ms,
-              "library_ms": library_ms, "bound_ms": bd.ms, "bound_by": bd.by})
+              "library_ms": library_ms, "bound_ms": bd.ms, "bound_by": bd.by, **floors})
         check(err <= bar, f"{name} {shape} {tile} {extra}: error {err} > {bar}")
         if name == "S2":
             check(mean <= S2_MEAN_TOL * top, f"S2 {tile}: mean error {mean / top} of max")
@@ -1631,9 +1650,8 @@ def phase_s14() -> dict:
         plain_ms = cuda_ms(lambda: fa._flash_bhsd_ref(q, k, v, scale), 2)
         library_ms = cuda_ms(lambda: sdpa(q, k, v), 5)
         k1_ms = cuda_ms(lambda: fa._flash_bhsd(q, k, v, scale), 5)
-        # K1_TILES: the mma.sync tile K1 ran before its wgmma bodies
-        emit({"phase": "S_K1_baseline", "shape": [bh, s, d],
-              "mma_sync_tile": list(fa.K1_TILES[d]),
+        # K1_TILES: the tile K1 launches, one of the S1 tiles below
+        emit({"phase": "S_K1_baseline", "shape": [bh, s, d], "k1_tile": list(fa.K1_TILES[d]),
               "k1_ms": k1_ms, "plain_ms": plain_ms, "library_ms": library_ms})
         bd = bound(4.0 * bh * s * s * d, "bf16", attn_bytes(bh, s, d, dt, 3, 1, 1))
         for bq, bk in (fa.D64_TILES if d == 64 else fa.D512_TILES):

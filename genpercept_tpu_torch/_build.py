@@ -98,7 +98,7 @@ def _bind(lib: ctypes.CDLL) -> None:
                  "fused_geglu_ff_int8_body"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_char_p
-    lib.flash_attn_fwd_tiled.argtypes = [p, p, p, p, p, i, i, i, i, f, i, i, i, p]
+    lib.flash_attn_fwd_tiled.argtypes = [p, p, p, p, p, p, i, i, i, i, f, i, i, i, p]
     lib.flash_attn_fwd_tiled.restype = i
     for name in ("flash_bf16_softmax", "flash_nomax"):
         fn = getattr(lib, name)

@@ -25,15 +25,15 @@
 //     K/V as 64-column atoms through a TMA ring fed by a producer warpgroup,
 //     the key axis split over CTAs where the grid's last wave would idle
 //     (flash_attn_fwd_wgmma_d512_kernel, and flash_attn_fwd_combine_kernel).
-// The profiling scripts run K1's function on the mma.sync bodies K1 ran
-// before its wgmma ones, at caller-chosen CTA tiles, out only, through
-// flash_attn_fwd_tiled: S1 (scripts/profile_unet.py flash_with_blocks) on
-// the d = 64 body (flash_attn_fwd_mma_kernel) and S3
-// (scripts/profile_attn_boundary.py part "sweep512") on the d = 512 body
-// (flash_attn_fwd_split_kernel), which is also a template over how l is
-// summed (FOLD).
-// The d = 64 mma.sync body is also a template over its softmax step, for
-// the scripts' two other variants, out only, reached through their own entries:
+// The profiling scripts run K1's function, out only, on these same wgmma
+// bodies at caller-chosen CTA tiles (the tile sets GP_D64_TILES and
+// GP_D512_TILES, below) through flash_attn_fwd_tiled: S1
+// (scripts/profile_unet.py flash_with_blocks) at d = 64 and d = 512 and S3
+// (scripts/profile_attn_boundary.py part "sweep512") at d = 512. Both bodies
+// are templates over how l is summed (FOLD: the ones n-tile of the TPU
+// kernels' appended ones-column, or per-thread sums), and the d = 64 body
+// also over its softmax step (SOFTMAX), for the scripts' two other variants,
+// out only, reached through their own entries:
 //   S2 flash_bf16_softmax  scripts/profile_unet.py::kernel_bf (main(), part
 //      "bf16softmax"): the softmax chain in bf16. Per key tile:
 //        s     = bf16(q . k^T)                 f32 accumulate, rounded once
@@ -46,19 +46,17 @@
 //      0.6914 and the product rounded to bf16: that is the TPU kernel's p
 //      (about 1.7% from 2^x at x = -10), and so it is here. The subtraction
 //      and the two products run as packed bf16x2 arithmetic (__hsub2,
-//      __hmul2); the exponential runs in f32 (expf) and is rounded once, as
-//      in the plain version, since ex2.approx.ftz.bf16x2 takes 2^x of a bf16
-//      argument and would round the argument once more. p is rounded against
-//      the running max of the key tiles seen so far, so the key partition is
-//      part of the function: the plain version takes it (k_blk = BK).
+//      __hmul2); the exponential runs in f32, as 2^(x log2 e) by
+//      ex2.approx.ftz, and is rounded once, as in the plain version
+//      (ex2.approx.ftz.bf16x2 takes 2^x of a bf16 argument and would round
+//      the argument once more). p is rounded against the running max of the
+//      key tiles seen so far, so the key partition is part of the function:
+//      the plain version takes it (k_blk = BK).
 //   S4 flash_nomax  scripts/profile_attn_boundary.py::kernel (main(), part
 //      "nomax"): no running max. p = bf16(exp2(min(s * c, 110))) with s and
 //      c in f32; the clamp keeps every p and the sums of 9216 keys below
 //      bf16's and f32's range, so nothing is rescaled.
-// The d = 64 mma.sync body carries l as the ones n-tile of PV (S1, S2 and S4
-// alike), as the TPU kernels append a ones-column to v.
-// The f32 body and the mma.sync ones stage their tiles by cp.async or by
-// every thread; the bf16 wgmma bodies by TMA.
+// The f32 body stages its tiles by cp.async; the bf16 wgmma bodies by TMA.
 //
 // Design: one CTA per (q tile, batch*head). On the TPU the k blocks were a
 // sequential "arbitrary" grid axis carrying m, l and the accumulator in VMEM;
@@ -381,18 +379,20 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, f
 
 
 // ---------------------------------------------------------------------------
-// bf16 at d = 64: K1's body, on wgmma. What bounds it: the two products at
-// the bf16 tensor rate (4 * 64 = 256 flop a logit), and beside them the
-// softmax's exponentials, one a logit on the 16-a-clock MUFU of an SM: at
-// d = 64 they take about as long as the products, so the design keeps the
-// softmax's instructions few and runs it while the tensor cores work.
+// bf16 at d = 64: K1's body, on wgmma, and the profiling scripts' S1 (at
+// d = 64), S2 and S4. What bounds it: the two products at the bf16 tensor
+// rate (4 * 64 = 256 flop a logit), and beside them the softmax's
+// exponentials, one a logit on the 16-a-clock MUFU of an SM: at d = 64 they
+// take about as long as the products, so the design keeps the softmax's
+// instructions few and runs it while the tensor cores work.
 //   - Each consumer warpgroup owns 64 q rows of a BQ = 64 * NWG-row tile.
-//     S = Q K^T is wgmma m64nBKk16, four k steps over d: A is Q from shared
-//     memory (loaded once), B the K tile as stored, rows [key][d] with d
-//     contiguous (K-major). O += P V is m64n64k16, BK / 16 k steps: A is P
-//     from registers and B the V tile [key][d], MN-major, read through the
-//     transpose bit. Each 64-element row is one 128-byte swizzle row; Q, K
-//     and V tiles all sit in the 128-byte swizzle that sw128_desc names.
+//     S = Q K^T is wgmma m64nBKk16 (BK = 32, 64 or 128 keys), four k steps
+//     over d: A is Q from shared memory (loaded once), B the K tile as stored,
+//     rows [key][d] with d contiguous (K-major). O += P V is m64n64k16, BK /
+//     16 k steps: A is P from registers and B the V tile [key][d], MN-major,
+//     read through the transpose bit. Each 64-element row is one 128-byte
+//     swizzle row; Q, K and V tiles all sit in the 128-byte swizzle that
+//     sw128_desc names.
 //   - S accumulates in registers in the m16n8 C layout per warp, the online
 //     softmax runs on it there (the four threads of a row reduce the max
 //     with __shfl_xor_sync), and P, packed to bf16 pairs, is at once the
@@ -417,18 +417,51 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, f
 //     its last wait, the waits for its tiles before it and the mask of the
 //     last tile compiled into its own copy: where ptxas cannot follow a
 //     stage it waits after every wgmma (advisory C7514).
+// The softmax step (SOFTMAX, the file header gives each) and the row sum
+// (FOLD) are template arguments; K1 is <kF32Max, l summed apart>, the S
+// bodies fold l into P V, as the TPU kernels append a ones-column to v:
+// the per-thread unpacking and adds of the rounded p leave the FP32 pipe,
+// which at d = 64 the exponentials and the rescale already load, for the
+// tensor cores. The fold widens P V to m64n72k16: its columns 64..71 are
+// read from a 16-row atom of bf16 ones that the V descriptor's leading
+// byte offset reaches from every stage, so column tile 8 of O is l. A
+// second wgmma m64n8k16 a k step with B the ones atom, into an accumulator
+// of its own, was the other form: at (10, 9216, 64) its best tile ran 0.561
+// ms against the wide form's 0.461 (S1; S2 0.622 against 0.539, S4 0.476
+// against 0.456) on an H100: one more instruction and pass over P's
+// registers a k step for 8 columns (scripts/tune_s14.py, PERF.md §6).
 // Keys past Sk take the -1e30 logit (their zero rows would give 0); rows past
 // Sq are computed on zeros and not stored.
 
-template <int NWG, int BK, int NBUF>
+// the softmax step of the d = 64 body (the file header gives each)
+enum Softmax {
+  kF32Max = 0,     // K1, S1: running max of the f32 logits
+  kBf16Chain = 1,  // S2: the softmax chain in bf16
+  kNoMax = 2,      // S4: no max, exp2 clamped at 110, no rescale
+};
+
+// a bf16 pair as the bits of a float register (S2 keeps its pairs in S's
+// accumulator registers), and back
+__device__ __forceinline__ float bf162_bits(__nv_bfloat162 v) {
+  return __uint_as_float(*reinterpret_cast<const uint32_t*>(&v));
+}
+
+__device__ __forceinline__ __nv_bfloat162 as_bf162(float bits) {
+  const uint32_t u = __float_as_uint(bits);
+  return *reinterpret_cast<const __nv_bfloat162*>(&u);
+}
+
+template <int NWG, int BK, int NBUF, bool FOLD = false>
 struct WgTile {
   static constexpr int BQ = 64 * NWG;
   static constexpr int CONSUMERS = 128 * NWG;
   static constexpr int THREADS = CONSUMERS + 128;  // + the producer warpgroup
   static constexpr int QB = 64 * 128;              // bytes of a warpgroup's Q
   static constexpr int TILE = BK * 128;            // bytes of a K or V tile
+  static constexpr int ONES = FOLD ? 16 * 128 : 0; // a 16-row atom of bf16 ones
   static constexpr int NBAR = 1 + 3 * NBUF;        // Q, full K, full V, empty
-  static constexpr size_t BYTES = 1024 + (size_t)NWG * QB + 2 * NBUF * TILE + 8 * NBAR;
+  static constexpr size_t BYTES =
+      1024 + (size_t)NWG * QB + 2 * NBUF * TILE + ONES + 8 * NBAR;
   // CTAs a SM: two at one consumer warpgroup, so that one CTA's softmax runs
   // beside the other's products. A kernel that runs setmaxnreg starts with
   // the registers its launch bounds give each thread, 64K / (THREADS * MINB)
@@ -438,18 +471,20 @@ struct WgTile {
   static constexpr int REGS = 65536 / (THREADS * MINB) / 8 * 8;
   static constexpr int PRODUCER_REGS = 40;
   static constexpr int CONSUMER_REGS = REGS + (REGS - PRODUCER_REGS) / NWG / 8 * 8;
-  static_assert((BK == 64 || BK == 128) && NBUF >= 2, "tile and ring");
+  static_assert((BK == 32 || BK == 64 || BK == 128) && NBUF >= 2, "tile and ring");
   static_assert(REGS <= 248 && CONSUMER_REGS <= 256, "setmaxnreg takes 24..256");
+  static_assert(MINB * (BYTES + 1024) <= 233472, "shared memory of the CTAs of a SM");
 };
 
-template <int NWG, int BK, int NBUF>
-__global__ void __launch_bounds__(WgTile<NWG, BK, NBUF>::THREADS, WgTile<NWG, BK, NBUF>::MINB)
+template <int NWG, int BK, int NBUF, int SOFTMAX = kF32Max, bool FOLD = false>
+__global__ void __launch_bounds__(WgTile<NWG, BK, NBUF, FOLD>::THREADS,
+                                  WgTile<NWG, BK, NBUF, FOLD>::MINB)
 flash_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
                             const __grid_constant__ CUtensorMap tv,
                             __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                             int sq, int sk, float scale) {
-  using T = WgTile<NWG, BK, NBUF>;
+  using T = WgTile<NWG, BK, NBUF, FOLD>;
   constexpr int NS = BK / 8;   // 8-key column tiles of S
   constexpr int NO = 8;        // 8-wide column tiles of O
   constexpr int KP = BK / 16;  // k steps of P V
@@ -457,7 +492,8 @@ flash_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   uint8_t* Qs = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);  // [NWG][64][128 B]
   uint8_t* Ks = Qs + NWG * T::QB;       // [NBUF][BK][128 B]
   uint8_t* Vs = Ks + NBUF * T::TILE;    // [NBUF][BK][128 B]
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + NBUF * T::TILE);
+  uint8_t* Ones = Vs + NBUF * T::TILE;  // [16][128 B] of bf16 1.0, FOLD
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Ones + T::ONES);
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + NBUF;
   uint64_t* empty = v_full + NBUF;
@@ -466,6 +502,11 @@ flash_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int bh = blockIdx.y;
   const int ntile = (sk + BK - 1) / BK;
 
+  if constexpr (FOLD) {  // written before the barrier, read by wgmma after it
+    for (int i = threadIdx.x; i < T::ONES / 4; i += T::THREADS)
+      reinterpret_cast<uint32_t*>(Ones)[i] = kOnesBF16x2;
+    fence_proxy_async();
+  }
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int s = 0; s < NBUF; ++s) {
@@ -498,16 +539,21 @@ flash_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int t = lane % 4;  // rows lane / 4 and lane / 4 + 8 of the warp's 16, columns 2t, 2t + 1
   const uint8_t* Qw = Qs + wg * T::QB;
   const float c = scale * 1.4426950408889634f;
+  const __nv_bfloat162 cb2 = __float2bfloat162_rn(c);  // S2's bf16 constants
+  const __nv_bfloat162 ln2 = __float2bfloat162_rn(0.6931471805599453f);
 
-  float o[NO][4], s[NS][4];
+  float o[NO + FOLD][4], s[NS][4];  // FOLD: o[NO] the ones column tile, every column l
 #pragma unroll
-  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  for (int n = 0; n < NO + FOLD; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
 #pragma unroll
   for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+  // S2 keeps m as a bf16 value held in a float
+  const float m0 = SOFTMAX == kBf16Chain ? round_bf16(kNegInf) : kNegInf;
+  float m[2] = {m0, m0}, l[2] = {0.f, 0.f}, alpha[2] = {1.f, 1.f};
   uint32_t pf[KP][4];  // P of the tile whose P V is next
 
-  // S = Q K^T of tile i into s, and P V of tile i into o, issued
+  // S = Q K^T of tile i into s, and P V of tile i into o (and the row sum
+  // of P into o's ones column tile, FOLD), put in flight
   auto issue_qk = [&](int i) {
     const uint8_t* Kt = Ks + (i % NBUF) * T::TILE;
 #pragma unroll
@@ -517,13 +563,19 @@ flash_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   auto issue_pv = [&](int i) {
     const uint8_t* Vt = Vs + (i % NBUF) * T::TILE;
 #pragma unroll
-    for (int kk = 0; kk < KP; ++kk) wgmma_rs(o, pf[kk], sw128_desc(Vt + 2048 * kk), 1);
+    for (int kk = 0; kk < KP; ++kk) {
+      if constexpr (FOLD)  // columns 64..71 from the ones atom, lbo bytes on
+        wgmma_rs(o, pf[kk],
+                 sw128_desc(Vt + 2048 * kk, (uint32_t)(Ones - (Vt + 2048 * kk))), 1);
+      else
+        wgmma_rs(o, pf[kk], sw128_desc(Vt + 2048 * kk), 1);
+    }
   };
   // The softmax of tile i's S, in two steps. exps: the mask of keys past Sk
   // (MASK: the last tile), the running max of rows lane / 4 (j = 0, 1) and
-  // lane / 4 + 8 (j = 2, 3), alpha, and p = exp2(s * c - m * c) in place of
-  // s. pack: p rounded to bf16 pairs into P, the A operand of P V, and l
-  // rescaled plus the sum of the rounded p.
+  // lane / 4 + 8 (j = 2, 3), alpha, and p in place of s. pack: p rounded to
+  // bf16 pairs into P, the A operand of P V, and, l summed apart, l rescaled
+  // plus the sum of the rounded p.
   auto exps = [&](int i, auto mask) {
     if (decltype(mask)::value) {
 #pragma unroll
@@ -532,26 +584,70 @@ flash_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         for (int j = 0; j < 4; ++j)
           if (i * BK + n * 8 + 2 * t + (j & 1) >= sk) s[n][j] = kNegInf;
     }
-    float tm[2] = {kNegInf, kNegInf};
+    if constexpr (SOFTMAX == kNoMax) {  // p = exp2(min(s c, 110)); alpha stays 1
 #pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      tm[0] = fmaxf(tm[0], fmaxf(s[n][0], s[n][1]));
-      tm[1] = fmaxf(tm[1], fmaxf(s[n][2], s[n][3]));
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[n][j] = ex2(fminf(s[n][j] * c, 110.f));
+    } else if constexpr (SOFTMAX == kBf16Chain) {
+      // in place: s[n][2r] takes row r's pair of logits rounded to bf16, then
+      // s[n][2r..2r+1] the pair's exponentials. The row max over the rounded
+      // logits (a bf16x2 max: exact); e = bf16(bf16(s - m_new) c), p =
+      // bf16(exp(f32(bf16(ln2 e)))), the exponential in f32 as 2^(x log2 e)
+      // by ex2.approx, rounded by pack as K1's. (p packed here, where S's
+      // registers hold it, serialized every wgmma: ptxas gave the pair to P V's
+      // A operand in place, C7511.)
+      __nv_bfloat162 tm2[2] = {__float2bfloat162_rn(kNegInf), __float2bfloat162_rn(kNegInf)};
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const __nv_bfloat162 b = __floats2bfloat162_rn(s[n][2 * r], s[n][2 * r + 1]);
+          s[n][2 * r] = bf162_bits(b);
+          tm2[r] = __hmax2(tm2[r], b);
+        }
+      __nv_bfloat162 mn2[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float tm = fmaxf(__low2float(tm2[r]), __high2float(tm2[r]));
+        tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 1));
+        tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 2));
+        const float m_new = fmaxf(m[r], tm);  // bf16 values: exact
+        mn2[r] = __float2bfloat162_rn(m_new);
+        alpha[r] = ex2(__low2float(__hmul2(__hsub2(__float2bfloat162_rn(m[r]), mn2[r]), cb2)));
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const __nv_bfloat162 e = __hmul2(__hmul2(__hsub2(as_bf162(s[n][2 * r]), mn2[r]), cb2),
+                                           ln2);
+          s[n][2 * r] = ex2(__low2float(e) * 1.4426950408889634f);
+          s[n][2 * r + 1] = ex2(__high2float(e) * 1.4426950408889634f);
+        }
+    } else {
+      float tm[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        tm[0] = fmaxf(tm[0], fmaxf(s[n][0], s[n][1]));
+        tm[1] = fmaxf(tm[1], fmaxf(s[n][2], s[n][3]));
+      }
+      float mc[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        tm[r] = fmaxf(tm[r], __shfl_xor_sync(0xffffffffu, tm[r], 1));
+        tm[r] = fmaxf(tm[r], __shfl_xor_sync(0xffffffffu, tm[r], 2));
+        const float m_new = fmaxf(m[r], tm[r]);
+        alpha[r] = ex2((m[r] - m_new) * c);
+        m[r] = m_new;
+        mc[r] = m_new * c;
+      }
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[n][j] = ex2(fmaf(s[n][j], c, -mc[j / 2]));
     }
-    float mc[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      tm[r] = fmaxf(tm[r], __shfl_xor_sync(0xffffffffu, tm[r], 1));
-      tm[r] = fmaxf(tm[r], __shfl_xor_sync(0xffffffffu, tm[r], 2));
-      const float m_new = fmaxf(m[r], tm[r]);
-      alpha[r] = ex2((m[r] - m_new) * c);
-      m[r] = m_new;
-      mc[r] = m_new * c;
-    }
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[n][j] = ex2(fmaf(s[n][j], c, -mc[j / 2]));
   };
   auto pack = [&]() {
     float rs[2] = {0.f, 0.f};
@@ -561,10 +657,23 @@ flash_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int r = 0; r < 2; ++r) {
         const uint32_t pk = pack_bf16(s[n][2 * r], s[n][2 * r + 1]);
         pf[n / 2][(n % 2) * 2 + r] = pk;
-        rs[r] += __uint_as_float(pk << 16) + __uint_as_float(pk & 0xFFFF0000u);
+        if constexpr (!FOLD)
+          rs[r] += __uint_as_float(pk << 16) + __uint_as_float(pk & 0xFFFF0000u);
       }
+    if constexpr (!FOLD) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+      for (int r = 0; r < 2; ++r) l[r] = SOFTMAX == kNoMax ? l[r] + rs[r] : l[r] * alpha[r] + rs[r];
+    }
+  };
+  // O (and with it a folded l) rescaled by alpha
+  auto rescale = [&]() {
+    if constexpr (SOFTMAX != kNoMax) {
+#pragma unroll
+      for (int n = 0; n < NO + FOLD; ++n) {
+        o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
+        o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
+      }
+    }
   };
   // One pipeline stage, straight-line from its first wgmma to its last wait
   // (ptxas serializes every wgmma when it cannot follow a stage): Q K^T of
@@ -588,11 +697,7 @@ flash_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     reg_fence(o);
     reg_fence(pf);
     mbar_arrive(empty + i % NBUF);  // tile i's K and V are read
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
-    }
+    rescale();
     pack();
   };
 
@@ -619,11 +724,16 @@ flash_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   reg_fence(o);
   reg_fence(pf);
 
-  // finish: l of the row from its four threads; o = acc / l; lse2
+  // finish: l of the row from its four threads (or its folded column); o =
+  // acc / l; lse2 for K1's softmax only (S2 and S4 are out only)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    if constexpr (FOLD) {
+      l[r] = o[FOLD ? NO : 0][2 * r];
+    } else {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -634,19 +744,19 @@ flash_attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int n = 0; n < NO; ++n)
       *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t) =
           __floats2bfloat162_rn(o[n][2 * r] / l[r], o[n][2 * r + 1] / l[r]);
-    if (t == 0) lse[(size_t)bh * sq + row] = m[r] * c + log2f(l[r]);
+    if (SOFTMAX == kF32Max && t == 0) lse[(size_t)bh * sq + row] = m[r] * c + log2f(l[r]);
   }
 }
 
-template <int NWG, int BK, int NBUF>
+template <int NWG, int BK, int NBUF, int SOFTMAX = kF32Max, bool FOLD = false>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse,
                          int bh, int sq, int sk, float scale, cudaStream_t stream) {
-  using T = WgTile<NWG, BK, NBUF>;
+  using T = WgTile<NWG, BK, NBUF, FOLD>;
   CUtensorMap tq, tk, tv;
   if (!(tma_map_bhsd(&tq, q, 64, sq, bh, 64) && tma_map_bhsd(&tk, k, 64, sk, bh, BK) &&
         tma_map_bhsd(&tv, v, 64, sk, bh, BK)))
     return cudaErrorInvalidValue;
-  auto kern = flash_attn_fwd_wgmma_kernel<NWG, BK, NBUF>;
+  auto kern = flash_attn_fwd_wgmma_kernel<NWG, BK, NBUF, SOFTMAX, FOLD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::BYTES);
   if (err != cudaSuccess) return err;
@@ -657,15 +767,17 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at d = 512 (the VAE mid block): K1's body, on wgmma. What bounds it:
-// the two products at the bf16 tensor rate (4 * 512 = 2048 flop a logit,
-// eight times d = 64's), so the softmax's one exponential a logit is small
-// beside them; what the design must manage is where the operands live.
+// bf16 at d = 512 (the VAE mid block): K1's body, on wgmma, and the
+// profiling scripts' S1 (at d = 512) and S3. What bounds it: the two
+// products at the bf16 tensor rate (4 * 512 = 2048 flop a logit, eight times
+// d = 64's), so the softmax's one exponential a logit is small beside them;
+// what the design must manage is where the operands live.
 //   - A 64-row O over all of d = 512 is 256 f32 registers a thread, more than
 //     a warpgroup holds, so a CTA runs two consumer warpgroups on one 64-row
-//     q tile (BQ = 64), and the work of a BK-key tile is split between them:
+//     q tile (BQ = 64), and the work of a BK-key tile (BK = 64 or 128) is
+//     split between them:
 //       S by keys: warpgroup w computes S_w = Q K_w^T for its BK / 2 keys
-//         over all of d, 32 k steps of wgmma m64n64k16 (BK = 128), A = Q from
+//         over all of d, 32 k steps of wgmma m64n(BK / 2)k16, A = Q from
 //         shared memory (loaded once, 64 KB) and B = the K tile, K-major;
 //       O by columns: warpgroup w owns O[:, 256 w : 256 w + 256] (128
 //         registers) and runs O += P V[:, its half] as m64n256k16, BK / 16
@@ -677,7 +789,12 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
 //     bit (O's two halves are rescaled alike); each writes its p, rounded to
 //     bf16, into its half of a 64 x BK P tile in the 128-byte swizzle, which
 //     both then read whole. l stays a per-thread sum of the rounded p over
-//     the thread's keys, combined across the two halves once at the end.
+//     the thread's keys, combined across the two halves once at the end; or,
+//     FOLD (S1 at d = 512 does not, S3 either way), each warpgroup sums the
+//     whole P tile's rows with one more wgmma m64n8k16 a k step, B an atom of
+//     bf16 ones, into an accumulator of its own: each then holds l, with no
+//     branch by warpgroup around a wgmma (which serialized K3/K4's, C7520)
+//     and no exchange of l.
 //     The alternative, both products split by d with partial S summed
 //     through shared memory, moves 64 x BK f32 partial sums a tile where
 //     this one moves 64 x BK bf16 p and 64 maxima, and runs every
@@ -692,7 +809,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
 //     16 i + 8 + j (V atom j) in a ring of NBUF atom stages, stage = position
 //     % NBUF; with NBUF a multiple of 4 the 4 V atoms of a half always take
 //     4 consecutive stages. 208 KB at BK = 128, NBUF = 8: Q 64, P 16, the
-//     ring 128.
+//     ring 128; the ring holds 128 KB at BK = 64 too (NBUF = 16).
 //   - TMA: a producer warpgroup, one thread of which issues one 3-D
 //     tensor-map copy an atom (the map over (512, s, bh), boxes of (64, BK,
 //     1); rows past s arrive as zeros) onto the stage's "full" mbarrier and
@@ -713,7 +830,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
 // Keys past Sk take the -1e30 logit (their zero rows would give 0); rows past
 // Sq are computed on zeros and not stored.
 
-template <int BK, int NBUF>
+template <int BK, int NBUF, bool FOLD = false>
 struct WgD512Tile {
   static constexpr int ATOMS = 8;                  // 64-column atoms of a 512 row
   static constexpr int BQ = 64;
@@ -722,27 +839,29 @@ struct WgD512Tile {
   static constexpr int QATOM = 64 * 128;           // bytes of a Q atom
   static constexpr int ATOM = BK * 128;            // bytes of a K or V atom
   static constexpr int PB = 64 * BK * 2;           // bytes of P
+  static constexpr int ONES = FOLD ? 8 * 128 : 0;  // 8 rows of bf16 ones
   static constexpr int NBAR = 1 + 2 * NBUF;        // Q, full, empty
-  static constexpr size_t BYTES =
-      1024 + ATOMS * QATOM + PB + (size_t)NBUF * ATOM + 4 * 64 * sizeof(float) + 8 * NBAR;
+  static constexpr size_t BYTES = 1024 + ATOMS * QATOM + PB + (size_t)NBUF * ATOM + ONES +
+                                  4 * 64 * sizeof(float) + 8 * NBAR;
   // setmaxnreg as WgTile's: 65536 / 384 rounded down to 8 at launch
   static constexpr int REGS = 65536 / THREADS / 8 * 8;
   static constexpr int PRODUCER_REGS = 40;
   static constexpr int CONSUMER_REGS = REGS + (REGS - PRODUCER_REGS) / 2 / 8 * 8;
-  static_assert(BK == 128 && NBUF % 4 == 0, "tile and ring");  // S: m64n64k16
+  // S: m64n64k16 at BK = 128, m64n32k16 at 64
+  static_assert((BK == 64 || BK == 128) && NBUF % 4 == 0, "tile and ring");
   static_assert(CONSUMER_REGS <= 256, "setmaxnreg takes 24..256");
   static_assert(BYTES <= 232448, "shared memory of a CTA");
 };
 
-template <int BK, int NBUF>
-__global__ void __launch_bounds__(WgD512Tile<BK, NBUF>::THREADS, 1)
+template <int BK, int NBUF, bool FOLD = false>
+__global__ void __launch_bounds__(WgD512Tile<BK, NBUF, FOLD>::THREADS, 1)
 flash_attn_fwd_wgmma_d512_kernel(const __grid_constant__ CUtensorMap tq,
                                  const __grid_constant__ CUtensorMap tk,
                                  const __grid_constant__ CUtensorMap tv,
                                  __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                                  float* __restrict__ o_part, float* __restrict__ lse_part,
                                  int sq, int sk, float scale) {
-  using T = WgD512Tile<BK, NBUF>;
+  using T = WgD512Tile<BK, NBUF, FOLD>;
   constexpr int HALF = BK / 2;  // keys of a warpgroup's S
   constexpr int NS = HALF / 8;  // 8-key column tiles of its S
   constexpr int NO = 32;        // 8-wide column tiles of its 256 columns of O
@@ -751,8 +870,9 @@ flash_attn_fwd_wgmma_d512_kernel(const __grid_constant__ CUtensorMap tq,
   uint8_t* Qs = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);  // [8][64][128 B]
   uint8_t* Ps = Qs + T::ATOMS * T::QATOM;  // [BK / 64][64][128 B]
   uint8_t* ring = Ps + T::PB;               // [NBUF][BK][128 B]
-  float* red_max = reinterpret_cast<float*>(ring + NBUF * T::ATOM);  // [2][64]
-  float* red_l = red_max + 2 * 64;                                    // [2][64]
+  uint8_t* Ones = ring + NBUF * T::ATOM;    // [8][128 B] of bf16 1.0, FOLD
+  float* red_max = reinterpret_cast<float*>(Ones + T::ONES);  // [2][64]
+  float* red_l = red_max + 2 * 64;                            // [2][64]
   uint64_t* q_full = reinterpret_cast<uint64_t*>(red_l + 2 * 64);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + NBUF;
@@ -765,6 +885,11 @@ flash_attn_fwd_wgmma_d512_kernel(const __grid_constant__ CUtensorMap tq,
   auto stage = [&](int pos) { return ring + (pos % NBUF) * T::ATOM; };
   auto parity = [&](int pos) { return (uint32_t)(pos / NBUF) & 1; };
 
+  if constexpr (FOLD) {  // written before the barrier, read by wgmma after it
+    for (int i = threadIdx.x; i < T::ONES / 4; i += T::THREADS)
+      reinterpret_cast<uint32_t*>(Ones)[i] = kOnesBF16x2;
+    fence_proxy_async();
+  }
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int s = 0; s < NBUF; ++s) {
@@ -803,18 +928,23 @@ flash_attn_fwd_wgmma_d512_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
   for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float lf[1][4] = {{0.f, 0.f, 0.f, 0.f}};  // FOLD: the ones n-tile, every column l
 
   mbar_wait(q_full, 0);
   for (int il = 0; il < ntile; ++il) {
     const int i = t0 + il;  // the key tile; il its place in this CTA's stream
     // S = Q K^T over the 8 K atoms, this warpgroup's half of the keys, each
     // atom released once the group that reads it retires
+    if constexpr (BK != 128) {  // waits inside the chain serialized its wgmma here (C7520)
+#pragma unroll
+      for (int a = 0; a < T::ATOMS; ++a) mbar_wait(full + (16 * il + a) % NBUF, parity(16 * il + a));
+    }
     reg_fence(s);
     wgmma_fence();
 #pragma unroll
     for (int a = 0; a < T::ATOMS; ++a) {
       const int pos = 16 * il + a;
-      mbar_wait(full + pos % NBUF, parity(pos));
+      if constexpr (BK == 128) mbar_wait(full + pos % NBUF, parity(pos));
       const uint8_t* Ka = stage(pos) + wg * HALF * 128;
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
@@ -869,14 +999,20 @@ flash_attn_fwd_wgmma_d512_kernel(const __grid_constant__ CUtensorMap tq,
       for (int r = 0; r < 2; ++r) {
         const uint32_t pk = pack_bf16(ex2(fmaf(s[n][2 * r], c, -mc[r])),
                                       ex2(fmaf(s[n][2 * r + 1], c, -mc[r])));
-        rs[r] += __uint_as_float(pk << 16) + __uint_as_float(pk & 0xFFFF0000u);
+        if constexpr (!FOLD)
+          rs[r] += __uint_as_float(pk << 16) + __uint_as_float(pk & 0xFFFF0000u);
         const int row = row0 + 8 * r;
         *reinterpret_cast<uint32_t*>(Pa + row * 128 + ((((col % 64) / 8) ^ (row & 7)) << 4) +
                                      4 * t) = pk;
       }
     }
+    if constexpr (FOLD) {
+      lf[0][0] *= alpha[0]; lf[0][1] *= alpha[0];
+      lf[0][2] *= alpha[1]; lf[0][3] *= alpha[1];
+    } else {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+    }
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
       o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
@@ -902,35 +1038,44 @@ flash_attn_fwd_wgmma_d512_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int a = 0; a < 4; ++a) mbar_wait(full + (v0 + a) % NBUF, parity(v0 + a));
     reg_fence(o);
+    if constexpr (FOLD) reg_fence(lf);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KP; ++kk)
       wgmma_ss_tb(o, sw128_desc(Ps + (kk / 4) * T::QATOM + 32 * (kk % 4)),
                   sw128_desc(stage(v0) + 2048 * kk, T::ATOM), 1);
+    if constexpr (FOLD) {
+#pragma unroll
+      for (int kk = 0; kk < KP; ++kk)
+        wgmma_ss(lf, sw128_desc(Ps + (kk / 4) * T::QATOM + 32 * (kk % 4)), sw128_desc(Ones), 1);
+    }
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(o);
+    if constexpr (FOLD) reg_fence(lf);
 #pragma unroll
     for (int a = 0; a < 4; ++a) mbar_arrive(empty + (v0 + a) % NBUF);
     if (wg == 0) pass(vx);
   }
 
-  // finish: l of the row from its four threads and both halves; o = acc / l
-  // in bf16 and lse2, or, split, o in f32 and lse2 of this split's keys for
-  // the combine pass
+  // finish: l of the row from its four threads and both halves (or its
+  // folded column); o = acc / l in bf16 and lse2, or, split, o in f32 and
+  // lse2 of this split's keys for the combine pass
+  if constexpr (!FOLD) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    if (t == 0) red_l[wg * 64 + row0 + 8 * r] = l[r];
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      if (t == 0) red_l[wg * 64 + row0 + 8 * r] = l[r];
+    }
+    named_barrier_sync<1, T::CONSUMERS>();
   }
-  named_barrier_sync<1, T::CONSUMERS>();
   const size_t rows = (size_t)gridDim.y * sq;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + row0 + 8 * r;
     if (row >= sq) continue;
-    const float lt = red_l[row0 + 8 * r] + red_l[64 + row0 + 8 * r];
+    const float lt = FOLD ? lf[0][2 * r] : red_l[row0 + 8 * r] + red_l[64 + row0 + 8 * r];
     const size_t at = (size_t)bh * sq + row;
     if (gridDim.z == 1) {
       __nv_bfloat16* orow = out + at * 512 + 256 * wg;
@@ -949,6 +1094,7 @@ flash_attn_fwd_wgmma_d512_kernel(const __grid_constant__ CUtensorMap tq,
     }
   }
 }
+
 
 // The combine pass of a split call: per row, lse2 = log2 sum_z 2^lse2_z and
 // out = sum_z 2^(lse2_z - lse2) o_z over the splits' f32 partial outputs o_z
@@ -1026,11 +1172,11 @@ size_t d512_scratch_bytes(int bh, int sq, int sk) {
   return n == 1 ? 0 : (size_t)n * bh * sq * (512 + 1) * sizeof(float);
 }
 
-template <int BK, int NBUF>
+template <int BK, int NBUF, bool FOLD = false>
 cudaError_t launch_wgmma_d512(const void* q, const void* k, const void* v, void* out, float* lse,
                               void* scratch, int bh, int sq, int sk, float scale,
                               cudaStream_t stream) {
-  using T = WgD512Tile<BK, NBUF>;
+  using T = WgD512Tile<BK, NBUF, FOLD>;
   const int nsplit = d512_splits(bh, sq, sk);
   if (nsplit < 1 || nsplit > kMaxSplits || nsplit > (sk + BK - 1) / BK ||
       (nsplit > 1 && scratch == nullptr))
@@ -1041,7 +1187,7 @@ cudaError_t launch_wgmma_d512(const void* q, const void* k, const void* v, void*
   if (!(tma_map_bhsd(&tq, q, 512, sq, bh, 64) && tma_map_bhsd(&tk, k, 512, sk, bh, BK) &&
         tma_map_bhsd(&tv, v, 512, sk, bh, BK)))
     return cudaErrorInvalidValue;
-  auto kern = flash_attn_fwd_wgmma_d512_kernel<BK, NBUF>;
+  auto kern = flash_attn_fwd_wgmma_d512_kernel<BK, NBUF, FOLD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::BYTES);
   if (err != cudaSuccess) return err;
@@ -1053,436 +1199,6 @@ cudaError_t launch_wgmma_d512(const void* q, const void* k, const void* v, void*
   const int rows = bh * sq;
   flash_attn_fwd_combine_kernel<<<(rows + 3) / 4, 256, 0, stream>>>(
       o_part, lse_part, static_cast<__nv_bfloat16*>(out), lse, rows, nsplit);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// bf16 at d = 64 on mma.sync m16n8k16, f32 accumulate: K1's d = 64 body until
-// the wgmma one (above), now the profiling scripts' (S1's tile sweep, S2,
-// S4). WARPS warps each own 16 query rows of a BQ = 16*WARPS-row tile; K and
-// V tiles of BK keys are loaded by every thread, synchronously, into shared
-// memory with rows padded by 16 bytes, so ldmatrix meets no bank conflicts.
-// S, the rounded P and the output accumulator stay in registers: the m16n8
-// accumulator layout of two adjacent S tiles is the A-operand layout of PV,
-// so P never touches shared memory. m is kept per row. l, the sum of the
-// rounded p, is one more mma n-tile whose B operand is all ones, riding the
-// PV product as the TPU kernel's appended ones-column. K1 ran <4 warps, 64
-// keys> with l summed apart, per thread, instead.
-
-// the softmax step of the d = 64 body (the file header gives each)
-enum Softmax {
-  kF32Max = 0,     // K1, S1: running max of the f32 logits
-  kBf16Chain = 1,  // S2: the softmax chain in bf16
-  kNoMax = 2,      // S4: no max, exp2 clamped at 110, no rescale
-};
-
-// bf16(exp(x)) of two bf16 lanes, the exponential in f32
-__device__ __forceinline__ uint32_t exp_bf16x2(__nv_bfloat162 x) {
-  return pack_bf16(expf(__low2float(x)), expf(__high2float(x)));
-}
-
-template <int D, int WARPS, int BK, int SOFTMAX>
-__global__ void __launch_bounds__(32 * WARPS)
-flash_attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v,
-                          __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                          int sq, int sk, float scale) {
-  constexpr int THREADS = 32 * WARPS;
-  constexpr int BQ = 16 * WARPS;
-  constexpr int LD = D + 8;
-  constexpr int KD = D / 16;       // k-steps of Q K^T
-  constexpr int NS = BK / 8;       // 8-key column tiles of S
-  constexpr int NO = D / 8;        // 8-wide column tiles of O
-  static_assert(NS % 2 == 0 && NO % 2 == 0, "tiles are loaded in pairs");
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem4);
-  __nv_bfloat16* Ks = Qs + BQ * LD;
-  __nv_bfloat16* Vs = Ks + BK * LD;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, qd = lane % 4;  // accumulator row g (and g+8), cols 2qd, 2qd+1
-  const int mi = lane / 8, mr = lane % 8; // ldmatrix: matrix index, row in matrix
-  const int q0 = blockIdx.x * BQ;
-  const size_t bh = blockIdx.y;
-  const __nv_bfloat16* qb = q + bh * sq * D;
-  const __nv_bfloat16* kb = k + bh * sk * D;
-  const __nv_bfloat16* vb = v + bh * sk * D;
-  const float c = scale * 1.4426950408889634f;
-  const __nv_bfloat16 cb = __float2bfloat16(c);  // S2's bf16 constants
-  const __nv_bfloat162 cb2 = __halves2bfloat162(cb, cb);
-  const __nv_bfloat162 ln2 = __float2bfloat162_rn(0.6931471805599453f);
-
-  load_rows<D, THREADS>(Qs, qb, q0, sq, BQ);
-  __syncthreads();
-  uint32_t qf[KD][4];
-#pragma unroll
-  for (int kd = 0; kd < KD; ++kd)
-    ldsm_x4(Qs + (warp * 16 + mr + 8 * (mi % 2)) * LD + kd * 16 + 8 * (mi / 2), qf[kd]);
-
-  float o[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  // S2 keeps m as a bf16 value held in a float
-  const float m0 = SOFTMAX == kBf16Chain ? round_bf16(kNegInf) : kNegInf;
-  float m[2] = {m0, m0};
-  float lf[4] = {0.f, 0.f, 0.f, 0.f};  // the ones n-tile: every column is l
-
-  for (int k0 = 0; k0 < sk; k0 += BK) {
-    __syncthreads();  // the previous tile's K and V reads are done
-    load_rows<D, THREADS>(Ks, kb, k0, sk, BK);
-    load_rows<D, THREADS>(Vs, vb, k0, sk, BK);
-    __syncthreads();
-
-    float s[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kd = 0; kd < KD; ++kd)
-#pragma unroll
-      for (int n = 0; n < NS; n += 2) {
-        uint32_t b[4];
-        ldsm_x4(Ks + (n * 8 + mr + 8 * (mi / 2)) * LD + kd * 16 + 8 * (mi % 2), b);
-        mma_bf16(s[n], qf[kd], b[0], b[1]);
-        mma_bf16(s[n + 1], qf[kd], b[2], b[3]);
-      }
-    if (k0 + BK > sk) {
-#pragma unroll
-      for (int n = 0; n < NS; ++n)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (k0 + n * 8 + 2 * qd + (j & 1) >= sk) s[n][j] = kNegInf;
-    }
-
-    // online softmax; rows g (j = 0, 1) and g + 8 (j = 2, 3). alpha stays 1
-    // without a max (S4)
-    uint32_t pf[NS / 2][4];
-    float alpha[2] = {1.f, 1.f};
-    if (SOFTMAX == kBf16Chain) {
-      // logits rounded to bf16 once; the row max over the rounded logits
-      __nv_bfloat162 sb[NS][2];  // [n][0]: row g, [n][1]: row g + 8
-      float tm[2] = {kNegInf, kNegInf};
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        sb[n][0] = __floats2bfloat162_rn(s[n][0], s[n][1]);
-        sb[n][1] = __floats2bfloat162_rn(s[n][2], s[n][3]);
-        tm[0] = fmaxf(tm[0], fmaxf(__low2float(sb[n][0]), __high2float(sb[n][0])));
-        tm[1] = fmaxf(tm[1], fmaxf(__low2float(sb[n][1]), __high2float(sb[n][1])));
-      }
-      __nv_bfloat162 mn2[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        tm[r] = fmaxf(tm[r], __shfl_xor_sync(0xffffffffu, tm[r], 1));
-        tm[r] = fmaxf(tm[r], __shfl_xor_sync(0xffffffffu, tm[r], 2));
-        const float m_new = fmaxf(m[r], tm[r]);  // bf16 values: exact
-        const __nv_bfloat16 mp = __float2bfloat16(m[r]), mn = __float2bfloat16(m_new);
-        alpha[r] = exp2f(__bfloat162float(__hmul(__hsub(mp, mn), cb)));
-        m[r] = m_new;
-        mn2[r] = __halves2bfloat162(mn, mn);
-      }
-#pragma unroll
-      for (int n = 0; n < NS; ++n)
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-          pf[n / 2][(n % 2) * 2 + r] =
-              exp_bf16x2(__hmul2(__hmul2(__hsub2(sb[n][r], mn2[r]), cb2), ln2));
-    } else {
-      float mc[2] = {0.f, 0.f};
-      if (SOFTMAX == kF32Max) {  // the max of the raw logits
-        float tm[2] = {kNegInf, kNegInf};
-#pragma unroll
-        for (int n = 0; n < NS; ++n) {
-          tm[0] = fmaxf(tm[0], fmaxf(s[n][0], s[n][1]));
-          tm[1] = fmaxf(tm[1], fmaxf(s[n][2], s[n][3]));
-        }
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          tm[r] = fmaxf(tm[r], __shfl_xor_sync(0xffffffffu, tm[r], 1));
-          tm[r] = fmaxf(tm[r], __shfl_xor_sync(0xffffffffu, tm[r], 2));
-          const float m_new = fmaxf(m[r], tm[r]);
-          alpha[r] = exp2f((m[r] - m_new) * c);
-          m[r] = m_new;
-          mc[r] = m_new * c;
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        float p[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)  // rounded once, by pack_bf16
-          p[j] = SOFTMAX == kNoMax ? exp2f(fminf(s[n][j] * c, 110.f))
-                                   : exp2f(s[n][j] * c - mc[j / 2]);
-        pf[n / 2][(n % 2) * 2 + 0] = pack_bf16(p[0], p[1]);
-        pf[n / 2][(n % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
-      }
-    }
-    lf[0] *= alpha[0]; lf[1] *= alpha[0];
-    lf[2] *= alpha[1]; lf[3] *= alpha[1];
-#pragma unroll
-    for (int j = 0; j < NS / 2; ++j) mma_bf16(lf, pf[j], kOnesBF16x2, kOnesBF16x2);
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int j = 0; j < NS / 2; ++j)
-#pragma unroll
-      for (int n = 0; n < NO; n += 2) {
-        uint32_t b[4];
-        ldsm_x4_trans(Vs + (j * 16 + mr + 8 * (mi % 2)) * LD + n * 8 + 8 * (mi / 2), b);
-        mma_bf16(o[n], pf[j], b[0], b[1]);
-        mma_bf16(o[n + 1], pf[j], b[2], b[3]);
-      }
-  }
-
-  // finish: l of the row from the ones n-tile; o = acc / l; lse2 for K1's
-  // softmax only (S2 and S4 are out only)
-  const float l[2] = {lf[0], lf[2]};
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + 8 * r;
-    if (row >= sq) continue;
-    __nv_bfloat16* orow = out + (bh * sq + row) * D;
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * qd) =
-          __floats2bfloat162_rn(o[n][2 * r] / l[r], o[n][2 * r + 1] / l[r]);
-    if (SOFTMAX == kF32Max && qd == 0) lse[bh * sq + row] = m[r] * c + log2f(l[r]);
-  }
-}
-
-template <int D, int WARPS, int BK, int SOFTMAX = kF32Max>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
-                       float* lse, int bh, int sq, int sk, float scale,
-                       cudaStream_t stream) {
-  constexpr int BQ = 16 * WARPS;
-  constexpr size_t bytes = (size_t)(BQ + 2 * BK) * (D + 8) * sizeof(__nv_bfloat16);
-  auto kern = flash_attn_fwd_mma_kernel<D, WARPS, BK, SOFTMAX>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid((sq + BQ - 1) / BQ, bh);
-  kern<<<grid, 32 * WARPS, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse,
-      sq, sk, scale);
-  return cudaGetLastError();
-}
-
-
-// ---------------------------------------------------------------------------
-// bf16 at d = 512 on mma.sync m16n8k16: K1's d = 512 body until the wgmma
-// one (above), now the profiling scripts' (S1 at d = 512, S3), with d split
-// four ways. A 16-row accumulator over all of d=512 would need 256 f32
-// registers a thread, so each of 4*BQ/16 warps owns one 16-row part of a
-// BQ-row q tile and one quarter of d: its Q fragments (32 registers at
-// d=512) and its (16, d/4) output accumulator (64) stay in registers. Per
-// BK-key tile the warps write partial S over their quarter of d to shared
-// memory, and every warp then sums the four quarters in the same order, so
-// the four warps of a row part hold identical S, m, l and rounded P, and run
-// PV on their own quarter of V's columns. l is either a per-thread partial
-// over the thread's columns that the four threads of a row add at the end
-// (FOLD false) or the ones n-tile of the d = 64 mma.sync body (FOLD true). K1
-// ran <32 rows, 64 keys, FOLD false>, and the scripts' sweep holds it.
-
-template <int D, int BQ, int BK, bool FOLD>
-__global__ void __launch_bounds__(32 * 4 * (BQ / 16))
-flash_attn_fwd_split_kernel(const __nv_bfloat16* __restrict__ q,
-                            const __nv_bfloat16* __restrict__ k,
-                            const __nv_bfloat16* __restrict__ v,
-                            __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                            int sq, int sk, float scale) {
-  constexpr int PARTS = BQ / 16;   // 16-row parts of the q tile
-  constexpr int THREADS = 32 * 4 * PARTS;
-  constexpr int SLD = BK + 8;      // partial-S row stride (floats)
-  constexpr int LD = D + 8;
-  constexpr int DQ = D / 4;        // this warp's quarter of d
-  constexpr int KD = DQ / 16;      // k-steps of its partial Q K^T
-  constexpr int NS = BK / 8;
-  constexpr int NO = DQ / 8;
-  static_assert(NS % 2 == 0 && NO % 2 == 0, "tiles are loaded in pairs");
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem4);
-  __nv_bfloat16* Vs = Ks + BK * LD;
-  float* Sp = reinterpret_cast<float*>(Vs + BK * LD);  // [4][BQ][SLD]
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int part = warp % PARTS, quarter = warp / PARTS;
-  const int g = lane / 4, qd = lane % 4;
-  const int mi = lane / 8, mr = lane % 8;
-  const int q0 = blockIdx.x * BQ;
-  const size_t bh = blockIdx.y;
-  const __nv_bfloat16* qb = q + bh * sq * D;
-  const __nv_bfloat16* kb = k + bh * sk * D;
-  const __nv_bfloat16* vb = v + bh * sk * D;
-  const float c = scale * 1.4426950408889634f;
-  const int d0 = quarter * DQ;
-
-  // Q tile staged through the K buffer
-  load_rows<D, THREADS>(Ks, qb, q0, sq, BQ);
-  __syncthreads();
-  uint32_t qf[KD][4];
-#pragma unroll
-  for (int kd = 0; kd < KD; ++kd)
-    ldsm_x4(Ks + (part * 16 + mr + 8 * (mi % 2)) * LD + d0 + kd * 16 + 8 * (mi / 2), qf[kd]);
-
-  float o[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float lf[4] = {0.f, 0.f, 0.f, 0.f};
-
-  for (int k0 = 0; k0 < sk; k0 += BK) {
-    __syncthreads();  // Q staging, or the previous tile's K, V and S reads, are done
-    for (int idx = threadIdx.x; idx < BK * (D / 8); idx += THREADS) {
-      const int r = idx / (D / 8), c8 = (idx % (D / 8)) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (k0 + r < sk) {
-        kv = *reinterpret_cast<const uint4*>(kb + (size_t)(k0 + r) * D + c8);
-        vv = *reinterpret_cast<const uint4*>(vb + (size_t)(k0 + r) * D + c8);
-      }
-      *reinterpret_cast<uint4*>(Ks + r * LD + c8) = kv;
-      *reinterpret_cast<uint4*>(Vs + r * LD + c8) = vv;
-    }
-    __syncthreads();
-
-    {  // partial S over this warp's quarter of d
-      float sp[NS][4];
-#pragma unroll
-      for (int n = 0; n < NS; ++n) sp[n][0] = sp[n][1] = sp[n][2] = sp[n][3] = 0.f;
-#pragma unroll
-      for (int kd = 0; kd < KD; ++kd)
-#pragma unroll
-        for (int n = 0; n < NS; n += 2) {
-          uint32_t b[4];
-          ldsm_x4(Ks + (n * 8 + mr + 8 * (mi / 2)) * LD + d0 + kd * 16 + 8 * (mi % 2), b);
-          mma_bf16(sp[n], qf[kd], b[0], b[1]);
-          mma_bf16(sp[n + 1], qf[kd], b[2], b[3]);
-        }
-      float* mine = Sp + (quarter * BQ + part * 16) * SLD;
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        *reinterpret_cast<float2*>(mine + g * SLD + n * 8 + 2 * qd) =
-            make_float2(sp[n][0], sp[n][1]);
-        *reinterpret_cast<float2*>(mine + (g + 8) * SLD + n * 8 + 2 * qd) =
-            make_float2(sp[n][2], sp[n][3]);
-      }
-    }
-    __syncthreads();
-
-    float s[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int j = 0; j < 4; j += 2) {
-        const int row = part * 16 + g + 8 * (j / 2), col = n * 8 + 2 * qd;
-        float2 acc = make_float2(0.f, 0.f);
-#pragma unroll
-        for (int qq = 0; qq < 4; ++qq) {  // fixed order: identical in every warp
-          const float2 part_s = *reinterpret_cast<const float2*>(
-              Sp + (qq * BQ + row) * SLD + col);
-          acc.x += part_s.x;
-          acc.y += part_s.y;
-        }
-        s[n][j] = (k0 + col < sk) ? acc.x : kNegInf;
-        s[n][j + 1] = (k0 + col + 1 < sk) ? acc.y : kNegInf;
-      }
-
-    float tm[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      tm[0] = fmaxf(tm[0], fmaxf(s[n][0], s[n][1]));
-      tm[1] = fmaxf(tm[1], fmaxf(s[n][2], s[n][3]));
-    }
-    float alpha[2], mc[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      tm[r] = fmaxf(tm[r], __shfl_xor_sync(0xffffffffu, tm[r], 1));
-      tm[r] = fmaxf(tm[r], __shfl_xor_sync(0xffffffffu, tm[r], 2));
-      const float m_new = fmaxf(m[r], tm[r]);
-      alpha[r] = exp2f((m[r] - m_new) * c);
-      m[r] = m_new;
-      mc[r] = m_new * c;
-    }
-    uint32_t pf[NS / 2][4];
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      float p[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) p[j] = round_bf16(exp2f(s[n][j] * c - mc[j / 2]));
-      if (!FOLD) {
-        rs[0] += p[0] + p[1];
-        rs[1] += p[2] + p[3];
-      }
-      pf[n / 2][(n % 2) * 2 + 0] = pack_bf16(p[0], p[1]);
-      pf[n / 2][(n % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
-    }
-    if (FOLD) {
-      lf[0] *= alpha[0]; lf[1] *= alpha[0];
-      lf[2] *= alpha[1]; lf[3] *= alpha[1];
-#pragma unroll
-      for (int j = 0; j < NS / 2; ++j) mma_bf16(lf, pf[j], kOnesBF16x2, kOnesBF16x2);
-    } else {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
-    }
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int j = 0; j < NS / 2; ++j)
-#pragma unroll
-      for (int n = 0; n < NO; n += 2) {
-        uint32_t b[4];
-        ldsm_x4_trans(Vs + (j * 16 + mr + 8 * (mi % 2)) * LD + d0 + n * 8 + 8 * (mi / 2), b);
-        mma_bf16(o[n], pf[j], b[0], b[1]);
-        mma_bf16(o[n + 1], pf[j], b[2], b[3]);
-      }
-  }
-
-  if (FOLD) {
-    l[0] = lf[0];
-    l[1] = lf[2];
-  } else {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + part * 16 + g + 8 * r;
-    if (row >= sq) continue;
-    __nv_bfloat16* orow = out + (bh * sq + row) * D + d0;
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * qd) =
-          __floats2bfloat162_rn(o[n][2 * r] / l[r], o[n][2 * r + 1] / l[r]);
-    if (quarter == 0 && qd == 0) lse[bh * sq + row] = m[r] * c + log2f(l[r]);
-  }
-}
-
-template <int D, int BQ, int BK, bool FOLD>
-cudaError_t launch_split(const void* q, const void* k, const void* v, void* out,
-                         float* lse, int bh, int sq, int sk, float scale,
-                         cudaStream_t stream) {
-  constexpr size_t bytes = (size_t)2 * BK * (D + 8) * sizeof(__nv_bfloat16) +
-                           (size_t)4 * BQ * (BK + 8) * sizeof(float);
-  static_assert(BQ <= BK, "the Q tile is staged through the K buffer");
-  auto kern = flash_attn_fwd_split_kernel<D, BQ, BK, FOLD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid((sq + BQ - 1) / BQ, bh);
-  kern<<<grid, 32 * 4 * (BQ / 16), bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse,
-      sq, sk, scale);
   return cudaGetLastError();
 }
 
@@ -1519,20 +1235,39 @@ cudaError_t dispatch_bf16_d512(const void* q, const void* k, const void* v, void
   return launch_wgmma_d512<128, 8>(q, k, v, out, lse, scratch, bh, sq, sk, scale, stream);
 }
 
-// the d = 64 CTA tiles (query rows, keys) of the profiling scripts' sweep
-#define GP_D64_TILES(X) X(64, 32) X(64, 64) X(64, 128) X(128, 64) X(128, 128)
+// The CTA tiles (query rows, keys) of the profiling scripts' sweep, each
+// with its ring stages; the Python constants D64_TILES and D512_TILES list
+// the tiles. d = 64: 64 query rows a consumer warpgroup, the ring holding
+// 384 keys at every tile, as K1's <1, 128, 3>. d = 512: 64 query rows, the
+// ring 128 KB of atoms, as K1's <128, 8>; key splits and the combine pass by
+// K1's rule (d512_splits).
+#define GP_D64_TILES(X) X(64, 32, 12) X(64, 64, 6) X(64, 128, 3) X(128, 64, 6) X(128, 128, 3)
+#define GP_D512_TILES(X) X(64, 64, 16) X(64, 128, 8)
 
-// S2 or S4 at d = 64 and tile (bq, bk), out only
+// S1 (kF32Max), S2 or S4 at d = 64 and tile (bq, bk), the row sum folded
 template <int SOFTMAX>
-cudaError_t dispatch_variant(const void* q, const void* k, const void* v, void* out, int bh,
-                             int sq, int sk, int d, float scale, int bq, int bk,
-                             cudaStream_t stream) {
-  if (bh <= 0 || sq <= 0 || sk <= 0 || d != 64) return cudaErrorInvalidValue;
-#define GP_TILE(BQ, BK)                                                               \
-  if (bq == BQ && bk == BK)                                                           \
-    return launch_mma<64, BQ / 16, BK, SOFTMAX>(q, k, v, out, nullptr, bh, sq, sk, scale, \
-                                                 stream);
+cudaError_t dispatch_s_d64(const void* q, const void* k, const void* v, void* out, float* lse,
+                           int bh, int sq, int sk, float scale, int bq, int bk,
+                           cudaStream_t stream) {
+#define GP_TILE(BQ, BK, NBUF)                                                                   \
+  if (bq == BQ && bk == BK)                                                                     \
+    return launch_wgmma<BQ / 64, BK, NBUF, SOFTMAX, true>(q, k, v, out, lse, bh, sq, sk, scale, \
+                                                          stream);
   GP_D64_TILES(GP_TILE)
+#undef GP_TILE
+  return cudaErrorInvalidValue;
+}
+
+// S1 or S3 at d = 512 and tile (bq, bk), the row sum folded (FOLD) or not
+template <bool FOLD>
+cudaError_t dispatch_s_d512(const void* q, const void* k, const void* v, void* out, float* lse,
+                            void* scratch, int bh, int sq, int sk, float scale, int bq, int bk,
+                            cudaStream_t stream) {
+#define GP_TILE(BQ, BK, NBUF)                                                               \
+  if (bq == BQ && bk == BK)                                                                 \
+    return launch_wgmma_d512<BK, NBUF, FOLD>(q, k, v, out, lse, scratch, bh, sq, sk, scale, \
+                                             stream);
+  GP_D512_TILES(GP_TILE)
 #undef GP_TILE
   return cudaErrorInvalidValue;
 }
@@ -1555,7 +1290,8 @@ extern "C" const char* flash_attn_fwd_bf16_d512_body() {
          "BQ 64 x BK 128";
 }
 
-// Bytes of scratch flash_attn_fwd takes for these arguments (0: none).
+// Bytes of scratch flash_attn_fwd takes for these arguments (0: none); so
+// does flash_attn_fwd_tiled at d = 512, whose key splits follow the same rule.
 extern "C" long long flash_attn_fwd_scratch_bytes(int bh, int sq, int sk, int d, int dtype) {
   if (bh <= 0 || sq <= 0 || sk <= 0) return 0;
   return dtype == 1 && d == 512 ? (long long)d512_scratch_bytes(bh, sq, sk) : 0;
@@ -1580,31 +1316,26 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
 
 // The same function, bf16 only, with a caller-chosen CTA tile: bq query rows
 // by bk keys per step, and the row sum folded into PV (fold = 1) or summed
-// apart (0). The instantiated sets (the profiling scripts' sweep; the Python
-// constants D64_TILES and D512_TILES list them): d = 64 with fold = 1 at
-// (64, 32), (64, 64), (64, 128), (128, 64), (128, 128); d = 512 with either
-// fold at (16, 32), (16, 64), (32, 32), (32, 64). Any other set returns
-// cudaErrorInvalidValue. Arguments as flash_attn_fwd's.
+// apart (0), on K1's bodies. The instantiated sets (GP_D64_TILES,
+// GP_D512_TILES; the Python constants D64_TILES and D512_TILES list them):
+// d = 64 with fold = 1 at (64, 32), (64, 64), (64, 128), (128, 64), (128,
+// 128); d = 512 with either fold at (64, 64), (64, 128). Any other set
+// returns cudaErrorInvalidValue. Arguments as flash_attn_fwd's; scratch as
+// flash_attn_fwd_scratch_bytes(bh, sq, sk, d, 1) gives it. At d = 512,
+// (64, 128) without the fold is K1's own launch.
 extern "C" int flash_attn_fwd_tiled(const void* q, const void* k, const void* v,
-                                    void* out, void* lse, int bh, int sq, int sk,
+                                    void* out, void* lse, void* scratch, int bh, int sq, int sk,
                                     int d, float scale, int bq, int bk, int fold,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (bh <= 0 || sq <= 0 || sk <= 0) return (int)cudaErrorInvalidValue;
-#define GP_D64(BQ, BK)                                                              \
-  if (d == 64 && fold == 1 && bq == BQ && bk == BK)                                 \
-    return (int)launch_mma<64, BQ / 16, BK>(q, k, v, out, l, bh, sq, sk, scale, s);
-  GP_D64_TILES(GP_D64)
-#undef GP_D64
-#define GP_D512(BQ, BK)                                                             \
-  if (d == 512 && bq == BQ && bk == BK)                                             \
-    return (int)(fold == 1 ? launch_split<512, BQ, BK, true>(q, k, v, out, l, bh, sq, sk, scale, s) \
-                           : launch_split<512, BQ, BK, false>(q, k, v, out, l, bh, sq, sk, scale, s));
-  if (fold == 0 || fold == 1) {
-    GP_D512(16, 32) GP_D512(16, 64) GP_D512(32, 32) GP_D512(32, 64)
-  }
-#undef GP_D512
+  if (d == 64 && fold == 1)
+    return (int)dispatch_s_d64<kF32Max>(q, k, v, out, l, bh, sq, sk, scale, bq, bk, s);
+  if (d == 512 && fold == 1)
+    return (int)dispatch_s_d512<true>(q, k, v, out, l, scratch, bh, sq, sk, scale, bq, bk, s);
+  if (d == 512 && fold == 0)
+    return (int)dispatch_s_d512<false>(q, k, v, out, l, scratch, bh, sq, sk, scale, bq, bk, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1614,12 +1345,14 @@ extern "C" int flash_attn_fwd_tiled(const void* q, const void* k, const void* v,
 extern "C" int flash_bf16_softmax(const void* q, const void* k, const void* v, void* out,
                                   int bh, int sq, int sk, int d, float scale, int bq, int bk,
                                   void* stream) {
-  return (int)dispatch_variant<kBf16Chain>(q, k, v, out, bh, sq, sk, d, scale, bq, bk,
-                                           static_cast<cudaStream_t>(stream));
+  if (bh <= 0 || sq <= 0 || sk <= 0 || d != 64) return (int)cudaErrorInvalidValue;
+  return (int)dispatch_s_d64<kBf16Chain>(q, k, v, out, nullptr, bh, sq, sk, scale, bq, bk,
+                                         static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_nomax(const void* q, const void* k, const void* v, void* out, int bh,
                            int sq, int sk, int d, float scale, int bq, int bk, void* stream) {
-  return (int)dispatch_variant<kNoMax>(q, k, v, out, bh, sq, sk, d, scale, bq, bk,
-                                       static_cast<cudaStream_t>(stream));
+  if (bh <= 0 || sq <= 0 || sk <= 0 || d != 64) return (int)cudaErrorInvalidValue;
+  return (int)dispatch_s_d64<kNoMax>(q, k, v, out, nullptr, bh, sq, sk, scale, bq, bk,
+                                     static_cast<cudaStream_t>(stream));
 }

@@ -420,19 +420,21 @@ def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ------------------------------- S1-S4: the attention profiling scripts' kernels
 #
 # scripts/profile_unet.py and scripts/profile_attn_boundary.py run four more
-# Pallas kernels, each a variant of K1's, out only, bf16:
+# Pallas kernels, each a variant of K1's, out only, bf16. On the card all four
+# run on K1's own wgmma bodies (csrc/flash_attn_fwd.cu), instantiated at the
+# CTA tiles below with a softmax step and a row sum of their own:
 #
 # - S1 (profile_unet.py ``flash_with_blocks``) and S3 (profile_attn_boundary.py
 #   part "sweep512" ``build``): K1's function with caller-chosen blocks and
 #   the row sum folded into PV (an appended ones-column) or summed apart;
-#   S1 folds where d <= 128, S3 takes either. On the card they are the
-#   mma.sync bf16 bodies (csrc/flash_attn_fwd.cu ``flash_attn_fwd_tiled``)
-#   instantiated at the CTA tiles below, ``fold`` choosing between a ones
-#   n-tile of the PV mma and per-thread sums. The TPU swept VMEM blocks of
-#   256-9216 query rows; a CTA holds 16-128, so the port's sweep is over its
-#   own tiles, and each set holds the mma.sync tile K1 ran (``K1_TILES``) as
-#   the baseline: at both head dims the tile of the mma.sync body K1 ran
-#   before its wgmma one.
+#   S1 folds where d <= 128, S3 takes either. ``flash_attn_fwd_tiled`` runs
+#   them, ``fold`` choosing between a ones n-tile beside the PV product and
+#   per-thread sums. The TPU swept VMEM blocks of 256-9216 query rows; a CTA
+#   holds 64-128 (one or two consumer warpgroups of 64 rows at d=64, two
+#   warpgroups on 64 rows at d=512), so the port's sweep is over the tiles its
+#   bodies take, and each set holds the tile K1 launches (``K1_TILES``): at
+#   d=512 without the fold, S1 and S3 there are K1's own launch, key splits
+#   and combine pass included.
 #   Plain version: ``_flash_bhsd_ref``, as K1's: p rounded against the row's
 #   global max where the kernels round it against the running max, a
 #   difference of bf16 rounding that K1's bounds already admit.
@@ -444,8 +446,9 @@ def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 #   p = bf16(exp2(min(s*c, 110))) (``flash_nomax``).
 
 D64_TILES = ((64, 32), (64, 64), (64, 128), (128, 64), (128, 128))  # (query rows, keys)
-D512_TILES = ((16, 32), (16, 64), (32, 32), (32, 64))
-K1_TILES = {64: (64, 64), 512: (32, 64)}  # K1's mma.sync tiles, before its wgmma bodies
+D512_TILES = ((64, 64), (64, 128))
+# the tile K1 launches at each head dim (dispatch_bf16_d64, dispatch_bf16_d512)
+K1_TILES = {64: (64, 128), 512: (64, 128)}
 
 
 def _check_tiled(name: str, qh, kh, vh, tiles, bq: int, bk: int) -> None:
@@ -460,16 +463,22 @@ def _check_tiled(name: str, qh, kh, vh, tiles, bq: int, bk: int) -> None:
 def _launch_tiled(entry: str, qh, kh, vh, scale: float, *tail,
                   with_lse: bool = False) -> torch.Tensor:
     """Launch a tiled bf16 entry point of the kernel library -> out; with_lse:
-    the entry also writes lse2 (K1's bodies), into scratch dropped here."""
+    the entry also writes lse2, into a buffer dropped here, and takes the
+    scratch of K1's key splits (``flash_attn_fwd_tiled``)."""
     bh, sq, d = qh.shape
+    sk = kh.shape[1]
     qh, kh, vh = qh.contiguous(), kh.contiguous(), vh.contiguous()
+    _check_aligned(entry, qh, kh, vh)
     out = torch.empty_like(qh)
+    lib = _build.load()
     head = [qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr()]
     if with_lse:
         lse = torch.empty((bh, sq), dtype=torch.float32, device=qh.device)
-        head.append(lse.data_ptr())
-    err = getattr(_build.load(), entry)(
-        *head, bh, sq, kh.shape[1], d, ctypes.c_float(scale), *tail,
+        nbytes = lib.flash_attn_fwd_scratch_bytes(bh, sq, sk, d, 1)
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=qh.device) if nbytes else None
+        head += [lse.data_ptr(), None if scratch is None else scratch.data_ptr()]
+    err = getattr(lib, entry)(
+        *head, bh, sq, sk, d, ctypes.c_float(scale), *tail,
         _dispatch.stream_handle(qh))
     _build.check(err, entry)
     return out

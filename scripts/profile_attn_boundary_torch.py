@@ -13,12 +13,13 @@ weights (the JAX init scheme). Parts:
   flash512        K1 alone (flash_attention._flash_bhsd) at (b, 9216, 512)
   stransformer    spatial_transformer at 96@320 (5 heads), 48@640 (10)
   sweep512        S3 flash_attention.flash_d512_blocks at (b, 9216, 512) over
-                  the CTA tiles D512_TILES, the row sum folded into PV or not
+                  the CTA tiles D512_TILES of K1's d=512 wgmma body, the row
+                  sum folded into PV or not
   gn              GroupNorm + SiLU at 768@128, 384@256, 192@512, 96@512, with
                   the effective GB/s (two reads and one write of x) and the
                   floor at the card's HBM rate
   nomax           S4 flash_attention.flash_nomax at (5b, 9216, 64) over
-                  D64_TILES
+                  D64_TILES of K1's d=64 wgmma body
   resblock_chain  a VAE resnet_block with its output fed back as the next
                   input, at 768@128, 384@256, 192@512, with the conv floor
                   at the bf16 tensor peak and the GroupNorm floor at HBM rate
@@ -31,7 +32,7 @@ weights (the JAX init scheme). Parts:
 
 Like the JAX script, the attention of sweep512 and nomax is that of
 (x, x, x). The TPU script swept VMEM blocks of 256-1024 query rows; the port
-sweeps its CUDA tiles, named by them (d512_32x64_foldTrue is 32 query rows
+sweeps its CUDA tiles, named by them (d512_64x64_foldTrue is 64 query rows
 by 64 keys per step, the row sum folded). Timing: CUDA events around --reps
 calls after one warm-up (chip_smoke's cuda_ms); the JAX script's loop-carry
 tricks (marginal_time, marginal_time_chain) defeat XLA's loop-invariant

@@ -30,10 +30,11 @@ weights (the JAX init scheme). Parts:
   all          flash, blocks, blocks2304, ff, resblock, stransformer, tblock
 
 The TPU script swept Pallas blocks of 192-9216 query rows by 512-2304 keys,
-sized for VMEM; a CTA holds 16-128 query rows, so the port sweeps the CUDA
-kernels' own tiles, named by them (blocks_s9216_64x64 is 64 query rows by
-64 keys per step), and each set holds the mma.sync tile K1 ran before its
-wgmma bodies (K1_TILES).
+sized for VMEM; a CTA of K1's wgmma bodies holds 64 or 128 query rows (one
+or two consumer warpgroups of 64 at d=64, two warpgroups on 64 at d=512),
+so the port sweeps the tiles those bodies take, named by them
+(blocks_s9216_64x64 is 64 query rows by 64 keys per step), and each set
+holds the tile K1 launches (K1_TILES).
 
 Timing: CUDA events around --reps calls after one warm-up (chip_smoke's
 cuda_ms). The JAX script's marginal_time (a loop-carried perturbation inside

@@ -42,11 +42,14 @@ then in reverse; CUDA events, mean of 10 calls after a warm-up), and one
 JSON line per shape gives SDPA's ms, the bound at the card's peak for the
 dtype (split TF32: a third of TF32's) and, per library, both times and the
 max abs error of out and lse2 against the plain version and out's over
-max|plain|; a line before them
-gives the registers, spill bytes and ptxas advisories of each library's K1
-kernels. --check first holds every library to the card tests' bar (1e-4 f32,
-2e-2 bf16) at the card tests' ragged shapes of the dtype, errors printed,
-and stops at the first library that misses it. Needs the card and nvcc.
+max|plain|, and whether its out and lse2 are bit for bit the shipped
+library's (equal_to_shipped: an older source that must not change K1,
+e.g. one before an edit to the S bodies that share K1's templates); a line
+before them gives the registers, spill bytes and ptxas advisories of each
+library's K1 kernels. --check first holds every library to the card tests'
+bar (1e-4 f32, 2e-2 bf16) at the card tests' ragged shapes of the dtype,
+errors printed, and stops at the first library that misses it. Needs the
+card and nvcc.
 """
 
 from __future__ import annotations
@@ -102,13 +105,11 @@ BF16_LAUNCH = {64: "launch_wgmma", 512: "launch_wgmma_d512"}
 BF16_ARGS = {64: "q, k, v, out, lse, bh, sq, sk, scale, stream",
              512: "q, k, v, out, lse, scratch, bh, sq, sk, scale, stream"}
 D512_SPLITS = re.compile(r"(int d512_splits\(int bh, int sq, int sk\) \{\n).*?(\n\}\n)", re.S)
-# K1's kernels by dtype; at bf16 also the mma.sync bodies K1 ran before its
-# wgmma ones (d=64: the 4-warp, 64-key instantiation with l summed apart;
-# d=512: flash_attn_fwd_split_kernel<512, 32, 64, false>)
+# K1's kernels by dtype; at bf16 every instantiation of the wgmma bodies,
+# K1's and the profiling scripts' S1-S4 (softmax step and fold in the
+# template arguments; scripts/tune_s14.py times the latter)
 KERNEL = {"f32": ("flash_attn_fwd_f32_kernel",),
-          "bf16": ("flash_attn_fwd_wgmma_kernel", "flash_attn_fwd_wgmma_d512_kernel",
-                   "flash_attn_fwd_mma_kernelILi64ELi4ELi64ELb0E",
-                   "flash_attn_fwd_split_kernelILi512ELi32ELi64ELb0E")}
+          "bf16": ("flash_attn_fwd_wgmma_kernel", "flash_attn_fwd_wgmma_d512_kernel")}
 REPS = 10
 
 
@@ -242,6 +243,7 @@ def main(argv=None) -> None:
                    "sdpa_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                        q[None], k[None], v[None])[0], REPS),
                    "bound_ms": 4.0 * bh * s * s * d / peak * 1e3}
+            first = {}  # each library's out and lse2 of its first pass
             for name in list(libs) + list(reversed(libs)):
                 lib, _ = libs[name]
                 out, lse = torch.empty_like(q), torch.empty(bh, s, 1, device="cuda")
@@ -249,6 +251,10 @@ def main(argv=None) -> None:
                 r = rec.setdefault(name, {"ms": []})
                 r["ms"].append(ms)
                 r["err"] = errors(q, k, v, out, lse)
+                first.setdefault(name, (out, lse))
+                # out and lse2 bit for bit the shipped library's
+                r["equal_to_shipped"] = all(torch.equal(a, b)
+                                            for a, b in zip(first[name], first["shipped"]))
             print(json.dumps(rec), flush=True)
             del q, k, v
             torch.cuda.empty_cache()

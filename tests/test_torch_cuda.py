@@ -53,10 +53,12 @@ S3 are K1's function at other CTA tiles: p is rounded against the running
 max, in the plain version against the global max. S4 (no running max)
 rounds p once from the same f32 logits, up to summation order. S2, the bf16
 softmax chain, takes each bf16 step as one rounded operation and its
-exponential as an f32 exp rounded once, on the same key partition as its
-plain version: the two differ only in the order of f32 sums, so an output
-moves by one bf16 ulp at most, 2^-7 of max|plain| (its max bar), and only
-where a sum lies at a rounding midpoint, so the mean abs error stays far
+exponential in f32 (2^(x log2 e) by ex2.approx, a few f32 ulps from the
+plain version's exp) rounded once, on the same key partition as its plain
+version: the two differ in the order of f32 sums and, where an exponential
+lies within those ulps of a bf16 rounding midpoint, in one bf16 ulp of a
+p, so an output moves by one bf16 ulp at most, 2^-7 of max|plain| (its max
+bar), and only where a sum lies at a rounding midpoint, so the mean abs error stays far
 under 1e-4 of max|plain| (its mean bar). K1's f32 chain, or S2's over
 another key partition, reads a mean of 4e-4 to 9e-4 of max|plain| against
 S2's plain version at 1000-9216 keys on the CPU, past the mean bar
@@ -850,6 +852,18 @@ def test_flash_tiled_kernels_match_plain(gen, bh, sq, sk, d):
         assert err <= 2e-2 * ref.abs().max().item(), (fn.__name__, bq, bk, extra, err)
 
 
+@pytest.mark.parametrize("bh,sq,sk", [(2, 300, 500), (1, 2304, 2304), (2, 1000, 1000)])
+def test_flash_tiled_d512_at_k1_tile_is_k1(gen, bh, sq, sk):
+    """S1 at d=512 without the fold, at K1's tile, is K1's launch (its key
+    splits and combine pass included): its output is _flash_bhsd's, bit
+    for bit."""
+    q, k, v = _bf16_qkv(gen, bh, sq, sk, 512)
+    ref = fa._flash_bhsd(q, k, v, 512 ** -0.5)[0]
+    out = fa.flash_d512_blocks(q, k, v, 512 ** -0.5, *fa.K1_TILES[512], False)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
 @pytest.mark.parametrize("bh,sq,sk", [(2, 1000, 700), (10, 2304, 2304)])
 def test_flash_bf16_softmax_kernel_matches_plain(gen, bh, sq, sk):
     """S2 at every tile against its plain version over key blocks of the
@@ -896,7 +910,7 @@ def test_profiling_kernels_refuse_what_they_do_not_take(gen):
             fn(xb, xb, xb, 0.125, 32, 64)
     y = torch.zeros(1, 128, 512, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError):
-        fa.flash_d512_blocks(y, y, y, 0.05, 64, 64, True)
+        fa.flash_d512_blocks(y, y, y, 0.05, 32, 64, True)
     with pytest.raises(ValueError):
         fa.flash_d512_blocks(xb, xb, xb, 0.125, 16, 32, True)
     with pytest.raises(ValueError):

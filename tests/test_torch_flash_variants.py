@@ -272,6 +272,44 @@ def test_s4_plain_matches_pallas(xscale):
         assert not bool(torch.isfinite(unclamped).all())
 
 
+# ------------------------------------- the tile sets against the CUDA source
+
+FWD_CU = REPO / "genpercept_tpu_torch" / "csrc" / "flash_attn_fwd.cu"
+
+
+def _macro_tiles(src: str, name: str) -> tuple:
+    """The (query rows, keys, ring stages) a tile macro of the source lists."""
+    line = re.search(rf"#define {name}\(X\) (.*)", src).group(1)
+    return tuple(tuple(map(int, t)) for t in re.findall(r"X\((\d+), (\d+), (\d+)\)", line))
+
+
+def test_tile_sets_are_the_sources():
+    """D64_TILES / D512_TILES are the tiles flash_attn_fwd_tiled and the S2/S4
+    entries instantiate on K1's wgmma bodies, K1_TILES names K1's own
+    launches (and at d=512 S1's tile there is K1's instantiation, ring and
+    all), and no mma.sync tiled body is left in the source."""
+    src = FWD_CU.read_text()
+    d64, d512 = _macro_tiles(src, "GP_D64_TILES"), _macro_tiles(src, "GP_D512_TILES")
+    assert tuple(t[:2] for t in d64) == tfa.D64_TILES
+    assert tuple(t[:2] for t in d512) == tfa.D512_TILES
+    assert all(bq % 64 == 0 and bk in (32, 64, 128) for bq, bk, _ in d64)
+    assert all(bq == 64 and bk in (64, 128) for bq, bk, _ in d512)
+    k1 = re.search(r"dispatch_bf16_d64\([^)]*\) \{\n\s*return launch_wgmma<(\d+), (\d+), (\d+)>\(",
+                   src)
+    k1_512 = re.search(r"dispatch_bf16_d512\([^)]*\) \{\n\s*return launch_wgmma_d512<(\d+), "
+                       r"(\d+)>\(", src)
+    nwg, bk, _ = map(int, k1.groups())
+    bk512, nbuf512 = map(int, k1_512.groups())
+    assert tfa.K1_TILES == {64: (64 * nwg, bk), 512: (64, bk512)}
+    assert tfa.K1_TILES[64] in tfa.D64_TILES
+    assert (64, bk512, nbuf512) in d512
+    assert "launch_wgmma<BQ / 64, BK, NBUF, SOFTMAX, true>" in src
+    assert "launch_wgmma_d512<BK, NBUF, FOLD>" in src
+    for gone in ("flash_attn_fwd_mma_kernel", "flash_attn_fwd_split_kernel", "launch_mma",
+                 "launch_split", "mma_bf16(", "ldsm_x4"):
+        assert gone not in src, gone
+
+
 # ------------------------------------------------- the two scripts' ports
 
 
