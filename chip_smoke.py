@@ -95,7 +95,9 @@ Phases, each printed as a JSON line:
   (n) K2's bf16 body at C=640 and 1280 against its plain version at the
       profiling script's shapes, beside the unfused composition;
   (o) K6 at d=64 (the UNet's heads) against its plain version, f32 and
-      bf16 (error 0.0), beside K1's bf16 time at the same shape;
+      bf16 (error 0.0, a second call equal; the body's name starts with
+      "wgmma"), beside the bound, the design and exponent floors and K1's
+      bf16 time at the same shape;
   (p) S1-S4, the attention profiling scripts' kernels, on K1's wgmma
       bodies, against their plain versions at batch 2, bf16: S1 (K1's
       function at every CTA tile of D64_TILES / D512_TILES) at the four
@@ -1569,8 +1571,16 @@ def phase_k2_wide() -> None:
 
 def phase_k6_d64() -> None:
     """K6 at the UNet's head dim against its plain version on the same int8
-    operands, f32 and bf16 outputs: bit-identical, as at d=512."""
+    operands, f32 and bf16 outputs: bit for bit (0.0), and again on a second
+    call; with the name of its d=64 body (int8 wgmma), the design's floor
+    (its max pass runs Q K^T twice: 1.5x the function's operations) and the
+    exponent floor (one exp2f a logit on the MUFU of every SM) beside the
+    bound, and K1's bf16 time at the same shape."""
+    body = _build.load().flash_attn_int8_d64_body().decode()
+    emit({"phase": "K6_d64_body", "body": body})
+    check(body.startswith("wgmma"), f"K6 d=64 body {body!r}")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    sms, clock = torch.cuda.get_device_properties(0).multi_processor_count, sm_clock_hz()
     for dt in DTYPES:
         for (bh, s, d), k_blk in K6_D64:
             q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen).to(dt)
@@ -1580,20 +1590,25 @@ def phase_k6_d64() -> None:
             ops = fa.int8_operands(q, k, v)
             out = fa._flash_int8_codes(*ops, scale, k_blk, dt)
             ref = fa._flash_int8_ref(*ops, scale, k_blk, dt)
+            again = fa._flash_int8_codes(*ops, scale, k_blk, dt)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             ms = cuda_ms(lambda: fa._flash_int8_codes(*ops, scale, k_blk, dt), 5)
             plain_ms = cuda_ms(lambda: fa._flash_int8_ref(*ops, scale, k_blk, dt), 2)
-            qb = q.to(torch.bfloat16)
-            k1_ms = cuda_ms(lambda: fa._flash_bhsd(qb, qb, qb, scale), 5)
+            qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+            k1_ms = cuda_ms(lambda: fa._flash_bhsd(qb, kb, vb, scale), 5)
             bd = bound(4.0 * bh * s * s * d, "int8",
                        bh * s * (3 * d + d * elt(dt) + 8) + 4 * bh * d)
             emit({"phase": "K6_d64", "dtype": str(dt), "shape": [bh, s, d], "k_block": k_blk,
-                  "max_abs_err": err, "bit_identical": bool(torch.equal(out, ref)), "ms": ms,
+                  "max_abs_err": err, "bit_identical": bool(torch.equal(out, ref)),
+                  "repeat_bit_identical": bool(torch.equal(out, again)), "ms": ms,
                   "plain_ms": plain_ms, "k1_bf16_ms_same_shape": k1_ms, "bound_ms": bd.ms,
-                  "bound_by": bd.by, "library_ms": None})
+                  "bound_by": bd.by, "design_floor_ms": 1.5 * bd.ops_ms,
+                  "exponent_floor_ms": bh * s * s / (MUFU_PER_CLK_SM * sms * clock) * 1e3,
+                  "library_ms": None})
             check(err == 0.0, f"K6 d=64 {dt} {(bh, s, d)}: error {err}")
-            del q, k, v, ops, out, ref, qb
+            check(torch.equal(out, again), f"K6 d=64 {dt} {(bh, s, d)}: a second call differs")
+            del q, k, v, ops, out, ref, again, qb, kb, vb
             torch.cuda.empty_cache()
 
 

@@ -24,18 +24,10 @@
 // At d = 64 (the profiling script's UNet shapes) the per-logit softmax and
 // quantize work outweighs the two 64-deep products.
 //
-// Two bodies. d = 512, every call of the pipeline: flash_int8_wgmma_kernel
-// (int8 wgmma fed by TMA, a max pass per k block; its design note is below).
-// d = 64, only the profiling script: flash_int8_kernel, one CTA (8 warps) per
-// 16 query rows on int8 mma.sync m16n8k32. Its Q codes stay in registers
-// (each warp holds all 16 rows over d). Per k block: (A) K streams through
-// shared memory in 64-key tiles, each warp computing the logits of 8 keys
-// into a (16, k_blk) f32 buffer in shared memory (148 KB at k_blk = 2304);
-// (B) one warp per two rows takes the block's max, quantizes p into an int8
-// (16, k_blk) buffer and sums the codes; (C) V^T streams in 64-key tiles and
-// each warp accumulates PV for its 8-column n-tile in int32, folded into the
-// f32 accumulator once per block. K and V are read once per 16 query rows,
-// with no overlap of loads and products.
+// Two bodies, both int8 wgmma fed by TMA with a max pass per k block:
+// d = 512, every call of the pipeline, flash_int8_wgmma_kernel (its design
+// note is below); d = 64, only the profiling script, flash_int8_d64_kernel
+// (its note is after the d = 512 body).
 
 #include <type_traits>
 
@@ -45,191 +37,9 @@ namespace {
 
 using namespace gp;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBQ = 16;          // query rows per CTA
-constexpr int kKT = 64;          // keys per K or V tile
-constexpr int VLD = kKT + 16;    // V^T tile rows, one per output column (bytes)
-constexpr int kMaxSmem = 232448; // shared memory a block may use on Hopper
+constexpr int kMaxSmem = 232448;  // shared memory a block may use on Hopper
 constexpr float kNegInf = -1e30f;
-static_assert(kWarps * 8 == kKT, "one 8-key n-tile per warp in phase A");
-
-template <int D>
-struct Layout {
-  static constexpr int QLD = D + 16;  // Q codes and K tile rows (bytes)
-  static constexpr int BUF = (kKT * QLD > D * VLD) ? kKT * QLD : D * VLD;
-  static_assert(D % (kWarps * 8) == 0, "whole 8-column n-tiles per warp in phase C");
-  int s_ld, p_ld;  // logits (floats) and pq (bytes) row strides
-  int q, buf, s, p, m, l, alpha, bytes;
-  __host__ __device__ explicit Layout(int k_blk) {
-    s_ld = k_blk + 8;
-    p_ld = k_blk + 16;
-    q = 0;
-    buf = q + kBQ * QLD;
-    s = buf + BUF;
-    p = s + kBQ * s_ld * 4;
-    m = p + kBQ * p_ld;
-    l = m + kBQ * 4;
-    alpha = l + kBQ * 4;
-    bytes = alpha + kBQ * 4;
-  }
-};
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-__device__ __forceinline__ void copy_rows(int8_t* dst, int dst_ld, const int8_t* src,
-                                          size_t src_ld, int rows, int bytes, int valid) {
-  const int vecs = bytes / 16;
-  for (int idx = threadIdx.x; idx < rows * vecs; idx += kThreads) {
-    const int r = idx / vecs, v = (idx % vecs) * 16;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) val = *reinterpret_cast<const uint4*>(src + (size_t)r * src_ld + v);
-    *reinterpret_cast<uint4*>(dst + r * dst_ld + v) = val;
-  }
-}
-
-template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_int8_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
-                  const int8_t* __restrict__ vt, const float* __restrict__ qs,
-                  const float* __restrict__ ks, const float* __restrict__ vs,
-                  T* __restrict__ out, int sq, int sk, int k_blk, float c) {
-  using LT = Layout<D>;
-  constexpr int QLD = LT::QLD;
-  constexpr int NW = D / kWarps / 8;  // phase C n-tiles per warp
-  const LT L(k_blk);
-  extern __shared__ float4 smem4[];
-  int8_t* smem = reinterpret_cast<int8_t*>(smem4);
-  int8_t* Qs = smem + L.q;
-  int8_t* Buf = smem + L.buf;
-  float* S = reinterpret_cast<float*>(smem + L.s);
-  int8_t* P = smem + L.p;
-  float* M = reinterpret_cast<float*>(smem + L.m);
-  float* Lsum = reinterpret_cast<float*>(smem + L.l);
-  float* Alpha = reinterpret_cast<float*>(smem + L.alpha);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int q0 = blockIdx.x * kBQ;
-  const size_t bh = blockIdx.y;
-  const int8_t* kb = k8 + bh * sk * D;
-  const int8_t* vb = vt + bh * D * sk;
-  const float* ksb = ks + bh * sk;
-
-  copy_rows(Qs, QLD, q8 + (bh * sq + q0) * D, D, kBQ, D, sq - q0);
-  if (threadIdx.x < kBQ) {
-    M[threadIdx.x] = kNegInf;
-    Lsum[threadIdx.x] = 0.f;
-  }
-  __syncthreads();
-  uint32_t qf[D / 32][4];
-#pragma unroll
-  for (int k = 0; k < D / 32; ++k) load_a_s8(Qs, QLD, 0, 32 * k, lane, qf[k]);
-  float qrow[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = q0 + g + 8 * h;
-    qrow[h] = r < sq ? qs[bh * sq + r] : 0.f;
-  }
-
-  float acc[NW][4];
-#pragma unroll
-  for (int n = 0; n < NW; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  for (int kb0 = 0; kb0 < sk; kb0 += k_blk) {
-    // (A) logits of the block
-    for (int k0 = kb0; k0 < kb0 + k_blk; k0 += kKT) {
-      __syncthreads();  // the buffer's previous readers are done
-      copy_rows(Buf, QLD, kb + (size_t)k0 * D, D, kKT, D, kKT);
-      __syncthreads();
-      int sc[4] = {0, 0, 0, 0};
-#pragma unroll
-      for (int k = 0; k < D / 32; ++k) {
-        uint32_t b0, b1;
-        load_b_s8(Buf, QLD, warp * 8, 32 * k, lane, b0, b1);
-        mma_s8(sc, qf[k], b0, b1);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = g + 8 * (e / 2), col = warp * 8 + 2 * t + (e & 1);
-        S[row * L.s_ld + (k0 - kb0) + col] =
-            __fmul_rn(static_cast<float>(sc[e]), __fmul_rn(qrow[e / 2], ksb[k0 + col]));
-      }
-    }
-    __syncthreads();
-
-    // (B) block max, pq, row sums: warp w takes rows 2w and 2w + 1
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = 2 * warp + h;
-      const float* srow = S + r * L.s_ld;
-      float mx = kNegInf;
-      for (int j = lane; j < k_blk; j += 32) mx = fmaxf(mx, srow[j]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_prev = M[r];
-      const float m_new = fmaxf(m_prev, mx);
-      const float mc = __fmul_rn(m_new, c);
-      int sum = 0;
-      for (int j = lane; j < k_blk; j += 32) {
-        const float p = exp2f(__fsub_rn(__fmul_rn(srow[j], c), mc));
-        const int pq = static_cast<int>(rintf(__fmul_rn(p, 127.f)));
-        P[r * L.p_ld + j] = static_cast<int8_t>(pq);
-        sum += pq;
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane == 0) {
-        const float alpha = exp2f(__fmul_rn(__fsub_rn(m_prev, m_new), c));
-        Alpha[r] = alpha;
-        M[r] = m_new;
-        Lsum[r] = __fadd_rn(__fmul_rn(Lsum[r], alpha), static_cast<float>(sum));
-      }
-    }
-
-    // (C) PV of the block, int32
-    int pv[NW][4];
-#pragma unroll
-    for (int n = 0; n < NW; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0;
-    for (int k0 = kb0; k0 < kb0 + k_blk; k0 += kKT) {
-      __syncthreads();  // pq written (first tile) or the previous V tile read
-      copy_rows(Buf, VLD, vb + k0, sk, D, kKT, D);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kKT; kk += 32) {
-        uint32_t a[4];
-        load_a_s8(P, L.p_ld, 0, (k0 - kb0) + kk, lane, a);
-#pragma unroll
-        for (int n = 0; n < NW; ++n) {
-          uint32_t b0, b1;
-          load_b_s8(Buf, VLD, (warp * NW + n) * 8, kk, lane, b0, b1);
-          mma_s8(pv[n], a, b0, b1);
-        }
-      }
-    }
-    const float al[2] = {Alpha[g], Alpha[g + 8]};
-#pragma unroll
-    for (int n = 0; n < NW; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        acc[n][e] = __fadd_rn(__fmul_rn(acc[n][e], al[e / 2]), static_cast<float>(pv[n][e]));
-  }
-  __syncthreads();
-
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int row = g + 8 * (e / 2);
-    if (q0 + row >= sq) continue;
-    const float l = Lsum[row];
-    T* orow = out + (bh * sq + q0 + row) * D;
-#pragma unroll
-    for (int n = 0; n < NW; ++n) {
-      const int col = (warp * NW + n) * 8 + 2 * t + (e & 1);
-      store(orow + col, __fdiv_rn(__fmul_rn(acc[n][e], vs[bh * D + col]), l));
-    }
-  }
-}
+constexpr int kKeyStep = 64;      // a k block is a multiple of 64 keys
 
 // ---------------------------------------------------------------------------
 // d = 512 on int8 wgmma. Three things the function asks of the design:
@@ -798,24 +608,441 @@ cudaError_t launch(const void* q8, const void* k8, const void* vt, const float* 
 
 }  // namespace w8
 
-template <typename T>
-cudaError_t launch_d64(const void* q8, const void* k8, const void* vt, const float* qs,
-                       const float* ks, const float* vs, void* out, int bh, int sq, int sk,
-                       int k_blk, float c, cudaStream_t stream) {
-  const Layout<64> L(k_blk);
-  if (L.bytes > kMaxSmem) return cudaErrorInvalidValue;  // the logits buffer
-  auto kern = flash_int8_kernel<64, T>;
+// ---------------------------------------------------------------------------
+// d = 64 on int8 wgmma: the UNet's heads, which only the profiling script
+// (scripts/profile_unet_torch.py --part int8flash) runs through K6. What the
+// function asks of the design at this head dim:
+//   - The max of a whole k block before any pq of it, as at d = 512: a
+//     64-row tile's logits of a 1536-key block are 384 KB of f32, so each k
+//     block runs Q K^T twice, a max pass that keeps only the row maxima, then
+//     a pass that recomputes the int32 logits (the same bits), forms pq
+//     against the block's max and feeds P V: 1.5x the function's products.
+//     At d = 64 a consumer warpgroup owns 64 query rows over every key: S
+//     (two k steps of 32 over d) and P V (m64n64k32) are both whole in it,
+//     so no maxima, row sums or P pass between warpgroups.
+//   - The per-logit work, not the products, sets the floor: at (10, 9216,
+//     64) 849.3 M logits against 326.1 G int8 operations with the max pass
+//     (0.165 ms at 1,979 TOPS), one exp2f each (MUFU, 16 a clock an SM:
+//     0.203 ms) and a chain of FP32- and INT-pipe steps over both passes:
+//     about 18 instructions a logit in the SASS (the max pass 5, the codes
+//     12, exp2f's range check and scalings among them, the pack 1), 0.46 ms
+//     at one instruction a clock on each of the 528 schedulers. The chain is
+//     kept short and off the 16-a-clock conversion unit, bit for bit the
+//     plain version's:
+//       . f32(s32) as __int_as_float(s32 + 0x4B400000) - 12582912.f: |s32| <=
+//         64 * 127^2 = 1,032,256 < 2^22, so the sum's bits are 1.5 * 2^23 +
+//         s32 exactly and the subtraction is exact (cvt.rn.f32.s32's value);
+//       . pq as the low byte of the bits of p * 127 + 12582912.f: for x in
+//         [0, 127] the add rounds x half to even (rintf's and torch.round's
+//         rounding) into the low mantissa bits, so the codes are bytes that
+//         byte permutes pack, with no F2I;
+//       . pq's row sum by dp4a against 0x01010101, one a 4 codes (exact in
+//         any order: at most k_blk * 127 < 2^24); P V widened to m64n80k32
+//         against 16 rows of ones after each V^T tile ran no faster.
+//     The exponential stays exp2f, every f32 step one rounded operation,
+//     f32(pv) a cvt.rn (a block's |pv| reaches 1536 * 127^2 > 2^24: it
+//     rounds) and out = acc * vs / l an IEEE division.
+//   - Operand layouts. 8-bit wgmma reads both operands K-major: Q and K as
+//     they stand (rows of 64 codes of d), V as V^T (64, Sk), which the
+//     wrapper builds. P is P V's A operand from registers. S's accumulator
+//     gives a thread keys 2t, 2t + 1, 8 + 2t, 9 + 2t (and 16 + those) of each
+//     32, where the 8-bit A layout takes k positions 4t..4t + 3 (and 16 +
+//     those). The keys are relabelled instead of moved: the thread's keys
+//     2t, 2t + 1, 8 + 2t, 9 + 2t are positions 4t..4t + 3 (16 on, the same),
+//     so the packed codes are the A registers as they stand, and the wrapper
+//     builds V^T with each 32 keys in that order (flash_attention._int8_vt:
+//     one copy, as the plain transpose was). P V sums over keys, so the order
+//     changes no sum. The other forms cost instructions a logit: bytes
+//     permuted across the quad by shuffles (FlashAttention-3's FP8 forward),
+//     or P staged through a swizzled shared tile (a store a two logits, a
+//     fence and a barrier a tile, as the d = 512 body does, where P crosses
+//     warpgroups).
+//   - Two accumulators, both in registers at d = 64: P V in int32 over the
+//     whole block (folding tile by tile into f32 is another function), and
+//     the f32 running output, acc * alpha + f32(pv) once a block.
+// The CTA: D64_NWG consumer warpgroups of 64 query rows and a producer
+// warpgroup (setmaxnreg), D64_CTAS CTAs a SM, one TMA ring of D64_NBUF stages
+// that the CTA's warpgroups read (K and V^T come from L2 once per 64 *
+// D64_NWG query rows). A stage holds a K tile (BK keys x 64 codes, the
+// 64-byte swizzle) with its BK ks values in a side buffer, or a V^T tile (64
+// rows of d x BK keys, the 64- or 128-byte swizzle). The stream, per k block:
+// the block's K tiles for the max pass, then K0, V0, K1, V1, ... for the
+// second pass. S runs by halves of a tile (m64n{BK/2}k32): the max pass
+// issues both halves of a tile and takes half 0's maxima while half 1's
+// product runs; the second pass runs K1's bf16 stage, Q K^T of tile i + 1 (two
+// halves) and P V of tile i issued together, each half's codes once its
+// product retires while the rest is on the tensor cores, then P packed. A
+// stage is straight-line code from its first wgmma to its last wait: a group
+// in flight across the loop's back edge, whose accumulators the next
+// iteration reads, made ptxas serialize every wgmma (C7514). A warp releases
+// its stages after the wait. Rows past Sq are computed on zero codes and not
+// stored. A k block that is an odd multiple of 64 keys takes BK = 64.
+// What was measured (scripts/tune_k6.py --shapes d64, PERF.md): at (10, 9216,
+// 64) each instruction a logit costs about its issue time (~0.03 ms), on top
+// of ~0.3 ms of loads and waits; two warpgroups sharing a CTA's ring ran ~10%
+// slower than one a CTA and two CTAs a SM (they wait on the products in step),
+// and neither three warpgroups a SM, 4-12 ring stages, 2-CTA clusters
+// multicasting the ring nor the running output parked in shared memory moved
+// the time by more than the spread. 64-key tiles are ~12% slower than 128.
+
+namespace d64 {
+
+constexpr int D = 64;
+// the shipped tile: consumer warpgroups a CTA, keys of a K or V^T tile, ring
+// stages, CTAs a SM
+constexpr int D64_NWG = 1;
+constexpr int D64_BK = 128;
+constexpr int D64_NBUF = 6;
+constexpr int D64_CTAS = 2;
+
+template <int NWG, int BK, int NBUF, int CTAS>
+struct Tile {
+  static constexpr int BQ = 64 * NWG;
+  static constexpr int CONSUMERS = 128 * NWG;
+  static constexpr int THREADS = CONSUMERS + 128;  // + the producer warpgroup
+  static constexpr int QB = 64 * D;                // bytes of a warpgroup's Q codes
+  static constexpr int STAGE = BK * D;             // bytes of a K or a V^T tile
+  static constexpr int KSB = BK * 4;               // bytes of a K tile's ks
+  static constexpr int OFF_RING = NWG * QB;
+  static constexpr int OFF_KS = OFF_RING + NBUF * STAGE;
+  static constexpr int OFF_BAR = OFF_KS + NBUF * KSB;  // Q, full, empty
+  static constexpr int BYTES = 1024 + OFF_BAR + 8 * (1 + 2 * NBUF);
+  // setmaxnreg moves the registers the launch gives (64K / (THREADS * CTAS)
+  // rounded down to 8) from the producer to the consumers; an inc past what
+  // the dec freed hangs
+  static constexpr int REGS = 65536 / (THREADS * CTAS) / 8 * 8;
+  static constexpr int PRODUCER_REGS = 24;
+  static constexpr int CONSUMER_REGS = REGS + (REGS - PRODUCER_REGS) / NWG / 8 * 8;
+  static_assert((BK == 64 || BK == 128) && NBUF >= 2, "tile and ring");
+  static_assert(CONSUMER_REGS <= 256, "setmaxnreg takes 24..256");
+  static_assert(128 * PRODUCER_REGS + CONSUMERS * CONSUMER_REGS <= THREADS * REGS, "setmaxnreg");
+  static_assert(CTAS * (BYTES + 1024) <= 233472, "shared memory of the CTAs of a SM");
+};
+
+// the logit s = f32(s32) * (qs * ks), two products rounded apart; f32(s32)
+// exactly, by the magic number (|s32| < 2^22 at d = 64)
+__device__ __forceinline__ float logit64(int s32, float qsr, float ksv) {
+  const float x = __fsub_rn(__int_as_float(s32 + 0x4B400000), 12582912.f);
+  return __fmul_rn(x, __fmul_rn(qsr, ksv));
+}
+
+// the row maxima of this thread's logits of S (64 x 8 NS) into bm; the tile's
+// ks at ks (key 8 n + 2 t at ks + 8 n + 2 t)
+template <int NS>
+__device__ __forceinline__ void row_max64(float (&bm)[2], const int (&s)[NS][4], const float* ks,
+                                          int t, const float (&qsr)[2]) {
+#pragma unroll
+  for (int n = 0; n < NS; ++n) {
+    const float2 kv = *reinterpret_cast<const float2*>(ks + 8 * n + 2 * t);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      bm[r] = fmaxf(bm[r], fmaxf(logit64(s[n][2 * r], qsr[r], kv.x),
+                                 logit64(s[n][2 * r + 1], qsr[r], kv.y)));
+  }
+}
+
+// in place: S's int32 logits -> the bits of p * 127 + 12582912.f, whose low
+// byte is pq = rint(exp2(s c - m c) * 127)
+template <int NS>
+__device__ __forceinline__ void codes64(int (&s)[NS][4], const float* ks, int t,
+                                        const float (&qsr)[2], const float (&mc)[2], float c) {
+#pragma unroll
+  for (int n = 0; n < NS; ++n) {
+    const float2 kv = *reinterpret_cast<const float2*>(ks + 8 * n + 2 * t);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float sv = logit64(s[n][j], qsr[j / 2], (j & 1) ? kv.y : kv.x);
+      const float p = exp2f(__fsub_rn(__fmul_rn(sv, c), mc[j / 2]));
+      s[n][j] = __float_as_int(__fadd_rn(__fmul_rn(p, 127.f), 12582912.f));
+    }
+  }
+}
+
+// the codes' low bytes as P V's A registers (k step kk: keys 32 kk.., a[2h +
+// r] row lane / 4 + 8 r from column tiles 4 kk + 2 h and 4 kk + 2 h + 1), and
+// their row sums into rs
+template <int KP>
+__device__ __forceinline__ void pack64(uint32_t (&pf)[KP][4], const int (&s)[4 * KP][4],
+                                       int (&rs)[2]) {
+#pragma unroll
+  for (int kk = 0; kk < KP; ++kk)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int n = 4 * kk + 2 * h;
+        const uint32_t lo = __byte_perm(s[n][2 * r], s[n][2 * r + 1], 0x0040);
+        const uint32_t hi = __byte_perm(s[n + 1][2 * r], s[n + 1][2 * r + 1], 0x0040);
+        pf[kk][2 * h + r] = __byte_perm(lo, hi, 0x5410);
+        rs[r] = __dp4a(static_cast<int>(pf[kk][2 * h + r]), 0x01010101, rs[r]);
+      }
+}
+
+template <int NWG, int BK, int NBUF, int CTAS, typename T>
+__global__ void __launch_bounds__(Tile<NWG, BK, NBUF, CTAS>::THREADS, CTAS)
+flash_int8_d64_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tks, const float* __restrict__ qs,
+                      const float* __restrict__ vs, T* __restrict__ out, int sq, int sk,
+                      int k_blk, float c) {
+  using L = Tile<NWG, BK, NBUF, CTAS>;
+  constexpr int NSH = BK / 16;  // 8-key column tiles of S over half a tile
+  constexpr int KP = BK / 32;   // k steps of P V
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);  // [NWG][64][64 B]
+  uint8_t* ring = Qs + L::OFF_RING;                                          // [NBUF][STAGE]
+  float* ksb = reinterpret_cast<float*>(Qs + L::OFF_KS);                     // [NBUF][BK]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Qs + L::OFF_BAR);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + NBUF;
+
+  const int q0 = blockIdx.x * L::BQ, bh = blockIdx.y;
+  const int ntile = k_blk / BK, nblk = sk / k_blk;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < NBUF; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, L::CONSUMERS / 32);  // every consumer warp
+    }
+    fence_mbarrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= L::CONSUMERS) {  // the producer warpgroup
+    setmaxnreg_dec<L::PRODUCER_REGS>();
+    if (threadIdx.x == L::CONSUMERS) {
+      mbar_expect_tx(q_full, NWG * L::QB);
+      for (int w = 0; w < NWG; ++w) tma_load_3d(Qs + w * L::QB, &tq, q_full, 0, q0 + 64 * w, bh);
+      int pos = 0;
+      // the next stage, once every consumer warp has released it: a K tile
+      // with its ks (ks0 >= 0) or a V^T tile
+      auto put = [&](const CUtensorMap* map, int c0, int c1, int ks0) {
+        const int s = pos % NBUF;
+        if (pos >= NBUF) mbar_wait(empty + s, ((uint32_t)(pos / NBUF) & 1) ^ 1);
+        mbar_expect_tx(full + s, L::STAGE + (ks0 >= 0 ? L::KSB : 0));
+        tma_load_3d(ring + s * L::STAGE, map, full + s, c0, c1, bh);
+        if (ks0 >= 0) tma_load_1d(ksb + s * BK, &tks, full + s, ks0);
+        ++pos;
+      };
+      for (int b = 0; b < nblk; ++b) {
+        for (int i = 0; i < ntile; ++i) {  // the max pass
+          const int key0 = b * k_blk + i * BK;
+          put(&tk, 0, key0, bh * sk + key0);
+        }
+        for (int i = 0; i < ntile; ++i) {  // the second pass
+          const int key0 = b * k_blk + i * BK;
+          put(&tk, 0, key0, bh * sk + key0);
+          put(&tv, key0, 0, -1);
+        }
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<L::CONSUMER_REGS>();
+
+  const int wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
+  const int t = lane % 4;                                // columns 2t, 2t + 1 of each 8
+  const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;  // this thread's rows row0, row0 + 8
+  float qsr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    qsr[r] = row0 + 8 * r < sq ? qs[(size_t)bh * sq + row0 + 8 * r] : 0.f;
+  const uint8_t* Qw = Qs + wg * L::QB;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, acc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  int sa[NSH][4], sb[NSH][4], pv[8][4];  // S of a tile's halves (then codes); P V
+  uint32_t pf[KP][4];                     // P of the tile whose P V is next
+  auto& pfh = reinterpret_cast<uint32_t(&)[2][KP / 2][4]>(pf);  // by halves
+  int pos = 0;                            // ring position
+
+  auto wait = [&](int p) { mbar_wait(full + p % NBUF, (uint32_t)(p / NBUF) & 1); };
+  auto release = [&](int p) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + p % NBUF);
+  };
+  auto tile_ks = [&](int p) -> const float* { return ksb + (p % NBUF) * BK; };
+  // sx = Q K^T over half h (keys BK / 2 * h..) of the K tile at p
+  auto issue_qk = [&](int (&sx)[NSH][4], int p, int h) {
+    const uint64_t dq = sw64_desc(Qw) + opaque(0);
+    const uint64_t dk = sw64_desc(ring + (p % NBUF) * L::STAGE + h * (BK / 2) * D);
+    reg_fence(sx);
+    wgmma_fence();
+    wgmma_s8(sx, dq, dk, 0);
+    wgmma_s8(sx, dq + 2, dk + 2, 1);
+    wgmma_commit();
+  };
+  // pv (+)= P V over the V^T tile at p (accumulate 0: pv starts anew)
+  auto issue_pv = [&](int p, int accumulate) {
+    const uint8_t* vt = ring + (p % NBUF) * L::STAGE;
+    const uint64_t dv = (BK == 64 ? sw64_desc(vt) : sw128_desc(vt)) + opaque(0);
+    reg_fence(pv);
+    reg_fence(pf);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KP; ++kk) wgmma_s8_rs(pv, pf[kk], dv + 2 * kk, kk > 0 || accumulate);
+    wgmma_commit();
+  };
+
+  mbar_wait(q_full, 0);
+  for (int b = 0; b < nblk; ++b) {
+    // the max pass: the row maxima over the block's logits, half 0's
+    // arithmetic while half 1's product runs
+    float bm[2] = {kNegInf, kNegInf};
+    for (int i = 0; i < ntile; ++i, ++pos) {
+      wait(pos);
+      issue_qk(sa, pos, 0);
+      issue_qk(sb, pos, 1);
+      wgmma_wait<1>();
+      reg_fence(sa);
+      row_max64(bm, sa, tile_ks(pos), t, qsr);
+      wgmma_wait<0>();
+      reg_fence(sb);
+      row_max64(bm, sb, tile_ks(pos) + BK / 2, t, qsr);
+      release(pos);
+    }
+    float alpha[2], mc[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      bm[r] = fmaxf(bm[r], __shfl_xor_sync(0xffffffffu, bm[r], 1));
+      bm[r] = fmaxf(bm[r], __shfl_xor_sync(0xffffffffu, bm[r], 2));
+      const float m_new = fmaxf(m[r], bm[r]);
+      alpha[r] = exp2f(__fmul_rn(__fsub_rn(m[r], m_new), c));
+      m[r] = m_new;
+      mc[r] = __fmul_rn(m_new, c);
+    }
+
+    // the second pass over K0, V0, K1, V1, ...: tile 0's codes, then a stage
+    // a tile (Q K^T of tile i + 1 by halves and P V of tile i in flight
+    // together; each half's codes once its product retires), then the last
+    // tile's P V
+    int rs[2] = {0, 0};
+    wait(pos);
+    issue_qk(sa, pos, 0);
+    issue_qk(sb, pos, 1);
+    wgmma_wait<1>();
+    reg_fence(sa);
+    codes64(sa, tile_ks(pos), t, qsr, mc, c);
+    wgmma_wait<0>();
+    reg_fence(sb);
+    codes64(sb, tile_ks(pos) + BK / 2, t, qsr, mc, c);
+    release(pos);
+    pack64(pfh[0], sa, rs);
+    pack64(pfh[1], sb, rs);
+    ++pos;
+    for (int i = 0; i + 1 < ntile; ++i, pos += 2) {  // V^T of tile i at pos, K of i + 1 after
+      wait(pos + 1);
+      wait(pos);
+      issue_qk(sa, pos + 1, 0);
+      issue_qk(sb, pos + 1, 1);
+      issue_pv(pos, i > 0);
+      wgmma_wait<2>();  // half 0; half 1 and P V in flight
+      reg_fence(sa);
+      codes64(sa, tile_ks(pos + 1), t, qsr, mc, c);
+      wgmma_wait<1>();  // half 1; P V in flight
+      reg_fence(sb);
+      codes64(sb, tile_ks(pos + 1) + BK / 2, t, qsr, mc, c);
+      wgmma_wait<0>();
+      reg_fence(pv);
+      reg_fence(pf);
+      release(pos + 1);
+      release(pos);
+      pack64(pfh[0], sa, rs);
+      pack64(pfh[1], sb, rs);
+    }
+    wait(pos);
+    issue_pv(pos, ntile > 1);
+    wgmma_wait<0>();
+    reg_fence(pv);
+    reg_fence(pf);
+    release(pos);
+    ++pos;
+
+    // the fold: l and the running output, once a block
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+      l[r] = __fadd_rn(__fmul_rn(l[r], alpha[r]), static_cast<float>(rs[r]));
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        acc[n][j] = __fadd_rn(__fmul_rn(acc[n][j], alpha[j / 2]), static_cast<float>(pv[n][j]));
+  }
+
+  // out = acc * vs / l
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= sq) continue;
+    T* orow = out + ((size_t)bh * sq + row) * D + 2 * t;
+    const float* vsb = vs + (size_t)bh * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 v = *reinterpret_cast<const float2*>(vsb + 8 * n);
+      w8::store2(orow + 8 * n, __fdiv_rn(__fmul_rn(acc[n][2 * r], v.x), l[r]),
+                 __fdiv_rn(__fmul_rn(acc[n][2 * r + 1], v.y), l[r]));
+    }
+  }
+}
+
+// Host: a 3-D tensor map over a contiguous (bh, rows, inner) int8 tensor,
+// boxes of (box_inner, box_rows, 1): 64 bytes wide in the 64-byte swizzle,
+// 128 in the 128-byte one. Rows past `rows` read as zeros.
+bool tma_map_codes(CUtensorMap* map, const void* base, int inner, int rows, int bh,
+                   int box_inner, int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)inner, (cuuint64_t)rows * inner};
+  const cuuint32_t box[3] = {(cuuint32_t)box_inner, (cuuint32_t)box_rows, 1};
+  return tma_map(map, base, 3, dims, strides, box,
+                 box_inner == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                 CU_TENSOR_MAP_DATA_TYPE_UINT8);
+}
+
+template <int BK, typename T>
+cudaError_t launch_bk(const void* q8, const void* k8, const void* vt, const float* qs,
+                      const float* ks, const float* vs, void* out, int bh, int sq, int sk,
+                      int k_blk, float c, cudaStream_t stream) {
+  using L = Tile<D64_NWG, BK, D64_NBUF, D64_CTAS>;
+  CUtensorMap tq, tk, tv, tks;
+  if (!(tma_map_codes(&tq, q8, D, sq, bh, D, 64) && tma_map_codes(&tk, k8, D, sk, bh, D, BK) &&
+        tma_map_codes(&tv, vt, sk, D, bh, BK, D) &&
+        tma_map_f32_1d(&tks, ks, (size_t)bh * sk, BK)))
+    return cudaErrorInvalidValue;
+  auto kern = flash_int8_d64_kernel<D64_NWG, BK, D64_NBUF, D64_CTAS, T>;
   cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
   if (err != cudaSuccess) return err;
-  dim3 grid((sq + kBQ - 1) / kBQ, bh);
-  kern<<<grid, kThreads, L.bytes, stream>>>(
-      static_cast<const int8_t*>(q8), static_cast<const int8_t*>(k8),
-      static_cast<const int8_t*>(vt), qs, ks, vs, static_cast<T*>(out), sq, sk, k_blk, c);
+  dim3 grid((sq + L::BQ - 1) / L::BQ, bh);
+  kern<<<grid, L::THREADS, L::BYTES, stream>>>(tq, tk, tv, tks, qs, vs, static_cast<T*>(out), sq,
+                                               sk, k_blk, c);
   return cudaGetLastError();
 }
 
+// vt: (bh, 64, sk) with each 32 keys in the body's order (the file's d = 64
+// note): key 16 h + 8 u + 2 t + e at position 16 h + 4 t + 2 u + e
+template <typename T>
+cudaError_t launch(const void* q8, const void* k8, const void* vt, const float* qs,
+                   const float* ks, const float* vs, void* out, int bh, int sq, int sk, int k_blk,
+                   float c, cudaStream_t stream) {
+  if (D64_BK != 64 && k_blk % D64_BK == 0)
+    return launch_bk<D64_BK, T>(q8, k8, vt, qs, ks, vs, out, bh, sq, sk, k_blk, c, stream);
+  return launch_bk<64, T>(q8, k8, vt, qs, ks, vs, out, bh, sq, sk, k_blk, c, stream);
+}
+
+}  // namespace d64
+
 }  // namespace
+
+// The body flash_attn_int8 runs at d = 64, for the record of a run.
+extern "C" const char* flash_attn_int8_d64_body() {
+  return "wgmma m64nNk32 s8, max pass per k block, P from registers (keys relabelled), "
+         "TMA ring of K/V^T tiles, 1 consumer warpgroup x 64 rows, 2 CTAs a SM, BK 128";
+}
 
 // The body flash_attn_int8 runs at d = 512, for the record of a run.
 extern "C" const char* flash_attn_int8_d512_body() {
@@ -835,21 +1062,21 @@ extern "C" long long flash_attn_int8_scratch_bytes(int bh, int sq, int sk, int d
 // (bh, sk), vs: (bh, d) float32; out: (bh, sq, d) of dtype 0 = float32 or
 // 1 = bfloat16; all contiguous; scratch: flash_attn_int8_scratch_bytes of
 // device memory (or null where that is 0). d is 64 or 512; k_blk divides sk
-// and is a multiple of 64 (at d = 64 one whose logits buffer fits shared
-// memory: up to 2304); c = scale * log2(e).
+// and is a multiple of 64; c = scale * log2(e). At d = 64 vt holds each 32
+// keys in the body's order (d64::launch).
 extern "C" int flash_attn_int8(const void* q8, const void* k8, const void* vt,
                                const void* qs, const void* ks, const void* vs, void* out,
                                void* scratch, int bh, int sq, int sk, int d, int k_blk, float c,
                                int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bh <= 0 || sq <= 0 || sk <= 0 || k_blk <= 0 || k_blk % kKT != 0 || sk % k_blk != 0 ||
+  if (bh <= 0 || sq <= 0 || sk <= 0 || k_blk <= 0 || k_blk % kKeyStep != 0 || sk % k_blk != 0 ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const float* fq = static_cast<const float*>(qs);
   const float* fk = static_cast<const float*>(ks);
   const float* fv = static_cast<const float*>(vs);
   if (d == 64) {
-    auto launch = dtype == 0 ? launch_d64<float> : launch_d64<__nv_bfloat16>;
+    auto launch = dtype == 0 ? d64::launch<float> : d64::launch<__nv_bfloat16>;
     return (int)launch(q8, k8, vt, fq, fk, fv, out, bh, sq, sk, k_blk, c, s);
   }
   if (d == 512) {

@@ -298,10 +298,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # the TPU's. d=512 is the VAE mid block's head; d=64 is the UNet's, which
 # only scripts/profile_unet_torch.py runs through K6.
 
-# the k blocks each body takes (any multiple of 64 that divides Sk): at d=64
-# up to 2304 (the (16, k_blk) f32 logits fit shared memory); at d=512 the
-# wgmma body's max pass and recompute take any length
-_INT8_MAX_K_BLK = {64: 2304, 512: None}
+# the longest k block each body takes (None: any multiple of 64 that divides
+# Sk): both wgmma bodies run a max pass and a recompute per block, so no
+# buffer of a block's logits bounds its length
+_INT8_MAX_K_BLK = {64: None, 512: None}
 
 
 def _rowq(x: torch.Tensor, dim: int):
@@ -356,6 +356,18 @@ def int8_operands(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor):
     return q8, k8, v8, qs, ks, vs
 
 
+def _int8_vt(v8: torch.Tensor) -> torch.Tensor:
+    """(BH, Sk, D) int8 v -> (BH, D, Sk) V^T, PV's B operand, k-major. At d=64
+    each 32 keys come in the order the d=64 body holds P in its registers
+    (csrc/flash_attn_int8.cu, the d = 64 note): key 16h + 8u + 2t + e at
+    position 16h + 4t + 2u + e. One copy either way."""
+    bh, sk, d = v8.shape
+    if d != 64:
+        return v8.transpose(1, 2).contiguous()
+    return (v8.reshape(bh, sk // 32, 2, 2, 4, 2, d).permute(0, 6, 1, 2, 4, 3, 5)
+            .reshape(bh, d, sk))
+
+
 def _flash_int8_codes(q8, k8, v8, qs, ks, vs, scale: float, k_blk: int,
                       dtype: torch.dtype) -> torch.Tensor:
     """K6 on int8 operands (see _flash_int8_ref) -> (BH, Sq, D) in dtype.
@@ -376,7 +388,7 @@ def _flash_int8_codes(q8, k8, v8, qs, ks, vs, scale: float, k_blk: int,
         raise ValueError(f"flash_attention_int8: no kernel for q {tuple(q8.shape)}, "
                          f"k {tuple(k8.shape)}, v {tuple(v8.shape)}, k block {k_blk}")
     q8, k8, qs, ks, vs = (t.contiguous() for t in (q8, k8, qs, ks, vs))
-    vt = v8.transpose(1, 2).contiguous()  # (BH, D, Sk): PV's B operand, k-major
+    vt = _int8_vt(v8)
     out = torch.empty((bh, sq, d), dtype=dtype, device=q8.device)
     lib = _build.load()
     # the d=512 body parks its f32 running output here between k blocks

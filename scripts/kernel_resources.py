@@ -23,7 +23,9 @@ kernel):
                   body's HGMMA.64x128x8.F32.TF32 and its bf16 body's
                   HGMMA.64x256x16.F32.BF16; --match wgmma_kernel keeps the
                   latter), IMMA and IGMMA (their int8 forms, e.g. K6's
-                  d=512 body's IGMMA.64x256x32, K5's IGMMA.64x64x32,
+                  d=512 body's IGMMA.64x256x32, its d=64 body's
+                  IGMMA.64x64x32 and 64x32x32: flash_attn_int8.cu --match
+                  d64, K5's IGMMA.64x64x32,
                   64x32x32 and 64x160x32: fused_geglu_ff_int8.cu --match
                   ff_int8_wgmma) likewise, the others
                   by mnemonic without modifiers (FFMA, LDS, LDGSTS = cp.async,

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Variants of K6's d=512 body (int8 wgmma, a max pass per k block), timed
-beside the shipped one, an older source, K1's bf16 body at the same shape
-and both bounds, at the pipeline's d=512 shapes.
+"""Variants of K6's bodies (int8 wgmma, a max pass per k block), timed beside
+the shipped ones, an older source, K1's bf16 body at the same shape and the
+bounds: the d=512 body at the pipeline's shapes, the d=64 body at the
+profiling script's.
 
-    python3 scripts/tune_k6.py [--variant ring10 atomwait nopark ...]
+    python3 scripts/tune_k6.py [--shapes d512|d64]
+                               [--variant ring10 atomwait nopark ...]
                                [--baseline NAME=OLD/flash_attn_int8.cu ...]
                                [--dtype bf16 f32]
 
 Each variant is csrc/flash_attn_int8.cu (with csrc/common.cuh) compiled by
 nvcc into a library of its own (scripts/kernel_variants.py), after one edit
-to a copy:
+to a copy. The d=512 body's (--shapes d512, the default):
 
   --variant ring10  10 stages of 16 KB in the K / V^T ring, the most that
                     shared memory holds (8 shipped, the fewest that do not
@@ -27,18 +29,39 @@ to a copy:
                     without P V, both passes without Q K^T, pq without exp2f;
                     noqk+nopv+nosoftmax+nopark: the ring's loads alone
                     (names joined by + take every edit: ring10+nopv)
+
+The d=64 body's (--shapes d64):
+
+  --variant d64nwg2 d64nwg3 d64cta3 d64bk64 d64ring4 d64ring8 d64ring12
+                    other tiles: two consumer warpgroups a CTA sharing one
+                    ring (one CTA a SM), three with 64-key tiles (128-key
+                    tiles do not fit their registers), three CTAs a SM with
+                    64-key tiles, 64-key tiles, 4, 8 or 12 ring stages
+                    (shipped: one warpgroup a CTA, two CTAs a SM, 128-key
+                    tiles, 6 stages)
+  --variant d64nomax d64nosoftmax d64noexp d64nopv d64noqk  timing probes
+                    (wrong results): the max pass without its arithmetic
+                    (its products kept), the second pass's codes without the
+                    softmax (pq from the logit's low bits), pq without exp2f,
+                    without P V, both passes without Q K^T;
+                    d64noqk+d64nopv+d64nosoftmax+d64nomax: the ring's loads
+                    and the stages' waits alone
+
   --baseline NAME=FILE  another flash_attn_int8.cu (an earlier commit's,
                     with its own common.cuh beside it) as the variant NAME;
-                    a source without flash_attn_int8_d512_body (PR 3's
-                    mma.sync body) takes no scratch argument
+                    a source without flash_attn_int8_d512_body (the first
+                    d=512 body, on mma.sync) takes no scratch argument, and
+                    one without flash_attn_int8_d64_body (the d=64 mma.sync
+                    body) takes V^T with its keys in order
 
-At chip_smoke.py's K6_SHAPES with chip_smoke.phase_k6's inputs, every
-library runs in turns (all in order, then in reverse; CUDA events, mean of
-REPS calls after a warm-up, each call through the wrapper's steps: the
-transpose of v, the scratch, the launch), and one JSON line per shape and
+At chip_smoke.py's K6_SHAPES (d512) or K6_D64 (d64) with chip_smoke's
+inputs, every library runs in turns (all in order, then in reverse; CUDA
+events, mean of REPS calls after a warm-up, each call through the wrapper's
+steps: V^T, the scratch, the launch), and one JSON line per shape and
 output dtype gives the bound (the function's 4 bh s^2 d int8 operations at
 1,979 TOPS, or its bytes), the design's floor (1.5x the operations: the max
-pass), K1's bf16 time at the shape (the pipeline's bf16 attention), the
+pass), at d=64 the exponent floor (one exp2f a logit on the 16-a-clock MUFU
+of each SM at the card's highest clock), K1's bf16 time at the shape, the
 operands' quantization, and per library both times, the max abs error
 against the plain version (flash_attention._flash_int8_ref) and whether it
 is bit for bit equal. A line before the shapes gives each library's
@@ -60,7 +83,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from chip_smoke import HBM_BYTES_PER_S, K6_SHAPES, PEAK, cuda_ms, elt, int8_generator  # noqa: E402
+from chip_smoke import (HBM_BYTES_PER_S, K6_D64, K6_SHAPES, MUFU_PER_CLK_SM, PEAK,  # noqa: E402
+                        cuda_ms, elt, int8_generator, sm_clock_hz)
 from genpercept_tpu_torch import _build  # noqa: E402
 from genpercept_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from kernel_variants import build_variants, card  # noqa: E402
@@ -111,6 +135,34 @@ VARIANTS = {
               "")],
     "noexp": [("const float p = exp2f(__fsub_rn(__fmul_rn(sv, c), mc[r]));",
                "const float p = __fsub_rn(__fmul_rn(sv, c), mc[r]);")],
+    # the d=64 body's tiles: two consumer warpgroups a CTA sharing its ring
+    # (one CTA a SM), three with 64-key tiles (128-key tiles do not fit their
+    # registers), three CTAs a SM with 64-key tiles, 64-key tiles, ring
+    # stages (1 warpgroup, 2 CTAs a SM, BK 128, 6 stages shipped)
+    "d64nwg2": [("constexpr int D64_NWG = 1;", "constexpr int D64_NWG = 2;"),
+                ("constexpr int D64_CTAS = 2;", "constexpr int D64_CTAS = 1;")],
+    "d64nwg3": [("constexpr int D64_NWG = 1;", "constexpr int D64_NWG = 3;"),
+                ("constexpr int D64_BK = 128;", "constexpr int D64_BK = 64;"),
+                ("constexpr int D64_CTAS = 2;", "constexpr int D64_CTAS = 1;")],
+    "d64cta3": [("constexpr int D64_BK = 128;", "constexpr int D64_BK = 64;"),
+                ("constexpr int D64_CTAS = 2;", "constexpr int D64_CTAS = 3;")],
+    "d64bk64": [("constexpr int D64_BK = 128;", "constexpr int D64_BK = 64;")],
+    **{f"d64ring{n}": [("constexpr int D64_NBUF = 6;", f"constexpr int D64_NBUF = {n};")]
+       for n in (4, 8, 12)},
+    # timing probes of the d=64 body, wrong results: the max pass without its
+    # arithmetic (its products kept); the codes
+    # without the softmax (pq from the int32 logit's low bits); pq without
+    # exp2f; without P V; both passes without Q K^T
+    "d64nomax": [("row_max64(bm, ", "(void)(bm, ")],
+    "d64nosoftmax": [("      const float sv = logit64(s[n][j], qsr[j / 2], (j & 1) ? kv.y : kv.x);\n"
+                      "      const float p = exp2f(__fsub_rn(__fmul_rn(sv, c), mc[j / 2]));\n"
+                      "      s[n][j] = __float_as_int(__fadd_rn(__fmul_rn(p, 127.f), 12582912.f));\n",
+                      "      s[n][j] &= 127;\n")],
+    "d64noexp": [("const float p = exp2f(__fsub_rn(__fmul_rn(sv, c), mc[j / 2]));",
+                  "const float p = __fsub_rn(__fmul_rn(sv, c), mc[j / 2]);")],
+    "d64nopv": [("    for (int kk = 0; kk < KP; ++kk) wgmma_s8_rs(pv, pf[kk], dv + 2 * kk, "
+                 "kk > 0 || accumulate);\n", "")],
+    "d64noqk": [("    wgmma_s8(sx, dq, dk, 0);\n    wgmma_s8(sx, dq + 2, dk + 2, 1);\n", "")],
 }
 REPS = 10
 
@@ -139,31 +191,32 @@ def variants(args) -> dict[str, tuple[str, str]]:
     return out
 
 
-def bind(lib) -> bool:
-    """Set flash_attn_int8's argument types; True if the library has the
-    wgmma body, whose entry takes a scratch pointer (PR 3's does not)."""
+def bind(lib) -> dict:
+    """Set flash_attn_int8's argument types; what the library's entry takes:
+    a scratch pointer (the d=512 wgmma body's; the first entry has none), V^T
+    with each 32 keys in the d=64 wgmma body's order (not the mma.sync one's)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    current = hasattr(lib, "flash_attn_int8_d512_body")
-    lib.flash_attn_int8.argtypes = [p] * (8 if current else 7) + [i] * 5 + [f, i, p]
+    scratch = hasattr(lib, "flash_attn_int8_d512_body")
+    lib.flash_attn_int8.argtypes = [p] * (8 if scratch else 7) + [i] * 5 + [f, i, p]
     lib.flash_attn_int8.restype = i
-    if current:
+    if scratch:
         lib.flash_attn_int8_scratch_bytes.argtypes = [i] * 6
         lib.flash_attn_int8_scratch_bytes.restype = ctypes.c_longlong
-    return current
+    return {"scratch": scratch, "vt_order": hasattr(lib, "flash_attn_int8_d64_body")}
 
 
-def call(lib, current: bool, ops, scale: float, k_blk: int, dt, name: str) -> torch.Tensor:
+def call(lib, takes: dict, ops, scale: float, k_blk: int, dt, name: str) -> torch.Tensor:
     """The wrapper's steps (flash_attention._flash_int8_codes) on one library."""
     q8, k8, v8, qs, ks, vs = ops
     bh, sq, d = q8.shape
     sk = k8.shape[1]
     code = 0 if dt == torch.float32 else 1
-    vt = v8.transpose(1, 2).contiguous()
+    vt = fa._int8_vt(v8) if takes["vt_order"] else v8.transpose(1, 2).contiguous()
     out = torch.empty((bh, sq, d), dtype=dt, device="cuda")
     c = ctypes.c_float(scale * fa._LOG2E)
     stream = torch.cuda.current_stream().cuda_stream
     ptrs = [t.data_ptr() for t in (q8, k8, vt, qs, ks, vs, out)]
-    if current:
+    if takes["scratch"]:
         n = lib.flash_attn_int8_scratch_bytes(bh, sq, sk, d, k_blk, code)
         scratch = torch.empty(n, dtype=torch.uint8, device="cuda") if n else None
         ptrs.append(None if scratch is None else scratch.data_ptr())
@@ -176,23 +229,29 @@ def main(argv=None) -> None:
     ap.add_argument("--variant", nargs="*", default=[])
     ap.add_argument("--baseline", nargs="*", default=[])
     ap.add_argument("--dtype", nargs="*", choices=("bf16", "f32"), default=["bf16", "f32"])
+    ap.add_argument("--shapes", choices=("d512", "d64"), default="d512")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("tune_k6: needs a CUDA device")
     print(card(), flush=True)
+    shapes = ([((bh, s, d), n, None) for (bh, s, d), n in K6_SHAPES] if args.shapes == "d512"
+              else [(shape, 0, k_blk) for shape, k_blk in K6_D64])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = sm_clock_hz()
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_variants("flash_attn_int8.cu", variants(args), Path(tmp))
-        current = {n: bind(lib) for n, (lib, _) in libs.items()}
+        takes = {n: bind(lib) for n, (lib, _) in libs.items()}
         print(json.dumps({"ptxas": {n: {k: r for k, r in regs.items() if "flash_int8" in k}
                                     for n, (_, regs) in libs.items()}}), flush=True)
         gen = int8_generator()
         dts = {"bf16": torch.bfloat16, "f32": torch.float32}
         for name in args.dtype:
             dt = dts[name]
-            for (bh, s, d), n in K6_SHAPES:
+            for (bh, s, d), n, k_blk in shapes:
                 q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen).to(dt)
                            for _ in range(3))
-                scale, k_blk = d ** -0.5, fa._int8_k_block(s, s, d)
+                scale = d ** -0.5
+                k_blk = k_blk or fa._int8_k_block(s, s, d)
                 ops = fa.int8_operands(q, k, v)
                 ref = fa._flash_int8_ref(*ops, scale, k_blk, dt)
                 ops_n = 4.0 * bh * s * s * d
@@ -204,13 +263,15 @@ def main(argv=None) -> None:
                        "design_floor_ms": 1.5 * ops_n / PEAK["int8"] * 1e3,
                        "k1_bf16_ms": cuda_ms(lambda: fa._flash_bhsd(qb, kb, vb, scale), REPS),
                        "quantize_ms": cuda_ms(lambda: fa.int8_operands(q, k, v), REPS)}
+                if d == 64:
+                    rec["exponent_floor_ms"] = bh * s * s / (MUFU_PER_CLK_SM * sms * clock) * 1e3
                 for lname in list(libs) + list(reversed(libs)):
                     lib, _ = libs[lname]
-                    cur = current[lname]
-                    ms = cuda_ms(lambda: call(lib, cur, ops, scale, k_blk, dt, lname), REPS)
+                    tk = takes[lname]
+                    ms = cuda_ms(lambda: call(lib, tk, ops, scale, k_blk, dt, lname), REPS)
                     got = rec.setdefault(lname, {"ms": []})
                     got["ms"].append(ms)
-                    out = call(lib, cur, ops, scale, k_blk, dt, lname)
+                    out = call(lib, tk, ops, scale, k_blk, dt, lname)
                     torch.cuda.synchronize()
                     got["max_abs_err"] = (out.float() - ref.float()).abs().max().item()
                     got["bit_identical"] = bool(torch.equal(out, ref))

@@ -31,7 +31,7 @@ bf16 per tile where the max bars do not (tests/test_torch_flash_bwd_bf16.py).
 The int8 kernels: K5 1e-4 of max|plain| in f32 and 6e-2 absolute in bf16,
 K6 1e-4 (f32) and 2e-2 (bf16) of max|plain| (both take every f32 step as one
 rounded operation, as their plain versions; bf16 rounds the output), and K5
-and K6 at d=512 also 0.0: their int32 sums are exact in any order and their
+and K6 (d=512 and d=64) also 0.0: their int32 sums are exact in any order and their
 f32 steps are the plain version's, so their output is the plain version's
 bits. The
 int8 convolution's int32 sums are exact: card and CPU agree bit for bit.
@@ -606,6 +606,51 @@ def test_flash_int8_d512_bit_for_bit(gen, bh, sq, sk, k_blk, dtype):
     assert (out.float() - ref.float()).abs().max().item() == 0.0
 
 
+def test_flash_int8_d64_body_is_wgmma(gen):
+    """K6's body at d=64 runs both products on int8 wgmma, which the library
+    names."""
+    from genpercept_tpu_torch import _build
+    assert _build.load().flash_attn_int8_d64_body().decode().startswith("wgmma")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,sq,sk,k_blk", [
+    (1, 100, 1536, None), (2, 512, 2048, None), (1, 2304, 2304, None), (10, 9216, 9216, None),
+    (1, 130, 1152, 576), (2, 200, 1728, None), (1, 70, 256, 64), (1, 64, 64, None),
+    (1, 130, 4608, 4608), (2, 100, 6144, 3072)])
+def test_flash_int8_d64_bit_for_bit(gen, bh, sq, sk, k_blk, dtype):
+    """K6's d=64 body gives its plain version's bits (error 0.0) at the
+    cases of test_flash_int8_kernel_matches_plain, at k blocks of an odd
+    number of 64s (576: 64-key tiles), of one (64) and past 2304 (4608 and
+    3072: no buffer of a block's logits bounds the length), with rows past
+    Sq."""
+    q = (torch.randn(bh, sq, 64, device="cuda", generator=gen) * 0.5).to(dtype)
+    k = (torch.randn(bh, sk, 64, device="cuda", generator=gen) * 0.5).to(dtype)
+    v = torch.randn(bh, sk, 64, device="cuda", generator=gen).to(dtype)
+    ops = fa.int8_operands(q, k, v)
+    k_blk = k_blk or fa._int8_k_block(sq, sk, 64)
+    if sk == 1728:
+        assert k_blk == 576
+    out = fa._flash_int8_codes(*ops, 64 ** -0.5, k_blk, dtype)
+    ref = fa._flash_int8_ref(*ops, 64 ** -0.5, k_blk, dtype)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (bh, sq, 64)
+    assert (out.float() - ref.float()).abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_int8_d64_repeats_bit_for_bit(gen, dtype):
+    """Two calls of K6 at the script's (10, 9216, 64) give the same bits."""
+    q, k, v = (torch.randn(10, 9216, 64, device="cuda", generator=gen).to(dtype)
+               for _ in range(3))
+    ops = fa.int8_operands(q, k, v)
+    k_blk = fa._int8_k_block(9216, 9216, 64)
+    first = fa._flash_int8_codes(*ops, 64 ** -0.5, k_blk, dtype)
+    second = fa._flash_int8_codes(*ops, 64 ** -0.5, k_blk, dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_int8_d512_repeats_bit_for_bit(gen, dtype):
     """Two calls of K6 at the pipeline's (2, 9216, 512) give the same bits:
@@ -900,7 +945,8 @@ def test_flash_nomax_kernel_matches_plain(gen, qscale):
 
 def test_profiling_kernels_refuse_what_they_do_not_take(gen):
     """f32 inputs (the bodies are bf16 only), tiles outside the sets, head
-    dims without a body, and K6 past its head dims or its logits buffer."""
+    dims without a body, and K6 past its head dims or at a k block that is
+    no multiple of 64 keys."""
     x32 = torch.zeros(1, 128, 64, device="cuda")
     xb = x32.to(torch.bfloat16)
     for fn in (fa.flash_with_blocks, fa.flash_bf16_softmax, fa.flash_nomax):
@@ -917,7 +963,7 @@ def test_profiling_kernels_refuse_what_they_do_not_take(gen):
         fa.flash_bf16_softmax(y, y, y, 0.05, 64, 64)
     ops = fa.int8_operands(*(torch.zeros(1, 4608, 64, device="cuda") for _ in range(3)))
     with pytest.raises(ValueError):
-        fa._flash_int8_codes(*ops, 0.125, 4608, torch.float32)
+        fa._flash_int8_codes(*ops, 0.125, 96, torch.float32)
     ops = fa.int8_operands(*(torch.zeros(1, 256, 128, device="cuda") for _ in range(3)))
     with pytest.raises(ValueError):
         fa._flash_int8_codes(*ops, 0.125, 256, torch.float32)
