@@ -93,7 +93,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.flash_attn_fwd_scratch_bytes.restype = ctypes.c_longlong
     for name in ("flash_attn_fwd_f32_body", "flash_attn_fwd_bf16_body",
                  "flash_attn_fwd_bf16_d512_body", "fused_geglu_ff_f32_body",
-                 "fused_geglu_ff_bf16_body", "fused_gn_silu_conv3x3_f32_body",
+                 "fused_geglu_ff_bf16_body", "fused_geglu_ff_bf16_wide_body",
+                 "fused_gn_silu_conv3x3_f32_body",
                  "fused_gn_silu_conv3x3_bf16_body", "flash_attn_int8_d64_body",
                  "flash_attn_int8_d512_body",
                  "fused_geglu_ff_int8_body"):

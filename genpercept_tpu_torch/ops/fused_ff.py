@@ -108,7 +108,8 @@ def _fused_geglu_ff_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor | No
     y = torch.empty_like(x2)
     lib = _build.load()
     rows = bsz * s
-    # the bf16 body's f32 partial sums of the row blocks it splits
+    # the bf16 bodies' counters and f32 partial sums (the wide body's
+    # every block, C=320's split ones)
     nbytes = lib.fused_geglu_ff_scratch_bytes(rows, c, inner, code)
     scratch = torch.empty(nbytes // 4, dtype=torch.float32, device=x.device) if nbytes else None
     err = lib.fused_geglu_ff_fwd(

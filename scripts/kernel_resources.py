@@ -22,7 +22,9 @@ kernel):
                   HMMA.1688.F32.TF32, HGMMA.64x128x16.F32.BF16, K8's f32
                   body's HGMMA.64x128x8.F32.TF32 and its bf16 body's
                   HGMMA.64x256x16.F32.BF16; --match wgmma_kernel keeps the
-                  latter), IMMA and IGMMA (their int8 forms, e.g. K6's
+                  latter; K2's bf16 body at C=640/1280, fused_geglu_ff_fwd.cu
+                  --match wide: HGMMA.64x32x16 and 64x160x16), IMMA and
+                  IGMMA (their int8 forms, e.g. K6's
                   d=512 body's IGMMA.64x256x32, its d=64 body's
                   IGMMA.64x64x32 and 64x32x32: flash_attn_int8.cu --match
                   d64, K5's IGMMA.64x64x32,

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Variants of K2's f32 or bf16 body at C = 320, timed beside the shipped one,
-the composition in the same dtype and the bound.
+"""Variants of K2's f32 or bf16 body, timed beside the shipped one, the
+composition in the same dtype and the bound.
 
-    python3 scripts/tune_k2.py [--dtype f32|bf16] [--tile ...] [--ctas ...]
-                               [--split onepass] [--share N] [--variant onebuf regs40]
+    python3 scripts/tune_k2.py [--dtype f32|bf16] [--shapes c320|wide] [--tile ...]
+                               [--ctas ...] [--split onepass] [--share N]
+                               [--variant onebuf regs40]
                                [--baseline NAME=OLD/fused_geglu_ff_fwd.cu ...]
                                [--rows N ...]
 
@@ -42,18 +43,34 @@ edit to a copy:
   --baseline NAME=FILE  another fused_geglu_ff_fwd.cu (an earlier commit's,
                    with its own common.cuh beside it) as the variant NAME
 
+  --shapes wide    the bf16 body at C = 640 and 1280 (the UNet's level-1 and
+                   level-2 widths, inner = 4 C) instead of C = 320, at
+                   chip_smoke.py's K2_WIDE shapes and the batch of 8 at level
+                   1, (8, 2304, 640); --rows, --tile, --ctas and --share do
+                   not apply; --variant takes rb1 (C = 640: one 64-row
+                   block a cluster, no weight load shared by multicast), rb2
+                   (C = 1280: two row blocks of two CTAs a cluster sharing
+                   each weight load) and the wide body's probes: noexch (C = 1280: no partials exchanged, each CTA's a from
+                   its half of the depth: wrong results), nogeglu (a = h,
+                   no erf: wrong results) and noup (no up-product: wrong
+                   results) and rings (the
+                   rings and the stages' waits alone: wrong results), which
+                   time what each part adds
+
 At C = 320, inner = 1280 and the rows given (default: the card tests'
 ragged 96 and 1000, one 768^2 image's 9216, the pipeline's batch of 2,
-18432, and the training recipe's 38400), with chip_smoke.py's K2 inputs,
-every library runs in turns (all variants in order, then in reverse; CUDA
-events, mean of 10 calls after a warm-up), and one JSON line per shape
-gives the composition's ms in the dtype (ops.fused_ff._geglu_ff_composition,
-TF32 off), the bound (split-TF32 rate in f32, bf16 rate in bf16) and, per
-library, both times and the error against the plain version
-(_fused_geglu_ff_ref): max abs error over max|plain| (rel_err) and, in
-bf16, the max and mean abs errors (max_abs_err, mean_rel_err: mean over
-max|plain|); a line before them gives the registers, spill bytes and ptxas
-advisories of each library's kernels of the dtype. Needs the card and nvcc.
+18432, and the training recipe's 38400), or at the wide shapes, with
+chip_smoke.py's K2 inputs, every library runs in turns (all variants in
+order, then in reverse; CUDA events, mean of 10 calls after a warm-up), and
+one JSON line per shape gives the composition's ms in the dtype
+(ops.fused_ff._geglu_ff_composition, TF32 off), the bound (split-TF32 rate
+in f32, bf16 rate in bf16) and, per library, both times and the error
+against the plain version (_fused_geglu_ff_ref): max abs error over
+max|plain| (rel_err) and, in bf16, the max and mean abs errors
+(max_abs_err, mean_rel_err: mean over max|plain|) and whether two calls
+gave the same bits (repeats); a line before them gives the registers, spill
+bytes and ptxas advisories of each library's kernels of the dtype and
+widths. Needs the card and nvcc.
 """
 
 from __future__ import annotations
@@ -79,6 +96,7 @@ from tune_k1 import SHIPPED_SPLIT, SMALL_PASSES, SPLITS  # noqa: E402
 
 C, INNER = 320, 1280
 ROWS = [96, 1000, 9216, 18432, 38400]
+WIDE = [(2, 2304, 640), (8, 2304, 640), (2, 576, 1280), (8, 576, 1280)]  # (b, s, C)
 SHIPPED_TILE = re.compile(r"launch_f32<320, (\d+), (\d+)>")
 SHIPPED_KT = re.compile(r"constexpr int kF32KT = \d+;")
 CTAS_BODY = re.compile(r"(int f32_ctas\(int blocks, int chunks\) \{\n).*?(\n\}\n)", re.S)
@@ -121,6 +139,35 @@ BF16_VARIANTS = {
     # the producer warpgroup keeps 40 registers, the consumers take 232
     "regs40": [("static constexpr int PRODUCER_REGS = 24;", "static constexpr int PRODUCER_REGS = 40;")],
 }
+# the wide body's probes (wrong results): what the exchange, GEGLU and the
+# up-product each add to its time
+WIDE_VARIANTS = {
+    "noexch": [("        hg[P][k][0] += v.x, hg[P][k][1] += v.y, hg[P][k][2] += v.z, hg[P][k][3] += v.w;\n",
+                "        (void)v;\n"),
+               ("      mbar_wait_or_trap(xch_full, qe & 1);\n"
+                "      if (ctid == 0) mbar_expect_tx(xch_full, T::XCH);  // armed for the next chunk's\n",
+                ""),
+               ("        mbar_wait_or_trap(xch_empty, qe & 1);\n"
+                "        send_partials(xch, hg[1 - P], xch_full, wide_rank<CL>() ^ 1, (int)opaque(threadIdx.x));\n",
+                ""),
+               ("      if (qe > 0) mbar_wait_or_trap(xch_empty, (qe - 1) & 1);\n"
+                "      send_partials(xch, hg[0], xch_full, wide_rank<CL>() ^ 1, (int)opaque(threadIdx.x));\n",
+                ""),
+               ("      if (lane == 0) mbar_arrive_cluster(xch_empty, wide_rank<CL>() ^ 1);\n", "")],
+    # C = 640: one row block a cluster, no weight load shared (right results)
+    "rb1": [("#define GP_K2_WIDE_RB_640 2", "#define GP_K2_WIDE_RB_640 1")],
+    # C = 1280: two row blocks of two CTAs a cluster (4 CTAs) sharing each
+    # weight load by multicast (right results)
+    "rb2": [("#define GP_K2_WIDE_RB_1280 1", "#define GP_K2_WIDE_RB_1280 2")],
+    # the rings and the stages' waits alone: no product, no GEGLU
+    "rings": [("    if constexpr (UP) {\n      issue_up(j_, hg[1 - P]);\n      wgmma_commit();\n    }\n", ""),
+              ("    if constexpr (DOWN) {\n      issue_down((qe - 1) & 1);\n      wgmma_commit();\n"
+               "    }\n    geglu(p_, j_, c);\n", "")],
+    "nogeglu": [("        av[e] = hr * (0.5f * gr * (1.0f + erf_xla<true>(gr * 0.70710678118654752f)));",
+                 "        av[e] = hr + gr;")],
+    "noup": [("    if constexpr (UP) {\n      issue_up(j_, hg[1 - P]);\n      wgmma_commit();\n    }\n",
+              "")],
+}
 REPS = 10
 
 
@@ -136,7 +183,14 @@ def variants(args) -> dict[str, tuple[str, str]]:
     src = (_build.CSRC / "fused_geglu_ff_fwd.cu").read_text()
     hdr = (_build.CSRC / "common.cuh").read_text()
     out = {"shipped": (src, hdr)}
-    if args.dtype == "bf16":
+    if getattr(args, "shapes", "c320") == "wide":
+        if args.tile or args.ctas or args.share or args.split:
+            raise SystemExit("--shapes wide: --tile, --ctas, --share and --split are C = 320's")
+        for name in args.variant:
+            if name not in WIDE_VARIANTS:
+                raise SystemExit(f"--variant {name}: --shapes wide takes {list(WIDE_VARIANTS)}")
+            out[name] = (_edit(src, WIDE_VARIANTS[name]), hdr)
+    elif args.dtype == "bf16":
         (shipped,) = {m.group(0) for m in SHIPPED_BF16.finditer(src)}
         for tile in args.tile:
             if re.fullmatch(r"[12],\d,\d", tile) is None:
@@ -191,14 +245,15 @@ def f32_variants(args, src: str, hdr: str, out: dict) -> None:
         out[name] = (src, hdr.replace(SHIPPED_SPLIT, SPLITS[name]).replace(SMALL_PASSES, ""))
 
 
-def inputs(gen: torch.Generator, rows: int, dt: torch.dtype):
+def inputs(gen: torch.Generator, rows: int, dt: torch.dtype, c: int = C):
     """chip_smoke.phase_k2's draws: x ~ N(0, 1), weights uniform in +-1/sqrt(fan in),
-    biases 0.1 N(0, 1); x and the weights in dt."""
-    w1 = (torch.rand(2 * INNER, C, device="cuda", generator=gen) * 2 - 1) / C ** 0.5
-    b1 = torch.randn(2 * INNER, device="cuda", generator=gen) * 0.1
-    w2 = (torch.rand(C, INNER, device="cuda", generator=gen) * 2 - 1) / INNER ** 0.5
-    b2 = torch.randn(C, device="cuda", generator=gen) * 0.1
-    x = torch.randn(rows, C, device="cuda", generator=gen)
+    biases 0.1 N(0, 1); x and the weights in dt; inner = 4 c."""
+    inner = 4 * c
+    w1 = (torch.rand(2 * inner, c, device="cuda", generator=gen) * 2 - 1) / c ** 0.5
+    b1 = torch.randn(2 * inner, device="cuda", generator=gen) * 0.1
+    w2 = (torch.rand(c, inner, device="cuda", generator=gen) * 2 - 1) / inner ** 0.5
+    b2 = torch.randn(c, device="cuda", generator=gen) * 0.1
+    x = torch.randn(rows, c, device="cuda", generator=gen)
     return x.to(dt), w1.to(dt), b1, w2.to(dt), b2
 
 
@@ -215,16 +270,20 @@ def bind(lib) -> bool:
     return scratch
 
 
-def kernels_of(dtype: str, name: str) -> bool:
-    """Whether a kernel's mangled name is one of the dtype's C = 320 bodies."""
-    if "fused_geglu_ff" not in name or "wide" in name:
+def kernels_of(dtype: str, name: str, wide: bool = False) -> bool:
+    """Whether a kernel's mangled name is one of the dtype's C = 320 bodies,
+    or (wide) the bf16 body at C = 640 and 1280."""
+    if "fused_geglu_ff" not in name:
         return False
+    if wide or "wide" in name:
+        return wide and "wide" in name
     return "f32" in name if dtype == "f32" else "f32" not in name
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dtype", default="f32", choices=["f32", "bf16"])
+    ap.add_argument("--shapes", default="c320", choices=["c320", "wide"])
     ap.add_argument("--tile", nargs="*", default=[])
     ap.add_argument("--ctas", nargs="*", default=[])
     ap.add_argument("--split", nargs="*", default=[], choices=["onepass"])
@@ -236,42 +295,51 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("tune_k2: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    wide = args.shapes == "wide"
+    if wide and args.dtype != "bf16":
+        raise SystemExit("--shapes wide: the body at C = 640 and 1280 is bf16 only")
     bf16 = args.dtype == "bf16"
     dt, code = (torch.bfloat16, 1) if bf16 else (torch.float32, 0)
     print(card(), flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_variants("fused_geglu_ff_fwd.cu", variants(args), Path(tmp))
         takes_scratch = {n: bind(lib) for n, (lib, _) in libs.items()}
-        print(json.dumps({"ptxas": {n: {k: r for k, r in regs.items() if kernels_of(args.dtype, k)}
-                                    for n, (_, regs) in libs.items()}}), flush=True)
+        print(json.dumps({"ptxas": {
+            n: {k: r for k, r in regs.items() if kernels_of(args.dtype, k, wide)}
+            for n, (_, regs) in libs.items()}}), flush=True)
         gen = torch.Generator(device="cuda").manual_seed(0)
         stream = torch.cuda.current_stream().cuda_stream
-        for rows in args.rows:
-            x, w1, b1, w2, b2 = inputs(gen, rows, dt)
+        shapes = [(b * s, c) for b, s, c in WIDE] if wide else [(rows, C) for rows in args.rows]
+        for rows, c in shapes:
+            inner = 4 * c
+            x, w1, b1, w2, b2 = inputs(gen, rows, dt, c)
             ref = ff._fused_geglu_ff_ref(x, w1, b1, w2, b2).float()
             top = ref.abs().max().item()
-            rec = {"rows": rows,
+            rec = {"rows": rows, "c": c,
                    "composition_ms": cuda_ms(
                        lambda: ff._geglu_ff_composition(x, w1, b1, w2, b2), REPS),
-                   "bound_ms": 6.0 * rows * C * INNER / PEAK["bf16" if bf16 else "tf32x3"] * 1e3}
+                   "bound_ms": 6.0 * rows * c * inner / PEAK["bf16" if bf16 else "tf32x3"] * 1e3}
             for name in list(libs) + list(reversed(libs)):
                 lib, _ = libs[name]
                 y = torch.empty_like(x)
                 lead = [x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                         y.data_ptr()]
                 if takes_scratch[name]:
-                    nbytes = lib.fused_geglu_ff_scratch_bytes(rows, C, INNER, code)
+                    nbytes = lib.fused_geglu_ff_scratch_bytes(rows, c, inner, code)
                     scratch = torch.empty(nbytes // 4, device="cuda") if nbytes else None
                     lead.append(None if scratch is None else scratch.data_ptr())
 
                 def call():
-                    _build.check(lib.fused_geglu_ff_fwd(*lead, rows, C, INNER, code, stream), name)
+                    _build.check(lib.fused_geglu_ff_fwd(*lead, rows, c, inner, code, stream), name)
 
+                call()
+                first = y.clone()
                 ms = cuda_ms(call, REPS)
                 r = rec.setdefault(name, {"ms": []})
                 r["ms"].append(ms)
                 err = (y.float() - ref).abs()
                 r["rel_err"] = err.max().item() / top
+                r["repeats"] = torch.equal(first, y)
                 if bf16:
                     r["max_abs_err"] = err.max().item()
                     r["mean_rel_err"] = err.mean().item() / top
