@@ -85,10 +85,13 @@ Phases, each printed as a JSON line:
       single PyTorch call computes K8), with the names of the f32 body
       (split TF32 on wgmma) and the bf16 body (wgmma), and the f32 bound at
       the split-TF32 rate beside the FFMA rate of the body it replaced;
-  (l) K7 W8A8 conv3x3 against its plain version (quant.qconv_apply) at
-      scripts/profile_quant_conv_torch.py's shapes, batch 2, f32 and bf16
-      (error 0.0); then K7's path, that script's profile() at batch 2 in
-      bf16: K7, qconv_apply and cuDNN bf16 conv ms, launches;
+  (l) K7 W8A8 conv3x3 (the body's name starts with "int8 wgmma") against
+      its plain version (quant.qconv_apply) at
+      scripts/profile_quant_conv_torch.py's shapes, batch 2, and at the
+      tiles' ragged edges (K7_RAGGED), f32 and bf16 (error 0.0, bit for bit,
+      a second call equal); then K7's path, that script's profile() at
+      batch 2 in bf16: K7, qconv_apply and cuDNN bf16 conv ms, the weight
+      bytes a call reads from L2 (reckoned from the tiles), launches;
   (m) the fused-VAE slice, PipelineConfig(fused_vae=True), as (e): launches
       (K8 48 per forward), depth deviation kernels-vs-plain and against
       (e)'s unfused output on the same weights, img/s beside (e)'s;
@@ -470,6 +473,11 @@ FUSED_PER_FORWARD = {"K1": K1_PER_FORWARD, "K2": K2_PER_FORWARD, "K5": 0, "K6": 
 FUSED_CALL_480x640 = {"K1": 7, "K2": 0, "K5": 0, "K6": 0, "K7": 0, "K8": K8_PER_FORWARD,
                       **NO_S}
 K7_BATCH, K7_REPS = 2, 5  # K7's path: profile_quant_conv_torch.profile at batch 2
+# K7 at its tiles' edges, (n, c, h, w, co): Co 64 and 192 (16 x 16 x 64 tiles),
+# heights and widths no multiple of the tile, odd pixel-tile counts (the last
+# 2-CTA cluster half-full: 1 tile at 16 x 16, 3 at 24 x 16, 9 at 24 x 40)
+K7_RAGGED = [(1, 64, 16, 16, 64), (2, 64, 24, 40, 192), (3, 128, 40, 24, 128),
+             (1, 256, 24, 16, 256), (1, 320, 24, 40, 320), (1, 256, 20, 24, 128)]
 
 # the attention profiling scripts' kernels (S1-S4), K6 at d=64 and K2 at the
 # wide widths, at the scripts' shapes at batch 2 ((bh, s, d); (b, s, c))
@@ -1449,25 +1457,33 @@ def load_script(name: str):
 
 def phase_k7() -> dict:
     """K7 against its plain version at the profiling script's shapes (batch
-    2), f32 and bf16; then K7's path, the script's profile() at batch 2."""
+    2) and at K7_RAGGED, f32 and bf16, bit for bit and a second call equal;
+    then K7's path, the script's profile() at batch 2."""
     pq = load_script("profile_quant_conv_torch")
+    body = _build.load().quantized_conv3x3_body().decode()
+    emit({"phase": "K7_body", "body": body})
+    check(body.startswith("int8 wgmma"), f"K7 body: {body}")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     worst = {dt: 0.0 for dt in DTYPES}
+    cases = [(K7_BATCH, c, h, w, co) for h, w, c, co in pq.SHAPES] + K7_RAGGED
     for dt in DTYPES:
-        for h, w, c, co in pq.SHAPES:
-            x = torch.randn(K7_BATCH, c, h, w, device="cuda", generator=gen).to(dt)
+        for n, c, h, w, co in cases:
+            x = torch.randn(n, c, h, w, device="cuda", generator=gen).to(dt)
             wf = torch.randn(co, c, 3, 3, device="cuda", generator=gen) * 0.05
             b = torch.randn(co, device="cuda", generator=gen) * 0.1
             q = tq.quantize_conv(wf, b, tq.absmax_per_channel(x.movedim(1, -1)), margin=1.0)
             out = qc.quantized_conv3x3(x, q.w_int8, q.inv_a, q.o_scale, q.bias)
+            again = qc.quantized_conv3x3(x, q.w_int8, q.inv_a, q.o_scale, q.bias)
             ref = qc._quantized_conv3x3_ref(x, q.w_int8, q.inv_a, q.o_scale, q.bias)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
-            emit({"phase": "K7", "dtype": str(dt), "shape": [K7_BATCH, c, h, w], "co": co,
-                  "max_abs_err": err, "bit_identical": bool(torch.equal(out, ref))})
-            check(err == 0.0, f"K7 {dt} {(h, w, c, co)}: error {err}")
+            same, repeats = bool(torch.equal(out, ref)), bool(torch.equal(out, again))
+            emit({"phase": "K7", "dtype": str(dt), "shape": [n, c, h, w], "co": co,
+                  "max_abs_err": err, "bit_identical": same, "repeats": repeats})
+            check(err == 0.0 and same and repeats,
+                  f"K7 {dt} {(n, c, h, w, co)}: error {err}, equal {same}, repeats {repeats}")
             worst[dt] = max(worst[dt], err)
-            del x, wf, q, out, ref
+            del x, wf, q, out, again, ref
             torch.cuda.empty_cache()
     reset_counts()
     records = pq.profile(batch=K7_BATCH, reps=K7_REPS, seed=SEED)
@@ -1479,7 +1495,7 @@ def phase_k7() -> dict:
         bd = bound(2.0 * 9 * nb * h * w * c * co, "int8",
                    nb * h * w * (c + co) * 2 + 9 * c * co + 4 * (c + 2 * co))
         emit({"phase": "K7_path", **rec, "bound_ms": bd.ms, "bound_by": bd.by,
-              "library_ms": None})
+              "weight_l2_bytes": qc.weight_l2_bytes(nb, c, co, h, w), "library_ms": None})
         total["ms"] += rec["k7_ms"]
         total["plain_ms"] += rec["qconv_apply_ms"]
         total["cudnn_bf16_ms"] += rec["cudnn_bf16_ms"]

@@ -97,7 +97,7 @@ def _bind(lib: ctypes.CDLL) -> None:
                  "fused_gn_silu_conv3x3_f32_body",
                  "fused_gn_silu_conv3x3_bf16_body", "flash_attn_int8_d64_body",
                  "flash_attn_int8_d512_body",
-                 "fused_geglu_ff_int8_body"):
+                 "fused_geglu_ff_int8_body", "quantized_conv3x3_body"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_char_p
     lib.flash_attn_fwd_tiled.argtypes = [p, p, p, p, p, p, i, i, i, i, f, i, i, i, p]

@@ -24,20 +24,71 @@ import torch
 
 from genpercept_tpu_torch import _build
 from genpercept_tpu_torch.ops import _dispatch
-from genpercept_tpu_torch.ops.fused_conv import _refuse_grad
+from genpercept_tpu_torch.ops.fused_conv import _refuse_grad, _tap_major_weights
 from genpercept_tpu_torch.ops.fused_ff import _bias_f32
 from genpercept_tpu_torch.ops.quant import QConv, qconv_apply
 
 _TH = 8  # the TPU kernel's stripe height; only ``supported`` reads it
+_TW = 16  # the kernel's tile columns
+_CL = 2  # CTAs of a cluster of the kernel, sharing every weight tap
 
 
 def supported(x_shape, co: int, kind: str = "3x3", stride=1) -> bool:
     """The TPU package's predicate, read from an NCHW shape: stride-1 3x3,
     channels multiples of 128, height a multiple of 8 and >= 16, width a
-    multiple of 8. The kernel itself takes any multiple of 64 channels."""
+    multiple of 8. The kernel itself takes any multiple of 64 channels, any
+    height and a width whose rows are whole 16-byte units (a multiple of 8
+    in bf16, of 4 in f32)."""
     n, c, h, w = x_shape
     return (kind == "3x3" and stride in (1, (1, 1)) and h % _TH == 0 and h >= 2 * _TH
             and c % 128 == 0 and co % 128 == 0 and w % 8 == 0)
+
+
+def _tiling(co: int) -> tuple[int, int]:
+    """The kernel's tile for Co output channels (``launch_for`` in
+    csrc/quantized_conv3x3.cu): (BN output channels, MB m blocks of 64
+    pixels a consumer warpgroup); a tile is 8 MB rows x 16 columns."""
+    for bn, mb in ((256, 1), (128, 2), (160, 1), (64, 2)):
+        if co % bn == 0:
+            return bn, mb
+    raise ValueError(f"quantized_conv3x3: no tile for {co} output channels")
+
+
+def tile_walk(n: int, co: int, h: int, w: int, clusters: int):
+    """The kernel's walk (``QTileOf``): for every unit each cluster takes, in
+    its order, and each CTA of the cluster, (cluster, rank, image, first
+    output channel, first row, first column, stored). A grid of ``clusters``
+    clusters walks units v = cluster, cluster + clusters, ...: output
+    channels (v % cblocks) BN.. of pixel tiles 2 (v // cblocks) and
+    2 (v // cblocks) + 1 (columns first, then rows, then images); past the
+    last tile a CTA takes the last tile and stores nothing."""
+    bn, mb = _tiling(co)
+    th = 8 * mb
+    tiles_w, tiles_h = -(-w // _TW), -(-h // th)
+    ntiles, cblocks = n * tiles_h * tiles_w, co // bn
+    units = -(-ntiles // _CL) * cblocks
+    for ci in range(clusters):
+        for v in range(ci, units, clusters):
+            for rank in range(_CL):
+                px = v // cblocks * _CL + rank
+                stored = px < ntiles
+                px = min(px, ntiles - 1)
+                yield (ci, rank, px // (tiles_h * tiles_w), v % cblocks * bn,
+                       px // tiles_w % tiles_h * th, px % tiles_w * _TW, stored)
+
+
+def weight_l2_bytes(n: int, c: int, co: int, h: int, w: int) -> int:
+    """The weight bytes a call reads from L2, reckoned from the tiles: each
+    unit of the walk (a cluster's pair of pixel tiles, one channel block)
+    brings its 9 C BN weights once, by multicast to both CTAs."""
+    bn, mb = _tiling(co)
+    ntiles = n * -(-h // (8 * mb)) * -(-w // _TW)
+    return -(-ntiles // _CL) * (co // bn) * 9 * c * bn
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its data does not start on a 16-byte boundary."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _quantized_conv3x3_ref(x: torch.Tensor, w_int8: torch.Tensor, inv_a: torch.Tensor,
@@ -61,14 +112,16 @@ def quantized_conv3x3(x: torch.Tensor, w_int8: torch.Tensor, inv_a: torch.Tensor
     n, c, h, w = x.shape
     co = w_int8.shape[0]
     code = _dispatch.dtype_code(x, "quantized_conv3x3")
+    # TMA reads x's rows, and the kernel stores the output's, in 16-byte units
     if (w_int8.shape != (co, c, 3, 3) or w_int8.dtype != torch.int8 or c % 64 or co % 64
-            or n > 65535 or any(t.device != x.device for t in (w_int8, inv_a, o_scale))):
-        raise ValueError(f"quantized_conv3x3: no kernel for x {tuple(x.shape)}, "
+            or w % (16 // x.element_size()) or n > 65535
+            or any(t.device != x.device for t in (w_int8, inv_a, o_scale))):
+        raise ValueError(f"quantized_conv3x3: no kernel for x {tuple(x.shape)} {x.dtype}, "
                          f"w {tuple(w_int8.shape)} {w_int8.dtype}")
-    wt = w_int8.permute(0, 2, 3, 1).contiguous()  # (Co, 3, 3, C)
-    xc = x.contiguous()
-    ia, osc = inv_a.float().contiguous(), o_scale.float().contiguous()
-    b = _bias_f32(bias, co, x.device)
+    wt = _tap_major_weights(w_int8)  # (9, Co, C)
+    # TMA and the bulk copies read 16-byte-aligned rows and vectors
+    xc, ia, osc, b = (_aligned16(t.contiguous()) for t in (
+        x, inv_a.float(), o_scale.float(), _bias_f32(bias, co, x.device)))
     out = torch.empty((n, co, h, w), dtype=x.dtype, device=x.device)
     err = _build.load().quantized_conv3x3(
         xc.data_ptr(), ia.data_ptr(), wt.data_ptr(), osc.data_ptr(), b.data_ptr(),

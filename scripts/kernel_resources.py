@@ -29,7 +29,9 @@ kernel):
                   IGMMA.64x64x32 and 64x32x32: flash_attn_int8.cu --match
                   d64, K5's IGMMA.64x64x32,
                   64x32x32 and 64x160x32: fused_geglu_ff_int8.cu --match
-                  ff_int8_wgmma) likewise, the others
+                  ff_int8_wgmma, K7's IGMMA.64x256x32, 64x128x32, 64x160x32
+                  and 64x64x32: quantized_conv3x3.cu --match qconv)
+                  likewise, the others
                   by mnemonic without modifiers (FFMA, LDS, LDGSTS = cp.async,
                   UTMALDG = TMA, SYNCS = mbarrier, ...), and the total
 

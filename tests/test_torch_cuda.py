@@ -805,16 +805,26 @@ def test_fused_conv_f32_repeats_bit_for_bit(gen, n, c, h, w, co):
     assert torch.equal(first, second)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,c,h,w,co", [
-    (2, 128, 24, 16, 128), (1, 320, 24, 40, 320), (1, 256, 20, 24, 128),
-    (2, 512, 96, 96, 512),
-])
-def test_quantized_conv_kernel_matches_plain(gen, n, c, h, w, co, dtype):
+def _qconv_case(gen, n, c, h, w, co, dtype):
     x = torch.randn(n, c, h, w, device="cuda", generator=gen).to(dtype)
     wf = torch.randn(co, c, 3, 3, device="cuda", generator=gen) * 0.05
     b = torch.randn(co, device="cuda", generator=gen) * 0.1
-    q = tq.quantize_conv(wf, b, tq.absmax_per_channel(x.movedim(1, -1)), margin=1.0)
+    return x, tq.quantize_conv(wf, b, tq.absmax_per_channel(x.movedim(1, -1)), margin=1.0)
+
+
+# K7's edges: the tiles' widths (Co 64, 192: 16 x 16 x 64; 320: 8 x 16 x 160;
+# 128: 16 x 16 x 128; 256, 512: 8 x 16 x 256), heights and widths that are
+# no multiple of the tile (40 x 24 at batch 3, 20 x 24), and odd pixel-tile
+# counts, which leave the last 2-CTA cluster half-full (1 x 1 at 16 x 16, 3
+# at 24 x 16 of 8 x 16, 9 at 24 x 40)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c,h,w,co", [
+    (2, 128, 24, 16, 128), (1, 320, 24, 40, 320), (1, 256, 20, 24, 128),
+    (2, 512, 96, 96, 512), (1, 64, 16, 16, 64), (2, 64, 24, 40, 192), (3, 128, 40, 24, 128),
+    (1, 256, 24, 16, 256), (2, 320, 96, 96, 320),
+])
+def test_quantized_conv_kernel_matches_plain(gen, n, c, h, w, co, dtype):
+    x, q = _qconv_case(gen, n, c, h, w, co, dtype)
     before = qc.quantized_conv3x3.launches
     out = qc.quantized_conv3x3(x, q.w_int8, q.inv_a, q.o_scale, q.bias)
     ref = qc._quantized_conv3x3_ref(x, q.w_int8, q.inv_a, q.o_scale, q.bias)
@@ -822,6 +832,24 @@ def test_quantized_conv_kernel_matches_plain(gen, n, c, h, w, co, dtype):
     assert qc.quantized_conv3x3.launches == before + 1
     assert out.dtype == dtype and out.shape == (n, co, h, w)
     assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c,h,w,co", [(2, 512, 96, 96, 512), (1, 320, 24, 40, 320)])
+def test_quantized_conv_repeats_bit_for_bit(gen, n, c, h, w, co, dtype):
+    """No atomics and a fixed order of sums: two calls give the same bits."""
+    x, q = _qconv_case(gen, n, c, h, w, co, dtype)
+    first = qc.quantized_conv3x3(x, q.w_int8, q.inv_a, q.o_scale, q.bias)
+    second = qc.quantized_conv3x3(x, q.w_int8, q.inv_a, q.o_scale, q.bias)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_quantized_conv_body_is_int8_wgmma(gen):
+    """K7's body runs its products on int8 wgmma, which the library names."""
+    from genpercept_tpu_torch import _build
+    body = _build.load().quantized_conv3x3_body().decode()
+    assert body.startswith("int8 wgmma") and "cluster" in body, body
 
 
 def test_fused_resnet_block_on_card_matches_cpu(gen):

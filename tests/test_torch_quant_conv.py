@@ -97,6 +97,77 @@ def test_cpu_tensors_take_the_plain_version():
     assert tqc.quantized_conv3x3.launches == before
 
 
+def test_tap_major_weights_match_oihw():
+    """The kernel's weights: (9, Co, C), tap dy * 3 + dx's (Co, C) slice."""
+    w = torch.randint(-127, 128, (192, 64, 3, 3), dtype=torch.int8,
+                      generator=torch.Generator().manual_seed(5))
+    wt = tqc._tap_major_weights(w)
+    assert wt.shape == (9, 192, 64) and wt.dtype == torch.int8 and wt.is_contiguous()
+    for dy in range(3):
+        for dx in range(3):
+            assert torch.equal(wt[3 * dy + dx], w[:, :, dy, dx])
+
+
+@pytest.mark.parametrize("co,tile", [(512, (256, 1)), (256, (256, 1)), (128, (128, 2)),
+                                     (384, (128, 2)), (320, (160, 1)), (192, (64, 2)),
+                                     (64, (64, 2))])
+def test_tiling_per_output_channels(co, tile):
+    assert tqc._tiling(co) == tile
+
+
+@pytest.mark.parametrize("n,co,h,w,clusters", [
+    (3, 128, 40, 24, 5), (1, 64, 16, 16, 1), (2, 192, 24, 40, 3), (1, 256, 24, 16, 2),
+    (1, 320, 24, 40, 4), (2, 512, 96, 96, 66), (2, 128, 20, 24, 7),
+])
+def test_tile_walk_covers_every_output_once(n, co, h, w, clusters):
+    """Every output pixel and channel is stored by exactly one CTA; both CTAs
+    of a cluster take the same channel blocks in the same order (they share
+    every weight tap); a CTA that stores nothing is a cluster's second, at
+    the end of its walk."""
+    bn, mb = tqc._tiling(co)
+    th = 8 * mb
+    count = np.zeros((n, co, h + th, w + 16), np.int32)
+    walks = {}
+    for ci, rank, img, co0, h0, w0, stored in tqc.tile_walk(n, co, h, w, clusters):
+        walks.setdefault((ci, rank), []).append((co0, stored))
+        if stored:
+            count[img, co0:co0 + bn, h0:h0 + th, w0:w0 + 16] += 1
+    assert (count[:, :, :h, :w] == 1).all()
+    for ci in range(clusters):
+        first, second = walks.get((ci, 0), []), walks.get((ci, 1), [])
+        assert [c for c, _ in first] == [c for c, _ in second]
+        assert all(s for _, s in first)
+        stored = [s for _, s in second]
+        assert stored == sorted(stored, reverse=True)
+
+
+@pytest.mark.parametrize("shape,co,expect", [
+    ((2, 128, 768, 768), 128, 2304 * 9 * 128 * 128),  # 16 x 16 tiles of 128 channels
+    ((2, 256, 384, 384), 256, 1152 * 9 * 256 * 256),  # 8 x 16 tiles of 256
+    ((2, 512, 192, 192), 512, 288 * 2 * 9 * 512 * 256),
+    ((2, 320, 96, 96), 320, 72 * 2 * 9 * 320 * 160),  # 8 x 16 tiles of 160
+    ((3, 128, 40, 24), 192, 9 * 3 * 9 * 128 * 64),
+])
+def test_weight_l2_bytes_from_the_walk(shape, co, expect):
+    """A unit of the walk reads its 9 C BN weights once for both CTAs."""
+    n, c, h, w = shape
+    assert tqc.weight_l2_bytes(n, c, co, h, w) == expect
+    if n * h * w <= 3 * 40 * 24:
+        bn = tqc._tiling(co)[0]
+        units = sum(1 for e in tqc.tile_walk(n, co, h, w, 3) if e[1] == 0)
+        assert units * 9 * c * bn == expect
+
+
+def test_aligned16_copies_only_a_misaligned_start():
+    """The kernel's TMA and bulk copies read from 16-byte boundaries: the
+    wrapper hands it a copy of a vector that starts elsewhere."""
+    base = torch.arange(12, dtype=torch.float32)
+    assert base.data_ptr() % 16 == 0
+    assert tqc._aligned16(base).data_ptr() == base.data_ptr()
+    moved = tqc._aligned16(base[1:])
+    assert moved.data_ptr() % 16 == 0 and torch.equal(moved, base[1:])
+
+
 def card_args(c=128, co=128):
     return (torch.zeros(1, c, 16, 16), torch.zeros(co, c, 3, 3, dtype=torch.int8),
             torch.ones(c), torch.ones(co), torch.zeros(co))
@@ -109,12 +180,20 @@ def test_card_path_refuses_gradients(monkeypatch):
         tqc.quantized_conv3x3(x.requires_grad_(), w, ia, osc, b)
 
 
-@pytest.mark.parametrize("what", ["dtype", "channels", "out_channels", "weight_dtype"])
+@pytest.mark.parametrize("what", ["dtype", "channels", "out_channels", "weight_dtype",
+                                  "f32_width", "bf16_width"])
 def test_card_path_refuses_what_the_kernel_lacks(what, monkeypatch):
+    """Outside the kernel's shapes the wrapper raises; the widths refused
+    (rows of x not whole 16-byte units for TMA) lie outside JAX's
+    ``supported`` (w % 8)."""
     monkeypatch.setattr(_dispatch, "use_kernel", lambda x: True)
     x, w, ia, osc, b = card_args()
     if what == "dtype":
         x = x.half()
+    elif what == "f32_width":
+        x = x[..., :14].contiguous()
+    elif what == "bf16_width":
+        x = torch.zeros(1, 128, 16, 20, dtype=torch.bfloat16)
     elif what == "channels":
         x, w, ia = x[:, :96], w[:, :96], ia[:96]
     elif what == "out_channels":
