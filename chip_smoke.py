@@ -316,6 +316,7 @@ from genpercept_tpu_torch.ops import fused_ff as ff
 from genpercept_tpu_torch.ops import quant as tq
 from genpercept_tpu_torch.ops import quant_conv as qc
 from genpercept_tpu_torch.ops import reference_kernels
+from genpercept_tpu_torch.parallel import tensor as TP
 from genpercept_tpu_torch.pipeline import (
     GenPerceptModels, GenPerceptPipeline, PipelineConfig, build_single_infer)
 from genpercept_tpu_torch.utils.synthetic import natural_like_images
@@ -328,6 +329,9 @@ SEED = 0
 K1_SHAPES = [((5, 9216, 64), 5), ((10, 2304, 64), 5), ((20, 576, 64), 5),
              ((1, 9216, 512), 2)]
 K2_SHAPE, K2_PER_FORWARD = (1, 9216, 320), 5
+# the tensor-parallel jobs' model group (phase (x)) and K2 on a rank's share
+# there: two 768^2 images, 18432 level-0 rows
+TP_M, K2_TP_SHAPE = 2, (2, 9216, 320)
 # the shape the pipeline launches K2 at: a .batch of 2 images, 5 per forward;
 # checked and timed, not counted in the per-image times
 K2_BATCH = (2, 9216, 320)
@@ -684,6 +688,42 @@ def k2_within(dt, err: float, mean: float, top: float) -> bool:
             and mean <= K2_BF16_MEAN_REL_TOL * top)
 
 
+def k2_reading(args: tuple, what: str) -> dict:
+    """K2 on ``args`` (x, w1, b1, w2, b2) against its plain version, timed
+    beside it and the unfused composition, emitted and held to K2's bars
+    (two calls equal)."""
+    x, w1 = args[0], args[1]
+    (b, s, c), inner, dt = x.shape, w1.shape[0] // 2, x.dtype
+    y = ff.fused_geglu_ff(*args)
+    again = ff.fused_geglu_ff(*args)
+    ref = ff._fused_geglu_ff_ref(*args)
+    torch.cuda.synchronize()
+    diff = (y.float() - ref.float()).abs()
+    err, mean = diff.max().item(), diff.mean().item()
+    scale = ref.float().abs().max().item()
+    ms = cuda_ms(lambda: ff.fused_geglu_ff(*args), 10)
+    plain_ms = cuda_ms(lambda: ff._fused_geglu_ff_ref(*args), 10)
+    # the unfused feed-forward in x's dtype (TF32 off in f32): the
+    # yardstick, as no single PyTorch call computes K2's function
+    composition_ms = cuda_ms(lambda: ff._geglu_ff_composition(*args), 10)
+    rows = b * s
+    f32 = dt == torch.float32
+    bd = bound(6.0 * rows * c * inner, "tf32x3" if f32 else "bf16",
+               (2 * rows * c + 3 * c * inner) * elt(dt) + 4 * (2 * inner + c))
+    repeats = torch.equal(y, again)
+    emit({"phase": what, "dtype": str(dt), "shape": [b, s, c], "inner": inner,
+          "max_abs_err": err, "mean_abs_err": mean, "output_max_abs": scale,
+          "rel_err": err / scale, "mean_rel_err": mean / scale, "repeats": repeats,
+          "ms": ms, "plain_ms": plain_ms, "composition_ms": composition_ms,
+          "bound_ms": bd.ms, "bound_by": bd.by,
+          # f32: the bound at the FFMA rate of the f32 body this one replaced
+          "bound_ffma_ms": bound(6.0 * rows * c * inner, "f32", 0).ms if f32 else None})
+    check(k2_within(dt, err, mean, scale),
+          f"{what} {dt} {(b, s, c)} inner {inner}: error {err}, mean {mean}, max|plain| {scale}")
+    check(repeats, f"{what} {dt} {(b, s, c)} inner {inner}: two calls differ")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound": bd}
+
+
 def phase_k2(gen: torch.Generator) -> dict:
     lib = _build.load()
     body = lib.fused_geglu_ff_f32_body().decode()
@@ -702,41 +742,24 @@ def phase_k2(gen: torch.Generator) -> dict:
     rgen = recipe_generator()
     shapes = [(K2_SHAPE, K2_PER_FORWARD), (K2_BATCH, 0), (K2_RECIPE, 0)] + [
         (shape, 0) for shape in K2_RAGGED]
+    # a tensor-parallel rank's share (parallel/tensor.py): inner 4C / TP_M,
+    # its hidden rows stacked on its gate rows, b2 withheld (the model
+    # group adds it once after its sum), at the rows of two 768^2 images
+    pairs = TP.Split(0, True)
+    share = (TP.share(w1, pairs, TP_M, 0).contiguous(), TP.share(b1, pairs, TP_M, 0).contiguous(),
+             w2.chunk(TP_M, dim=1)[0].contiguous())
     for dt in DTYPES:
         for (b, s, _), n in shapes:
             x = torch.randn(b, s, c, device="cuda", generator=gen if n else rgen).to(dt)
-            args = (x, w1.to(dt), b1, w2.to(dt), b2)
-            y = ff.fused_geglu_ff(*args)
-            again = ff.fused_geglu_ff(*args)
-            ref = ff._fused_geglu_ff_ref(*args)
-            torch.cuda.synchronize()
-            diff = (y.float() - ref.float()).abs()
-            err, mean = diff.max().item(), diff.mean().item()
-            scale = ref.float().abs().max().item()
-            ms = cuda_ms(lambda: ff.fused_geglu_ff(*args), 10)
-            plain_ms = cuda_ms(lambda: ff._fused_geglu_ff_ref(*args), 10)
-            # the unfused feed-forward in x's dtype (TF32 off in f32): the
-            # yardstick, as no single PyTorch call computes K2's function
-            composition_ms = cuda_ms(lambda: ff._geglu_ff_composition(*args), 10)
-            rows = b * s
-            f32 = dt == torch.float32
-            bd = bound(6.0 * rows * c * inner, "tf32x3" if f32 else "bf16",
-                       (2 * rows * c + 3 * c * inner) * elt(dt) + 4 * (2 * inner + c))
-            emit({"phase": "K2", "dtype": str(dt), "shape": [b, s, c],
-                  "max_abs_err": err, "mean_abs_err": mean, "output_max_abs": scale,
-                  "rel_err": err / scale, "mean_rel_err": mean / scale,
-                  "repeats": torch.equal(y, again),
-                  "ms": ms, "plain_ms": plain_ms, "composition_ms": composition_ms,
-                  "bound_ms": bd.ms, "bound_by": bd.by,
-                  # f32: the bound at the FFMA rate of the f32 body this one replaced
-                  "bound_ffma_ms": bound(6.0 * rows * c * inner, "f32", 0).ms if f32 else None})
-            check(k2_within(dt, err, mean, scale),
-                  f"K2 {dt} {(b, s, c)}: error {err}, mean {mean}, max|plain| {scale}")
-            check(torch.equal(y, again), f"K2 {dt} {(b, s, c)}: two calls differ")
-            worst[dt] = max(worst[dt], err)
+            rec = k2_reading((x, w1.to(dt), b1, w2.to(dt), b2), "K2")
+            worst[dt] = max(worst[dt], rec["err"])
             if n:
-                per_image[dt] = [n * ms, n * plain_ms, n * bd]
-            del x, args, y, again, ref, diff
+                per_image[dt] = [n * rec["ms"], n * rec["plain_ms"], n * rec["bound"]]
+            del x
+        x = torch.randn(K2_TP_SHAPE, device="cuda", generator=rgen).to(dt)
+        rec = k2_reading((x, share[0].to(dt), share[1], share[2].to(dt), None), "K2_tp_share")
+        worst[dt] = max(worst[dt], rec["err"])
+        del x
     return {"worst": worst, "per_image": per_image}
 
 
@@ -2949,8 +2972,18 @@ def write_train_data(root: Path) -> dict:
     per sample, listed
     by a second metadata directory with all four (train_gt, train_extras'
     normal recipe) and a third with rgb and DIS only (dis5k, its DIS
-    recipe). Returns {split: (dir, filenames)}."""
+    recipe). Returns {split: (dir, filenames)}. The arrays are drawn in
+    order and the PNGs encoded by a pool of threads (the encoder releases
+    the GIL)."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
     from PIL import Image
+
+    pngs: list = []  # (array, path)
+
+    def save(array, path):
+        pngs.append((array, path))
 
     meta = root / "meta"
     meta.mkdir(parents=True)
@@ -2965,17 +2998,16 @@ def write_train_data(root: Path) -> dict:
         rng_gt = np.random.default_rng(SEED + 24)  # apart: the depth maps stay as they were
         for i in range(n):
             rgb, depth = f"{split}/rgb_{i:03d}.png", f"{split}/depth_{i:03d}.png"
-            Image.fromarray((rgbs[i] * 255).astype(np.uint8)).save(root / "hypersim" / rgb)
-            Image.fromarray(te_depth(rng, TRAIN_HW, 1.0, 20.0, 1000.0)).save(
-                root / "hypersim" / depth)
+            save((rgbs[i] * 255).astype(np.uint8), root / "hypersim" / rgb)
+            save(te_depth(rng, TRAIN_HW, 1.0, 20.0, 1000.0), root / "hypersim" / depth)
             rows.append(json.dumps({"image": rgb, "depth_conditioning_image": depth}))
             if split != "train":
                 continue
             normal, dis = f"{split}/normal_{i:03d}.png", f"{split}/dis_{i:03d}.png"
             nmap = np.stack([te_depth(rng_gt, TRAIN_HW, 30.0, 225.0, 1.0) for _ in range(3)], -1)
-            Image.fromarray(nmap.astype(np.uint8)).save(root / "hypersim" / normal)
-            Image.fromarray(te_depth(rng_gt, TRAIN_HW, 0.0, 255.0, 1.0).astype(np.uint8)).save(
-                root / "hypersim" / dis)
+            save(nmap.astype(np.uint8), root / "hypersim" / normal)
+            save(te_depth(rng_gt, TRAIN_HW, 0.0, 255.0, 1.0).astype(np.uint8),
+                 root / "hypersim" / dis)
             gt_rows.append(json.dumps({"image": rgb, "depth_conditioning_image": depth,
                                        "normal_conditioning_image": normal,
                                        "dis_conditioning_image": dis}))
@@ -2995,12 +3027,13 @@ def write_train_data(root: Path) -> dict:
     rng = np.random.default_rng(SEED + 23)
     for i in range(TE_SAMPLES["vkitti"]):
         rgb = rng.integers(0, 256, TE_VKITTI_HW + (3,), dtype=np.uint8)
-        Image.fromarray(rgb).save(root / "vkitti" / f"rgb/{i:03d}.png")
-        Image.fromarray(te_depth(rng, TE_VKITTI_HW, 2.0, 70.0, 100.0)).save(
-            root / "vkitti" / f"depth/{i:03d}.png")
+        save(rgb, root / "vkitti" / f"rgb/{i:03d}.png")
+        save(te_depth(rng, TE_VKITTI_HW, 2.0, 70.0, 100.0), root / "vkitti" / f"depth/{i:03d}.png")
         lines.append(f"rgb/{i:03d}.png depth/{i:03d}.png")
     (meta / "vkitti_train.txt").write_text("\n".join(lines) + "\n")
     out["vkitti"] = ("vkitti", str(meta / "vkitti_train.txt"))
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        list(pool.map(lambda job: Image.fromarray(job[0]).save(job[1]), pngs))
     return out
 
 
@@ -3449,7 +3482,13 @@ TX_RUNS = {
     "marigold": "configs/train/depth_marigold.yaml",
     "rgb_blending": "configs/train/ablation/beta_values/rgb_blending_0p00085_0p012.yaml",
 }
-TX_STEPS = 2
+# one optimizer step a run: the depth cut that keeps the whole script within
+# its time limit (a second step's wall, the recipe's ms per step after the
+# first, is not read). LoRA takes two: its adapters' B starts at zero and
+# the recipe's warmup gives the first step a learning rate of 0, so only a
+# second step shows that the adapters train
+TX_STEPS = 1
+TX_RUN_STEPS = {"lora": 2}
 # each run's fidelity check (kernels against reference_kernels(), one
 # micro-batch's first images: the plain attention at 768^2 holds its
 # scores in memory), in the run's dtype and, for a bf16 run, in f32 too, on
@@ -3504,9 +3543,9 @@ def train_step_launches(hw: tuple, micro: int, decode: bool) -> dict:
             "K3": u + d, "K4": u + d}
 
 
-def write_extra_recipe(path: Path, recipe: str, data: dict) -> dict:
+def write_extra_recipe(path: Path, recipe: str, data: dict, steps: int = TX_STEPS) -> dict:
     """``recipe`` merged as the CLI merges it, pointed at te_workspace's
-    files by dataset name (Hypersim with normals in normal mode), TX_STEPS
+    files by dataset name (Hypersim with normals in normal mode), ``steps``
     steps, no checkpoint, validation or visualization periods. Returns the
     merged config."""
     import yaml
@@ -3525,7 +3564,7 @@ def write_extra_recipe(path: Path, recipe: str, data: dict) -> dict:
     for split in ("val", "vis"):
         for entry in cfg["dataset"].get(split) or []:
             entry["dir"], entry["filenames"] = data[split]
-    cfg["max_iter"] = TX_STEPS
+    cfg["max_iter"] = steps
     cfg.setdefault("trainer", {}).update(save_period=0, validation_period=0,
                                          visualization_period=0)
     a, b = flat_config(original), flat_config(cfg)
@@ -3545,7 +3584,7 @@ def tx_entries(train: dict) -> list:
 
 def tx_geometry(cfg: dict) -> tuple:
     """(train raster, micro-batch, accumulation, per-step sources of the
-    first TX_STEPS steps replayed from the sampler)."""
+    first max_iter steps replayed from the sampler)."""
     train = cfg["dataset"]["train"]
     entries = tx_entries(train)
     micro = cfg["dataloader"].get("max_train_batch_size", 2)
@@ -3557,10 +3596,10 @@ def tx_geometry(cfg: dict) -> tuple:
                                 generator=np.random.default_rng(
                                     cfg["trainer"].get("init_seed", 0)))
     sources = []
-    while len(sources) < TX_STEPS:  # an epoch of a single 32-sample source is one step
+    while len(sources) < cfg["max_iter"]:  # an epoch of a single 32-sample source is one step
         for b in sampler:
             sources.append(entries[int(b[0] >= sizes[0])]["name"])
-            if len(sources) == TX_STEPS:
+            if len(sources) == cfg["max_iter"]:
                 break
     return tuple(entries[0].get("resize_to_hw") or TRAIN_HW), micro, accum, sources
 
@@ -3689,10 +3728,10 @@ def tx_run(name: str, ws: dict) -> tuple:
     from genpercept_tpu_torch.utils.config import Config
 
     root = ws["root"]
-    recipe = TX_RUNS[name]
-    cfg = write_extra_recipe(root / f"x_{name}.yaml", recipe, ws["data"])
+    recipe, steps = TX_RUNS[name], TX_RUN_STEPS.get(name, TX_STEPS)
+    cfg = write_extra_recipe(root / f"x_{name}.yaml", recipe, ws["data"], steps)
     hw, micro, accum, sources = tx_geometry(cfg)
-    check(sources == [("dis5k" if "dis5k" in sources else "hypersim")] * TX_STEPS,
+    check(sources == [("dis5k" if "dis5k" in sources else "hypersim")] * steps,
           f"{name}: the first steps draw {sources}")
     run_dir = root / f"x_{name}"
     trainer, rec = train_cli_run(root / f"x_{name}.yaml", ws["ckpt"], root / "data", run_dir)
@@ -3714,8 +3753,8 @@ def tx_run(name: str, ws: dict) -> tuple:
            "ms_per_step": walls[-1] if walls else None, "step_walls_ms": walls,
            "peak_bytes": rec["peak_bytes"], "seconds": rec["seconds"],
            "launches": rec["launches"],
-           "launches_expected": {k: TX_STEPS * accum * n for k, n in per_micro.items()}}
-    check(rec["steps"] == list(range(1, TX_STEPS + 1))
+           "launches_expected": {k: steps * accum * n for k, n in per_micro.items()}}
+    check(rec["steps"] == list(range(1, steps + 1))
           and all(math.isfinite(x) for x in rec["step_losses"]), f"{name}: losses {rec}")
     check(rec["launches"] == rec["launches_expected"],
           f"{name}: launches {rec['launches']} != {rec['launches_expected']}")
@@ -4180,11 +4219,12 @@ def phase_int8_extras(ws: dict) -> dict:
 DP_WORLD, DP_EFF = 2, 2
 DP_CHANGED = TE_CHANGED + ("max_train_batch_size", "effective_batch_size", "mixed_precision",
                            "mu_dtype", "warmup_steps")
-# the f32 runs' losses: the recipe's without least-squares SSI, whose
-# gradients at random weights are ill-conditioned (section (g): its median
-# branch; the training phase reports them unbounded); the bf16 runs keep
-# the recipe's three, reported
-DP_F32_LOSSES = ("mse_loss", "grad_loss")
+# the runs' losses: the recipe's without least-squares SSI, whose gradients
+# at random weights are ill-conditioned (section (g): its median branch;
+# the training phase reports them unbounded); the bf16 runs take the same
+# two, so that the tensor-parallel bf16 run has f32 gradients of its own
+# losses to be held against
+DP_LOSSES = ("mse_loss", "grad_loss")
 DP_LOSS_TOL = 1e-6  # f32 with TF32 off, relative: the reduction over the global batch
 # the gradient (Adam's first moment), global relative L2: a rank's call on
 # one image rounds otherwise than one process's on two, which the backward
@@ -4207,16 +4247,41 @@ DP_GRAD_TOL, DP_GRAD_WITNESS_X, DP_UPDATE_WITNESS_X = 1e-3, 1.1, 1.5
 # below it, where a share that one rank failed to take from the other
 # would leave half the update out (~0.7). The ranks' parameters are equal
 DP_ZERO1_MU_REL, DP_ZERO1_UPDATE_REL = 1e-5, 1e-2
-DP_TIMEOUT_S = 420
+DP_TIMEOUT_S = 600
+# tensor parallelism (--model_parallel TP_M, one model group of two gloo
+# ranks on the card, the one-process runs' global micro-batch on each): the
+# f32 loss to DP_LOSS_TOL; the gradient to TP_GRAD_TOL and TP_GRAD_WITNESS_X
+# times, the update to TP_UPDATE_WITNESS_X times the split's witness (the
+# one-process step under parallel.tensor.emulated(TP_M): every split layer's
+# partial products summed in TP_M parts in the ranks' order, read in the
+# same run). The witness itself reads 6.128e-4 (the ranks 6.128e-4, 1.00003x
+# it; NVIDIA H100 80GB HBM3, 700.00 W): a 1e-7 change of the row-parallel
+# sums moves this random-weight gradient as the batch split's does (7.07e-4,
+# DP_GRAD_TOL), so TP_GRAD_TOL is DP_GRAD_TOL, and the witness ratio and
+# TP_WITNESS_GRAD_TOL below are the bars that see a fault. In bf16 the gathered gradient's distance to the f32
+# one-process gradient within TP_TO_F32_X times the one-process bf16
+# gradient's (the "to_f32" bar of the training phases). TP_K2: two 768^2
+# images, whose 18432 level-0 rows route K2 on each rank's inner share
+TP_GRAD_TOL, TP_GRAD_WITNESS_X, TP_UPDATE_WITNESS_X, TP_TO_F32_X = DP_GRAD_TOL, 1.1, 1.5, 1.2
+# the ranks' gathered gradient against the witness's own (tp_to_witness),
+# global relative L2: the witness sums what the ranks sum in their order, so
+# its forward is theirs bit for bit and only the card's backward differs
+# from run to run (its atomics): read 1.0985e-6 (NVIDIA H100 80GB HBM3,
+# 700.00 W; 0.0 on the CPU, tests/test_torch_tensor_parallel.py), where a
+# split summed in another order alone reads the 6e-4 both stand from one
+# process
+TP_WITNESS_GRAD_TOL = 1e-5
+TP_K2_HW, TP_K2_MICRO = (768, 768), 2
 
 
 def write_dp_recipe(path: Path, data: dict, micro: int, f32: bool, max_iter: int,
-                    save_period: int = 0, val_period: int = 0) -> dict:
+                    save_period: int = 0, val_period: int = 0,
+                    resize: tuple | None = None) -> dict:
     """TE_RECIPE merged as the CLI merges it, with only DP_CHANGED keys set:
     te_workspace's files, ``micro`` images a process in micro-steps of an
-    effective batch of DP_EFF, the periods, no warmup, and
-    with ``f32`` f32 compute and moments and DP_F32_LOSSES. Returns the
-    merged config."""
+    effective batch of DP_EFF, the periods, no warmup, DP_LOSSES, with
+    ``f32`` f32 compute and moments, and with ``resize`` the training
+    images resized to it (``resize_to_hw``). Returns the merged config."""
     import yaml
 
     from genpercept_tpu_torch.utils.config import recursive_load_config
@@ -4233,13 +4298,17 @@ def write_dp_recipe(path: Path, data: dict, micro: int, f32: bool, max_iter: int
                           visualization_period=0)
     cfg["dataloader"].update(max_train_batch_size=micro, effective_batch_size=DP_EFF)
     cfg["lr_scheduler"]["kwargs"]["warmup_steps"] = 0
+    cfg["loss"]["name"] = list(DP_LOSSES)
     if f32:
         cfg["mixed_precision"] = "no"
         cfg["optimizer"]["mu_dtype"] = "f32"
-        cfg["loss"]["name"] = list(DP_F32_LOSSES)
+    free = ("loss.name.",)
+    if resize is not None:
+        for i, entry in enumerate((hs, vk)):
+            entry["resize_to_hw"] = list(resize)
+            free += (f"dataset.train.dataset_list.{i}.resize_to_hw",)
     a, b = flat_config(original), flat_config(cfg)
     changed = sorted(k for k in a.keys() | b.keys() if a.get(k) != b.get(k))
-    free = ("loss.name.",)
     check({k for k in a if not k.startswith(free)} == {k for k in b if not k.startswith(free)}
           and all(k.endswith(DP_CHANGED) or k.startswith(free) for k in changed),
           f"the recipe changed beyond {DP_CHANGED}: {changed}")
@@ -4248,15 +4317,73 @@ def write_dp_recipe(path: Path, data: dict, micro: int, f32: bool, max_iter: int
 
 
 def dp_trained_state(trainer, keep: bool) -> dict | None:
-    """The trainer's parameters and Adam first moments by name, f32 copies
-    on the card (rank 0 holds at most three at once), where ``keep`` (rank 0); a ZeRO-1 optimizer gathers its
-    ranks' shares, so every rank calls this."""
+    """The trainer's parameters and Adam first moments by name, in the
+    one-process layout, f32 copies on the card (rank 0 holds at most three
+    at once), where ``keep`` (rank 0); a ZeRO-1 optimizer gathers its ranks'
+    shares and a model group its tensor-parallel shards, so every rank
+    calls this."""
     sd = trainer.optimizer.state_dict()
+    params = {k: p.detach() for k, p in trainer.trainable.items()}
+    if trainer.splits:
+        params, sd = trainer.one_process_state(sd)
     if not keep:
         return None
     names, dev = list(trainer.trainable), trainer.device
-    return {"params": {k: p.detach().float().clone() for k, p in trainer.trainable.items()},
+    return {"params": {k: p.float().clone() for k, p in params.items()},
             "mu": {names[i]: st["mu"].to(dev, torch.float32) for i, st in sd["state"].items()}}
+
+
+def tp_to_f32(state: dict, one: dict, f32: dict, device) -> dict:
+    """A bf16 run's gathered gradient (Adam's first moment) against the f32
+    one-process gradient, beside the one-process bf16 gradient's distance,
+    over the parameters whose f32 first moment reaches 1e-6 of the
+    largest."""
+    top = max(float(v.abs().max()) for v in f32["mu"].values())
+    keep = [k for k in f32["mu"] if float(f32["mu"][k].abs().max()) >= 1e-6 * top]
+    return {"to_f32": dp_rel_l2(state["mu"], f32["mu"], keep, device),
+            "one_to_f32": dp_rel_l2(one["mu"], f32["mu"], keep, device)}
+
+
+def tp_to_witness(state: dict, path: Path, device) -> dict:
+    """A tensor-parallel run's gathered gradient (Adam's first moment, (1 -
+    b1) g after one step) against the split's witness (dp_split_witness's
+    gradient under ``tensor.emulated(TP_M)``, the same sums in the same
+    order in one process), global relative L2 over the witness's
+    parameters; the file (written beside the first jobs) is waited for and
+    deleted once read."""
+    deadline = time.perf_counter() + DP_TIMEOUT_S
+    while not path.is_file():
+        check(time.perf_counter() < deadline, f"dp: no witness at {path}")
+        time.sleep(0.5)
+    g = torch.load(path, map_location="cpu", mmap=True)
+    rel = dp_rel_l2(state["mu"], {k: (1 - 0.9) * v.to(device) for k, v in g.items()}, list(g),
+                    device)
+    del g
+    path.unlink()
+    return {"witness_grad_rel_l2": rel}
+
+
+def tp_checkpoint_diff(trainer, run: Path) -> dict:
+    """The largest |difference| between this rank's parameters and Adam
+    moments (its shares of the split ones) and its share of the run's final
+    checkpoint, which is written whole (0.0: the checkpoint is the gather
+    of the shards)."""
+    from genpercept_tpu_torch.io.checkpoints import load_train_checkpoint
+
+    ck = load_train_checkpoint(str(run / "checkpoint"), "final", map_location="cpu")
+    names, splits = list(trainer.trainable), trainer.splits
+
+    def diff(saved, own, name):
+        mine = TP.local_share(saved, splits.get(name))
+        return float((mine.float() - own.detach().cpu().float()).abs().max())
+
+    moments = ck["opt_state"]["state"]
+    own = trainer.optimizer.state_dict()["state"]
+    return {"ckpt_params_max_abs_diff": max(diff(ck["trainable"][k], p, k)
+                                            for k, p in trainer.trainable.items()),
+            "ckpt_moments_max_abs_diff": max(diff(moments[i][m], st[m], names[i])
+                                             for i, st in own.items() for m in ("mu", "nu")),
+            "ckpt_moments": len(moments)}
 
 
 def dp_rel_l2(a: dict, b: dict, keys, device, base: dict | None = None) -> float:
@@ -4286,7 +4413,7 @@ def dp_compare(ranks: dict, one: dict, base: dict, device) -> dict:
             "params_compared": len(keep), "params": len(one["mu"])}
 
 
-def dp_split_witness(ws: dict, recipe_cfg: dict, device: str = "cuda") -> dict:
+def dp_split_witness(ws: dict, recipe_cfg: dict, tp_file: Path, device: str = "cuda") -> dict:
     """The batch split's own rounding, in one process on the card: the
     one-process reference's first step rebuilt from its recipe (the CLI's
     reader, sampler and flips over te_workspace's files, the step's
@@ -4295,7 +4422,11 @@ def dp_split_witness(ws: dict, recipe_cfg: dict, device: str = "cuda") -> dict:
     image's losses over the batch's counts (replayed), the images'
     gradients summed: what two ranks compute, without a process group.
     Global relative L2 over the parameters whose gradient reaches 1e-6 of
-    the largest, as dp_compare; the losses as a relative difference."""
+    the largest, as dp_compare; the losses as a relative difference. The
+    ``tp_`` readings are the tensor split's witness (tp_split_witness): the
+    batched gradient under ``tensor.emulated(TP_M)``, every split layer's
+    partial products summed in TP_M parts in the ranks' order; its gradient
+    is written to ``tp_file`` for the ranks."""
     from genpercept_tpu_torch import parallel
     from genpercept_tpu_torch.cli.train import resolve_train_config, sampler_prob
     from genpercept_tpu_torch.data import DatasetMode, get_dataset
@@ -4355,9 +4486,14 @@ def dp_split_witness(ws: dict, recipe_cfg: dict, device: str = "cuda") -> dict:
     with tf32(False, False):
         loss_b, g_b = grads(slice(0, DP_EFF), False)
         split = [grads(slice(i, i + 1), True) for i in range(DP_EFF)]
+        with TP.emulated(TP_M):
+            loss_t, g_t = grads(slice(0, DP_EFF), True)
     top = max(float(v.abs().max()) for v in g_b.values())
     keep = [k for k in g_b if float(g_b[k].abs().max()) >= 1e-6 * top]
     g_s = {k: sum(g[k] for _, g in split) for k in keep}
+    # for the ranks (tp_to_witness), whole once it has its name
+    torch.save({k: g_t[k].cpu() for k in keep}, f"{tp_file}.part")
+    Path(f"{tp_file}.part").rename(tp_file)
     loss_s = sum(x for x, _ in split)
 
     def adam_first(g):  # OptaxAdam's first update over lr, in f32
@@ -4370,11 +4506,15 @@ def dp_split_witness(ws: dict, recipe_cfg: dict, device: str = "cuda") -> dict:
            "grad_rel_l2": dp_rel_l2(g_s, g_b, keep, device),
            "update_rel_l2": dp_rel_l2({k: adam_first(g_s[k]) for k in keep},
                                       {k: adam_first(g_b[k]) for k in keep}, keep, device),
+           "tp_loss": loss_t, "tp_loss_rel_diff": abs(loss_t - loss_b) / abs(loss_b),
+           "tp_grad_rel_l2": dp_rel_l2(g_t, g_b, keep, device),
+           "tp_update_rel_l2": dp_rel_l2({k: adam_first(g_t[k]) for k in keep},
+                                         {k: adam_first(g_b[k]) for k in keep}, keep, device),
            "params_compared": len(keep),
            "params": len(g_b), "losses": list(cfg.loss_names), "t": t.tolist(),
            "valid_fraction": [float(m.float().mean()) for m in batch["valid_mask"]],
            "seconds": time.perf_counter() - t0}
-    del models, trainable, params, g_b, g_s, split, loss_fn, counts
+    del models, trainable, params, g_b, g_s, g_t, split, loss_fn, counts
     gc_cuda()
     return rec
 
@@ -4386,13 +4526,17 @@ def dp_rank_main(args: list) -> None:
     reference: rank 0 runs it with no process group while the others wait;
     the solo jobs come first. The "ranks" jobs run on every rank in one
     gloo group from torchrun's environment, started once (the CLI uses the
-    group it finds). Rank 0 keeps
-    each run's parameters and first moments on the card, compares them
-    ("compare": a solo run; "equal": an earlier run; each dropped once
-    compared), deletes the run's
+    group it finds; a job's argv may split the UNet over a model group,
+    --model_parallel). Rank 0 keeps each run's parameters and first moments
+    on the card, in the one-process layout, compares them ("compare": a
+    solo run; "equal": an earlier run; "to_f32": a bf16 run's gradient
+    against an f32 solo run's, beside the "compare" run's; each state
+    dropped after the last job that reads it; "witness": the file of
+    dp_split_witness's emulated-split gradient, read and deleted), deletes the run's
     checkpoints as soon as it has read them (but the one "keep" names; the
-    machine's disk takes a few checkpoints, not all of them), and
-    writes <out>.rank<r>.json per job."""
+    machine's disk takes a few checkpoints, not all of them), and writes
+    <out>.rank<r>.json per job. "ckpt_check": every rank holds its share of
+    the final checkpoint against its own parameters and moments."""
     import os
 
     from genpercept_tpu_torch import parallel
@@ -4404,7 +4548,12 @@ def dp_rank_main(args: list) -> None:
     device = "cuda:0"
     torch.cuda.set_device(0)
     base, states = None, {}
-    for job in spec["jobs"]:
+    last_use = {}  # a run's state is dropped after the last job that reads it
+    for i, job in enumerate(spec["jobs"]):
+        for key in ("compare", "equal", "to_f32"):
+            if job.get(key):
+                last_use[job[key]] = i
+    for i, job in enumerate(spec["jobs"]):
         out, run = Path(job["out"]), Path(job["run"])
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = job["precision"] != "f32"
@@ -4414,10 +4563,12 @@ def dp_rank_main(args: list) -> None:
             check(not parallel.is_distributed(), "dp: a solo job after the ranks' jobs")
             if rank == 0:
                 reset_counts()
+                torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
                 trainer = train_cli.main([*job["argv"], "--device", device])
                 torch.cuda.synchronize()
-                rec.update(seconds=time.perf_counter() - t0, launches=launch_counts())
+                rec.update(seconds=time.perf_counter() - t0, launches=launch_counts(),
+                           peak_bytes=torch.cuda.max_memory_allocated())
                 states[job["name"]] = dp_trained_state(trainer, True)
                 del trainer
                 shutil.rmtree(run / "checkpoint")
@@ -4435,13 +4586,22 @@ def dp_rank_main(args: list) -> None:
         rec.update(seconds=time.perf_counter() - t0, launches=launch_counts(),
                    peak_bytes=torch.cuda.max_memory_allocated(),
                    effective_iter=trainer.effective_iter,
+                   model_parallel=parallel.model_world(),
                    param_sum=sum(float(p.detach().double().sum())
-                                 for p in trainer.trainable.values()))
-        state = dp_trained_state(trainer, rank == 0)  # a collective under ZeRO-1
+                                 for p in trainer.trainable.values()),
+                   # the parameters a model group replicates
+                   replicated_sum=sum(float(p.detach().double().sum())
+                                      for k, p in trainer.trainable.items()
+                                      if k not in trainer.splits))
+        if job.get("ckpt_check"):
+            rec.update(tp_checkpoint_diff(trainer, run))
+        # a collective under ZeRO-1 or tensor parallelism
+        state = dp_trained_state(trainer, rank == 0)
         del trainer
         gc_cuda()
         if rank == 0:
-            states[job["name"]] = state
+            if job["name"] in last_use:
+                states[job["name"]] = state
             log = metrics_log(run)
             rec["loss"] = log["train/loss"][-1][1] if "train/loss" in log else None
             rec["terms"] = {t: v[-1][1] for t, v in log.items() if t.startswith("train/")}
@@ -4450,9 +4610,13 @@ def dp_rank_main(args: list) -> None:
                     str(Path(spec["ckpt"]) / "unet" /
                         "diffusion_pytorch_model.safetensors")).items()}
             if job.get("compare"):
-                rec.update(dp_compare(state, states.pop(job["compare"]), base, device))
+                rec.update(dp_compare(state, states[job["compare"]], base, device))
+            if job.get("to_f32"):
+                rec.update(tp_to_f32(state, states[job["compare"]], states[job["to_f32"]], device))
+            if job.get("witness"):
+                rec.update(tp_to_witness(state, Path(job["witness"]), device))
             if job.get("equal"):
-                other = states.pop(job["equal"])
+                other = states[job["equal"]]
                 rec["vs_equal"] = dp_compare(state, other, base, device)
                 rec["params_max_abs_diff"] = max(
                     float((state["params"][k].to(device) - other["params"][k].to(device))
@@ -4462,6 +4626,9 @@ def dp_rank_main(args: list) -> None:
                     for k in other["mu"])
                 rec["mu_max"] = max(float(v.abs().max()) for v in other["mu"].values())
                 del other
+            for name in [n for n, last in last_use.items() if last == i]:
+                states.pop(name, None)
+            del state
             rec["files"] = sorted(p.name for p in run.iterdir())
             for name in ("final", "_old_final", "latest"):
                 if name != job.get("keep") and (run / "checkpoint" / name).exists():
@@ -4471,10 +4638,11 @@ def dp_rank_main(args: list) -> None:
     parallel.shutdown()
 
 
-def dp_launch(ws: dict, jobs: list) -> tuple:
+def dp_launch(ws: dict, jobs: list, meanwhile=None) -> tuple:
     """The jobs (dp_rank_main's) under one torchrun of DP_WORLD ranks
-    (--standalone: a rendezvous on this host); returns {name: [the records
-    of the ranks that ran it]}, the ranks' output and the wall."""
+    (--standalone: a rendezvous on this host), ``meanwhile()`` run in this
+    process while they start; returns {name: [the records of the ranks that
+    ran it]}, the ranks' output, the wall and what ``meanwhile`` returned."""
     root = ws["root"]
     for job in jobs:
         job["out"] = str(root / f"dp_{job['name']}")
@@ -4489,15 +4657,19 @@ def dp_launch(ws: dict, jobs: list) -> tuple:
     with open(log_path, "w") as log_file:
         proc = subprocess.Popen(cmd, stdout=log_file, stderr=subprocess.STDOUT,
                                 cwd=Path(__file__).resolve().parent)
+        during = None
         try:
-            proc.wait(timeout=DP_TIMEOUT_S)
-        except subprocess.TimeoutExpired:
+            during = meanwhile() if meanwhile else None
+            proc.wait(timeout=max(DP_TIMEOUT_S - (time.perf_counter() - t0), 1))
+        except BaseException as err:  # the limit, or a fault of meanwhile()
             proc.terminate()  # torchrun stops its workers on SIGTERM
             try:
                 proc.wait(timeout=60)
             except subprocess.TimeoutExpired:
                 proc.kill()
                 proc.wait()
+            if not isinstance(err, subprocess.TimeoutExpired):
+                raise
     log = log_path.read_text()
     print(log[-20000:], file=sys.stderr, flush=True)
     check(proc.returncode == 0, f"dp: torchrun exited {proc.returncode}:\n{log[-3000:]}")
@@ -4506,34 +4678,155 @@ def dp_launch(ws: dict, jobs: list) -> tuple:
         ranks = [0] if job["kind"] == "solo" else range(DP_WORLD)
         out[job["name"]] = [json.loads(Path(f"{job['out']}.rank{r}.json").read_text())
                             for r in ranks]
-    return out, log, time.perf_counter() - t0
+    return out, log, time.perf_counter() - t0, during
+
+
+def tp_checks(recs: dict, witness: dict, expect: dict, run: dict) -> dict:
+    """The tensor-parallel jobs' records, emitted and held to their bars:
+    the f32 loss, gradient and update against the one-process run and the
+    split's witness (the gradient also directly against the witness's); the bf16 gradient's distance to the f32 one-process
+    gradient beside the one-process bf16 gradient's; each rank's exact
+    K1-K4 launches (``expect``: by job), peak memory and seconds; the
+    ranks' replicated parameters equal; validation at step 1 on rank 0's
+    model group, written by rank 0; each rank's shards and moments equal
+    to its share of the final checkpoint."""
+    out = {}
+    for name in ("tp_f32", "tp_bf16", "tp_k2"):
+        ranks = recs[name]
+        rec = out[name] = {
+            "phase": "data_parallel", "step": name, "model_parallel": TP_M,
+            "launches": [r["launches"] for r in ranks],
+            "peak_gb": [r["peak_bytes"] / 1e9 for r in ranks],
+            "seconds": [r["seconds"] for r in ranks], "loss": ranks[0]["loss"],
+            "terms": ranks[0]["terms"]}
+        check(all(r["model_parallel"] == TP_M and r["effective_iter"] == 1 for r in ranks)
+              and math.isfinite(rec["loss"]), f"tp {name}: {ranks}")
+        check(len({r["replicated_sum"] for r in ranks}) == 1,
+              f"tp {name}: the ranks' replicated parameters differ {ranks}")
+        check(rec["launches"] == [expect[name]] * TP_M,
+              f"tp {name}: launches {rec['launches']} != {expect[name]} a rank")
+    f, r0 = out["tp_f32"], recs["tp_f32"][0]
+    f["loss_one"] = metrics_log(Path(run["one_f32"]))["train/loss"][0][1]
+    f.update(loss_rel_diff=abs(f["loss"] - f["loss_one"]) / abs(f["loss_one"]),
+             **{k: r0[k] for k in ("grad_rel_l2", "update_rel_l2", "params_compared",
+                                   "witness_grad_rel_l2")},
+             witness={k: witness[k] for k in ("tp_loss_rel_diff", "tp_grad_rel_l2",
+                                              "tp_update_rel_l2")})
+    val = metrics_log(Path(run["tp_f32"])).get("val/hypersim/abs_relative_difference", [])
+    f["val_steps"] = [v[0] for v in val]
+    b, r0 = out["tp_bf16"], recs["tp_bf16"][0]
+    b.update(loss_one=metrics_log(Path(run["one_bf16"]))["train/loss"][0][1],
+             **{k: r0[k] for k in ("grad_rel_l2", "update_rel_l2", "to_f32", "one_to_f32")})
+    k2 = out["tp_k2"]
+    k2.update({k: [r[k] for r in recs["tp_k2"]] for k in (
+        "ckpt_params_max_abs_diff", "ckpt_moments_max_abs_diff", "ckpt_moments")})
+    for rec in out.values():
+        emit(rec)
+    check(f["loss_rel_diff"] <= DP_LOSS_TOL,
+          f"tp f32: loss {f['loss']} against one process's {f['loss_one']}")
+    check(f["grad_rel_l2"] <= min(TP_GRAD_TOL, TP_GRAD_WITNESS_X * witness["tp_grad_rel_l2"]),
+          f"tp f32: gradient {f['grad_rel_l2']} from one process's (the split's witness "
+          f"{witness['tp_grad_rel_l2']})")
+    check(f["witness_grad_rel_l2"] <= TP_WITNESS_GRAD_TOL,
+          f"tp f32: gradient {f['witness_grad_rel_l2']} from the split's witness's")
+    check(f["update_rel_l2"] <= TP_UPDATE_WITNESS_X * witness["tp_update_rel_l2"],
+          f"tp f32: update {f['update_rel_l2']} from one process's (the split's witness "
+          f"{witness['tp_update_rel_l2']})")
+    check(f["val_steps"] == [1], f"tp f32: validation at {f['val_steps']}")
+    check(b["to_f32"] <= TP_TO_F32_X * b["one_to_f32"],
+          f"tp bf16: gradient {b['to_f32']} from the f32 one-process gradient, one process's "
+          f"bf16 {b['one_to_f32']}")
+    check(all(n["K2"] > 0 for n in k2["launches"]), f"tp K2: launches {k2['launches']}")
+    check(all(x == 0.0 for x in k2["ckpt_params_max_abs_diff"] + k2["ckpt_moments_max_abs_diff"])
+          and all(n > 0 for n in k2["ckpt_moments"]),
+          f"tp: the final checkpoint is not the ranks' shards gathered {k2}")
+    summary = {"model_parallel": TP_M,
+               "f32": {k: f[k] for k in ("loss_rel_diff", "grad_rel_l2", "update_rel_l2",
+                                         "witness_grad_rel_l2")},
+               "witness": f["witness"],
+               "bf16": {k: b[k] for k in ("to_f32", "one_to_f32")},
+               "launches": {n: out[n]["launches"][0] for n in out},
+               "peak_gb": {n: out[n]["peak_gb"] for n in out},
+               "seconds": {n: out[n]["seconds"] for n in out},
+               "bars": {"loss": DP_LOSS_TOL, "grad": TP_GRAD_TOL, "grad_witness_x":
+                        TP_GRAD_WITNESS_X, "grad_to_witness": TP_WITNESS_GRAD_TOL,
+                        "update_witness_x": TP_UPDATE_WITNESS_X, "to_f32_x": TP_TO_F32_X}}
+    return {"summary": summary, "records": out}
+
+
+def resumed_trainer(recipe_cfg: dict, ckpt: Path, run_dir: Path, device: str = "cuda"):
+    """A one-process Trainer of the recipe over the base checkpoint, resumed
+    from run_dir's final checkpoint by ``Trainer.load_checkpoint``, as
+    ``cli/train.py --resume_run final`` does, without the loader and the
+    final checkpoint the CLI writes after a run with nothing left to
+    train."""
+    from genpercept_tpu_torch.cli.train import resolve_train_config
+    from genpercept_tpu_torch.utils.config import Config
+
+    cfg = resolve_train_config(Config(recipe_cfg), grad_accum_steps=1, mode="depth")
+    models = load_genpercept_checkpoint(str(ckpt), device=device)
+    trainer = Trainer(cfg, models, None, str(run_dir), max_iter=1, save_period=0)
+    trainer.load_checkpoint("final")
+    return trainer
+
+
+def tp_one_process_resume(ws: dict, recipe_cfg: dict, run_dir: Path) -> dict:
+    """One process (no process group) resumes the tensor-parallel run's
+    final checkpoint: its trainable parameters and Adam moments against the
+    checkpoint's (0.0: whole tensors, the one-process layout). With
+    tp_checkpoint_diff on the ranks, the one process holds what the ranks
+    held. The checkpoint is deleted after."""
+    from genpercept_tpu_torch.io.checkpoints import load_train_checkpoint
+
+    t0 = time.perf_counter()
+    trainer = resumed_trainer(recipe_cfg, ws["ckpt"], run_dir)
+    ck = load_train_checkpoint(str(run_dir / "checkpoint"), "final", map_location="cuda")
+    names = list(trainer.trainable)
+    own = trainer.optimizer.state_dict()["state"]
+    rec = {"params_max_abs_diff": max(
+               float((p.detach().float() - ck["trainable"][k].float()).abs().max())
+               for k, p in trainer.trainable.items()),
+           "moments_max_abs_diff": max(
+               float((st[m].float() - ck["opt_state"]["state"][i][m].float()).abs().max())
+               for i, st in own.items() for m in ("mu", "nu")),
+           "params": len(names), "moments": len(own),
+           "effective_iter": trainer.effective_iter, "seconds": time.perf_counter() - t0}
+    del trainer, ck, own
+    gc_cuda()
+    shutil.rmtree(run_dir / "checkpoint")
+    return rec
 
 
 def phase_data_parallel(ws: dict) -> dict:
-    """(x) cli/train.py data-parallel on the one card, under one torchrun:
-    the one-process reference (rank 0 alone, no process group) then two
-    gloo ranks on the same global micro-batch, in f32 with TF32 off (loss
-    and gradient held, the update reported) and in the recipe's bf16
-    (reported); --zero1 (the same step, the whole Adam state gathered for
-    its checkpoint); rank 0's run directory and validation; both ranks
-    resumed from the ZeRO-1 run's checkpoint. Exact launches a rank. The
-    batch split's own rounding is read first in this process
+    """(x) cli/train.py data- and tensor-parallel on the one card, under one
+    torchrun: the one-process references (rank 0 alone, no process group,
+    f32 and bf16) then two gloo ranks on the same global micro-batch, in
+    f32 with TF32 off (loss and gradient held, the update reported) and in
+    bf16 (reported); --zero1 (the same step, the whole Adam state gathered
+    for its checkpoint); rank 0's run directory and validation; both ranks
+    resumed from the ZeRO-1 run's checkpoint by the CLI. Tensor parallelism
+    (--model_parallel TP_M, tp_checks): the two ranks one model group on
+    the one-process runs' micro-batch, f32 (held to the split's witness,
+    validation on both ranks) and bf16 (held against the f32 one-process
+    gradient), and two 768^2 images a rank routing K2 on its inner share,
+    whose final checkpoint is each rank's shards gathered and resumes in
+    one process. Exact launches a rank. The batch and tensor splits' own
+    rounding is read in this process while the first jobs run
     (dp_split_witness)."""
     t_phase = time.perf_counter()
     root, data = ws["root"], ws["data"]
     accum = DP_EFF // DP_WORLD
     recipes, cfgs = {}, {}
-    for name, micro, f32, save, val in (("one_f32", DP_WORLD, True, 0, 0),
-                                        ("two_f32", 1, True, 0, 1),
-                                        ("zero1", 1, True, 0, 0),
-                                        ("one_bf16", DP_WORLD, False, 0, 0),
-                                        ("two_bf16", 1, False, 0, 0)):
+    for name, micro, f32, save, val, resize in (("one_f32", DP_WORLD, True, 0, 0, None),
+                                                ("two_f32", 1, True, 0, 1, None),
+                                                ("zero1", 1, True, 0, 0, None),
+                                                ("one_bf16", DP_WORLD, False, 0, 0, None),
+                                                ("two_bf16", 1, False, 0, 0, None),
+                                                ("tp_f32", DP_WORLD, True, 0, 1, None),
+                                                ("tp_k2", TP_K2_MICRO, False, 0, 0, TP_K2_HW)):
         recipes[name] = root / f"dp_{name}.yaml"
-        cfgs[name] = cfg = write_dp_recipe(recipes[name], data, micro, f32, 1, save, val)
-    witness = dp_split_witness(ws, cfgs["one_f32"])
-    emit({"phase": "data_parallel", "step": "split_witness", **witness})
-    check(witness["loss_rel_diff"] <= DP_LOSS_TOL, f"dp witness: loss {witness}")
-    gc_cuda()  # the ranks share the card with this process
+        cfgs[name] = cfg = write_dp_recipe(recipes[name], data, micro, f32, 1, save, val,
+                                           resize)
     train = cfg["dataset"]["train"]
     sizes = [TE_SAMPLES["hypersim"], TE_SAMPLES["vkitti"]]
     first = next(iter(MixedBatchSampler(
@@ -4544,20 +4837,38 @@ def phase_data_parallel(ws: dict) -> dict:
     per_rank = {k: accum * n for k, n in train_step_launches(TRAIN_HW, 1, True).items()}
     with_val = {k: n + TE_SAMPLES["val"] * served[k] for k, n in per_rank.items()}
     one_expect = {k: accum * n for k, n in train_step_launches(TRAIN_HW, DP_WORLD, True).items()}
-    run = {n: str(root / n) for n in ("one_f32", "two_f32", "zero1", "one_bf16", "two_bf16")}
-    recs, log, wall = dp_launch(ws, [
+    run = {n: str(root / n) for n in ("one_f32", "two_f32", "zero1", "one_bf16", "two_bf16",
+                                      "tp_f32", "tp_bf16", "tp_k2")}
+    tp_argv = ["--model_parallel", str(TP_M)]
+    tp_file = root / "tp_witness_grad.pt"
+
+    def witness_meanwhile():  # on the card beside the first jobs
+        rec = dp_split_witness(ws, cfgs["one_f32"], tp_file)
+        gc_cuda()  # the ranks share the card with this process
+        return rec
+
+    recs, log, wall, witness = dp_launch(ws, [
         {"name": "one_f32", "kind": "solo", "precision": "f32", "recipe": recipes["one_f32"],
          "run": run["one_f32"]},
         {"name": "one_bf16", "kind": "solo", "precision": "bf16", "recipe": recipes["one_bf16"],
          "run": run["one_bf16"]},
+        {"name": "tp_f32", "kind": "ranks", "precision": "f32", "recipe": recipes["tp_f32"],
+         "run": run["tp_f32"], "argv": tp_argv, "compare": "one_f32", "witness": str(tp_file)},
+        {"name": "tp_bf16", "kind": "ranks", "precision": "bf16", "recipe": recipes["one_bf16"],
+         "run": run["tp_bf16"], "argv": tp_argv, "compare": "one_bf16", "to_f32": "one_f32"},
+        {"name": "two_bf16", "kind": "ranks", "precision": "bf16", "recipe": recipes["two_bf16"],
+         "run": run["two_bf16"], "compare": "one_bf16"},
         {"name": "two_f32", "kind": "ranks", "precision": "f32", "recipe": recipes["two_f32"],
          "run": run["two_f32"], "compare": "one_f32"},
         {"name": "zero1", "kind": "ranks", "precision": "f32", "recipe": recipes["zero1"],
          "run": run["zero1"], "argv": ["--zero1"], "equal": "two_f32", "keep": "final"},
         {"name": "resumed", "kind": "ranks", "precision": "f32", "recipe": recipes["zero1"],
          "run": run["zero1"], "argv": ["--zero1", "--resume_run", "final"], "equal": "zero1"},
-        {"name": "two_bf16", "kind": "ranks", "precision": "bf16", "recipe": recipes["two_bf16"],
-         "run": run["two_bf16"], "compare": "one_bf16"}])
+        {"name": "tp_k2", "kind": "ranks", "precision": "bf16", "recipe": recipes["tp_k2"],
+         "run": run["tp_k2"], "argv": tp_argv, "ckpt_check": True, "keep": "final"}],
+        witness_meanwhile)
+    emit({"phase": "data_parallel", "step": "split_witness", **witness})
+    check(witness["loss_rel_diff"] <= DP_LOSS_TOL, f"dp witness: loss {witness}")
     out: dict = {"torchrun_wall_s": wall}
     for precision in ("f32", "bf16"):
         one, two = recs[f"one_{precision}"][0], recs[f"two_{precision}"]
@@ -4633,6 +4944,16 @@ def phase_data_parallel(ws: dict) -> dict:
           and r[0]["params_max_abs_diff"] == 0.0 and r[0]["mu_max_abs_diff"] == 0.0
           and rec_z["resumed_lines"] == DP_WORLD,
           f"dp resume: {r}, {rec_z['resumed_lines']} ranks resumed")
+    # both ranks of the model group validate
+    tp = tp_checks(recs, witness, {
+        "tp_f32": {k: n + TE_SAMPLES["val"] * served[k] for k, n in one_expect.items()},
+        "tp_bf16": one_expect, "tp_k2": train_step_launches(TP_K2_HW, TP_K2_MICRO, True)}, run)
+    tp["one_process_resume"] = tp_one_process_resume(ws, cfgs["tp_k2"], Path(run["tp_k2"]))
+    emit({"phase": "data_parallel", "step": "tp_one_process_resume",
+          **tp["one_process_resume"]})
+    check(tp["one_process_resume"]["params_max_abs_diff"] == 0.0
+          and tp["one_process_resume"]["moments_max_abs_diff"] == 0.0,
+          f"tp: one process resumed from the ranks' checkpoint {tp['one_process_resume']}")
     for d in run.values():
         shutil.rmtree(d, ignore_errors=True)
     summary = {"phase": "data_parallel", "step": "summary",
@@ -4647,6 +4968,7 @@ def phase_data_parallel(ws: dict) -> dict:
                         "update_witness_x": DP_UPDATE_WITNESS_X,
                         "zero1_update": DP_ZERO1_UPDATE_REL, "zero1_mu": DP_ZERO1_MU_REL},
                "rank_peak_gb": [x["peak_bytes"] / 1e9 for x in recs["two_f32"]],
+               "tp": tp["summary"],
                "torchrun_wall_s": wall, "seconds": time.perf_counter() - t_phase}
     emit(summary)
     return summary

@@ -13,21 +13,25 @@ val/vis loaders over the dataset readers, the model-surgery ablation axes
 prompt), marigold's 8-channel conv_in, the Trainer and its resume. Runs on
 the card unless ``--device cpu`` is given.
 
-Data parallel across processes (``parallel/``), one process a device:
+Data and tensor parallel across processes (``parallel/``), one process a
+device:
 
-    torchrun --nproc_per_node N -m genpercept_tpu_torch.cli.train ... --multihost
+    torchrun --nproc_per_node N -m genpercept_tpu_torch.cli.train ... --multihost \
+        [--model_parallel M]
     python -m genpercept_tpu_torch.cli.train ... --coordinator_address HOST:PORT \
-        --num_processes N --process_id I
+        --num_processes N --process_id I [--model_parallel M]
 
-Each rank runs on cuda:<local rank> (or the device ``--device`` names
-with an index), iterates the same seeded sampler stream over global
-batches of max_train_batch_size x N x accum and loads its slice; the
+The N ranks form N / M model groups of M consecutive ranks (the JAX
+package's ``reshape(data, model)`` mesh; M must divide N): a group splits
+the UNet's attention heads and GEGLU inner width over its ranks
+(``parallel/tensor.py``) and holds one replica. Each rank runs on
+cuda:<local rank> (or the device ``--device`` names with an index), every
+rank iterates the same seeded sampler stream over global batches of
+max_train_batch_size x N/M x accum and loads its data index's slice; the
 effective batch sets accum = effective_batch_size / (max_train_batch_size
-x N). ``--data_parallel`` -1 takes every rank; another value must equal
-their count. NCCL on the card, gloo on the CPU. ``--zero1`` shards the
-Adam moments.
-Tensor parallelism, ``--model_parallel`` > 1, raises (ROADMAP Queue 1
-item 12).
+x N/M). ``--data_parallel`` -1 takes every replica; another value must
+equal N/M. NCCL on the card, gloo on the CPU. ``--zero1`` shards the Adam
+moments over the replicas.
 """
 
 from __future__ import annotations
@@ -77,7 +81,8 @@ def build_parser():
                    help="data-parallel ranks (-1: every process; another value must equal "
                         "their count)")
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="tensor parallelism: only 1 is ported")
+                   help="tensor parallelism: ranks a model group, which split the UNet's "
+                        "attention heads and GEGLU inner width (must divide the processes)")
     p.add_argument("--zero1", action="store_true",
                    help="shard the optimizer state across the data-parallel ranks (ZeRO-1; "
                         "the reference's DeepSpeed hook, accelerate_train.py:198-202)")
@@ -95,22 +100,18 @@ def build_parser():
     return p
 
 
-def _refuse_unported(args) -> None:
-    """Tensor parallelism (ROADMAP Queue 1 item 12)."""
-    if args.model_parallel != 1:
-        raise NotImplementedError(f"--model_parallel {args.model_parallel}: tensor parallelism "
-                                  "is not ported (ROADMAP Queue 1 item 12)")
-
-
 def _rank_device(args, world: int) -> torch.device:
     """This rank's device: --device, or with more than one rank and no
     index on a cuda --device, cuda:<local rank>. Refuses a card that is
-    not there, and a --data_parallel other than the rank count."""
+    not there, and a --data_parallel other than the replica count (the
+    ranks over --model_parallel)."""
     from genpercept_tpu_torch import parallel
 
-    if args.data_parallel not in (-1, world):
-        raise ValueError(f"--data_parallel {args.data_parallel} with {world} process(es): "
-                         "start one process per data-parallel rank")
+    replicas = world // args.model_parallel
+    if args.data_parallel not in (-1, replicas):
+        raise ValueError(f"--data_parallel {args.data_parallel} with {world} process(es) at "
+                         f"--model_parallel {args.model_parallel}: start one process per "
+                         "data-parallel rank and model-parallel rank")
     device = torch.device(args.device)
     if device.type != "cuda":
         return device
@@ -267,12 +268,13 @@ def main(argv=None):
     from genpercept_tpu_torch.utils.seeding import seed_all
 
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
     # the process group before any CUDA work
     started = parallel.init_distributed(
         args.coordinator_address, args.num_processes, args.process_id, args.multihost,
         device_type=torch.device(args.device).type)
     world, rank = parallel.world(), parallel.rank()
+    parallel.set_model_parallel(args.model_parallel)  # refuses a world M does not divide
+    data_world, data_rank = parallel.data_world(), parallel.data_rank()
     device = _rank_device(args, world)
     if device.type == "cuda" and device.index is not None:
         torch.cuda.set_device(device)
@@ -305,13 +307,13 @@ def main(argv=None):
     seed = args.seed if args.seed is not None else cfg.get("trainer", {}).get("init_seed", 0)
     seed_all(seed)
 
-    # effective batch -> grad accumulation over the ranks
-    # (accelerate_train.py:180-184)
+    # effective batch -> grad accumulation over the replicas
+    # (accelerate_train.py:180-184; JAX's n_data)
     eff_bs = cfg.get_path("dataloader.effective_batch_size", 32)
     max_bs = cfg.get_path("dataloader.max_train_batch_size", 2)
-    accum = max(int(eff_bs / (max_bs * world)), 1)
-    logging.info(f"device={device} rank={rank}/{world} eff_bs={eff_bs} "
-                 f"per_step_bs={max_bs * world} grad_accum={accum}")
+    accum = max(int(eff_bs / (max_bs * data_world)), 1)
+    logging.info(f"device={device} rank={rank}/{world} model_parallel={args.model_parallel} "
+                 f"eff_bs={eff_bs} per_step_bs={max_bs * data_world} grad_accum={accum}")
 
     mode = cfg.get_path("pipeline.kwargs.mode", cfg.get("mode", "depth"))
     # each dataset's own resize_to_hw reaches its reader through get_dataset
@@ -322,11 +324,11 @@ def main(argv=None):
     if not isinstance(datasets, list):
         datasets = [datasets]
     # every rank iterates the same seeded stream of global batches and
-    # loads its slice of each
-    sampler = MixedBatchSampler(datasets, batch_size=max_bs * world * accum,
+    # loads its data index's slice of each (a model group loads one slice)
+    sampler = MixedBatchSampler(datasets, batch_size=max_bs * data_world * accum,
                                 prob=sampler_prob(cfg), generator=np.random.default_rng(seed))
     train_loader = DataLoader(ConcatDataset(datasets), sampler,
-                              shard=(rank, world, accum) if world > 1 else None)
+                              shard=(data_rank, data_world, accum) if data_world > 1 else None)
 
     def eval_loaders(key):
         out = {}

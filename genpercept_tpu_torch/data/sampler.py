@@ -137,7 +137,9 @@ class DataLoader:
     ``shard=(rank, world, accum)`` makes this a data-parallel loader: the
     sampler yields GLOBAL batches (the same stream on every process), and
     only this process's slice is loaded, decoded and collated (see
-    shard_batch_indices). The dataset's ``skip`` is called for every other
+    shard_batch_indices). Under tensor parallelism ``rank`` and ``world``
+    are the data index and the data world (``parallel.data_rank`` and
+    ``data_world``): the ranks of a model group load the same slice. The dataset's ``skip`` is called for every other
     sample of the global batch, in the batch's order, so that a dataset
     which draws a random flip per sample gives each rank's samples the
     flips one process draws for them. The reference's equivalent is

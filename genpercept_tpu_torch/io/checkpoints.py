@@ -267,7 +267,13 @@ def load_genpercept_checkpoint(
 
 def save_train_checkpoint(out_dir: str, state: Dict[str, Any], name: str = "latest") -> str:
     """Save ``state`` under out_dir/name; an existing checkpoint of that name
-    is kept as ``_old_<name>`` until the new one is on disk."""
+    is kept as ``_old_<name>`` until the new one is on disk. ``torch.save``
+    copies card tensors through pinned host memory and writes no CRC-32 of
+    each record (``torch.load`` reads the file as it reads any other): the
+    defaults' pageable copies and checksums took most of a full-width
+    state's write (``scripts/time_checkpoint_save.py`` times both)."""
+    from torch.utils.serialization import config
+
     os.makedirs(out_dir, exist_ok=True)
     path = osp.abspath(osp.join(out_dir, name))
     backup = osp.join(out_dir, f"_old_{name}")
@@ -276,7 +282,8 @@ def save_train_checkpoint(out_dir: str, state: Dict[str, Any], name: str = "late
             shutil.rmtree(backup)
         os.rename(path, backup)
     os.makedirs(path)
-    torch.save(state, osp.join(path, _FILE))
+    with config.patch({"save.compute_crc32": False, "save.use_pinned_memory_for_d2h": True}):
+        torch.save(state, osp.join(path, _FILE))
     if osp.exists(backup):
         shutil.rmtree(backup)
     return path

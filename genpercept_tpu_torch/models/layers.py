@@ -21,6 +21,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from genpercept_tpu_torch.ops import conv2d, group_norm, layer_norm
+from genpercept_tpu_torch.parallel import tensor as TP
 from genpercept_tpu_torch.ops import fused_conv as FC
 from genpercept_tpu_torch.ops.attention import (
     attention_projection,
@@ -227,15 +228,41 @@ class CrossAttention(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(c, c)])
 
 
+def _split_attention(shares, x: torch.Tensor, context: torch.Tensor | None, d: int,
+                     bias: torch.Tensor | None) -> torch.Tensor:
+    """Tensor-parallel attention (``parallel/tensor.py``): each share's
+    heads through q, k, v (column-parallel), attention and its rows of
+    to_out.0 (row-parallel), the partial products summed over the model
+    group and the bias added once."""
+    b, s, _ = x.shape
+    parts = []
+    for wq, wk, wv, wo in shares:
+        xr = TP.copy_to_model(x)
+        ctx = xr if context is None else context  # the frozen text states take no gradient
+        h = wq.shape[0] // d
+        q = attention_projection(xr, wq).reshape(b, s, h, d)
+        k = attention_projection(ctx, wk).reshape(b, ctx.shape[1], h, d)
+        v = attention_projection(ctx, wv).reshape(b, ctx.shape[1], h, d)
+        parts.append(attention_projection(dot_product_attention(q, k, v).reshape(b, s, h * d),
+                                          wo))
+    return TP.reduce_from_model(parts, bias)
+
+
 def cross_attention(p: CrossAttention, x: torch.Tensor, context: torch.Tensor | None,
                     heads: int, dense_fn=None, name: str = "") -> torch.Tensor:
     """x: (B, S, C); context: (B, Sk, Ck) or None for self-attention.
     dense_fn hooks q and out (and k, v of self-attention; cross-attention's
-    k and v over the text tokens are never hooked)."""
+    k and v over the text tokens are never hooked). Split over a model
+    group (or ``tensor.emulated``), a rank runs its own heads."""
     b, s, c = x.shape
     ctx = x if context is None else context
     kv_fn = dense_fn if context is None else None
     d = c // heads
+    shares = TP.attention_shares(p, heads)
+    if shares is not None:
+        if dense_fn is not None:
+            raise ValueError("the int8 hooks do not run tensor-parallel")
+        return _split_attention(shares, x, context, d, p.to_out[0].bias)
     q = _hooked_dense(dense_fn, name + ".to_q", p.to_q, x).reshape(b, s, heads, d)
     k = _hooked_dense(kv_fn, name + ".to_k", p.to_k, ctx).reshape(b, ctx.shape[1], heads, d)
     v = _hooked_dense(kv_fn, name + ".to_v", p.to_v, ctx).reshape(b, ctx.shape[1], heads, d)
@@ -256,10 +283,26 @@ class FeedForward(nn.Module):
         self.net = nn.ModuleDict({"0": GEGLUProj(c, inner), "2": nn.Linear(inner, c)})
 
 
+def _geglu_ff(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor | None, w2: torch.Tensor,
+              b2: torch.Tensor | None) -> torch.Tensor:
+    """The fused GEGLU kernel where the TPU package takes its own (C == 320,
+    rows a multiple of 512; a share's inner width a multiple of 64), else
+    two column-half projections, exact GELU and the down-projection."""
+    inner = w1.shape[0] // 2
+    if ff_supported(x.shape[0], x.shape[1], x.shape[2]) and inner % 64 == 0:
+        return fused_geglu_ff(x, w1, b1, w2, b2)
+    hidden = attention_projection(x, w1[:inner], None if b1 is None else b1[:inner])
+    gate = attention_projection(x, w1[inner:], None if b1 is None else b1[inner:])
+    return attention_projection(hidden * F.gelu(gate), w2, b2)
+
+
 def feed_forward(p: FeedForward, x: torch.Tensor, dense_fn=None, name: str = "") -> torch.Tensor:
     """GEGLU feed-forward. Where the TPU package takes its fused kernel
     (C == 320, rows a multiple of 512) this takes the fused GEGLU kernel;
     elsewhere two column-half projections, exact GELU, down-projection.
+    Split over a model group (or ``tensor.emulated``), a rank runs its
+    share of the inner width, the down-projection's bias withheld and added
+    once after the sum over the group.
 
     With dense_fn: the two halves are hooked as ``name``.net.0.proj:h / :g
     and the down-projection as .net.2. When the hook's quantized tree holds
@@ -269,6 +312,12 @@ def feed_forward(p: FeedForward, x: torch.Tensor, dense_fn=None, name: str = "")
     proj, down = p.net["0"].proj, p.net["2"]
     inner = proj.weight.shape[0] // 2
     b = proj.bias
+    shares = TP.ff_shares(p)
+    if shares is not None:
+        if dense_fn is not None:
+            raise ValueError("the int8 hooks do not run tensor-parallel")
+        return TP.reduce_from_model([_geglu_ff(TP.copy_to_model(x), w1, b1, w2, None)
+                                     for w1, b1, w2 in shares], down.bias)
     if dense_fn is not None:
         qtree = getattr(dense_fn, "qtree", None)
         if qtree is not None and x.device.type != "cpu":
@@ -280,13 +329,7 @@ def feed_forward(p: FeedForward, x: torch.Tensor, dense_fn=None, name: str = "")
         gate = dense_fn(name + ".net.0.proj:g", proj.weight[inner:],
                         None if b is None else b[inner:], x)
         return _hooked_dense(dense_fn, name + ".net.2", down, hidden * F.gelu(gate))
-    if ff_supported(x.shape[0], x.shape[1], x.shape[2]):
-        return fused_geglu_ff(x, proj.weight, proj.bias, down.weight, down.bias)
-    hidden = attention_projection(x, proj.weight[:inner],
-                                  None if b is None else b[:inner])
-    gate = attention_projection(x, proj.weight[inner:],
-                                None if b is None else b[inner:])
-    return dense(down, hidden * F.gelu(gate))
+    return _geglu_ff(x, proj.weight, b, down.weight, down.bias)
 
 
 class TransformerBlock(nn.Module):

@@ -10,7 +10,11 @@ JAX rounds it.
 
 ``apply_lora`` returns the adapted weights as tensors that depend on A and
 B; the training step hands them to ``unet_apply(attn_weights=...)`` and
-never writes them into the module. ``merge_lora`` is the same sum without
+never writes them into the module. On a rank of a tensor-parallel model
+group (``parallel/tensor.py``) a split weight holds the rank's share: the
+adapters stay whole on every rank, as JAX's name rules leave them, and the
+merge is sliced to the share, each adapter entering through f so that its
+gradient sums the ranks' shares. ``merge_lora`` is the same sum without
 gradients, for export. The adapters are drawn from a ``torch.Generator``
 (the JAX package seeds each subtree with Python's salted ``hash``, so its
 init differs between processes).
@@ -22,6 +26,8 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
+
+from genpercept_tpu_torch.parallel import tensor as TP
 
 TARGET_LEAVES = ("to_q", "to_k", "to_v")
 TARGET_OUT = "to_out"
@@ -64,18 +70,24 @@ def lora_pairs(lora: Dict[str, torch.Tensor]) -> Dict[str, tuple]:
 def apply_lora(unet: nn.Module, lora: Dict[str, torch.Tensor],
                scale: float = 1.0) -> Dict[str, torch.Tensor]:
     """{weight name: W + scale * (A @ B)^T} for every adapted weight, each
-    delta rounded to W's dtype before the add; differentiable in A and B."""
+    delta rounded to W's dtype before the add; differentiable in A and B.
+    A weight split over the model group takes its share of the delta."""
     params = dict(unet.named_parameters())
     out = {}
     for name, (a, b) in lora_pairs(lora).items():
         if name not in params:
             raise KeyError(f"{name}: no such UNet weight for a LoRA adapter")
         w = params[name]
-        delta = (a @ b).t()
+        split = TP.split_of(w)
+        if split is not None:
+            a, b = TP.copy_to_model(a), TP.copy_to_model(b)
+        delta = TP.local_share((a @ b).t(), split)
         if delta.shape != w.shape:
             raise ValueError(f"{name}: adapter delta {tuple(delta.shape)} for a weight "
                              f"{tuple(w.shape)}")
         out[name] = w + scale * delta.to(device=w.device, dtype=w.dtype)
+        if split is not None:  # the merge stands in for the share in the split layer
+            out[name].tp_split = split
     return out
 
 

@@ -21,11 +21,14 @@ loss of the JAX step:
   6. gradients accumulated in f32 over micro-batches, then the optax-Adam
      update (``make_optimizer``)
 
-Data-parallel (``parallel/``), each rank runs the step on its slice of the
-global micro-batch: it draws the global micro-batch's random numbers and
-keeps its rows, its losses divide by the global batch's counts, and the
-gradients and metrics are summed over the ranks, so N ranks compute what
-one process computes on the global batch.
+Data-parallel (``parallel/``), each model group runs the step on its slice
+of the global micro-batch: it draws the global micro-batch's random numbers
+and keeps its data index's rows, its losses divide by the global batch's
+counts, and the gradients and metrics are summed over the data group, so N
+groups compute what one process computes on the global batch. Within a
+tensor-parallel model group every rank sees the same rows and draws, and
+holds its share of the UNet's attention and GEGLU layers
+(``parallel/tensor.py``).
 
 The models are ``nn.Module``s holding their parameters, so where the JAX
 step threads (trainable, frozen) trees, this one marks parameters trainable
@@ -52,6 +55,7 @@ from genpercept_tpu_torch.diffusion import (
     make_scheduler,
 )
 from genpercept_tpu_torch import parallel
+from genpercept_tpu_torch.parallel import tensor as TP
 from genpercept_tpu_torch.models import dpt_head_apply, unet_apply, vae_decode, vae_encode
 from genpercept_tpu_torch.train import losses as L
 from genpercept_tpu_torch.train import metric3d_losses as M3D
@@ -147,7 +151,7 @@ def _depth_loss(name: str, pred, targ, m, batch, draw):
         return M3D.vnl_core(pred, targ, m, batch["intrinsic"].float(), draw(
             name, lambda g: M3D.vnl_draw(g, parallel.all_gather_batch(m)))), 1.0
     if name == "hdnr":
-        n = pred.shape[0] * parallel.world()
+        n = pred.shape[0] * parallel.data_world()
         return M3D.hdnl_core(pred, targ, m, draw(name, lambda g: M3D.hdnl_draw(g, n))), 1.0
     if name == "hdsnr":
         h, w = pred.shape[1:]
@@ -199,14 +203,14 @@ def build_loss_fn(cfg: TrainConfig, models):
             if name in draws:
                 return draws[name]
             x = fn(generator)
-            if not per_image or parallel.world() == 1:
+            if not per_image or parallel.data_world() == 1:
                 return x
             return tuple(v[rows] for v in x) if isinstance(x, tuple) else x[rows]
 
         with torch.no_grad():  # the frozen encoder: stop_gradient
             rgb_latent = vae_encode(models.vae, rgb)
             gt_latent = vae_encode(models.vae, gt)
-        n_global = bsz * parallel.world()
+        n_global = bsz * parallel.data_world()
         if cfg.fix_timesteps is not None:
             t_global = torch.full((n_global,), cfg.fix_timesteps, dtype=torch.long, device=dev)
         elif "t" in draws:
@@ -421,10 +425,13 @@ def build_train_step(cfg: TrainConfig, models, optimizer):
     accumulation axis; gradients and the per-loss aux are summed in f32 over
     it, in order, and divided by its length, as the JAX step's lax.scan.
     ``optimizer``: an ``OptaxAdam``, or its ZeRO-1 form (``parallel.zero1``).
-    In a data-parallel run the batch is this rank's slice; the gradients
-    and the metrics are summed over the ranks before the update."""
+    In a data-parallel run the batch is this data index's slice; the
+    gradients and the metrics are summed over the data group before the
+    update (``parallel.reduce_gradients_``: a tensor-parallel replica's
+    replicated gradients also averaged over its model group)."""
     loss_fn = build_loss_fn(cfg, models)
     params = [p for group in optimizer.param_groups for p in group["params"]]
+    sharded = [TP.split_of(p) is not None for p in params]
 
     def grads_of(loss):
         return torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
@@ -447,9 +454,9 @@ def build_train_step(cfg: TrainConfig, models, optimizer):
             aux = {k: v / n for k, v in aux.items()}
         else:
             loss, aux = loss_fn(batch, generator)
-            grads = grads_of(loss)
+            grads = list(grads_of(loss))
             loss, aux = loss.detach(), {k: v.detach() for k, v in aux.items()}
-        parallel.all_reduce_sum_(grads)
+        parallel.reduce_gradients_(grads, sharded)
         optimizer.step(grads)
         return parallel.sum_metrics({"loss": loss, **aux})
 

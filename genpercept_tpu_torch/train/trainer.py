@@ -10,12 +10,22 @@ stores in bf16 where the config says so): validation scores least-squares
 aligned depth (masked L1 in the other modes), visualization writes colorized
 PNGs.
 
-In a data-parallel run (``parallel/``; the loader yields this rank's slice
-of each global batch) every rank starts from the same trainable parameters
-(checked), the step sums the gradients over the ranks, ``zero1`` shards
-the Adam moments, and rank 0 alone writes the metrics and the checkpoints
-(every rank reads them on resume) and validates and visualizes while the
-others wait: the parameters are replicated, so nothing is gathered.
+In a data-parallel run (``parallel/``; the loader yields this data
+index's slice of each global batch) every rank starts from the same
+trainable parameters (checked), the step sums the gradients over the data
+group, ``zero1`` shards the Adam moments over it, and rank 0 alone writes
+the metrics and the checkpoints (every rank reads them on resume).
+
+Under tensor parallelism (``--model_parallel`` M > 1) the Trainer puts
+each rank's share of the UNet's attention and GEGLU layers in place
+(``parallel/tensor.py``; the frozen base of a LoRA run too) and checks the
+replicated parameters over the world and a shard over its data group.
+Validation and visualization run the split forward on every rank of rank
+0's model group while rank 0 writes and the others wait, so nothing is
+gathered for them. A checkpoint is written whole, in the one-process
+layout: rank 0's model group gathers the shards and their Adam moments; a
+resume slices them again, so one process resumes a tensor-parallel run's
+checkpoint and ``cli/export.py`` reads it unchanged.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ from genpercept_tpu_torch import parallel
 from genpercept_tpu_torch.data.sampler import skip_first_batches
 from genpercept_tpu_torch.eval import MetricTracker, align_depth_least_square, compute_metrics
 from genpercept_tpu_torch.io.checkpoints import load_train_checkpoint, save_train_checkpoint
+from genpercept_tpu_torch.parallel import tensor as TP
 from genpercept_tpu_torch.train.train_step import (
     TrainConfig,
     build_train_step,
@@ -106,10 +117,21 @@ class Trainer:
             for x in self.frozen.values():
                 if x.dtype == torch.float32:
                     x.data = x.data.to(torch.bfloat16)
+        if parallel.model_world() > 1:
+            TP.shard_unet_(models.unet)
+            TP.check_carried(models.vae, "vae")
+            if models.dpt_head is not None:
+                TP.check_carried(models.dpt_head, "dpt_head")
         # every rank starts from the same parameters (each loaded or drew
-        # them from the same seed)
-        parallel.check_replicated(self.trainable.values(), "trainable parameters")
-        self.zero1 = zero1 and parallel.world() > 1  # one rank: nothing to shard
+        # them from the same seed); a shard is held by its data group
+        splits = self.splits
+        parallel.check_replicated([p for k, p in self.trainable.items() if k not in splits],
+                                  "trainable parameters")
+        if splits:
+            parallel.check_replicated(
+                [p for k, p in self.trainable.items() if k in splits], "trainable shards",
+                group="data")
+        self.zero1 = zero1 and parallel.data_world() > 1  # one replica: nothing to shard
         if self.zero1:
             self.optimizer = parallel.Zero1(self.optimizer)
         self.step_fn = build_train_step(cfg, models, self.optimizer)
@@ -120,7 +142,14 @@ class Trainer:
         # one seed per iteration, replayed on resume
         self.seed_sequence = generate_seed_sequence(main_seed, max_iter + 1)
         self.is_main = parallel.rank() == 0
+        self.in_main_group = parallel.data_rank() == 0  # rank 0's model group
         self.metrics_logger = MetricsLogger(out_dir) if self.is_main else _NullMetricsLogger()
+
+    @property
+    def splits(self) -> Dict[str, TP.Split]:
+        """{trainable name: split} of the tensor-parallel shards this rank
+        holds (empty with M = 1), read from the parameters themselves."""
+        return {k: s for k, p in self.trainable.items() if (s := TP.split_of(p)) is not None}
 
     # ------------------------------------------------------------- batching
 
@@ -187,10 +216,11 @@ class Trainer:
         do_val = self.val_period and self.effective_iter % self.val_period == 0
         do_vis = self.vis_period and self.effective_iter % self.vis_period == 0
         # rank 0 alone validates and visualizes (reference
-        # genpercept_trainer.py:1001-1063) while the others wait
-        if self.is_main and do_val:
+        # genpercept_trainer.py:1001-1063) while the others wait; a split
+        # model runs its forward on all of rank 0's model group
+        if self.in_main_group and do_val:
             self.validate()
-        if self.is_main and do_vis:
+        if self.in_main_group and do_vis:
             self.visualize()
         if do_val or do_vis:
             parallel.barrier()
@@ -222,13 +252,15 @@ class Trainer:
 
         infer = self._infer()
         vis_dir = osp.join(self.out_dir, "visualization", f"iter_{self.effective_iter:06d}")
-        os.makedirs(vis_dir, exist_ok=True)
+        if self.is_main:
+            os.makedirs(vis_dir, exist_ok=True)
         for name, loader in self.vis_loaders.items():
             for j, raw in enumerate(loader):
                 pred = infer(raw)
                 img = colorize_depth(pred[0]) if pred.ndim == 3 else pred[0]  # (H, W, 3)
                 img = (img * 255).to(torch.uint8).cpu().numpy()
-                Image.fromarray(img).save(osp.join(vis_dir, f"{name}_{j:03d}.png"))
+                if self.is_main:
+                    Image.fromarray(img).save(osp.join(vis_dir, f"{name}_{j:03d}.png"))
                 if j >= 3:
                     break
 
@@ -280,14 +312,31 @@ class Trainer:
         return {"effective_iter": self.effective_iter, "epoch": self.epoch,
                 "n_batch_in_epoch": self.n_batch_in_epoch}
 
+    def one_process_state(self, opt_state: dict) -> tuple:
+        """(trainable, opt_state) in the one-process layout: each shard and
+        its moments gathered over the model group (a collective of it; the
+        moments where they lie, ZeRO-1's on the CPU)."""
+        splits = list(map(TP.split_of, self.trainable.values()))
+        trainable = {k: TP.gather_over_model(p.detach(), TP.split_of(p))
+                     for k, p in self.trainable.items()}
+        state = {i: {m: TP.gather_over_model(t.to(self.device), splits[i])
+                     .to(t.device) for m, t in st.items()}
+                 for i, st in opt_state["state"].items()}
+        return trainable, {**opt_state, "state": state}
+
     def save_checkpoint(self, name: str = "latest") -> str:
         """Rank 0 writes; every rank returns the path once it is written."""
-        # ZeRO-1's state_dict gathers each rank's share: every rank calls it
-        opt_state = self.optimizer.state_dict() if self.zero1 or self.is_main else None
+        # ZeRO-1's state_dict gathers each data index's share: every rank
+        # calls it; rank 0's model group gathers the tensor-parallel shards
+        opt_state = (self.optimizer.state_dict() if self.zero1 or self.in_main_group
+                     else None)
+        trainable = {k: p.detach() for k, p in self.trainable.items()}
+        if self.splits and self.in_main_group:
+            trainable, opt_state = self.one_process_state(opt_state)
         path = osp.abspath(osp.join(self.out_dir, "checkpoint", name))
         if self.is_main:
-            state = {"trainable": {k: p.detach() for k, p in self.trainable.items()},
-                     "opt_state": opt_state, "counters": self._counters()}
+            state = {"trainable": trainable, "opt_state": opt_state,
+                     "counters": self._counters()}
             if self.models.dpt_head is not None:  # which head cli/export.py writes
                 state["dpt_head_cfg"] = dataclasses.asdict(self.models.dpt_head.cfg)
             path = save_train_checkpoint(osp.join(self.out_dir, "checkpoint"), state, name)
@@ -302,8 +351,14 @@ class Trainer:
             raise ValueError("checkpoint holds other trainable parameters than this run")
         with torch.no_grad():
             for k, p in self.trainable.items():
-                p.copy_(state["trainable"][k])
-        self.optimizer.load_state_dict(state["opt_state"])
+                p.copy_(TP.local_share(state["trainable"][k], TP.split_of(p)))
+        opt_state = state["opt_state"]
+        splits = list(map(TP.split_of, self.trainable.values()))
+        if any(x is not None for x in splits):  # this rank's share of each split parameter's moments
+            opt_state = {**opt_state, "state": {
+                i: {m: TP.local_share(t, splits[i]) for m, t in st.items()}
+                for i, st in opt_state["state"].items()}}
+        self.optimizer.load_state_dict(opt_state)
         c = state["counters"]
         self.effective_iter = int(c["effective_iter"])
         self.epoch = int(c["epoch"])

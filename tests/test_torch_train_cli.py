@@ -247,7 +247,7 @@ def test_train_cli_flags_mirror_jax():
 @pytest.mark.parametrize("flags,error,match", [
     (["--data_parallel", "2"], ValueError, "one process per data-parallel rank"),
     (["--data_parallel", "0"], ValueError, "one process per data-parallel rank"),
-    (["--model_parallel", "2"], NotImplementedError, "item 12"),
+    (["--model_parallel", "2"], ValueError, "does not divide the 1 process"),
     (["--coordinator_address", "localhost:1234", "--num_processes", "2"], ValueError,
      "--process_id"),
     (["--coordinator_address", "localhost:1234"], ValueError, "--num_processes"),
@@ -255,10 +255,11 @@ def test_train_cli_flags_mirror_jax():
 ])
 def test_train_cli_refuses_more_than_one_device(flags, error, match, tmp_path, monkeypatch):
     """What one process cannot run is refused before anything is written:
-    more data-parallel ranks than processes, tensor parallelism (ROADMAP
-    Queue 1 item 12), a coordinator without the rank count or this rank,
-    --multihost without a launcher's environment. (Several processes run in
-    tests/test_torch_parallel.py.)"""
+    more data-parallel ranks than processes, a model group of two ranks (a
+    world that --model_parallel does not divide), a coordinator without the
+    rank count or this rank, --multihost without a launcher's environment.
+    (Several processes run in tests/test_torch_parallel.py and
+    tests/test_torch_tensor_parallel.py.)"""
     for key in ("RANK", "WORLD_SIZE", "SLURM_PROCID", "SLURM_NTASKS"):
         monkeypatch.delenv(key, raising=False)
     args = ["--config", "unused.yaml", "--checkpoint", "unused", "--output_dir",
